@@ -1,11 +1,16 @@
-"""Transformer model family over the Hopper flash-attention kernel.
+"""Transformer model family over the Hopper flash-attention and
+LayerNorm kernels.
 
 Counterpart of ``elephas_tpu/models/transformer.py``:
 
 - :class:`FlashMHA` — multi-head self-attention whose core is the flash
   kernel (:mod:`elephas_tpu_torch.ops.flash_attention`).
+- :class:`FusedLayerNorm` — LayerNorm over the LayerNorm kernels
+  (:mod:`elephas_tpu_torch.ops.layer_norm`), at every norm of the stack.
 - :func:`transformer_classifier` — encoder stack + pooled head.
 - :func:`transformer_lm` — causal decoder-only language model.
+  Both builders compile the module as the reference compiles its model
+  (Keras's Adam, the loss, ``accuracy``; :mod:`elephas_tpu_torch.training`).
 - :func:`generate` — autoregressive sampling, recomputing the fixed
   ``maxlen`` sequence every step.
 
@@ -14,6 +19,8 @@ path (:func:`elephas_tpu_torch.utils.weights.load_keras_weights`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -26,10 +33,18 @@ from elephas_tpu_torch.ops.flash_attention import (
     flash_attention_qkv,
     flash_forward_reference,
 )
+from elephas_tpu_torch.ops.layer_norm import layer_norm, layer_norm_forward_reference
+from elephas_tpu_torch.optimizers import Adam
+from elephas_tpu_torch.training import (
+    binary_crossentropy,
+    compile_model,
+    sparse_categorical_crossentropy,
+)
 
 _BF16_TODO = (
-    "dtype_policy={!r} is not ported yet: the port serves float32 "
-    "(ROADMAP.md, Queue A item 2: mixed precision comes with training)"
+    "dtype_policy={!r} is not ported yet: the port trains and serves "
+    "float32 (ROADMAP.md, Queue A item 2: the mixed_bfloat16 policy follows "
+    "the float32 training slice)"
 )
 _KV_CACHE_TODO = (
     "generate(kv_cache=True) is not ported yet (ROADMAP.md, Queue A item 1: "
@@ -112,26 +127,72 @@ class FlashMHA(nn.Module):
         return self.proj(out.transpose(1, 2).reshape(b, s, h * d))
 
 
+class FusedLayerNorm(nn.Module):
+    """LayerNormalization over the last axis (Keras's math: f32
+    statistics, affine ``gamma``/``beta``), through the LayerNorm kernels.
+    ``plain=True`` in :meth:`forward` runs the kernels' plain version
+    instead, differentiated by autograd — the reference a run on the card
+    is checked against."""
+
+    def __init__(self, d_model: int, epsilon: float = 1e-6):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.gamma = nn.Parameter(torch.ones(d_model))
+        self.beta = nn.Parameter(torch.zeros(d_model))
+
+    def forward(self, x, plain: bool = False):
+        if plain:
+            d = x.shape[-1]
+            y = layer_norm_forward_reference(x.reshape(-1, d), self.gamma, self.beta,
+                                             self.epsilon)[0]
+            return y.reshape(x.shape)
+        return layer_norm(x, self.gamma, self.beta, self.epsilon)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose masks come from its own ``torch.Generator``,
+    seeded from the builder's seed. It draws other bits than Keras's
+    dropout from the same seed: the same in distribution, not bit for
+    bit."""
+
+    def __init__(self, rate: float, seed: int):
+        super().__init__()
+        self.rate = float(rate)
+        self.seed = int(seed)
+        self._generator = None
+
+    def forward(self, x):
+        if not self.training:
+            return x
+        if self._generator is None or self._generator.device != x.device:
+            self._generator = torch.Generator(device=x.device).manual_seed(self.seed)
+        keep = torch.rand(x.shape, generator=self._generator, device=x.device) >= self.rate
+        return x * keep / (1.0 - self.rate)
+
+
 class Block(nn.Module):
     """Pre-norm transformer block: LayerNorm → attention → residual,
     LayerNorm → Dense(gelu, exact) → Dense → residual."""
 
     def __init__(self, d_model, num_heads, head_dim, mlp_ratio, dropout,
-                 causal, rope, maxlen):
+                 causal, rope, maxlen, seed=0):
         super().__init__()
         hidden = int(d_model * mlp_ratio)
-        self.ln1 = nn.LayerNorm(d_model, eps=1e-6)
+        self.ln1 = FusedLayerNorm(d_model)
         self.attn = FlashMHA(d_model, num_heads, head_dim, causal, rope, maxlen)
-        self.ln2 = nn.LayerNorm(d_model, eps=1e-6)
+        self.ln2 = FusedLayerNorm(d_model)
         self.mlp1 = nn.Linear(d_model, hidden)
         self.mlp2 = nn.Linear(hidden, d_model)
         # rate-0 dropout is elided, as in the reference
-        self.drop = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
+        if dropout > 0:
+            self.drop1, self.drop2 = Dropout(dropout, seed), Dropout(dropout, seed + 1)
+        else:
+            self.drop1 = self.drop2 = nn.Identity()
 
     def forward(self, x, plain: bool = False):
-        x = x + self.drop(self.attn(self.ln1(x), plain=plain))
-        h = self.mlp2(F.gelu(self.mlp1(self.ln2(x))))
-        return x + self.drop(h)
+        x = x + self.drop1(self.attn(self.ln1(x, plain=plain), plain=plain))
+        h = self.mlp2(F.gelu(self.mlp1(self.ln2(x, plain=plain))))
+        return x + self.drop2(h)
 
 
 class _Transformer(nn.Module):
@@ -139,7 +200,7 @@ class _Transformer(nn.Module):
     LayerNorm; the subclasses add the head."""
 
     def __init__(self, vocab_size, maxlen, d_model, num_heads, num_layers,
-                 mlp_ratio, dropout, causal, rope):
+                 mlp_ratio, dropout, causal, rope, seed):
         super().__init__()
         self.vocab_size = vocab_size
         self.maxlen = maxlen
@@ -154,10 +215,10 @@ class _Transformer(nn.Module):
         head_dim = d_model // num_heads
         self.blocks = nn.ModuleList(
             Block(d_model, num_heads, head_dim, mlp_ratio, dropout, causal,
-                  rope, maxlen)
-            for _ in range(num_layers)
+                  rope, maxlen, seed=2 * (seed * num_layers + i))
+            for i in range(num_layers)
         )
-        self.final_ln = nn.LayerNorm(d_model, eps=1e-6)
+        self.final_ln = FusedLayerNorm(d_model)
 
     def features(self, tokens, plain: bool = False):
         x = self.tok_embed(tokens)
@@ -165,7 +226,7 @@ class _Transformer(nn.Module):
             x = x + self.positions[: tokens.shape[1]]
         for block in self.blocks:
             x = block(x, plain=plain)
-        return self.final_ln(x)
+        return self.final_ln(x, plain=plain)
 
     @property
     def device(self) -> torch.device:
@@ -177,9 +238,9 @@ class TransformerLM(_Transformer):
     fp32 logits."""
 
     def __init__(self, vocab_size, maxlen, d_model, num_heads, num_layers,
-                 mlp_ratio, dropout, rope):
+                 mlp_ratio, dropout, rope, seed):
         super().__init__(vocab_size, maxlen, d_model, num_heads, num_layers,
-                         mlp_ratio, dropout, True, rope)
+                         mlp_ratio, dropout, True, rope, seed)
         self.lm_head = nn.Linear(d_model, vocab_size)
 
     def forward(self, tokens, plain: bool = False):
@@ -192,9 +253,9 @@ class TransformerClassifier(_Transformer):
     reference's model outputs them."""
 
     def __init__(self, vocab_size, maxlen, num_classes, d_model, num_heads,
-                 num_layers, mlp_ratio, dropout):
+                 num_layers, mlp_ratio, dropout, seed):
         super().__init__(vocab_size, maxlen, d_model, num_heads, num_layers,
-                         mlp_ratio, dropout, False, False)
+                         mlp_ratio, dropout, False, False, seed)
         self.num_classes = num_classes
         self.head = nn.Linear(d_model, num_classes)
 
@@ -217,16 +278,19 @@ def _keras_init(model: nn.Module) -> None:
             nn.init.uniform_(mod.weight, -0.05, 0.05)
 
 
-def _build(cls, seed, dtype_policy, device, *args):
+def _build(cls, seed, dtype_policy, device, lr, loss, *args):
+    """The module in eval mode on its device, compiled as the reference
+    compiles its Keras model: ``Adam(lr)``, ``loss``, ``["accuracy"]``."""
     if dtype_policy not in (None, "float32"):
         raise NotImplementedError(_BF16_TODO.format(dtype_policy))
     dev = resolve_device(device)
     # weights from the seed alone, without touching the global generator
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = cls(*args)
+        model = cls(*args, seed)
         _keras_init(model)
-    return model.to(dev).eval()
+    model = model.to(dev).eval()
+    return compile_model(model, Adam(model.parameters(), lr=lr), loss, ["accuracy"])
 
 
 def transformer_classifier(
@@ -244,12 +308,13 @@ def transformer_classifier(
     device=None,
 ):
     """Encoder-stack text classifier, in eval mode on ``device``
-    (``cuda:0`` by default). ``lr`` is the reference's optimizer
-    setting, kept for the same signature; the optimizer arrives with the
-    training slice."""
+    (``cuda:0`` by default), compiled with Keras's ``Adam(lr)``, binary
+    cross-entropy for one class (sparse categorical otherwise, on the
+    softmax probabilities) and ``accuracy``."""
+    loss = binary_crossentropy if num_classes == 1 else sparse_categorical_crossentropy
     return _build(
-        TransformerClassifier, seed, dtype_policy, device, vocab_size, maxlen,
-        num_classes, d_model, num_heads, num_layers, mlp_ratio, dropout,
+        TransformerClassifier, seed, dtype_policy, device, lr, loss, vocab_size,
+        maxlen, num_classes, d_model, num_heads, num_layers, mlp_ratio, dropout,
     )
 
 
@@ -269,11 +334,13 @@ def transformer_lm(
 ):
     """Decoder-only causal LM, in eval mode on ``device`` (``cuda:0`` by
     default). ``rope=True`` uses rotary position embeddings in every
-    attention layer instead of the additive sinusoidal table. ``lr`` is
-    the reference's optimizer setting, kept for the same signature."""
+    attention layer instead of the additive sinusoidal table. Compiled
+    with Keras's ``Adam(lr)``, sparse categorical cross-entropy from the
+    logits and ``accuracy``."""
     return _build(
-        TransformerLM, seed, dtype_policy, device, vocab_size, maxlen,
-        d_model, num_heads, num_layers, mlp_ratio, dropout, rope,
+        TransformerLM, seed, dtype_policy, device, lr,
+        functools.partial(sparse_categorical_crossentropy, from_logits=True),
+        vocab_size, maxlen, d_model, num_heads, num_layers, mlp_ratio, dropout, rope,
     )
 
 

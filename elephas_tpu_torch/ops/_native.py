@@ -18,7 +18,10 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {"flash_fwd": _PKG / "csrc" / "flash_fwd.cu"}
+SOURCES = {
+    "flash_fwd": _PKG / "csrc" / "flash_fwd.cu",
+    "layer_norm": _PKG / "csrc" / "layer_norm.cu",
+}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_TIMEOUT_S = 600
 NVCC_FLAGS = (

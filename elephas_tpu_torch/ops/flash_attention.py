@@ -1,4 +1,5 @@
-"""Flash attention forward on Hopper, with its plain PyTorch version.
+"""Flash attention on Hopper: a hand-written forward kernel, its plain
+PyTorch version, and the backward in plain PyTorch.
 
 Counterpart of ``elephas_tpu/ops/flash_attention.py`` with the same public
 surface. A CUDA tensor goes through the hand-written kernel in
@@ -12,8 +13,11 @@ not take, raises.
 them (:func:`_resolve_blocks`, on both devices); the kernel tiles with its
 own 64-row blocks and masks its ragged edges itself.
 
-The backward pass is not ported yet: the differentiable wrappers raise in
-``backward`` (the flash backward belongs to the training slice).
+The backward (:func:`flash_backward`) is the reference's
+``_flash_backward`` recurrence written densely per head in plain PyTorch,
+one code path on both devices: the JAX package computes it with XLA
+einsums, not a Pallas kernel, and a hand kernel for it is later work
+(ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -32,12 +36,6 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (chip_smoke.py reads it)
 launches = 0
-
-_BACKWARD_TODO = (
-    "the flash-attention backward is not ported yet: it arrives with the "
-    "training slice (ROADMAP.md, Queue A item 2)"
-)
-
 
 def _resolve_blocks(block_q, block_k, s_q, s_k):
     block_q = min(block_q, s_q)
@@ -192,24 +190,68 @@ def _flash_forward_packed(qkv, scale, causal, block_q, block_k):
     return out, _forward(q, k, v, out.transpose(1, 2), scale, causal)
 
 
+def flash_backward(q, k, v, out, lse, grad_out, scale: float, causal: bool):
+    """Gradients of attention from the forward's residuals: ``[..., S, D]``
+    q, k, v, out and ``grad_out``, lse ``[..., Sq]`` f32 →
+    ``(dq, dk, dv)`` in the inputs' dtypes.
+
+    The reference's recurrence (``_flash_backward``), dense per head in
+    fp32: P is recomputed from lse, ``Δ = rowsum(dO∘O)``,
+    ``dS = P∘(dO·vᵀ − Δ)``; masked scores are ``NEG_INF``, and a row whose
+    every score is masked (lse ``NEG_INF``) has P = 0."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    gf = grad_out.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        s_q, s_k = s.shape[-2], s.shape[-1]
+        rows = torch.arange(s_q, device=s.device)[:, None]
+        cols = torch.arange(s_k, device=s.device)[None, :]
+        s = torch.where(cols <= rows, s, torch.full_like(s, NEG_INF))
+    lse = lse[..., None]
+    p = torch.where(lse <= NEG_INF * 0.5, torch.zeros_like(s), torch.exp(s - lse))
+    delta = (gf * out.float()).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, block_q, block_k):
-        return _flash_forward(q, k, v, scale, causal, block_q, block_k)[0]
+        out, lse = _flash_forward(q, k, v, scale, causal, block_q, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(_BACKWARD_TODO)
+        q, k, v, out, lse = ctx.saved_tensors
+        b, h, s_q, _ = q.shape
+        grads = flash_backward(q, k, v, out, lse.view(b, h, s_q), grad_out,
+                               ctx.scale, ctx.causal)
+        return (*grads, None, None, None, None)
 
 
 class _FlashAttentionQKV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, scale, causal, block_q, block_k):
-        return _flash_forward_packed(qkv, scale, causal, block_q, block_k)[0]
+        out, lse = _flash_forward_packed(qkv, scale, causal, block_q, block_k)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(_BACKWARD_TODO)
+        """``d(qkv)`` ``[B, S, 3, H, D]`` in the packed layout."""
+        qkv, out, lse = ctx.saved_tensors
+        b, s, _, h, _ = qkv.shape
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        grads = flash_backward(q, k, v, out.transpose(1, 2), lse.view(b, h, s),
+                               grad_out.transpose(1, 2), ctx.scale, ctx.causal)
+        dqkv = torch.stack([g.transpose(1, 2) for g in grads], dim=2)
+        return dqkv, None, None, None, None
 
 
 def flash_attention_qkv(

@@ -1,4 +1,5 @@
-"""Loading the reference's Keras weights into the port's modules."""
+"""The reference's Keras weights in and out of the port's modules, by
+Keras variable path."""
 
 from __future__ import annotations
 
@@ -6,7 +7,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from elephas_tpu_torch.models.transformer import _Transformer
+from elephas_tpu_torch.models.transformer import FusedLayerNorm, _Transformer
 
 
 def _keras_paths(module: _Transformer) -> dict[str, tuple[torch.Tensor, bool]]:
@@ -20,9 +21,9 @@ def _keras_paths(module: _Transformer) -> dict[str, tuple[torch.Tensor, bool]]:
         if lin.bias is not None:
             paths[f"{prefix}/bias"] = (lin.bias, False)
 
-    def norm(prefix: str, ln: nn.LayerNorm):
-        paths[f"{prefix}/gamma"] = (ln.weight, False)
-        paths[f"{prefix}/beta"] = (ln.bias, False)
+    def norm(prefix: str, ln: FusedLayerNorm):
+        paths[f"{prefix}/gamma"] = (ln.gamma, False)
+        paths[f"{prefix}/beta"] = (ln.beta, False)
 
     for i, blk in enumerate(module.blocks):
         norm(f"blk{i}_ln1", blk.ln1)
@@ -69,3 +70,14 @@ def load_keras_weights(module: _Transformer, weights: dict[str, np.ndarray]) -> 
     with torch.no_grad():
         for param, value in staged:
             param.copy_(value)
+
+
+def keras_weights(module: _Transformer) -> dict[str, np.ndarray]:
+    """The inverse of :func:`load_keras_weights`: ``{Keras path: array}``
+    of ``module``'s weights, Dense kernels transposed back to ``[in,
+    out]`` (copies on the host)."""
+    out = {}
+    for path, (param, transpose) in _keras_paths(module).items():
+        arr = param.detach().cpu().numpy()
+        out[path] = np.ascontiguousarray(arr.T if transpose else arr)
+    return out

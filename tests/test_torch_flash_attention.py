@@ -4,9 +4,12 @@ against the JAX package's, on the CPU.
 The same numpy inputs, made from a seed, go through the JAX Pallas kernel
 (interpret mode, as the JAX package's own tests run it here) and through
 the port's CPU path (the kernel's plain version). fp32 tolerance 1e-5:
-the two sum in different orders.
+the two sum in different orders. The backward (plain PyTorch on both
+devices) is held to ``jax.vjp`` of the JAX op within 1e-4.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,8 @@ from elephas_tpu.ops.flash_attention import (
 from elephas_tpu_torch.ops import flash_attention as tfa
 
 ATOL = 1e-5
+# gradients: fp32, different summation orders over S=64 keys and D
+GRAD_ATOL = 1e-4
 B, S, BLOCK = 2, 64, 16  # four kv tiles of 16
 
 
@@ -123,14 +128,82 @@ def test_ragged_blocks_raise_like_jax(packed):
 
 @pytest.mark.parametrize("packed", [False, True])
 def test_backward_raises_until_the_training_slice(packed):
+    """The training slice ported the backward: the wrappers that raised
+    in ``backward`` now differentiate, here with q, k and v one tensor
+    (their three gradients sum), as ``jax.grad`` of the JAX op does."""
     if packed:
-        qkv = torch.from_numpy(_normal((1, 32, 3, 2, 16), 0)).requires_grad_()
-        out = tfa.flash_attention_qkv(qkv, causal=True)
+        x = _normal((1, 32, 3, 2, 16), 0)
+        t_x = torch.from_numpy(x).requires_grad_()
+        out = tfa.flash_attention_qkv(t_x, causal=True)
+        j_grad = jax.grad(lambda a: jnp.sum(jnp.sin(jax_flash_attention_qkv(
+            a, causal=True))))(x)
     else:
-        q = torch.from_numpy(_normal((1, 2, 32, 16), 0)).requires_grad_()
-        out = tfa.flash_attention(q, q, q, causal=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+        x = _normal((1, 2, 32, 16), 0)
+        t_x = torch.from_numpy(x).requires_grad_()
+        out = tfa.flash_attention(t_x, t_x, t_x, causal=True)
+        j_grad = jax.grad(lambda a: jnp.sum(jnp.sin(jax_flash_attention(
+            a, a, a, causal=True))))(x)
+    torch.sin(out).sum().backward()
+    _close(t_x.grad, j_grad, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("H", [2, 3])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_matches_jax_vjp(causal, D, H):
+    """dq, dk, dv of the bhsd wrapper against ``jax.vjp`` of the JAX
+    op (its blockwise XLA backward), for one cotangent."""
+    q, k, v = (_normal((B, H, S, D), seed) for seed in range(3))
+    g = _normal((B, H, S, D), 9)
+    _, vjp = jax.vjp(
+        lambda a, b, c: jax_flash_attention(a, b, c, causal=causal,
+                                            block_q=BLOCK, block_k=BLOCK),
+        q, k, v,
+    )
+    want = vjp(g)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = tfa.flash_attention(*ts, causal=causal, block_q=BLOCK, block_k=BLOCK)
+    out.backward(torch.from_numpy(g))
+    for t, w in zip(ts, want):
+        _close(t.grad, w, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("H", [2, 3])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_qkv_backward_matches_jax_vjp(causal, D, H):
+    """d(qkv) of the packed wrapper, in the packed [B, S, 3, H, D]
+    layout, against ``jax.vjp`` of the JAX packed op."""
+    qkv = _normal((B, S, 3, H, D), 4)
+    g = _normal((B, S, H, D), 5)
+    _, vjp = jax.vjp(
+        lambda a: jax_flash_attention_qkv(a, causal=causal, block_q=BLOCK,
+                                          block_k=BLOCK),
+        qkv,
+    )
+    (want,) = vjp(g)
+    t_qkv = torch.from_numpy(qkv).requires_grad_()
+    out = tfa.flash_attention_qkv(t_qkv, causal=causal, block_q=BLOCK, block_k=BLOCK)
+    out.backward(torch.from_numpy(g))
+    assert t_qkv.grad.shape == (B, S, 3, H, D)
+    _close(t_qkv.grad, want, atol=GRAD_ATOL)
+
+
+def test_flash_backward_masked_rows_are_zero():
+    """A query row with every key masked (lse NEG_INF, as the forward
+    leaves it) takes P = 0: its dq is 0 and it adds nothing to dk, dv."""
+    q, k, v = (torch.from_numpy(_normal((1, 1, 4, 8), s)) for s in range(3))
+    out, lse = tfa.flash_forward_reference(q, k, v, 0.5, False)
+    lse = lse.clone()
+    lse[..., 0] = tfa.NEG_INF
+    g = torch.from_numpy(_normal((1, 1, 4, 8), 3))
+    dq, dk, dv = tfa.flash_backward(q, k, v, out, lse, g, 0.5, False)
+    assert torch.all(dq[..., 0, :] == 0)
+    g0 = g.clone()
+    g0[..., 0, :] = 0
+    _, dk0, dv0 = tfa.flash_backward(q, k, v, out, lse, g0, 0.5, False)
+    _close(dk, dk0.numpy())
+    _close(dv, dv0.numpy())
 
 
 def test_other_devices_raise():

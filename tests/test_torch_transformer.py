@@ -158,8 +158,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 def test_import_loads_no_jax_keras_or_reference():
     code = (
-        "import sys, elephas_tpu_torch, elephas_tpu_torch.models, "
-        "elephas_tpu_torch.ops.flash_attention, elephas_tpu_torch.utils.weights\n"
+        "import importlib, pkgutil, sys, elephas_tpu_torch\n"
+        "for m in pkgutil.walk_packages(elephas_tpu_torch.__path__, 'elephas_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'keras', 'elephas_tpu')]\n"
         "print(','.join(bad))\n"
@@ -171,3 +172,15 @@ def test_import_loads_no_jax_keras_or_reference():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == ""
+
+
+def test_import_check_walks_every_module():
+    """The subprocess check above imports what ``pkgutil`` finds: every
+    module of the package, the training slice's included."""
+    import pkgutil
+
+    found = {m.name for m in pkgutil.walk_packages(et.__path__, "elephas_tpu_torch.")}
+    for name in ("ops.layer_norm", "ops.flash_attention", "training", "optimizers",
+                 "worker", "spark_model", "device", "data.context", "data.rdd",
+                 "utils.rdd_utils", "utils.weights", "models.transformer"):
+        assert f"elephas_tpu_torch.{name}" in found
