@@ -2,12 +2,17 @@
 """Drive the PyTorch/CUDA port (elephas_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --times-only [--package DIR]
 
 Phases, each printing one JSON line and raising on failure:
 
 1. card   — device name and count, nvidia-smi's name and power limit;
 2. build  — nvcc builds every kernel from the sources in this checkout
-            (time, and what -Xptxas -v reports);
+            (time, and what -Xptxas -v reports); each flash instantiation's
+            registers and spills, and its tensor-core (HMMA), async-copy
+            (LDGSTS) and ldmatrix (LDSM) instruction counts from
+            cuobjdump --dump-sass; fails on a spill or a flash kernel
+            without HMMA or LDGSTS;
 3. kernel — each kernel against its plain PyTorch version on the card,
             at the main paths' shapes, fp32 and bf16: the flash forward
             (causal and not) and the LayerNorm forward and backward;
@@ -23,26 +28,42 @@ Phases, each printing one JSON line and raising on failure:
             per step, finite losses, tokens/s and peak memory; and the
             gradients of one batch through the kernels against those of
             the plain path;
-6. profile — one more training step under torch.profiler: device time
-            by kernel class (GEMMs, flash, LayerNorm, elementwise, ...) and
-            the device's idle share of the step;
+6. profile — one more training step, and generate() at config A batch 1
+            with rope off and on, under torch.profiler: device time by
+            kernel class (GEMMs, flash, LayerNorm, elementwise, ...) and
+            the device's idle share; for generate also an unprofiled run
+            with the host time spent in each kernel wrapper;
 7. times  — kernel, plain version and the PyTorch library call (a
             yardstick the port never calls: scaled_dot_product_attention,
-            torch.nn.functional.layer_norm and its autograd backward)
-            from CUDA events at the main paths' shapes, beside the card's
-            bound; the plain flash backward per layer at the training
-            shape.
+            torch.nn.functional.layer_norm and its autograd backward) at
+            the main paths' shapes, beside the card's bound. ``ms``,
+            ``plain_ms`` and ``library_ms`` are eager: CUDA events around
+            50 calls issued from Python (what a caller waits, host
+            included). ``device_ms`` (and, for the flash rows,
+            ``plain_device_ms`` and ``library_device_ms``) times the
+            replay of a CUDA graph of the 50 calls: device time, no host
+            gaps. At the training shape also the plain flash backward per
+            layer and SDPA's forward + autograd backward.
 
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
 summed over the serve and train paths, times at config A's attention
 shape and at the training rows, fp32), and last
 {"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
 not available or the package is not beside this script.
+
+``--times-only`` runs the card, serve, generate-profile and flash times
+phases alone, for the elephas_tpu_torch package in DIR (default: beside
+this script), building its kernels as that package builds them: run it
+for two checkouts in turns on one card to compare them.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -53,6 +74,8 @@ import torch
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the flash kernel runs fp32 as 3xTF32: three TF32 products per product
+PEAK_3XTF32_S = 495e12 / 3
 
 # config A: the serving bench's on-chip LM (bench.py, --preset serving);
 # config B: transformer_lm()'s defaults
@@ -71,6 +94,8 @@ KERNEL_CASES = [
     ("bhsd", 8, 512, 4, 128),
     ("packed", 8, 256, 8, 32),
     ("packed", 8, 256, 16, 16),
+    ("packed", 1, 512, 4, 128),  # config A at generate's batch 1
+    ("packed", 128, 256, 8, 128),  # the training shape
 ]
 TOL_OUT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TOL_LSE = 1e-4
@@ -101,6 +126,9 @@ TRAIN_ROWS, TRAIN_BATCH, TRAIN_EPOCHS = 512, 128, 2
 TOL_GRAD = 1e-3
 
 TIMING = "CUDA events, mean of 50 launches after 5 warm-up, median of 3 rounds in turns"
+GRAPH_TIMING = ("*device_ms: CUDA events around the replay of a CUDA graph of 50 calls "
+                "(captured after 3 warm-up calls), median of 3 rounds in turns; the rest: "
+                + TIMING)
 
 
 def emit(obj) -> None:
@@ -125,18 +153,76 @@ def phase_card():
     })
 
 
+def _instantiation(mangled):
+    """A kernel's mangled name, shortened: '..flash_fwd_kernelIfLi128EE..'
+    -> 'flash_fwd_kernel<float32, 128>', '..ln_fwd_kernelIfLi4EE..' ->
+    'ln_fwd_kernel<float32, 4>'."""
+    m = re.search(r"\d((?:flash|ln)_\w*?kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)", mangled)
+    if not m:
+        m = re.search(r"\d((?:flash|ln)_\w*?kernel)", mangled)
+        return m.group(1) if m else mangled
+    dtype = "float32" if m.group(2) == "f" else "bfloat16"
+    ints = re.findall(r"Li(\d+)E", m.group(3))
+    return f"{m.group(1)}<{', '.join([dtype, *ints])}>"
+
+
+def _ptxas_report(log):
+    """{instantiation: {registers, spill_stores, spill_loads}} from -Xptxas -v."""
+    report, current = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            current = report.setdefault(_instantiation(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and current is not None:
+            current["spill_stores"], current["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+    return report
+
+
+SASS_OPS = ("HMMA", "LDGSTS", "LDSM")
+
+
+def _sass_counts(library):
+    """{instantiation: {op: count}} of SASS_OPS in the flash kernels of a
+    built library, from cuobjdump --dump-sass."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(library)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, current = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = _instantiation(m.group(1))
+            current = counts.setdefault(name, dict.fromkeys(SASS_OPS, 0)) \
+                if name.startswith("flash_fwd_kernel") else None
+            continue
+        if current is not None:
+            m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", ln)
+            if m and m.group(1) in current:
+                current[m.group(1)] += 1
+    return counts
+
+
 def phase_build():
     from elephas_tpu_torch.ops import _native
 
     t0 = time.perf_counter()
-    _native.build()
-    ptxas = {
-        name: [ln.strip() for ln in log["ptxas"].splitlines()
-               if "registers" in ln or "spill" in ln]
-        for name, log in _native.build_log.items()
-    }
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": sorted(_native.SOURCES), "ptxas": ptxas})
+    targets = _native.build()
+    seconds = time.perf_counter() - t0
+    ptxas = {name: _ptxas_report(log["ptxas"]) for name, log in _native.build_log.items()}
+    sass = _sass_counts(targets["flash_fwd"])
+    emit({"phase": "build", "seconds": seconds, "sources": sorted(_native.SOURCES),
+          "ptxas": ptxas, "flash_sass": sass})
+    spills = [f"{name}: {r}" for log in ptxas.values() for name, r in log.items()
+              if r.get("spill_stores") or r.get("spill_loads")]
+    missing = [name for name, c in sass.items() if not (c["HMMA"] and c["LDGSTS"])]
+    if spills or missing or len(sass) != 8:
+        raise AssertionError(f"build: spills {spills}; flash kernels without HMMA or "
+                             f"LDGSTS {missing}; {len(sass)} flash instantiations, want 8")
 
 
 def _synthetic_tokens(n, maxlen, vocab, classes, seed=0):
@@ -513,15 +599,51 @@ def _kernel_class(name):
     return "other"
 
 
-def phase_profile(dev, model, batch):
-    """One training step of the trained classifier (forward, loss,
-    backward, Adam) under torch.profiler, after one warm-up step: device
-    time by kernel class and the top kernels, beside the step's wall
-    time. Reports, and does not fail, when the profiler records no device
-    time."""
+def _profile(dev, fn, what, per=1, extra=None):
+    """``fn`` once under torch.profiler (after the caller's warm-up):
+    device time by kernel class and the top kernels beside the wall time,
+    each divided by ``per`` (steps in the call), with ``extra`` in the
+    printed line. Reports, and does not fail, when the profiler records
+    no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / per
+    device_events = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    # a user annotation (Optimizer.step#Adam.step) spans kernels counted
+    # on their own
+    annotations = [ev.key for ev in device_events if ev.is_user_annotation]
+    kernels = [ev for ev in device_events if not ev.is_user_annotation]
+    by_class, top = {}, []
+    for ev in kernels:
+        ms = ev.self_device_time_total / 1e3 / per
+        cls = _kernel_class(ev.key)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        top.append((ms, ev.count / per, ev.key[:120]))
+    device_ms = sum(by_class.values())
+    out = {"phase": "profile", "what": what, "wall_ms": wall_ms, "device_ms": device_ms,
+           "annotations_excluded": annotations, **(extra or {})}
+    if device_ms > 0:
+        out.update({
+            "idle_share": 1 - device_ms / wall_ms,
+            "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+            "top_kernels": [{"ms": ms, "count": n, "name": name}
+                            for ms, n, name in sorted(top, reverse=True)[:12]],
+        })
+    else:
+        out["note"] = "the profiler recorded no device time: not measured"
+    emit(out)
+    return out
+
+
+def phase_profile(dev, model, batch):
+    """One training step of the trained classifier (forward, loss,
+    backward, Adam) under torch.profiler, after one warm-up step."""
     spec = model.training_spec
     xb, yb = batch
 
@@ -533,38 +655,77 @@ def phase_profile(dev, model, batch):
 
     model.train()
     step()
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize(dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    _profile(dev, step, "one training step, TRAIN config")
     model.eval()
-    device_events = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
-    # a user annotation (Optimizer.step#Adam.step) spans kernels counted
-    # on their own
-    annotations = [ev.key for ev in device_events if ev.is_user_annotation]
-    kernels = [ev for ev in device_events if not ev.is_user_annotation]
-    by_class, top = {}, []
-    for ev in kernels:
-        ms = ev.self_device_time_total / 1e3
-        cls = _kernel_class(ev.key)
-        by_class[cls] = by_class.get(cls, 0.0) + ms
-        top.append((ms, ev.count, ev.key[:120]))
-    device_ms = sum(by_class.values())
-    out = {"phase": "profile", "what": "one training step, TRAIN config",
-           "wall_ms": wall_ms, "device_ms": device_ms,
-           "annotations_excluded": annotations}
-    if device_ms > 0:
-        out.update({
-            "idle_share": 1 - device_ms / wall_ms,
-            "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
-            "top_kernels": [{"ms": ms, "count": n, "name": name}
-                            for ms, n, name in sorted(top, reverse=True)[:12]],
-        })
-    else:
-        out["note"] = "the profiler recorded no device time: not measured"
-    emit(out)
+
+
+PROFILE_STEPS = 8
+# the kernel wrappers whose host time the generate profile reads:
+# (module, function) -> the kernel it launches
+WRAPPERS = {("flash_attention", "_forward"): "flash_fwd",
+            ("layer_norm", "layer_norm_forward"): "layer_norm_fwd"}
+
+
+def _wrapper_host_ms(dev, fn, per):
+    """``fn`` once with each kernel wrapper of WRAPPERS timed on the host
+    (perf_counter around the call: checks, allocation and the ctypes
+    launch); returns the wall ms and, per kernel, the calls and host ms,
+    each divided by ``per``."""
+    import importlib
+
+    totals = {}
+    saved = []
+    for (module, name), kernel in WRAPPERS.items():
+        mod = importlib.import_module(f"elephas_tpu_torch.ops.{module}")
+        inner = getattr(mod, name)
+        saved.append((mod, name, inner))
+
+        def timed(*args, _inner=inner, _kernel=kernel, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _inner(*args, **kwargs)
+            finally:
+                calls, ms = totals.get(_kernel, (0, 0.0))
+                totals[_kernel] = (calls + 1, ms + (time.perf_counter() - t0) * 1e3)
+
+        setattr(mod, name, timed)
+    try:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / per
+    finally:
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+    hosts = {k: {"calls": calls / per, "host_ms": ms / per, "host_ms_per_call": ms / calls}
+             for k, (calls, ms) in totals.items()}
+    return {"unprofiled_wall_ms": wall_ms, "wrapper_host": hosts,
+            "wrapper_host_share": sum(h["host_ms"] for h in hosts.values()) / wall_ms}
+
+
+def phase_profile_generate(dev):
+    """generate() at config A, batch 1, one 40-token prompt, rope off
+    (packed qkv path) and on (bhsd path): after a warm-up call,
+    PROFILE_STEPS steps with the wrappers' host time, then the same under
+    torch.profiler; every figure per step."""
+    from elephas_tpu_torch import generate, transformer_lm
+
+    prompt = _prompts(CONFIGS["A"]["vocab_size"])[-1][None]
+    for rope in (False, True):
+        model = transformer_lm(**CONFIGS["A"], rope=rope, seed=0, device=dev)
+        generate(model, prompt, steps=2)
+
+        def run():
+            generate(model, prompt, steps=PROFILE_STEPS)
+
+        host = _wrapper_host_ms(dev, run, PROFILE_STEPS)
+        out = _profile(dev, run, f"generate at config A rope={rope}, batch 1, per step "
+                       f"of {PROFILE_STEPS}", per=PROFILE_STEPS, extra=host)
+        flash = out.get("by_class_ms", {}).get("flash_fwd", 0.0)
+        if out["device_ms"] > 0 and not flash > 0:
+            raise AssertionError("the generate profile shows no flash_fwd_kernel time")
+        del model
 
 
 def _time_ms(fn, iters=50):
@@ -581,67 +742,142 @@ def _time_ms(fn, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def phase_times(dev):
-    """Kernel, plain and library times at the attention shapes of the
-    main path (the packed layout of the default path, causal), in turns:
-    config A at batch 8 and at batch 1 (as each generate() call here runs
-    it), and config B (head_dim 64) at batch 8."""
+def _graph(fn, iters=50):
+    """A CUDA graph of ``iters`` calls of ``fn``, captured after three
+    warm-up calls on a side stream. The kernel wrappers launch on the
+    current stream, so the graph holds their kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return graph
+
+
+def _graph_ms(graph, iters=50):
+    """Device time per call of a graph of ``iters`` calls: no host gaps."""
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _flash_row(qkv, views, scale, causal, dtype):
+    """The flash forward kernel (packed layout), its plain version and
+    scaled_dot_product_attention on one input, timed in turns: eager
+    (``ms``, ``plain_ms``, ``library_ms``) and from CUDA graphs
+    (``device_ms``, ``plain_device_ms``, ``library_device_ms``); with the
+    bound of the work (operations at ``_flash_peak``)."""
     from torch.nn.functional import scaled_dot_product_attention
 
     from elephas_tpu_torch.ops.flash_attention import (
         _flash_forward_packed, flash_forward_reference,
     )
 
+    q, k, v = views
+    fns = {
+        "ms": lambda: _flash_forward_packed(qkv, scale, causal, 128, 128),
+        "plain_ms": lambda: flash_forward_reference(q, k, v, scale, causal),
+        "library_ms": lambda: scaled_dot_product_attention(q, k, v, is_causal=causal),
+    }
+    samples = _time_in_turns(fns)
+    graphs = _time_in_turns(fns, graphs=True)
+    samples.update({key[:-2] + "device_ms": v for key, v in graphs.items()})
+    b, h, s, d = q.shape
+    # causal: half the score matrix (the diagonal counted once)
+    flops = 4 * b * h * s * s * d // (2 if causal else 1)
+    nbytes = 4 * b * h * s * d * qkv.element_size() + 4 * b * h * s
+    return {**_summary(samples, nbytes, flops, dtype, _flash_peak(dtype)),
+            "shape": {"B": b, "S": s, "H": h, "D": d}, "causal": causal}
+
+
+def _flash_peak(dtype):
+    """The flash kernel's operation rate: bf16 on the tensor cores; fp32
+    as 3xTF32, a third of the TF32 rate."""
+    return PEAK_3XTF32_S if dtype == torch.float32 else PEAK_FLOPS_S[dtype]
+
+
+# the flash rows of phase_times: (config, batch, causal); T is the
+# training shape (not causal)
+FLASH_TIMES = (("A", 8, True), ("A", 1, True), ("B", 8, True), ("T", TRAIN_BATCH, False))
+
+
+def phase_times(dev):
+    """Kernel, plain and library times at the attention shapes of the
+    main paths (the packed layout of the default path), in turns: config
+    A at batch 8 and at batch 1 (as each generate() call here runs it)
+    and config B (head_dim 64) at batch 8, causal; the training shape,
+    not causal. fp32 rows also give the FMA bound of the design the
+    kernel replaced."""
     rows = {}
-    for name, b in (("A", 8), ("A", 1), ("B", 8)):
-        cfg = CONFIGS[name]
+    for name, b, causal in FLASH_TIMES:
+        cfg = TRAIN if name == "T" else CONFIGS[name]
         s, h = cfg["maxlen"], cfg["num_heads"]
         d = cfg["d_model"] // h
         for dtype in (torch.float32, torch.bfloat16):
-            qkv, (q, k, v) = _case_inputs("packed", b, s, h, d, dtype, dev, 7)
-            scale = d ** -0.5
-            fns = {
-                "ms": lambda: _flash_forward_packed(qkv, scale, True, 128, 128),
-                "plain_ms": lambda: flash_forward_reference(q, k, v, scale, True),
-                "library_ms": lambda: scaled_dot_product_attention(q, k, v, is_causal=True),
-            }
-            samples = _time_in_turns(fns)
-            flops = 2 * b * h * s * s * d
-            nbytes = 4 * b * h * s * d * qkv.element_size() + 4 * b * h * s
-            rows[f"{name}_B{b}_{str(dtype).split('.')[-1]}"] = {
-                **_summary(samples, nbytes, flops, dtype),
-                "shape": {"B": b, "S": s, "H": h, "D": d},
-            }
-    emit({"phase": "times", "kernel": "flash_fwd", "layout": "packed", "causal": True,
-          "timing": TIMING, **rows})
+            qkv, views = _case_inputs("packed", b, s, h, d, dtype, dev, 7)
+            rows[f"{name}_B{b}_{str(dtype).split('.')[-1]}"] = _flash_row(
+                qkv, views, d ** -0.5, causal, dtype)
+            del qkv, views
+    emit({"phase": "times", "kernel": "flash_fwd", "layout": "packed",
+          "timing": GRAPH_TIMING, **rows})
     return rows
 
 
-def _time_in_turns(fns):
+def _time_in_turns(fns, graphs=False):
+    """Each function's time, three rounds in turns: eager calls, or the
+    replay of a CUDA graph of 50 calls (``graphs``)."""
+    if graphs:
+        graphs = {key: _graph(fn) for key, fn in fns.items()}
     samples = {key: [] for key in fns}
     for _ in range(3):
         for key, fn in fns.items():
-            samples[key].append(_time_ms(fn))
+            samples[key].append(_graph_ms(graphs[key]) if graphs else _time_ms(fn))
     return samples
 
 
-def _summary(samples, nbytes, flops, dtype):
+def _summary(samples, nbytes, flops, dtype, peak_flops=None):
     """Median times, and the bound: the larger of bytes over the card's
-    memory rate and operations over its peak for the type."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS_S[dtype]
-    return {
+    memory rate and operations over ``peak_flops`` (default: the card's
+    peak for the type). fp32 flash rows add the FMA bound (operations
+    over the 67 TFLOP/s of fp32 FMA) of the design the kernel replaced."""
+    peak = peak_flops or PEAK_FLOPS_S[dtype]
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
+    out = {
         **{key: float(np.median(v)) for key, v in samples.items()},
         "samples": samples,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "flops": flops, "bytes": nbytes,
+        "peak_flops_s": peak, "flops": flops, "bytes": nbytes,
     }
+    if peak_flops and dtype == torch.float32:
+        out["fma_bound_ms"] = max(t_bytes, flops / PEAK_FLOPS_S[dtype]) * 1e3
+    return out
+
+
+def _with_device_ms(fns):
+    """Eager times of ``fns`` in turns, and ``device_ms``: the kernel's
+    (``fns["ms"]``) from a CUDA graph."""
+    samples = _time_in_turns(fns)
+    samples["device_ms"] = _time_in_turns({"ms": fns["ms"]}, graphs=True)["ms"]
+    return samples
 
 
 def phase_times_layer_norm(dev):
     """The LayerNorm kernels at the training rows (batch x maxlen rows of
     d_model: 32768 x 1024) and at config A's generate rows (maxlen rows of
-    d_model: 512 x 512), fp32 and bf16. Library: the
+    d_model: 512 x 512), fp32 and bf16; the kernel's device time from a
+    CUDA graph beside the eager times. Library: the
     forward of torch.nn.functional.layer_norm and its autograd backward
     (dx, dgamma, dbeta). Bytes: each input read once and each output
     written once; operations: about 8 (forward) and 12 (backward) per
@@ -677,55 +913,89 @@ def phase_times_layer_norm(dev):
             }
             tag = f"{name}_{str(dtype).split('.')[-1]}"
             rows[f"layer_norm_fwd_{tag}"] = {"N": n, "d": d, **_summary(
-                _time_in_turns(fwd), 2 * n * d * item + 2 * d * 4 + 2 * n * 4,
+                _with_device_ms(fwd), 2 * n * d * item + 2 * d * 4 + 2 * n * 4,
                 8 * n * d, dtype)}
             rows[f"layer_norm_bwd_{tag}"] = {"N": n, "d": d, **_summary(
-                _time_in_turns(bwd), 3 * n * d * item + d * 4 + 2 * n * 4 + 2 * d * 4,
+                _with_device_ms(bwd), 3 * n * d * item + d * 4 + 2 * n * 4 + 2 * d * 4,
                 12 * n * d, dtype)}
-    emit({"phase": "times", "kernel": "layer_norm", "timing": TIMING, **rows})
+    emit({"phase": "times", "kernel": "layer_norm", "timing": GRAPH_TIMING, **rows})
     return rows
 
 
 def phase_times_train(dev):
     """At the training shape (packed qkv B128 S256 H8 D128, not causal,
-    fp32): the flash forward kernel, and the plain flash backward of one
-    layer (the recomputed scores, then four products: about 2.5x the
-    forward's operations)."""
+    fp32): the plain flash backward of one layer (the recomputed scores,
+    then four products: about 2.5x the forward's operations) beside SDPA's
+    autograd backward and its forward + backward, eager (device-bound at
+    this size)."""
+    from torch.nn.functional import scaled_dot_product_attention
+
     from elephas_tpu_torch.ops.flash_attention import _flash_forward_packed, flash_backward
 
     b, s, h = TRAIN_BATCH, TRAIN["maxlen"], TRAIN["num_heads"]
     d = TRAIN["d_model"] // h
-    qkv, (q, k, v) = _case_inputs("packed", b, s, h, d, torch.float32, dev, 13)
     scale = d ** -0.5
+    qkv, (q, k, v) = _case_inputs("packed", b, s, h, d, torch.float32, dev, 13)
     out, lse = _flash_forward_packed(qkv, scale, False, 128, 128)
     g = torch.randn_like(out)
     o, gg = out.transpose(1, 2), g.transpose(1, 2)
     lse = lse.view(b, h, s)
+    ql, kl, vl = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    ol = scaled_dot_product_attention(ql, kl, vl)
+
+    def library_fwd_bwd():
+        torch.autograd.grad(scaled_dot_product_attention(ql, kl, vl), (ql, kl, vl), gg)
+
     fwd_flops = 4 * b * h * s * s * d
-    rows = {
-        "flash_fwd_train": _summary(
-            _time_in_turns({"ms": lambda: _flash_forward_packed(qkv, scale, False, 128, 128)}),
-            4 * b * h * s * d * 4 + 4 * b * h * s, fwd_flops, torch.float32),
-        "flash_bwd_plain_train": _summary(
-            _time_in_turns({"plain_ms": lambda: flash_backward(q, k, v, o, lse, gg, scale,
-                                                                False)}),
-            8 * b * h * s * d * 4 + 4 * b * h * s, fwd_flops * 5 // 2, torch.float32),
-    }
-    emit({"phase": "times", "kernel": "train_attention",
-          "shape": {"B": b, "S": s, "H": h, "D": d}, "timing": TIMING, **rows})
-    return rows
+    row = _summary(
+        _time_in_turns({
+            "plain_ms": lambda: flash_backward(q, k, v, o, lse, gg, scale, False),
+            "library_ms": lambda: torch.autograd.grad(ol, (ql, kl, vl), gg, retain_graph=True),
+            "library_fwd_bwd_ms": library_fwd_bwd,
+        }),
+        8 * b * h * s * d * 4 + 4 * b * h * s, fwd_flops * 5 // 2, torch.float32)
+    emit({"phase": "times", "kernel": "train_attention_backward",
+          "shape": {"B": b, "S": s, "H": h, "D": d}, "timing": TIMING,
+          "flash_bwd_plain_train": row})
+    return row
 
 
 def _kernel_entry(name, source, replaces, launches, err, times):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": times["ms"],
+        "device_ms": times["device_ms"],
         "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"],
     }
 
 
-def main() -> int:
+def times_only(dev):
+    """The phases that time the main path (serve, the generate profiles,
+    the flash rows) for the package that ``elephas_tpu_torch`` imports,
+    with its kernels built as that package builds them."""
+    import elephas_tpu_torch
+    from elephas_tpu_torch.ops import _native
+
+    t0 = time.perf_counter()
+    _native.build()
+    emit({"phase": "build", "package": os.path.dirname(elephas_tpu_torch.__file__),
+          "seconds": time.perf_counter() - t0})
+    phase_serve(dev)
+    phase_profile_generate(dev)
+    phase_times(dev)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--times-only", action="store_true",
+                        help="run only the serve, generate-profile and flash times phases")
+    parser.add_argument("--package", metavar="DIR",
+                        help="the directory holding the elephas_tpu_torch to drive "
+                             "(with --times-only; default: beside this script)")
+    args = parser.parse_args(argv)
+    if args.package and not args.times_only:
+        parser.error("--package goes with --times-only")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a GPU",
               file=sys.stderr)
@@ -734,6 +1004,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
 
+    if args.times_only:
+        if args.package:
+            sys.path.insert(0, os.path.abspath(args.package))
+        phase_card()
+        times_only(dev)
+        print(nvidia_smi(), flush=True)
+        emit({"ok": True, "times_only": True})
+        return 0
     phase_card()
     phase_build()
     errs = phase_kernel(dev)
@@ -748,6 +1026,7 @@ def main() -> int:
             raise AssertionError(f"the {path} path never launched {idle}")
     phase_profile(dev, model, batch)
     del model, batch
+    phase_profile_generate(dev)
     flash = phase_times(dev)["A_B8_float32"]
     ln_times = phase_times_layer_norm(dev)
     phase_times_train(dev)

@@ -11,7 +11,9 @@ not take, raises.
 
 ``block_q``/``block_k`` are validated exactly as the reference validates
 them (:func:`_resolve_blocks`, on both devices); the kernel tiles with its
-own 64-row blocks and masks its ragged edges itself.
+own blocks of 16 q rows a warp (:func:`launch_config` picks the warps a
+block from the shape and the card's SM count) and masks its ragged edges
+itself.
 
 The backward (:func:`flash_backward`) is the reference's
 ``_flash_backward`` recurrence written densely per head in plain PyTorch,
@@ -23,6 +25,8 @@ einsums, not a Pallas kernel, and a hand kernel for it is later work
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,6 +37,11 @@ DEFAULT_BLOCK_K = 128
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's blocks: 16 q rows a warp, 4 or 8 warps
+ROWS_PER_WARP = 16
+WARP_CHOICES = (4, 8)
+# cp.async copies 16 bytes: base pointers and strides must be multiples
+ALIGN_BYTES = 16
 
 # kernel launches since the last reset (chip_smoke.py reads it)
 launches = 0
@@ -92,6 +101,28 @@ def attention_reference(q, k, v, causal: bool = False, scale: float | None = Non
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
+class LaunchConfig(NamedTuple):
+    warps: int
+    block_q: int  # q rows of a block
+    blocks: int  # blocks in the grid
+
+
+def launch_config(b, h, s_q, s_k, d, dtype, sm_count) -> LaunchConfig:
+    """The kernel's launch for a shape: 8 warps (128 q rows a block) where
+    that grid fills at least half a wave of ``sm_count`` SMs, else 4
+    warps (64 rows). A pure function of its arguments; ``s_k``, ``d`` and
+    ``dtype`` do not change the choice today (every block fits each
+    (dtype, D) in shared memory)."""
+    if d not in HEAD_DIMS or dtype not in _DTYPES:
+        raise ValueError(f"no launch for head_dim {d}, {dtype}")
+
+    def blocks(warps):
+        return -(-s_q // (ROWS_PER_WARP * warps)) * b * h
+
+    warps = 8 if 2 * blocks(8) >= sm_count else 4
+    return LaunchConfig(warps, ROWS_PER_WARP * warps, blocks(warps))
+
+
 def _kernel():
     lib = _native.library("flash_fwd")
     fn = lib.elephas_flash_fwd
@@ -101,7 +132,7 @@ def _kernel():
             [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 6
             + [ll] * 12
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         lib.elephas_cuda_error_string.argtypes = [ctypes.c_int]
@@ -110,20 +141,27 @@ def _kernel():
 
 
 def _check_cuda_operands(q, k, v, out):
-    tensors = {"q": q, "k": k, "v": v, "out": out}
-    for name, t in tensors.items():
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if t.stride(-1) != 1 or min(t.stride()) < 0:
+    # one pass over the operands: this runs on every call, on the host
+    dev, dtype, item = q.device, q.dtype, q.element_size()
+    misaligned = None
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        st = t.stride()
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {dtype}")
+        if st[-1] != 1 or min(st) < 0:
             raise ValueError(
                 f"{name} needs unit stride on head_dim and non-negative "
-                f"strides, got {tuple(t.stride())}"
+                f"strides, got {tuple(st)}"
             )
-    if q.dtype not in _DTYPES:
+        # the base pointer and the (batch, head, seq) strides in bytes are
+        # multiples of ALIGN_BYTES (a power of two) iff their OR is
+        if misaligned is None and (t.data_ptr() | (st[0] | st[1] | st[2]) * item) % ALIGN_BYTES:
+            misaligned = name, t
+    if dtype not in _DTYPES:
         raise ValueError(
-            f"the flash kernel takes float32 or bfloat16, got {q.dtype}"
+            f"the flash kernel takes float32 or bfloat16, got {dtype}"
         )
     d = q.shape[-1]
     if d not in HEAD_DIMS:
@@ -135,6 +173,18 @@ def _check_cuda_operands(q, k, v, out):
         raise ValueError(f"out {tuple(out.shape)} does not match q {tuple(q.shape)}")
     if b * h > 65535:
         raise ValueError(f"batch·heads = {b * h} exceeds the kernel grid's 65535")
+    if misaligned:
+        name, t = misaligned
+        raise ValueError(
+            f"{name} needs a {ALIGN_BYTES}-byte-aligned base pointer and "
+            f"(batch, head, seq) strides for the kernel's async copies, got "
+            f"pointer {t.data_ptr()} and strides {tuple(t.stride())}"
+        )
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _forward(q, k, v, out, scale: float, causal: bool):
@@ -142,7 +192,6 @@ def _forward(q, k, v, out, scale: float, causal: bool):
     on D) into the ``[B, H, Sq, D]`` view ``out``; returns lse ``[B·H, Sq]``
     fp32. CPU tensors take the plain version; CUDA tensors launch the
     kernel."""
-    global launches
     b, h, s_q, _ = q.shape
     if q.device.type == "cpu":
         o, lse = flash_forward_reference(q, k, v, scale, causal)
@@ -151,6 +200,15 @@ def _forward(q, k, v, out, scale: float, causal: bool):
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     _check_cuda_operands(q, k, v, out)
+    cfg = launch_config(b, h, s_q, k.shape[2], q.shape[-1], q.dtype, _sm_count(q.device.index))
+    return _launch(q, k, v, out, scale, causal, cfg.warps)
+
+
+def _launch(q, k, v, out, scale: float, causal: bool, warps: int):
+    """One launch of the kernel on checked CUDA operands with blocks of
+    ``warps`` warps; returns lse ``[B·H, Sq]``."""
+    global launches
+    b, h, s_q, _ = q.shape
     lse = torch.empty(b * h, s_q, dtype=torch.float32, device=q.device)
     lib = _kernel()
     with torch.cuda.device(q.device):
@@ -158,7 +216,7 @@ def _forward(q, k, v, out, scale: float, causal: bool):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _DTYPES[q.dtype], b, h, s_q, k.shape[2], q.shape[-1],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            float(scale), int(bool(causal)),
+            float(scale), int(bool(causal)), warps,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:

@@ -36,8 +36,9 @@ def _randn(gen, *shape, dtype=torch.float32):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s_q,s_k", [(100, 100), (64, 192), (200, 72)])
 def test_ragged_and_cross_lengths(cuda, dtype, tol, causal, s_q, s_k):
-    """Sequence lengths that are not multiples of the kernel's 64-row
-    tiles, and q/k of different lengths (causal on absolute positions)."""
+    """Sequence lengths that are not multiples of the kernel's 16-row
+    fragments or its kv tiles, and q/k of different lengths (causal on
+    absolute positions)."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = _randn(gen, 2, 3, s_q, 64, dtype=dtype)
     k = _randn(gen, 2, 3, s_k, 64, dtype=dtype)
@@ -47,6 +48,88 @@ def test_ragged_and_cross_lengths(cuda, dtype, tol, causal, s_q, s_k):
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert (lse - ref_lse.reshape(6, s_q)).abs().max().item() <= 1e-4
+
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _check_case(cuda, layout, b, h, s_q, s_k, d, dtype, causal, seed=0):
+    """One kernel call against the plain version: out within the type's
+    tolerance, lse within 1e-4; returns (out, lse)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    scale = d ** -0.5
+    if layout == "packed":
+        assert s_q == s_k
+        qkv = _randn(gen, b, s_q, 3, h, d, dtype=dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        out, lse = fa._flash_forward_packed(qkv, scale, causal, s_q, s_k)
+        out = out.transpose(1, 2)
+    else:
+        q = _randn(gen, b, h, s_q, d, dtype=dtype)
+        k = _randn(gen, b, h, s_k, d, dtype=dtype)
+        v = _randn(gen, b, h, s_k, d, dtype=dtype)
+        out, lse = fa._flash_forward(q, k, v, scale, causal, s_q, s_k)
+    ref, ref_lse = fa.flash_forward_reference(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - ref_lse.reshape(b * h, s_q)).abs().max().item() <= 1e-4
+    return out, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("layout,s_q,s_k", [("packed", 300, 300), ("bhsd", 300, 300),
+                                            ("bhsd", 300, 136), ("bhsd", 77, 300)])
+def test_every_width_layout_and_type(cuda, layout, s_q, s_k, d, causal, dtype):
+    """Every head_dim, both types, causal or not, packed qkv and bhsd, at
+    a length that crosses the 16-row fragments and the kv tiles, and with
+    q and k of different lengths."""
+    _check_case(cuda, layout, 2, 3, s_q, s_k, d, dtype, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_long_sequence_wraps_the_stage_ring(cuda, d, dtype):
+    """S = 2048: 32 to 64 kv tiles through the two-stage copy ring."""
+    _check_case(cuda, "packed", 1, 2, 2048, 2048, d, dtype, True, seed=3)
+    _check_case(cuda, "bhsd", 1, 2, 2048, 2048, d, dtype, False, seed=4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal", [((1, 512, 4, 128), True),
+                                          ((128, 256, 8, 128), False)])
+def test_serving_batch_one_and_training_shapes(cuda, shape, causal, dtype):
+    """Config A's generate shape (batch 1, four-warp blocks: 32 of them)
+    and the training shape (batch 128, eight-warp blocks)."""
+    b, s, h, d = shape
+    _check_case(cuda, "packed", b, h, s, s, d, dtype, causal, seed=5)
+
+
+def test_repeats_bit_for_bit(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = _randn(gen, 8, 512, 3, 4, 128, dtype=dtype)
+        first = fa._flash_forward_packed(qkv, 128 ** -0.5, True, 128, 128)
+        again = fa._flash_forward_packed(qkv, 128 ** -0.5, True, 128, 128)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_refuses_a_misaligned_view(cuda):
+    """cp.async needs 16-byte-aligned operands: a view one element off
+    raises, for fp32 and bf16, and nothing falls back."""
+    for dtype in (torch.float32, torch.bfloat16):
+        flat = torch.zeros(2 * 64 * 64 + 1, dtype=dtype, device=cuda)
+        q = flat[1:].view(1, 2, 64, 64)
+        ok = torch.zeros(1, 2, 64, 64, dtype=dtype, device=cuda)
+        before = fa.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention(q, ok, ok)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention(ok, ok, q)
+        assert fa.launches == before
 
 
 def test_counts_launches_and_matches_qkv(cuda):
