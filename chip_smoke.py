@@ -15,7 +15,9 @@ Phases, each printing one JSON line and raising on failure:
             without HMMA or LDGSTS;
 3. kernel — each kernel against its plain PyTorch version on the card,
             at the main paths' shapes, fp32 and bf16: the flash forward
-            (causal and not) and the LayerNorm forward and backward;
+            (causal and not) and the LayerNorm forward and backward; and
+            the span decode (fp32) at the engine's slots and heads over
+            every span bucket, with ragged positions and a stale cursor;
 4. serve  — the serving path: generate() on transformer_lm at full width
             (config A with and without rope, config B), and one
             transformer_classifier forward, with launch counts of the
@@ -28,31 +30,43 @@ Phases, each printing one JSON line and raising on failure:
             per step, finite losses, tokens/s and peak memory; and the
             gradients of one batch through the kernels against those of
             the plain path;
-6. profile — one more training step, and generate() at config A batch 1
-            with rope off and on, under torch.profiler: device time by
-            kernel class (GEMMs, flash, LayerNorm, elementwise, ...) and
-            the device's idle share; for generate also an unprofiled run
+6. engine — the continuous-batching InferenceEngine at config A's full
+            width (16 slots, 16 steps a decode window, 48 requests as the
+            reference's serving bench sends them), after a warm-up pass:
+            generated tokens/s, TTFT and inter-token percentiles, peak
+            memory and the launches of the span-decode, flash and
+            LayerNorm kernels; then (a) every emitted token against the
+            plain full forward's argmax, (b) generate(kv_cache=True)
+            against generate(kv_cache=False), both where the top-2 margin
+            is at least 1e-3, and (c) one decode window's logits against
+            the plain full forward's;
+7. profile — one more training step, generate() at config A batch 1
+            with rope off and on, and one engine decode window, under
+            torch.profiler: device time by kernel class (GEMMs, flash,
+            span decode, LayerNorm, elementwise, ...) and the device's
+            idle share; for generate and the engine also an unprofiled run
             with the host time spent in each kernel wrapper;
-7. times  — kernel, plain version and the PyTorch library call (a
+8. times  — kernel, plain version and the PyTorch library call (a
             yardstick the port never calls: scaled_dot_product_attention,
-            torch.nn.functional.layer_norm and its autograd backward) at
-            the main paths' shapes, beside the card's bound. ``ms``,
-            ``plain_ms`` and ``library_ms`` are eager: CUDA events around
-            50 calls issued from Python (what a caller waits, host
-            included). ``device_ms`` (and, for the flash rows,
-            ``plain_device_ms`` and ``library_device_ms``) times the
-            replay of a CUDA graph of the 50 calls: device time, no host
-            gaps. At the training shape also the plain flash backward per
-            layer and SDPA's forward + autograd backward.
+            with a boolean mask for the span decode, and
+            torch.nn.functional.layer_norm and its backward) at the main
+            paths' shapes, beside the card's bound. ``ms``, ``plain_ms``
+            and ``library_ms`` are eager: CUDA events around 50 calls
+            made from Python (what a caller waits, host included).
+            ``device_ms``, ``plain_device_ms`` and ``library_device_ms``
+            time the replay of a CUDA graph of the 50 calls: device time,
+            no host gaps (the LayerNorm rows graph the kernel and the
+            library). At the training shape also the plain flash backward
+            per layer and SDPA's forward + autograd backward.
 
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
-summed over the serve and train paths, times at config A's attention
-shape and at the training rows, fp32), and last
-{"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
+summed over the serve, train and engine paths, times at config A's
+attention shape, at the training rows and at the engine's decode shape,
+fp32), and last {"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
 not available or the package is not beside this script.
 
-``--times-only`` runs the card, serve, generate-profile and flash times
-phases alone, for the elephas_tpu_torch package in DIR (default: beside
+``--times-only`` runs the card, serve, engine, generate-profile and flash
+times phases alone, for the elephas_tpu_torch package in DIR (default: beside
 this script), building its kernels as that package builds them: run it
 for two checkouts in turns on one card to compare them.
 """
@@ -125,6 +139,20 @@ TRAIN_ROWS, TRAIN_BATCH, TRAIN_EPOCHS = 512, 128, 2
 # kernel vs plain gradients, relative to each tensor's largest gradient
 TOL_GRAD = 1e-3
 
+# span decode vs plain version: the engine's 16 slots and 4 heads at config
+# A's and config B's head dims, over every span bucket of A's maxlen
+SPAN_CASES = [(16, 4, 128), (16, 4, 64)]
+SPAN_MAXLEN = 512
+# relative to max(1, |out|): the same online softmax in another order
+TOL_SPAN = 1e-5
+
+# the engine at config A's full width as the reference's serving bench runs
+# it (bench.py:1915-1990): 16 slots, prompt lengths and budgets cycling
+ENGINE = dict(num_slots=16, steps_per_sync=16)
+ENGINE_PROMPT_LENS = (8, 12, 16, 24, 40)
+ENGINE_BUDGETS = (16, 32)
+ENGINE_REQUESTS = 48
+
 TIMING = "CUDA events, mean of 50 launches after 5 warm-up, median of 3 rounds in turns"
 GRAPH_TIMING = ("*device_ms: CUDA events around the replay of a CUDA graph of 50 calls "
                 "(captured after 3 warm-up calls), median of 3 rounds in turns; the rest: "
@@ -156,14 +184,16 @@ def phase_card():
 def _instantiation(mangled):
     """A kernel's mangled name, shortened: '..flash_fwd_kernelIfLi128EE..'
     -> 'flash_fwd_kernel<float32, 128>', '..ln_fwd_kernelIfLi4EE..' ->
-    'ln_fwd_kernel<float32, 4>'."""
-    m = re.search(r"\d((?:flash|ln)_\w*?kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)", mangled)
+    'ln_fwd_kernel<float32, 4>', '..span_decode_kernelILi64EE..' ->
+    'span_decode_kernel<64>'."""
+    m = re.search(r"\d((?:flash|ln|span)_\w*?kernel)I(f|13__nv_bfloat16)?((?:Li\d+E)*)",
+                  mangled)
     if not m:
-        m = re.search(r"\d((?:flash|ln)_\w*?kernel)", mangled)
+        m = re.search(r"\d((?:flash|ln|span)_\w*?kernel)", mangled)
         return m.group(1) if m else mangled
-    dtype = "float32" if m.group(2) == "f" else "bfloat16"
+    dtype = [] if m.group(2) is None else ["float32" if m.group(2) == "f" else "bfloat16"]
     ints = re.findall(r"Li(\d+)E", m.group(3))
-    return f"{m.group(1)}<{', '.join([dtype, *ints])}>"
+    return f"{m.group(1)}<{', '.join([*dtype, *ints])}>"
 
 
 def _ptxas_report(log):
@@ -186,9 +216,9 @@ def _ptxas_report(log):
 SASS_OPS = ("HMMA", "LDGSTS", "LDSM")
 
 
-def _sass_counts(library):
-    """{instantiation: {op: count}} of SASS_OPS in the flash kernels of a
-    built library, from cuobjdump --dump-sass."""
+def _sass_counts(library, kernel="flash_fwd_kernel"):
+    """{instantiation: {op: count}} of SASS_OPS in the ``kernel``
+    instantiations of a built library, from cuobjdump --dump-sass."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", str(library)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
@@ -198,7 +228,7 @@ def _sass_counts(library):
         if m:
             name = _instantiation(m.group(1))
             current = counts.setdefault(name, dict.fromkeys(SASS_OPS, 0)) \
-                if name.startswith("flash_fwd_kernel") else None
+                if name.startswith(kernel) else None
             continue
         if current is not None:
             m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", ln)
@@ -215,14 +245,16 @@ def phase_build():
     seconds = time.perf_counter() - t0
     ptxas = {name: _ptxas_report(log["ptxas"]) for name, log in _native.build_log.items()}
     sass = _sass_counts(targets["flash_fwd"])
+    span = sorted(_sass_counts(targets["span_decode"], "span_decode_kernel"))
     emit({"phase": "build", "seconds": seconds, "sources": sorted(_native.SOURCES),
-          "ptxas": ptxas, "flash_sass": sass})
+          "ptxas": ptxas, "flash_sass": sass, "span_decode_instantiations": span})
     spills = [f"{name}: {r}" for log in ptxas.values() for name, r in log.items()
               if r.get("spill_stores") or r.get("spill_loads")]
     missing = [name for name, c in sass.items() if not (c["HMMA"] and c["LDGSTS"])]
-    if spills or missing or len(sass) != 8:
+    if spills or missing or len(sass) != 8 or len(span) != 4:
         raise AssertionError(f"build: spills {spills}; flash kernels without HMMA or "
-                             f"LDGSTS {missing}; {len(sass)} flash instantiations, want 8")
+                             f"LDGSTS {missing}; {len(sass)} flash instantiations, want 8; "
+                             f"span decode instantiations {span}, want 4")
 
 
 def _synthetic_tokens(n, maxlen, vocab, classes, seed=0):
@@ -326,11 +358,51 @@ def _kernel_layer_norm(dev):
     return results, failures
 
 
+def _span_inputs(b, h, d, span, dev, seed):
+    """q and a [b, SPAN_MAXLEN, h, d] arena pair cut to ``span``, with
+    ragged int32 positions: 0 on lane 0, the span's last row on lane 1 and
+    a stale cursor past the span on lane 2 (STALE_LANE)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, d, generator=g, device=dev)
+    arena = torch.randn(2, b, SPAN_MAXLEN, h, d, generator=g, device=dev)
+    pos = torch.randint(0, span, (b,), generator=g, device=dev, dtype=torch.int32)
+    pos[:3] = torch.tensor([0, span - 1, span + 7], dtype=torch.int32)
+    return q, arena[0, :, :span], arena[1, :, :span], pos
+
+
+STALE_LANE = 2
+
+
+def _kernel_span_decode(dev):
+    from elephas_tpu_torch.ops import flash_serving as fs
+
+    results, failures = [], []
+    for b, h, d in SPAN_CASES:
+        for span in fs.span_buckets(SPAN_MAXLEN):
+            q, k, v, pos = _span_inputs(b, h, d, span, dev, span + d)
+            out = fs.flash_span_decode(q, k, v, pos)
+            ref = fs.flash_span_chunk(q[:, :, None], k, v, pos[:, None])[:, :, 0]
+            torch.cuda.synchronize()
+            lanes = torch.arange(b, device=dev) != STALE_LANE
+            diff = (out - ref).abs()[lanes]
+            err = (diff / ref.abs().clamp_min(1.0)[lanes]).max().item()
+            finite = bool(torch.isfinite(out).all())
+            row = {"B": b, "H": h, "D": d, "span": span, "rel_err": err,
+                   "abs_err": diff.max().item(), "stale_lane_finite": finite,
+                   "ok": err <= TOL_SPAN and finite}
+            results.append(row)
+            if not row["ok"]:
+                failures.append(row)
+    return results, failures
+
+
 def phase_kernel(dev):
     """Each kernel against its plain version; returns each kernel's
-    largest fp32 error (flash out, LayerNorm y, LayerNorm dx)."""
+    largest fp32 error (flash out, LayerNorm y, LayerNorm dx, span decode
+    out)."""
     flash, flash_failures = _kernel_flash(dev)
     ln_rows, ln_failures = _kernel_layer_norm(dev)
+    span_rows, span_failures = _kernel_span_decode(dev)
     emit({"phase": "kernel",
           "tol": {"flash_out": {"float32": TOL_OUT[torch.float32],
                                 "bfloat16": TOL_OUT[torch.bfloat16]},
@@ -340,9 +412,10 @@ def phase_kernel(dev):
                   "ln_mean_rstd_relative": TOL_LN_STATS,
                   "ln_dx": {"float32": TOL_LN_DX[torch.float32],
                             "bfloat16_of_max_1_abs_dx": TOL_LN_DX[torch.bfloat16]},
-                  "ln_dgamma_dbeta_relative": TOL_LN_DPARAM},
-          "flash": flash, "layer_norm": ln_rows})
-    failures = flash_failures + ln_failures
+                  "ln_dgamma_dbeta_relative": TOL_LN_DPARAM,
+                  "span_decode_of_max_1_abs_out": TOL_SPAN},
+          "flash": flash, "layer_norm": ln_rows, "span_decode": span_rows})
+    failures = flash_failures + ln_failures + span_failures
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: {failures}")
     f32 = [r for r in ln_rows if r["dtype"] == "float32"]
@@ -350,6 +423,7 @@ def phase_kernel(dev):
         "flash_fwd": max(r["err_out"] for r in flash if r["dtype"] == "float32"),
         "layer_norm_fwd": max(r["err_y"] for r in f32),
         "layer_norm_bwd": max(r["err_dx"] for r in f32),
+        "span_decode": max(r["abs_err"] for r in span_rows),
     }
 
 
@@ -360,17 +434,19 @@ def _prompts(vocab, seed=0):
 
 def _launches():
     from elephas_tpu_torch.ops import flash_attention as fa
+    from elephas_tpu_torch.ops import flash_serving as fs
     from elephas_tpu_torch.ops import layer_norm as ln
 
     return {"flash_fwd": fa.launches, "layer_norm_fwd": ln.fwd_launches,
-            "layer_norm_bwd": ln.bwd_launches}
+            "layer_norm_bwd": ln.bwd_launches, "span_decode": fs.launches}
 
 
 def _reset_launches():
     from elephas_tpu_torch.ops import flash_attention as fa
+    from elephas_tpu_torch.ops import flash_serving as fs
     from elephas_tpu_torch.ops import layer_norm as ln
 
-    fa.launches = ln.fwd_launches = ln.bwd_launches = 0
+    fa.launches = ln.fwd_launches = ln.bwd_launches = fs.launches = 0
 
 
 def _check_launches(what, before, want):
@@ -402,7 +478,7 @@ def drive_main_path(dev):
             _check_launches(f"config {name} rope={rope} generate", before, {
                 "flash_fwd": layers * STEPS,
                 "layer_norm_fwd": (2 * layers + 1) * STEPS,
-                "layer_norm_bwd": 0,
+                "layer_norm_bwd": 0, "span_decode": 0,
             })
             outs.append(out[0])
         runs.append({"config": name, "rope": rope, "model": model,
@@ -556,7 +632,7 @@ def phase_train(dev):
     launches = _launches()
     peak = torch.cuda.max_memory_allocated(dev)
     want = {"flash_fwd": layers * steps, "layer_norm_fwd": (2 * layers + 1) * steps,
-            "layer_norm_bwd": 2 * (2 * layers + 1) * steps}
+            "layer_norm_bwd": 2 * (2 * layers + 1) * steps, "span_decode": 0}
     if launches != want:
         failures.append(f"launches {launches}, expected {want}")
     if sorted(history) != ["accuracy", "loss"] or \
@@ -579,9 +655,162 @@ def phase_train(dev):
     return launches, model, (xb, yb)
 
 
+def _engine_workload(vocab, n):
+    """The reference serving bench's requests (bench.py:1946-1961): prompts
+    from np.random.default_rng(0), lengths and budgets cycling."""
+    rng = np.random.default_rng(0)
+    return [(rng.integers(1, vocab, size=ENGINE_PROMPT_LENS[i % len(ENGINE_PROMPT_LENS)])
+             .astype(np.int32), ENGINE_BUDGETS[i % len(ENGINE_BUDGETS)]) for i in range(n)]
+
+
+def _first_divergence(got, want, logits_of):
+    """Token lists ``got`` and ``want`` agree, or first differ where the
+    plain path's top-2 margin is below MARGIN: None then, else a
+    description. ``logits_of(i)`` gives the plain logits that predict
+    token ``i``."""
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if i is None:
+        return None
+    top2 = logits_of(i).topk(2).values
+    margin = (top2[0] - top2[1]).item()
+    return None if margin < MARGIN else f"token {i}: {got[i]} vs {want[i]}, margin {margin}"
+
+
+def _engine_checks(model, reqs, dev):
+    """(a) every emitted token against the plain full forward's argmax,
+    where its top-2 margin is >= MARGIN; (b) generate(kv_cache=True)
+    against generate(kv_cache=False) on one prompt of each length, under
+    the same rule; (c) one decode window (steps_per_sync steps) of the
+    first num_slots requests through a fresh arena, logits against the
+    plain full forward's."""
+    from elephas_tpu_torch import generate
+    from elephas_tpu_torch.models.transformer import validate_token_decode_model
+    from elephas_tpu_torch.ops.flash_serving import span_bucket_for, span_buckets
+    from elephas_tpu_torch.serving.kv_cache import SlotKVCache, prefill_forward, token_decode_step
+
+    maxlen, vocab = model.maxlen, model.vocab_size
+    failures = []
+    rows = torch.zeros(len(reqs), maxlen, dtype=torch.long, device=dev)
+    for i, r in enumerate(reqs):
+        seq = r.full_sequence
+        if len(r.tokens) != r.max_new_tokens or min(seq) < 0 or max(seq) >= vocab:
+            failures.append(f"request {i}: {len(r.tokens)} tokens, range {min(seq)}..{max(seq)}")
+        rows[i, : len(seq)] = torch.tensor(seq, device=dev)
+    with torch.inference_mode():
+        plain = model(rows, plain=True)  # [requests, maxlen, vocab]
+    mismatches = close = 0
+    for i, r in enumerate(reqs):
+        p = len(r.prompt)
+        pos = slice(p - 1, p - 1 + len(r.tokens))
+        top2 = plain[i, pos].topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        wrong = plain[i, pos].argmax(dim=-1) != rows[i, p: p + len(r.tokens)]
+        mismatches += int((wrong & (margin >= MARGIN)).sum())
+        close += int((wrong & (margin < MARGIN)).sum())
+    if mismatches:
+        failures.append(f"(a) {mismatches} emitted tokens differ from the plain argmax")
+
+    generate_report = []
+    for prompt, budget in _engine_workload(vocab, len(ENGINE_PROMPT_LENS)):
+        cached = generate(model, prompt[None], budget, kv_cache=True)[0].tolist()
+        full = generate(model, prompt[None], budget)[0].tolist()
+        p = len(prompt)
+
+        def logits_of(i, seq=full, p=p):
+            x = torch.tensor([seq[: p + i]], device=dev)
+            with torch.inference_mode():
+                return model(x, plain=True)[0, -1]
+
+        bad = _first_divergence(cached[p:], full[p:], logits_of)
+        generate_report.append({"prompt_len": p, "steps": budget,
+                                "identical": cached == full, "fault": bad})
+        if bad:
+            failures.append(f"(b) generate kv_cache=True vs False, prompt {p}: {bad}")
+
+    window = reqs[: ENGINE["num_slots"]]
+    steps = ENGINE["steps_per_sync"]
+    cache = SlotKVCache(validate_token_decode_model(model), len(window), maxlen, dev)
+    p_lens = [len(r.prompt) for r in window]
+    span = span_bucket_for(max(p_lens) + steps, span_buckets(maxlen))
+    err = 0.0
+    with torch.inference_mode():
+        for i, r in enumerate(window):
+            prefill_forward(model, torch.tensor([r.prompt], device=dev), cache,
+                            torch.tensor([i], device=dev))
+        positions = torch.tensor(p_lens, dtype=torch.int32, device=dev)
+        for j in range(steps):
+            tok = torch.tensor([r.tokens[j] for r in window], device=dev)
+            logits = token_decode_step(model, tok, positions, cache, span=span)
+            want = torch.stack([plain[i, p + j] for i, p in enumerate(p_lens)])
+            err = max(err, (logits - want).abs().max().item())
+            positions = positions + 1
+    if not err <= TOL_LOGITS:
+        failures.append(f"(c) decode-window logits differ from the plain forward by {err}")
+    return {"a_token_mismatches": mismatches, "a_within_margin": close,
+            "b_generate": generate_report, "c_window_logits_max_abs_err": err,
+            "c_window": {"slots": len(window), "steps": steps, "span": span}}, failures
+
+
+def phase_engine(dev):
+    """InferenceEngine at config A's full width: a warm-up pass over the
+    workload's first num_slots requests (every length and budget), then
+    the timed pass of ENGINE_REQUESTS submitted at once; tokens/s, TTFT,
+    inter-token latency and peak memory, the kernels' launches in the
+    timed pass, and the checks of _engine_checks. Returns the launches
+    and the model."""
+    from elephas_tpu_torch import InferenceEngine, transformer_lm
+
+    cfg = CONFIGS["A"]
+    layers = cfg["num_layers"]
+    model = transformer_lm(**cfg, seed=0, device=dev)
+    workload = _engine_workload(cfg["vocab_size"], ENGINE_REQUESTS)
+    engine = InferenceEngine(model, **ENGINE)
+    engine.run(workload[: ENGINE["num_slots"]])
+    steps0 = engine.scheduler._steps
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(prompt, budget) for prompt, budget in workload]
+    engine.run()
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    failures = []
+    idle = [k for k in ("span_decode", "flash_fwd", "layer_norm_fwd") if not launches[k] > 0]
+    if idle:
+        failures.append(f"the engine path never launched {idle}")
+    # one flash forward a layer per prefill, one span decode a layer per
+    # decode step, and 2·layers+1 LayerNorms each
+    forwards = (launches["flash_fwd"] + launches["span_decode"]) / layers
+    if launches["layer_norm_fwd"] != (2 * layers + 1) * forwards or launches["layer_norm_bwd"]:
+        failures.append(f"launches {launches} do not add up over {layers} layers")
+    tokens = sum(len(r.tokens) for r in reqs)
+    ttfts = [r.ttft for r in reqs]
+    itls = [d for r in reqs for d in r.inter_token_times]
+    checks, check_failures = _engine_checks(model, reqs, dev)
+    failures += check_failures
+    emit({"phase": "engine", "config": cfg, "options": ENGINE, "requests": len(reqs),
+          "prompt_lens": ENGINE_PROMPT_LENS, "budgets": ENGINE_BUDGETS,
+          "generated_tokens": tokens, "seconds": seconds, "tokens_s": tokens / seconds,
+          "ttft_s": {"p50": float(np.percentile(ttfts, 50)),
+                     "p99": float(np.percentile(ttfts, 99))},
+          "inter_token_s": {"p50": float(np.percentile(itls, 50)),
+                            "p99": float(np.percentile(itls, 99))},
+          "decode_steps": engine.scheduler._steps - steps0,
+          "arena_bytes": engine.arena.nbytes(), "max_memory_allocated": peak,
+          "launches": launches, "checks": checks, "nvidia_smi": nvidia_smi(),
+          "failures": failures})
+    if failures:
+        raise AssertionError(f"engine path check failed: {failures}")
+    return launches, model
+
+
 # kernel name fragment → class, first match wins
 KERNEL_CLASSES = (
     ("flash_fwd_kernel", "flash_fwd"),
+    ("span_decode_kernel", "span_decode"),
     ("ln_fwd_kernel", "layer_norm_fwd"),
     ("ln_bwd", "layer_norm_bwd"),
     ("gemm", "gemm"), ("nvjet", "gemm"), ("xmma", "gemm"), ("cutlass", "gemm"),
@@ -663,7 +892,8 @@ PROFILE_STEPS = 8
 # the kernel wrappers whose host time the generate profile reads:
 # (module, function) -> the kernel it launches
 WRAPPERS = {("flash_attention", "_forward"): "flash_fwd",
-            ("layer_norm", "layer_norm_forward"): "layer_norm_fwd"}
+            ("layer_norm", "layer_norm_forward"): "layer_norm_fwd",
+            ("flash_serving", "_forward"): "span_decode"}
 
 
 def _wrapper_host_ms(dev, fn, per):
@@ -726,6 +956,26 @@ def phase_profile_generate(dev):
         if out["device_ms"] > 0 and not flash > 0:
             raise AssertionError("the generate profile shows no flash_fwd_kernel time")
         del model
+
+
+def phase_profile_engine(dev, model):
+    """One decode window of the engine at config A (16 busy slots, 16
+    steps), after a warm-up window: the wrappers' host time, then the same
+    under torch.profiler; every figure per decode step."""
+    from elephas_tpu_torch import InferenceEngine
+
+    steps = ENGINE["steps_per_sync"]
+    engine = InferenceEngine(model, **ENGINE)
+    for prompt, _ in _engine_workload(model.vocab_size, ENGINE["num_slots"]):
+        engine.submit(prompt, 4 * steps)  # busy through the three windows below
+    engine.step()  # prefill and the warm-up window
+    host = _wrapper_host_ms(dev, engine.step, steps)
+    out = _profile(dev, engine.step, f"engine decode window at config A, "
+                   f"{ENGINE['num_slots']} slots, per step of {steps}", per=steps, extra=host)
+    if out["device_ms"] > 0 and not out.get("by_class_ms", {}).get("span_decode", 0.0) > 0:
+        raise AssertionError("the engine profile shows no span_decode_kernel time")
+    if len(engine.scheduler.active) != ENGINE["num_slots"]:
+        raise AssertionError("a request of the profiled window finished early")
 
 
 def _time_ms(fn, iters=50):
@@ -865,11 +1115,13 @@ def _summary(samples, nbytes, flops, dtype, peak_flops=None):
     return out
 
 
-def _with_device_ms(fns):
-    """Eager times of ``fns`` in turns, and ``device_ms``: the kernel's
-    (``fns["ms"]``) from a CUDA graph."""
+def _with_device_ms(fns, library_graph):
+    """Eager times of ``fns`` in turns, and from CUDA graphs in turns
+    ``device_ms`` (the kernel, ``fns["ms"]``) and ``library_device_ms``
+    (``library_graph``)."""
     samples = _time_in_turns(fns)
-    samples["device_ms"] = _time_in_turns({"ms": fns["ms"]}, graphs=True)["ms"]
+    samples.update(_time_in_turns({"device_ms": fns["ms"], "library_device_ms": library_graph},
+                                  graphs=True))
     return samples
 
 
@@ -879,9 +1131,11 @@ def phase_times_layer_norm(dev):
     d_model: 512 x 512), fp32 and bf16; the kernel's device time from a
     CUDA graph beside the eager times. Library: the
     forward of torch.nn.functional.layer_norm and its autograd backward
-    (dx, dgamma, dbeta). Bytes: each input read once and each output
-    written once; operations: about 8 (forward) and 12 (backward) per
-    element."""
+    (dx, dgamma, dbeta), eager; on the device from CUDA graphs, the
+    forward and aten.native_layer_norm_backward, the operator that
+    backward runs (the autograd engine itself does not capture on the
+    graph's stream). Bytes: each input read once and each output written
+    once; operations: about 8 (forward) and 12 (backward) per element."""
     from torch.nn.functional import layer_norm as torch_layer_norm
 
     from elephas_tpu_torch.ops import layer_norm as ln
@@ -899,6 +1153,8 @@ def phase_times_layer_norm(dev):
             gl = gamma.to(dtype, copy=True).requires_grad_()
             bl = beta.to(dtype, copy=True).requires_grad_()
             yl = torch_layer_norm(xl, (d,), gl, bl, LN_EPS)
+            g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
+            _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [d], g_lib, b_lib, LN_EPS)
             item = x.element_size()
             fwd = {
                 "ms": lambda: ln.layer_norm_forward(x, gamma, beta, LN_EPS),
@@ -912,12 +1168,15 @@ def phase_times_layer_norm(dev):
                                                           retain_graph=True),
             }
             tag = f"{name}_{str(dtype).split('.')[-1]}"
+            fwd_graph = lambda: torch_layer_norm(x, (d,), g_lib, b_lib, LN_EPS)  # noqa: E731
+            bwd_graph = lambda: torch.ops.aten.native_layer_norm_backward(  # noqa: E731
+                dy, x, [d], lmean, lrstd, g_lib, b_lib, [True, True, True])
             rows[f"layer_norm_fwd_{tag}"] = {"N": n, "d": d, **_summary(
-                _with_device_ms(fwd), 2 * n * d * item + 2 * d * 4 + 2 * n * 4,
+                _with_device_ms(fwd, fwd_graph), 2 * n * d * item + 2 * d * 4 + 2 * n * 4,
                 8 * n * d, dtype)}
             rows[f"layer_norm_bwd_{tag}"] = {"N": n, "d": d, **_summary(
-                _with_device_ms(bwd), 3 * n * d * item + d * 4 + 2 * n * 4 + 2 * d * 4,
-                12 * n * d, dtype)}
+                _with_device_ms(bwd, bwd_graph),
+                3 * n * d * item + d * 4 + 2 * n * 4 + 2 * d * 4, 12 * n * d, dtype)}
     emit({"phase": "times", "kernel": "layer_norm", "timing": GRAPH_TIMING, **rows})
     return rows
 
@@ -960,6 +1219,48 @@ def phase_times_train(dev):
     return row
 
 
+# the span-decode rows of phase_times: the engine's decode span at its
+# workload (prompts up to 40 tokens, 32 new, windows of 16) and A's maxlen
+SPAN_TIMES = (128, 512)
+
+
+def phase_times_span_decode(dev):
+    """The span-decode kernel at the engine's decode shape (16 slots, 4
+    heads of 128, fp32) with the ragged positions of _span_inputs, beside
+    its plain version and SDPA with a boolean mask over [B, H, 1, span]
+    (the library yardstick, never called by the port), eager and from
+    CUDA graphs. Bytes: the visible K and V rows, q, out and the
+    positions; operations: 4 per visible key and dim."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from elephas_tpu_torch.ops import flash_serving as fs
+
+    b, h = ENGINE["num_slots"], CONFIGS["A"]["num_heads"]
+    d = CONFIGS["A"]["d_model"] // h
+    rows = {}
+    for span in SPAN_TIMES:
+        q, k, v, pos = _span_inputs(b, h, d, span, dev, 17)
+        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        cols = torch.arange(span, device=dev)
+        mask = (cols[None, :] <= pos[:, None])[:, None, None, :].expand(b, h, 1, span)
+        fns = {
+            "ms": lambda: fs.flash_span_decode(q, k, v, pos),
+            "plain_ms": lambda: fs.flash_span_chunk(q4, k, v, pos[:, None]),
+            "library_ms": lambda: scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
+        }
+        lib_err = (fns["library_ms"]()[:, :, 0] - fns["ms"]()).abs().max().item()
+        samples = _time_in_turns(fns)
+        graphs = _time_in_turns(fns, graphs=True)
+        samples.update({key[:-2] + "device_ms": t for key, t in graphs.items()})
+        visible = int(torch.clamp(pos.long() + 1, max=span).sum())
+        nbytes = 2 * visible * h * d * 4 + 2 * b * h * d * 4 + b * 4
+        rows[f"span{span}"] = {**_summary(samples, nbytes, 4 * visible * h * d, torch.float32),
+                               "shape": {"B": b, "H": h, "D": d, "span": span},
+                               "visible_keys": visible, "library_max_abs_diff": lib_err}
+    emit({"phase": "times", "kernel": "span_decode", "timing": GRAPH_TIMING, **rows})
+    return rows
+
+
 def _kernel_entry(name, source, replaces, launches, err, times):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -982,6 +1283,7 @@ def times_only(dev):
     emit({"phase": "build", "package": os.path.dirname(elephas_tpu_torch.__file__),
           "seconds": time.perf_counter() - t0})
     phase_serve(dev)
+    phase_engine(dev)
     phase_profile_generate(dev)
     phase_times(dev)
 
@@ -989,7 +1291,8 @@ def times_only(dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--times-only", action="store_true",
-                        help="run only the serve, generate-profile and flash times phases")
+                        help="run only the serve, engine, generate-profile and flash "
+                             "times phases")
     parser.add_argument("--package", metavar="DIR",
                         help="the directory holding the elephas_tpu_torch to drive "
                              "(with --times-only; default: beside this script)")
@@ -1017,9 +1320,11 @@ def main(argv=None) -> int:
     errs = phase_kernel(dev)
     serve = phase_serve(dev)
     train, model, batch = phase_train(dev)
+    engine, lm = phase_engine(dev)
     for path, launches, kernels in (
         ("serve", serve, ("flash_fwd", "layer_norm_fwd")),
         ("train", train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
+        ("engine", engine, ("span_decode", "flash_fwd", "layer_norm_fwd")),
     ):
         idle = [k for k in kernels if launches[k] == 0]
         if idle:
@@ -1027,12 +1332,15 @@ def main(argv=None) -> int:
     phase_profile(dev, model, batch)
     del model, batch
     phase_profile_generate(dev)
+    phase_profile_engine(dev, lm)
+    del lm
     flash = phase_times(dev)["A_B8_float32"]
     ln_times = phase_times_layer_norm(dev)
     phase_times_train(dev)
+    span_times = phase_times_span_decode(dev)
 
     print(nvidia_smi(), flush=True)
-    total = {k: serve[k] + train[k] for k in serve}
+    total = {k: serve[k] + train[k] + engine[k] for k in serve}
     emit({"kernels": [
         _kernel_entry(
             "flash_fwd", "elephas_tpu_torch/csrc/flash_fwd.cu",
@@ -1051,6 +1359,11 @@ def main(argv=None) -> int:
             "elephas_tpu/ops/layer_norm.py:66 (_bwd_kernel via _ln_bwd_rule :128)",
             total["layer_norm_bwd"], errs["layer_norm_bwd"],
             ln_times["layer_norm_bwd_train_float32"]),
+        _kernel_entry(
+            "span_decode", "elephas_tpu_torch/csrc/span_decode.cu",
+            "elephas_tpu/ops/flash_serving.py:153 (flash_span_decode: flash_span_chunk :93 "
+            "with one query row; plain XLA in the reference, not a Pallas kernel)",
+            total["span_decode"], errs["span_decode"], span_times["span128"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,12 +9,15 @@ with the flash-attention forward as a CUDA kernel written for sm_90a
 (``csrc/flash_fwd.cu``). The second trains through :class:`SparkModel`
 (one device), with the LayerNorm forward and backward as CUDA kernels
 (``csrc/layer_norm.cu``, behind :class:`FusedLayerNorm`), the flash
-backward in plain PyTorch, and Keras's Adam. Entry points run on ``cuda``
-by default; only an explicit ``device="cpu"`` selects the CPU, where the
-kernels' plain PyTorch versions run.
+backward in plain PyTorch, and Keras's Adam. The fifth serves through the
+continuous-batching :class:`InferenceEngine` on the fixed KV arena and
+``generate(kv_cache=True)``, with decode attention as a CUDA kernel
+(``csrc/span_decode.cu``). Entry points run on ``cuda`` by default; only an
+explicit ``device="cpu"`` selects the CPU, where the kernels' plain
+PyTorch versions run.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from elephas_tpu_torch.models.transformer import (  # noqa: F401
     FusedLayerNorm,
@@ -22,12 +25,15 @@ from elephas_tpu_torch.models.transformer import (  # noqa: F401
     transformer_classifier,
     transformer_lm,
 )
+from elephas_tpu_torch.serving import InferenceEngine, RequestCancelled  # noqa: F401
 from elephas_tpu_torch.spark_model import SparkModel, load_spark_model  # noqa: F401
 from elephas_tpu_torch.utils.rdd_utils import to_simple_rdd  # noqa: F401
 from elephas_tpu_torch.utils.weights import keras_weights, load_keras_weights  # noqa: F401
 
 __all__ = [
     "FusedLayerNorm",
+    "InferenceEngine",
+    "RequestCancelled",
     "SparkModel",
     "generate",
     "keras_weights",

@@ -11,8 +11,11 @@ Counterpart of ``elephas_tpu/models/transformer.py``:
 - :func:`transformer_lm` — causal decoder-only language model.
   Both builders compile the module as the reference compiles its model
   (Keras's Adam, the loss, ``accuracy``; :mod:`elephas_tpu_torch.training`).
-- :func:`generate` — autoregressive sampling, recomputing the fixed
-  ``maxlen`` sequence every step.
+- :func:`generate` — autoregressive sampling: recomputing the fixed
+  ``maxlen`` sequence every step, or (``kv_cache=True``) one token a step
+  through the decode step of :mod:`elephas_tpu_torch.serving.kv_cache`.
+- :func:`validate_token_decode_model` — the gate of cached decode and of
+  the serving engine.
 
 The modules keep the reference's layer names, so Keras weights load by
 path (:func:`elephas_tpu_torch.utils.weights.load_keras_weights`).
@@ -29,9 +32,16 @@ from torch.nn import functional as F
 
 from elephas_tpu_torch.device import resolve_device
 from elephas_tpu_torch.ops.flash_attention import (
+    attention_reference,
     flash_attention,
     flash_attention_qkv,
     flash_forward_reference,
+)
+from elephas_tpu_torch.ops.flash_serving import (
+    flash_causal_prefill,
+    flash_span_decode,
+    span_bucket_for,
+    span_buckets,
 )
 from elephas_tpu_torch.ops.layer_norm import layer_norm, layer_norm_forward_reference
 from elephas_tpu_torch.optimizers import Adam
@@ -45,10 +55,6 @@ _BF16_TODO = (
     "dtype_policy={!r} is not ported yet: the port trains and serves "
     "float32 (ROADMAP.md, Queue A item 2: the mixed_bfloat16 policy follows "
     "the float32 training slice)"
-)
-_KV_CACHE_TODO = (
-    "generate(kv_cache=True) is not ported yet (ROADMAP.md, Queue A item 1: "
-    "cached decode and the InferenceEngine)"
 )
 
 
@@ -87,7 +93,9 @@ class FlashMHA(nn.Module):
     the reference's fused Dense lays it out). ``plain=True`` in
     :meth:`forward` computes the attention core with the kernel's plain
     version on any device — the reference a run on the card is checked
-    against."""
+    against. :meth:`prefill` and :meth:`decode` are the serving
+    counterparts of ``elephas_tpu/serving/kv_cache.py``'s attention
+    handlers: they write K/V into a slot arena in place."""
 
     def __init__(self, d_model: int, num_heads: int, head_dim: int,
                  causal: bool = False, rope: bool = False,
@@ -125,6 +133,63 @@ class FlashMHA(nn.Module):
         else:
             out = flash_attention(q, k, v, causal=self.causal)
         return self.proj(out.transpose(1, 2).reshape(b, s, h * d))
+
+    def prefill(self, x, cache_k, cache_v, slots, attention: str = "flash"):
+        """Causal attention of a bucket of prompts from position 0: ``x``
+        ``[n, S, d_model]`` for the arena slots ``slots`` (``[n]`` int64).
+        Writes positions ``0..S-1`` of those slots' rows of ``cache_k`` /
+        ``cache_v`` (``[slots, maxlen, H, D]``) in place and returns
+        ``[n, S, d_model]``. ``attention="naive"`` takes the dense softmax
+        (the reference's parity oracle) instead of the flash forward."""
+        n, s, _ = x.shape
+        h, d = self.num_heads, self.head_dim
+        qkv = self.qkv(x).view(n, s, 3, h, d)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [n, H, S, D]
+        if self.rope:
+            cos, sin = self.rope_cos[:s], self.rope_sin[:s]
+            q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
+        if attention == "flash":
+            out = flash_causal_prefill(q, k, v, scale=d ** -0.5)
+        else:
+            out = attention_reference(q, k, v, causal=True)
+        cache_k[slots, :s] = k.transpose(1, 2)
+        cache_v[slots, :s] = v.transpose(1, 2)
+        return self.proj(out.transpose(1, 2).reshape(n, s, h * d))
+
+    def decode(self, x, positions, cache_k, cache_v, active=None,
+               attention: str = "flash", span: int | None = None):
+        """One token for every arena slot: ``x`` ``[B, d_model]`` at the
+        per-slot ``positions`` (``[B]`` int32, on ``x``'s device). Writes
+        each slot's K/V at its position into ``cache_k`` / ``cache_v``
+        (``[B, maxlen, H, D]``) in place, where ``active`` (``[B]`` bool,
+        ``None`` = every slot) holds, and attends over the keys at
+        positions ``<= positions[b]`` of ``cache[:, :span]`` (``span``
+        ``None`` = ``maxlen``). Fixed shapes, no host sync. Returns
+        ``[B, d_model]``."""
+        b = x.shape[0]
+        h, d = self.num_heads, self.head_dim
+        q, k, v = self.qkv(x).view(b, 3, h, d).unbind(1)  # [B, H, D]
+        idx = positions.long()
+        if self.rope:
+            cos, sin = self.rope_cos[idx][:, None], self.rope_sin[idx][:, None]
+            q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
+        lanes = torch.arange(b, device=x.device)
+        if active is not None:
+            keep = active[:, None, None]
+            k = torch.where(keep, k, cache_k[lanes, idx])
+            v = torch.where(keep, v, cache_v[lanes, idx])
+        cache_k[lanes, idx] = k
+        cache_v[lanes, idx] = v
+        span = cache_k.shape[1] if span is None else int(span)
+        ck, cv = cache_k[:, :span], cache_v[:, :span]
+        if attention == "flash":
+            out = flash_span_decode(q.contiguous(), ck, cv, positions, scale=d ** -0.5)
+        else:
+            att = torch.einsum("bhd,bshd->bhs", q, ck) * d ** -0.5
+            visible = torch.arange(span, device=x.device)[None, None, :] <= idx[:, None, None]
+            att = torch.softmax(att.masked_fill(~visible, -torch.inf), dim=-1)
+            out = torch.einsum("bhs,bshd->bhd", att, cv)
+        return self.proj(out.reshape(b, h * d))
 
 
 class FusedLayerNorm(nn.Module):
@@ -191,6 +256,10 @@ class Block(nn.Module):
 
     def forward(self, x, plain: bool = False):
         x = x + self.drop1(self.attn(self.ln1(x, plain=plain), plain=plain))
+        return self.mlp(x, plain=plain)
+
+    def mlp(self, x, plain: bool = False):
+        """``x`` plus the MLP branch: LayerNorm → Dense(gelu) → Dense."""
         h = self.mlp2(F.gelu(self.mlp1(self.ln2(x, plain=plain))))
         return x + self.drop2(h)
 
@@ -398,6 +467,70 @@ def _validate_decode_args(model, prompt, steps, top_k, top_p):
     return prompt, b, p, maxlen, vocab
 
 
+def validate_token_decode_model(model, what: str = "kv_cache decode",
+                                hint: str = "use kv_cache=False"):
+    """Compatibility gate for token-at-a-time cached decode, shared by
+    ``generate(kv_cache=True)`` and the serving engine
+    (:mod:`elephas_tpu_torch.serving`): a :func:`transformer_lm` module
+    whose every ``FlashMHA`` is causal and whose weights are float32.
+    Returns the attention layers as ``[(name, FlashMHA)]`` by their Keras
+    names (``blk{i}_attn``); raises ``ValueError`` (messages prefixed
+    ``what``, suffixed ``hint``, as the reference words them) otherwise."""
+    if not isinstance(model, _Transformer):
+        raise ValueError(
+            f"{what} needs a transformer_lm module (token embedding, FlashMHA "
+            f"blocks, final LayerNorm), got {type(model).__name__}; {hint} for "
+            f"this architecture"
+        )
+    layers = [(f"blk{i}_attn", blk.attn) for i, blk in enumerate(model.blocks)]
+    for name, attn in layers:
+        if not attn.causal:
+            raise ValueError(
+                f"{what} is causal by construction, but FlashMHA "
+                f"layer {name!r} has causal=False; {hint}"
+            )
+    if not isinstance(model, TransformerLM):
+        raise ValueError(
+            f"{what} replays the model one token at a time; "
+            f"{type(model).__name__} pools the sequence axis — {hint}"
+        )
+    dtype = model.tok_embed.weight.dtype
+    if dtype != torch.float32:
+        raise ValueError(
+            f"{what} computes in float32, which would diverge "
+            f"from this model's {dtype} forward (argmax flips "
+            f"where top logits are close) — {hint} for "
+            f"mixed-precision models"
+        )
+    return layers
+
+
+def _generate_cached(model, prompt, b, p, steps, temperature, top_k, top_p, seed):
+    """KV-cache decode (reference ``_generate_cached``): prompt and
+    continuation run one token a step through the decode step of the
+    serving arena, every row at position ``t``; prompt positions keep
+    their token, and only generated positions sample (and advance the
+    generator), as in the recomputing path."""
+    # the serving package imports this module: import it at call time
+    from elephas_tpu_torch.serving.kv_cache import SlotKVCache, token_decode_step
+
+    layers = validate_token_decode_model(model, "kv_cache decode", "use kv_cache=False")
+    dev = model.device
+    maxlen = int(model.maxlen)
+    cache = SlotKVCache(layers, b, maxlen, dev)
+    tokens = torch.zeros(b, maxlen, dtype=torch.long, device=dev)
+    tokens[:, :p] = torch.from_numpy(prompt.astype(np.int64))
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    buckets = span_buckets(maxlen)
+    for t in range(p + steps - 1):
+        positions = torch.full((b,), t, dtype=torch.int32, device=dev)
+        logits = token_decode_step(model, tokens[:, t], positions, cache,
+                                   span=span_bucket_for(t + 1, buckets))
+        if t + 1 >= p:
+            tokens[:, t + 1] = _sample_logits(logits, generator, temperature, top_k, top_p)
+    return tokens[:, : p + steps].to(torch.int32).cpu().numpy()
+
+
 @torch.inference_mode()
 def generate(
     model,
@@ -421,13 +554,15 @@ def generate(
     The sequence stays at the model's fixed ``maxlen``, zero-padded
     (causal attention makes positions ``>= t`` inert), and each step
     recomputes the whole prefix: step ``t`` samples from
-    ``logits[:, t - 1]`` and writes ``tokens[:, t]``. Runs on the
-    model's device."""
-    if kv_cache:
-        raise NotImplementedError(_KV_CACHE_TODO)
+    ``logits[:, t - 1]`` and writes ``tokens[:, t]``. ``kv_cache=True``
+    instead decodes one token a step over per-layer K/V caches (the span
+    decode kernel on the card); models it cannot run raise
+    (:func:`validate_token_decode_model`). Runs on the model's device."""
     prompt, b, p, maxlen, _vocab = _validate_decode_args(
         model, prompt, steps, top_k, top_p
     )
+    if kv_cache:
+        return _generate_cached(model, prompt, b, p, steps, temperature, top_k, top_p, seed)
     dev = model.device
     tokens = torch.zeros(b, maxlen, dtype=torch.long, device=dev)
     tokens[:, :p] = torch.from_numpy(prompt.astype(np.int64))

@@ -21,6 +21,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
     "flash_fwd": _PKG / "csrc" / "flash_fwd.cu",
     "layer_norm": _PKG / "csrc" / "layer_norm.cu",
+    "span_decode": _PKG / "csrc" / "span_decode.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_TIMEOUT_S = 600

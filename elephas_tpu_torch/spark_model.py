@@ -12,7 +12,9 @@ Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP.md item: more than one worker, the parameter server, model,
 pipeline and sequence parallelism, streaming inputs, ``validation_split``,
 checkpoints and ``resume``, ``save``/``load_spark_model``, and the serving
-engine. ``mixed_bfloat16`` is refused by the model builders.
+engine's options beyond the fixed arena (:meth:`SparkModel.serve`).
+``mixed_bfloat16`` is refused by ``transformer_lm`` and
+``transformer_classifier``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from torch import nn
 
 from elephas_tpu_torch.data.rdd import Rdd
 from elephas_tpu_torch.device import resolve_device, worker_count
+from elephas_tpu_torch.serving import InferenceEngine
 from elephas_tpu_torch.utils import rdd_utils
 from elephas_tpu_torch.worker import Runner
 
@@ -30,8 +33,8 @@ _TRAINING_TODO = (
     "slice left out)"
 )
 _SERVING_TODO = (
-    "the serving engine is not ported yet (ROADMAP.md, Queue A item 1: "
-    "cached decode and the InferenceEngine)"
+    "serve({}) is not ported yet (ROADMAP.md, Queue A item 3: the "
+    "gateway and SLO tenants)"
 )
 
 
@@ -149,8 +152,20 @@ class SparkModel:
     def save(self, file_name: str, overwrite: bool = False) -> None:
         raise NotImplementedError(_TRAINING_TODO.format("save/load_spark_model"))
 
-    def serve(self, *args, **kwargs):
-        raise NotImplementedError(_SERVING_TODO)
+    def serve(self, num_slots: int = 8, tenants=None, gateway_port: int | None = None,
+              **engine_options):
+        """A continuous-batching :class:`~elephas_tpu_torch.serving.\
+InferenceEngine` over the wrapped model, on this wrapper's device.
+        ``engine_options`` go to the engine (``top_k``, ``top_p``,
+        ``seed``, ``buckets``, ``steps_per_sync``, ``attention``; its
+        unported options raise there). Submit with ``engine.submit(prompt,
+        max_new_tokens, temperature=, eos_id=)``, drive with
+        ``engine.step()`` / ``stream()`` / ``run()``."""
+        for name, value in (("tenants", tenants), ("gateway_port", gateway_port)):
+            if value is not None:
+                raise NotImplementedError(_SERVING_TODO.format(f"{name}={value!r}"))
+        return InferenceEngine(self._master_network, num_slots=num_slots,
+                               device=self.device, **engine_options)
 
 
 def load_spark_model(file_name: str, **kwargs) -> SparkModel:

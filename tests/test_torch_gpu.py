@@ -1,6 +1,6 @@
 """The port's CUDA kernels (flash forward, LayerNorm forward and
-backward) against their plain versions, and one SparkModel fit, on the
-card.
+backward, span decode) against their plain versions, one SparkModel fit
+and the serving engine, on the card.
 
 Every test here needs an NVIDIA GPU with nvcc and skips elsewhere. The
 file imports torch and the port only, so it also runs where JAX is not
@@ -15,6 +15,7 @@ import torch
 
 import elephas_tpu_torch as et
 from elephas_tpu_torch.ops import flash_attention as fa
+from elephas_tpu_torch.ops import flash_serving as fs
 from elephas_tpu_torch.ops import layer_norm as ln
 
 pytestmark = pytest.mark.gpu
@@ -231,3 +232,85 @@ def test_spark_model_fit_on_cuda_matches_cpu(cuda):
         hists[dev] = et.SparkModel(model, device=dev).fit((x, y), epochs=2, batch_size=16)
     for key in ("loss", "accuracy"):
         np.testing.assert_allclose(hists["cuda:0"][key], hists["cpu"][key], rtol=1e-4)
+
+
+def _span_case(gen, d, span, b=16, h=4, maxlen=512):
+    """q and an arena cut to ``span``, with ragged positions: 0, the span's
+    last row, a stale cursor past the span and the arena's last row."""
+    q = _randn(gen, b, h, d)
+    arena_k, arena_v = _randn(gen, b, maxlen, h, d), _randn(gen, b, maxlen, h, d)
+    pos = torch.randint(0, span, (b,), generator=gen, device=gen.device, dtype=torch.int32)
+    pos[:4] = torch.tensor([0, span - 1, span + 5, maxlen - 1], dtype=torch.int32)
+    return q, arena_k[:, :span], arena_v[:, :span], pos
+
+
+@pytest.mark.parametrize("span", [64, 128, 256, 512])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_span_decode_matches_plain(cuda, d, span):
+    """Every head dim over the span ladder, against the plain version on
+    the same operands, within 1e-5 of max(1, |out|)."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 1000 + span)
+    q, k, v, pos = _span_case(gen, d, span)
+    before = fs.launches
+    out = fs.flash_span_decode(q, k, v, pos)
+    assert fs.launches == before + 1
+    ref = fs.flash_span_chunk(q[:, :, None], k, v, pos[:, None])[:, :, 0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert ((out - ref).abs() / ref.abs().clamp_min(1)).max().item() <= 1e-5
+
+
+def test_span_decode_repeats_bit_for_bit(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, pos = _span_case(gen, 128, 256)
+    assert torch.equal(fs.flash_span_decode(q, k, v, pos), fs.flash_span_decode(q, k, v, pos))
+
+
+def test_span_decode_refuses_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, pos = _span_case(gen, 64, 64, b=4, h=2, maxlen=80)
+    before = fs.launches
+    with pytest.raises(ValueError, match="float32"):
+        fs.flash_span_decode(q.bfloat16(), k, v, pos)
+    with pytest.raises(ValueError, match="float32"):
+        fs.flash_span_decode(q, k.bfloat16(), v, pos)
+    odd = torch.zeros(4, 80, 2, 65, device=cuda)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        fs.flash_span_decode(q, odd, v, pos)
+    with pytest.raises(ValueError, match=r"\[B, S, H, D\]"):
+        fs.flash_span_decode(q, k[:, :, :1], v, pos)
+    with pytest.raises(ValueError, match="int32"):
+        fs.flash_span_decode(q, k, v, pos.long())
+    with pytest.raises(ValueError, match="head_dim"):
+        fs.flash_span_decode(q[..., :48].contiguous(), k[..., :48], v[..., :48], pos)
+    assert fs.launches == before
+
+
+def test_engine_on_cuda_matches_cpu(cuda):
+    """The engine on the card (flash forward, span decode and LayerNorm
+    kernels) emits the CPU engine's tokens from the same random weights,
+    wherever the plain path's top-2 margin is at least 1e-3: a first
+    difference must sit at a near tie."""
+    cfg = dict(vocab_size=64, maxlen=64, d_model=64, num_heads=2, num_layers=2, seed=3)
+    cpu = et.transformer_lm(**cfg, device="cpu")
+    card = et.transformer_lm(**cfg, device=cuda)
+    et.load_keras_weights(card, et.keras_weights(cpu))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 64, n) for n in (3, 9, 17, 5, 12, 30)]
+    outs = {}
+    counts = (fs.launches, fa.launches, ln.fwd_launches)
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        engine = et.InferenceEngine(model, num_slots=4, steps_per_sync=4)
+        reqs = [engine.submit(p, 12) for p in prompts]
+        engine.run()
+        outs[name] = [r.tokens for r in reqs]
+    assert all(after > before for after, before in
+               zip((fs.launches, fa.launches, ln.fwd_launches), counts))
+    for prompt, got, want in zip(prompts, outs["cuda"], outs["cpu"]):
+        if got == want:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        seq = torch.tensor([list(prompt) + want[:i]])
+        with torch.inference_mode():
+            top2 = cpu(seq, plain=True)[0, -1].topk(2).values
+        assert (top2[0] - top2[1]).item() < 1e-3, (prompt, got, want)

@@ -342,10 +342,13 @@ def test_refusals():
                    dict(stream_block_steps=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             sm.fit(data, epochs=1, **kwargs)
-    for call in (lambda: sm.save("m.pt"), lambda: sm.serve(),
+    for call in (lambda: sm.save("m.pt"), lambda: sm.serve(gateway_port=0),
                  lambda: et.load_spark_model("m.pt")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
+    # the engine is ported: a classifier is refused as the reference refuses it
+    with pytest.raises(ValueError, match="causal by construction"):
+        sm.serve()
 
 
 def test_worker_count_clamps_like_the_reference(monkeypatch, caplog):

@@ -123,7 +123,7 @@ def test_generate_argument_errors_match_jax(lm_pair, prompt_len, kwargs):
 def test_unported_options_raise(lm_pair):
     _, port = lm_pair
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        et.generate(port, np.ones((1, 4), np.int32), 4, kv_cache=True)
+        et.InferenceEngine(port, prefix_cache=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         et.transformer_lm(vocab_size=8, maxlen=16, d_model=32, num_heads=2,
                           num_layers=1, dtype_policy="mixed_bfloat16", device="cpu")
@@ -176,11 +176,13 @@ def test_import_loads_no_jax_keras_or_reference():
 
 def test_import_check_walks_every_module():
     """The subprocess check above imports what ``pkgutil`` finds: every
-    module of the package, the training slice's included."""
+    module of the package, the training and serving slices' included."""
     import pkgutil
 
     found = {m.name for m in pkgutil.walk_packages(et.__path__, "elephas_tpu_torch.")}
     for name in ("ops.layer_norm", "ops.flash_attention", "training", "optimizers",
                  "worker", "spark_model", "device", "data.context", "data.rdd",
-                 "utils.rdd_utils", "utils.weights", "models.transformer"):
+                 "utils.rdd_utils", "utils.weights", "models.transformer",
+                 "ops.flash_serving", "serving.kv_cache", "serving.scheduler",
+                 "serving.engine"):
         assert f"elephas_tpu_torch.{name}" in found
