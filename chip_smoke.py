@@ -16,8 +16,10 @@ Phases, each printing one JSON line and raising on failure:
 3. kernel — each kernel against its plain PyTorch version on the card,
             at the main paths' shapes, fp32 and bf16: the flash forward
             (causal and not) and the LayerNorm forward and backward; and
-            the span decode (fp32) at the engine's slots and heads over
-            every span bucket, with ragged positions and a stale cursor;
+            the span decode (fp32) at the engine's slots and heads and at
+            a shape whose slots and heads fill the card, over every span
+            bucket and head dim, with ragged positions and a stale cursor,
+            repeating bit for bit eagerly and from a CUDA-graph replay;
 4. serve  — the serving path: generate() on transformer_lm at full width
             (config A with and without rope, config B), and one
             transformer_classifier forward, with launch counts of the
@@ -40,6 +42,11 @@ Phases, each printing one JSON line and raising on failure:
             against generate(kv_cache=False), both where the top-2 margin
             is at least 1e-3, and (c) one decode window's logits against
             the plain full forward's;
+6b. engine_long — the same engine on 16 requests of 200-440 prompt
+            tokens and 48 new tokens each, so decode spans reach 512:
+            tokens/s, TTFT, ITL, the spans the decode windows ran at,
+            check (a), and one profiled decode window at the longest
+            prompts with the span decode's share of the device time;
 7. profile — one more training step, generate() at config A batch 1
             with rope off and on, and one engine decode window, under
             torch.profiler: device time by kernel class (GEMMs, flash,
@@ -57,7 +64,9 @@ Phases, each printing one JSON line and raising on failure:
             time the replay of a CUDA graph of the 50 calls: device time,
             no host gaps (the LayerNorm rows graph the kernel and the
             library). At the training shape also the plain flash backward
-            per layer and SDPA's forward + autograd backward.
+            per layer and SDPA's forward + autograd backward. The span
+            decode also at each split count of SPLIT_SWEEP, with the
+            host time of its workspace allocation.
 
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
 summed over the serve, train and engine paths, times at config A's
@@ -65,8 +74,8 @@ attention shape, at the training rows and at the engine's decode shape,
 fp32), and last {"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
 not available or the package is not beside this script.
 
-``--times-only`` runs the card, serve, engine, generate-profile and flash
-times phases alone, for the elephas_tpu_torch package in DIR (default: beside
+``--times-only`` runs the card, serve, engine, engine_long, the engine and
+generate profiles and the flash and span-decode times phases alone, for the elephas_tpu_torch package in DIR (default: beside
 this script), building its kernels as that package builds them: run it
 for two checkouts in turns on one card to compare them.
 """
@@ -139,9 +148,11 @@ TRAIN_ROWS, TRAIN_BATCH, TRAIN_EPOCHS = 512, 128, 2
 # kernel vs plain gradients, relative to each tensor's largest gradient
 TOL_GRAD = 1e-3
 
-# span decode vs plain version: the engine's 16 slots and 4 heads at config
-# A's and config B's head dims, over every span bucket of A's maxlen
-SPAN_CASES = [(16, 4, 128), (16, 4, 64)]
+# span decode vs plain version, over every span bucket of A's maxlen: the
+# engine's 16 slots and 4 heads at every head dim (config A's 128, B's 64),
+# where the span is split over several blocks, and 64 slots of 8 heads,
+# where B·H alone fills the card (one split)
+SPAN_CASES = [(16, 4, 128), (16, 4, 64), (16, 4, 32), (16, 4, 16), (64, 8, 64)]
 SPAN_MAXLEN = 512
 # relative to max(1, |out|): the same online softmax in another order
 TOL_SPAN = 1e-5
@@ -152,6 +163,13 @@ ENGINE = dict(num_slots=16, steps_per_sync=16)
 ENGINE_PROMPT_LENS = (8, 12, 16, 24, 40)
 ENGINE_BUDGETS = (16, 32)
 ENGINE_REQUESTS = 48
+# the long-span pass: the same engine and model, 16 requests from
+# np.random.default_rng(1), all at once, prompts of a few hundred tokens
+# against a 512-token context, so decode spans reach the 512 bucket
+# (440 + 48 - 1 + 16 <= 512)
+ENGINE_LONG_PROMPT_LENS = (200, 280, 360, 440)
+ENGINE_LONG_BUDGET = 48
+ENGINE_LONG_REQUESTS = 16
 
 TIMING = "CUDA events, mean of 50 launches after 5 warm-up, median of 3 rounds in turns"
 GRAPH_TIMING = ("*device_ms: CUDA events around the replay of a CUDA graph of 50 calls "
@@ -185,7 +203,8 @@ def _instantiation(mangled):
     """A kernel's mangled name, shortened: '..flash_fwd_kernelIfLi128EE..'
     -> 'flash_fwd_kernel<float32, 128>', '..ln_fwd_kernelIfLi4EE..' ->
     'ln_fwd_kernel<float32, 4>', '..span_decode_kernelILi64EE..' ->
-    'span_decode_kernel<64>'."""
+    'span_decode_kernel<64>', '..span_decode_merge_kernelILi64EE..' ->
+    'span_decode_merge_kernel<64>'."""
     m = re.search(r"\d((?:flash|ln|span)_\w*?kernel)I(f|13__nv_bfloat16)?((?:Li\d+E)*)",
                   mangled)
     if not m:
@@ -245,16 +264,17 @@ def phase_build():
     seconds = time.perf_counter() - t0
     ptxas = {name: _ptxas_report(log["ptxas"]) for name, log in _native.build_log.items()}
     sass = _sass_counts(targets["flash_fwd"])
-    span = sorted(_sass_counts(targets["span_decode"], "span_decode_kernel"))
+    span = sorted(_sass_counts(targets["span_decode"], "span_decode"))
     emit({"phase": "build", "seconds": seconds, "sources": sorted(_native.SOURCES),
           "ptxas": ptxas, "flash_sass": sass, "span_decode_instantiations": span})
     spills = [f"{name}: {r}" for log in ptxas.values() for name, r in log.items()
               if r.get("spill_stores") or r.get("spill_loads")]
     missing = [name for name, c in sass.items() if not (c["HMMA"] and c["LDGSTS"])]
-    if spills or missing or len(sass) != 8 or len(span) != 4:
+    if spills or missing or len(sass) != 8 or len(span) != 8:
         raise AssertionError(f"build: spills {spills}; flash kernels without HMMA or "
                              f"LDGSTS {missing}; {len(sass)} flash instantiations, want 8; "
-                             f"span decode instantiations {span}, want 4")
+                             f"span decode instantiations {span}, want 8 (split and merge "
+                             f"kernels at 4 head dims)")
 
 
 def _synthetic_tokens(n, maxlen, vocab, classes, seed=0):
@@ -373,23 +393,49 @@ def _span_inputs(b, h, d, span, dev, seed):
 STALE_LANE = 2
 
 
+def _graph_replay(fn):
+    """The output of one call of ``fn`` captured in a CUDA graph (after a
+    warm-up call on a side stream) and replayed twice."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
 def _kernel_span_decode(dev):
+    """The span decode against flash_span_chunk on every SPAN_CASES shape
+    and span bucket (splits and chunk as the wrapper picks them on this
+    card); a second call and a CUDA-graph replay must give the same bits."""
     from elephas_tpu_torch.ops import flash_serving as fs
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results, failures = [], []
     for b, h, d in SPAN_CASES:
         for span in fs.span_buckets(SPAN_MAXLEN):
             q, k, v, pos = _span_inputs(b, h, d, span, dev, span + d)
             out = fs.flash_span_decode(q, k, v, pos)
+            again = fs.flash_span_decode(q, k, v, pos)
+            replayed = _graph_replay(lambda: fs.flash_span_decode(q, k, v, pos))  # noqa: B023
             ref = fs.flash_span_chunk(q[:, :, None], k, v, pos[:, None])[:, :, 0]
             torch.cuda.synchronize()
             lanes = torch.arange(b, device=dev) != STALE_LANE
             diff = (out - ref).abs()[lanes]
             err = (diff / ref.abs().clamp_min(1.0)[lanes]).max().item()
             finite = bool(torch.isfinite(out).all())
-            row = {"B": b, "H": h, "D": d, "span": span, "rel_err": err,
-                   "abs_err": diff.max().item(), "stale_lane_finite": finite,
-                   "ok": err <= TOL_SPAN and finite}
+            repeats = torch.equal(out, again) and torch.equal(out, replayed)
+            splits, chunk = fs.span_splits(span, b * h, sms)
+            row = {"B": b, "H": h, "D": d, "span": span, "splits": splits, "chunk": chunk,
+                   "rel_err": err, "abs_err": diff.max().item(),
+                   "stale_lane_finite": finite, "repeats_bit_for_bit": repeats,
+                   "ok": err <= TOL_SPAN and finite and repeats}
             results.append(row)
             if not row["ok"]:
                 failures.append(row)
@@ -676,18 +722,11 @@ def _first_divergence(got, want, logits_of):
     return None if margin < MARGIN else f"token {i}: {got[i]} vs {want[i]}, margin {margin}"
 
 
-def _engine_checks(model, reqs, dev):
-    """(a) every emitted token against the plain full forward's argmax,
-    where its top-2 margin is >= MARGIN; (b) generate(kv_cache=True)
-    against generate(kv_cache=False) on one prompt of each length, under
-    the same rule; (c) one decode window (steps_per_sync steps) of the
-    first num_slots requests through a fresh arena, logits against the
-    plain full forward's."""
-    from elephas_tpu_torch import generate
-    from elephas_tpu_torch.models.transformer import validate_token_decode_model
-    from elephas_tpu_torch.ops.flash_serving import span_bucket_for, span_buckets
-    from elephas_tpu_torch.serving.kv_cache import SlotKVCache, prefill_forward, token_decode_step
-
+def _check_emitted(model, reqs, dev):
+    """Check (a): every emitted token against the plain full forward's
+    argmax, where its top-2 margin is >= MARGIN. Returns the mismatches,
+    the differences within the margin, the failures and the plain logits
+    ``[requests, maxlen, vocab]``."""
     maxlen, vocab = model.maxlen, model.vocab_size
     failures = []
     rows = torch.zeros(len(reqs), maxlen, dtype=torch.long, device=dev)
@@ -709,7 +748,22 @@ def _engine_checks(model, reqs, dev):
         close += int((wrong & (margin < MARGIN)).sum())
     if mismatches:
         failures.append(f"(a) {mismatches} emitted tokens differ from the plain argmax")
+    return mismatches, close, failures, plain
 
+
+def _engine_checks(model, reqs, dev):
+    """(a) as _check_emitted; (b) generate(kv_cache=True) against
+    generate(kv_cache=False) on one prompt of each length, under the same
+    rule; (c) one decode window (steps_per_sync steps) of the first
+    num_slots requests through a fresh arena, logits against the plain
+    full forward's."""
+    from elephas_tpu_torch import generate
+    from elephas_tpu_torch.models.transformer import validate_token_decode_model
+    from elephas_tpu_torch.ops.flash_serving import span_bucket_for, span_buckets
+    from elephas_tpu_torch.serving.kv_cache import SlotKVCache, prefill_forward, token_decode_step
+
+    maxlen, vocab = model.maxlen, model.vocab_size
+    mismatches, close, failures, plain = _check_emitted(model, reqs, dev)
     generate_report = []
     for prompt, budget in _engine_workload(vocab, len(ENGINE_PROMPT_LENS)):
         cached = generate(model, prompt[None], budget, kv_cache=True)[0].tolist()
@@ -807,9 +861,85 @@ def phase_engine(dev):
     return launches, model
 
 
+def _long_workload(vocab):
+    rng = np.random.default_rng(1)
+    return [(rng.integers(1, vocab, size=ENGINE_LONG_PROMPT_LENS[i % len(ENGINE_LONG_PROMPT_LENS)])
+             .astype(np.int32), ENGINE_LONG_BUDGET) for i in range(ENGINE_LONG_REQUESTS)]
+
+
+def phase_engine_long(dev, model):
+    """The engine of phase ``engine`` (config A, fp32, 16 slots, windows of
+    16, flash) on the long-span workload: a warm-up pass, then the timed
+    pass with every request submitted at once; tokens/s, TTFT, ITL, the
+    span buckets the decode windows ran at and the launches, check (a) on
+    every emitted token; then one decode window of 16 busy slots at the
+    longest prompts under the profiler, with the span decode's share of
+    the step's device time."""
+    from elephas_tpu_torch import InferenceEngine
+    from elephas_tpu_torch.ops import flash_serving as fs
+
+    layers = CONFIGS["A"]["num_layers"]
+    workload = _long_workload(model.vocab_size)
+    engine = InferenceEngine(model, **ENGINE)
+    engine.run(workload)
+    spans = {}
+    inner = fs._forward
+
+    def counted(q, gk, *args):
+        spans[gk.shape[1]] = spans.get(gk.shape[1], 0) + 1
+        return inner(q, gk, *args)
+
+    steps0 = engine.scheduler._steps
+    torch.cuda.synchronize(dev)
+    _reset_launches()
+    fs._forward = counted
+    try:
+        t0 = time.perf_counter()
+        reqs = [engine.submit(prompt, budget) for prompt, budget in workload]
+        engine.run()
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        fs._forward = inner
+    launches = _launches()
+    steps = engine.scheduler._steps - steps0
+    failures = []
+    # every decode step of a window launches the span decode once a layer
+    # (a window's tail runs on when its last request has finished)
+    calls = sum(spans.values())
+    forwards = (launches["flash_fwd"] + launches["span_decode"]) / layers
+    if launches["span_decode"] != calls or calls % layers or calls < layers * steps \
+            or launches["layer_norm_fwd"] != (2 * layers + 1) * forwards \
+            or max(spans) != SPAN_MAXLEN:
+        failures.append(f"launches {launches} for {calls} span-decode calls over {steps} "
+                        f"decode steps of {layers} layers, spans {spans}")
+    mismatches, close, check_failures, _ = _check_emitted(model, reqs, dev)
+    failures += check_failures
+    tokens = sum(len(r.tokens) for r in reqs)
+    ttfts = [r.ttft for r in reqs]
+    itls = [d for r in reqs for d in r.inter_token_times]
+    emit({"phase": "engine_long", "config": CONFIGS["A"], "options": ENGINE,
+          "requests": len(reqs), "prompt_lens": ENGINE_LONG_PROMPT_LENS,
+          "budget": ENGINE_LONG_BUDGET, "generated_tokens": tokens, "seconds": seconds,
+          "tokens_s": tokens / seconds,
+          "ttft_s": {"p50": float(np.percentile(ttfts, 50)),
+                     "p99": float(np.percentile(ttfts, 99))},
+          "inter_token_s": {"p50": float(np.percentile(itls, 50)),
+                            "p99": float(np.percentile(itls, 99))},
+          "decode_steps": steps, "span_decode_calls_by_span": spans, "launches": launches,
+          "a_token_mismatches": mismatches, "a_within_margin": close,
+          "nvidia_smi": nvidia_smi(), "failures": failures})
+    if failures:
+        raise AssertionError(f"long-span engine check failed: {failures}")
+    prompts = sorted((p for p, _ in workload), key=len)[-ENGINE["num_slots"]:]
+    phase_profile_engine(dev, model, prompts, "long-span prompts "
+                         f"{ENGINE_LONG_PROMPT_LENS}")
+
+
 # kernel name fragment → class, first match wins
 KERNEL_CLASSES = (
     ("flash_fwd_kernel", "flash_fwd"),
+    ("span_decode_merge_kernel", "span_decode_merge"),
     ("span_decode_kernel", "span_decode"),
     ("ln_fwd_kernel", "layer_norm_fwd"),
     ("ln_bwd", "layer_norm_bwd"),
@@ -958,21 +1088,32 @@ def phase_profile_generate(dev):
         del model
 
 
-def phase_profile_engine(dev, model):
+def phase_profile_engine(dev, model, prompts=None, what="E's prompts"):
     """One decode window of the engine at config A (16 busy slots, 16
-    steps), after a warm-up window: the wrappers' host time, then the same
-    under torch.profiler; every figure per decode step."""
+    steps; ``prompts``, one a slot, default the first of E's workload),
+    after a warm-up window: the wrappers' host time, then the same under
+    torch.profiler; every figure per decode step, with the span decode's
+    share of the device time (its two kernels)."""
     from elephas_tpu_torch import InferenceEngine
 
     steps = ENGINE["steps_per_sync"]
     engine = InferenceEngine(model, **ENGINE)
-    for prompt, _ in _engine_workload(model.vocab_size, ENGINE["num_slots"]):
+    if prompts is None:
+        prompts = [p for p, _ in _engine_workload(model.vocab_size, ENGINE["num_slots"])]
+    for prompt in prompts:
         engine.submit(prompt, 4 * steps)  # busy through the three windows below
     engine.step()  # prefill and the warm-up window
+    span = engine._decode_span()
     host = _wrapper_host_ms(dev, engine.step, steps)
     out = _profile(dev, engine.step, f"engine decode window at config A, "
-                   f"{ENGINE['num_slots']} slots, per step of {steps}", per=steps, extra=host)
-    if out["device_ms"] > 0 and not out.get("by_class_ms", {}).get("span_decode", 0.0) > 0:
+                   f"{ENGINE['num_slots']} slots ({what}), per step of {steps}", per=steps,
+                   extra={**host, "span": span})
+    by_class = out.get("by_class_ms", {})
+    share = (by_class.get("span_decode", 0.0) + by_class.get("span_decode_merge", 0.0)) \
+        / out["device_ms"] if out["device_ms"] > 0 else None
+    emit({"phase": "profile", "what": f"span decode share of the engine step ({what})",
+          "span": span, "span_decode_share_of_device": share})
+    if out["device_ms"] > 0 and not by_class.get("span_decode", 0.0) > 0:
         raise AssertionError("the engine profile shows no span_decode_kernel time")
     if len(engine.scheduler.active) != ENGINE["num_slots"]:
         raise AssertionError("a request of the profiled window finished early")
@@ -1127,8 +1268,9 @@ def _with_device_ms(fns, library_graph):
 
 def phase_times_layer_norm(dev):
     """The LayerNorm kernels at the training rows (batch x maxlen rows of
-    d_model: 32768 x 1024) and at config A's generate rows (maxlen rows of
-    d_model: 512 x 512), fp32 and bf16; the kernel's device time from a
+    d_model: 32768 x 1024), at config A's generate rows (maxlen rows of
+    d_model: 512 x 512) and at the engine's decode rows (one a slot: 16 x
+    512), fp32 and bf16; the kernel's device time from a
     CUDA graph beside the eager times. Library: the
     forward of torch.nn.functional.layer_norm and its autograd backward
     (dx, dgamma, dbeta), eager; on the device from CUDA graphs, the
@@ -1142,7 +1284,8 @@ def phase_times_layer_norm(dev):
 
     rows = {}
     shapes = {"train": (TRAIN_BATCH * TRAIN["maxlen"], TRAIN["d_model"]),
-              "A": (CONFIGS["A"]["maxlen"], CONFIGS["A"]["d_model"])}
+              "A": (CONFIGS["A"]["maxlen"], CONFIGS["A"]["d_model"]),
+              "E": (ENGINE["num_slots"], CONFIGS["A"]["d_model"])}
     for name, (n, d) in shapes.items():
         for dtype in (torch.float32, torch.bfloat16):
             x, gamma, beta, dy = _ln_inputs(n, d, dtype, dev, 11)
@@ -1219,9 +1362,44 @@ def phase_times_train(dev):
     return row
 
 
-# the span-decode rows of phase_times: the engine's decode span at its
-# workload (prompts up to 40 tokens, 32 new, windows of 16) and A's maxlen
-SPAN_TIMES = (128, 512)
+# the span-decode rows of phase_times: every span bucket of A's maxlen
+# (E's decode windows run at 64 and 128, the long-span pass up to 512)
+SPAN_TIMES = (64, 128, 256, 512)
+# split counts timed beside the wrapper's own pick, at each span
+SPLIT_SWEEP = (1, 2, 4, 8, 16)
+
+
+def _split_sweep(fs, q, k, v, pos):
+    """{splits: [device ms, eager ms]} of the span decode with span_splits
+    replaced by each split count of SPLIT_SWEEP that leaves every split at
+    least fs.SPLIT_MIN_KEYS positions; medians of 3 graph replays and of 3
+    eager runs (the eager time shows the host cost of a split: the
+    workspace and the second launch)."""
+    span, pick = k.shape[1], fs.span_splits
+    out = {}
+    try:
+        for n in SPLIT_SWEEP:
+            if n > 1 and span < n * fs.SPLIT_MIN_KEYS:
+                continue
+            chunk = -(-span // n)
+            fs.span_splits = lambda *_, c=chunk: (-(-span // c), c)
+            fn = lambda: fs.flash_span_decode(q, k, v, pos)  # noqa: E731
+            graph = _graph(fn)
+            out[n] = [float(np.median([_graph_ms(graph) for _ in range(3)])),
+                      float(np.median([_time_ms(fn) for _ in range(3)]))]
+    finally:
+        fs.span_splits = pick
+    return out
+
+
+def _alloc_host_ms(numel, dev, iters=1000):
+    """Host ms of one torch.empty of ``numel`` float32 on ``dev`` (the
+    wrapper's workspace), freed at once: the caching allocator's path."""
+    torch.empty(numel, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        torch.empty(numel, dtype=torch.float32, device=dev)
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def phase_times_span_decode(dev):
@@ -1230,13 +1408,20 @@ def phase_times_span_decode(dev):
     its plain version and SDPA with a boolean mask over [B, H, 1, span]
     (the library yardstick, never called by the port), eager and from
     CUDA graphs. Bytes: the visible K and V rows, q, out and the
-    positions; operations: 4 per visible key and dim."""
+    positions; operations: 4 per visible key and dim. Each span also
+    times the kernel at each split count of SPLIT_SWEEP (span_splits
+    replaced for the sweep), and the host time of the workspace
+    allocation the wrapper makes per call; both are skipped for a package
+    whose span decode does not split (an earlier checkout, with
+    --times-only)."""
     from torch.nn.functional import scaled_dot_product_attention
 
     from elephas_tpu_torch.ops import flash_serving as fs
 
     b, h = ENGINE["num_slots"], CONFIGS["A"]["num_heads"]
     d = CONFIGS["A"]["d_model"] // h
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splitting = hasattr(fs, "span_splits")
     rows = {}
     for span in SPAN_TIMES:
         q, k, v, pos = _span_inputs(b, h, d, span, dev, 17)
@@ -1254,9 +1439,16 @@ def phase_times_span_decode(dev):
         samples.update({key[:-2] + "device_ms": t for key, t in graphs.items()})
         visible = int(torch.clamp(pos.long() + 1, max=span).sum())
         nbytes = 2 * visible * h * d * 4 + 2 * b * h * d * 4 + b * 4
-        rows[f"span{span}"] = {**_summary(samples, nbytes, 4 * visible * h * d, torch.float32),
-                               "shape": {"B": b, "H": h, "D": d, "span": span},
-                               "visible_keys": visible, "library_max_abs_diff": lib_err}
+        row = {**_summary(samples, nbytes, 4 * visible * h * d, torch.float32),
+               "shape": {"B": b, "H": h, "D": d, "span": span}, "visible_keys": visible,
+               "library_max_abs_diff": lib_err}
+        if splitting:
+            splits, chunk = fs.span_splits(span, b * h, sms)
+            row.update({"splits": splits, "chunk": chunk,
+                        "split_sweep_device_ms_eager_ms": _split_sweep(fs, q, k, v, pos),
+                        "workspace_alloc_host_ms": _alloc_host_ms(
+                            b * h * splits * (d + 2), dev) if splits > 1 else 0.0})
+        rows[f"span{span}"] = row
     emit({"phase": "times", "kernel": "span_decode", "timing": GRAPH_TIMING, **rows})
     return rows
 
@@ -1272,9 +1464,11 @@ def _kernel_entry(name, source, replaces, launches, err, times):
 
 
 def times_only(dev):
-    """The phases that time the main path (serve, the generate profiles,
-    the flash rows) for the package that ``elephas_tpu_torch`` imports,
-    with its kernels built as that package builds them."""
+    """The phases that time the main path (serve, the engine and its
+    long-span pass with their decode-window profiles, the generate
+    profiles, the flash and span-decode rows) for the package that
+    ``elephas_tpu_torch`` imports, with its kernels built as that package
+    builds them."""
     import elephas_tpu_torch
     from elephas_tpu_torch.ops import _native
 
@@ -1283,16 +1477,20 @@ def times_only(dev):
     emit({"phase": "build", "package": os.path.dirname(elephas_tpu_torch.__file__),
           "seconds": time.perf_counter() - t0})
     phase_serve(dev)
-    phase_engine(dev)
+    _, lm = phase_engine(dev)
+    phase_engine_long(dev, lm)
+    phase_profile_engine(dev, lm)
+    del lm
     phase_profile_generate(dev)
     phase_times(dev)
+    phase_times_span_decode(dev)
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--times-only", action="store_true",
-                        help="run only the serve, engine, generate-profile and flash "
-                             "times phases")
+                        help="run only the serve, engine, engine_long, profile and "
+                             "flash and span-decode times phases")
     parser.add_argument("--package", metavar="DIR",
                         help="the directory holding the elephas_tpu_torch to drive "
                              "(with --times-only; default: beside this script)")
@@ -1321,6 +1519,7 @@ def main(argv=None) -> int:
     serve = phase_serve(dev)
     train, model, batch = phase_train(dev)
     engine, lm = phase_engine(dev)
+    phase_engine_long(dev, lm)
     for path, launches, kernels in (
         ("serve", serve, ("flash_fwd", "layer_norm_fwd")),
         ("train", train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),

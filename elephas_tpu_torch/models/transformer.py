@@ -51,6 +51,21 @@ from elephas_tpu_torch.training import (
     sparse_categorical_crossentropy,
 )
 
+_MESH_TODO = (
+    "generate({}) is not ported yet (ROADMAP.md, Queue A item 5: meshes and "
+    "scale-out)"
+)
+
+
+def _is_neutral(value, neutral) -> bool:
+    """``value`` leaves the behaviour as ``neutral`` does: equal to it (a
+    list of axis names equal to the tuple too), and not a bool standing in
+    for an int."""
+    if isinstance(neutral, tuple) and isinstance(value, (list, tuple)):
+        return tuple(value) == neutral
+    return type(value) is type(neutral) and value == neutral
+
+
 _BF16_TODO = (
     "dtype_policy={!r} is not ported yet: the port trains and serves "
     "float32 (ROADMAP.md, Queue A item 2: the mixed_bfloat16 policy follows "
@@ -541,6 +556,10 @@ def generate(
     top_p: float | None = None,
     seed: int = 0,
     kv_cache: bool = False,
+    mesh=None,
+    batch_axes=("data",),
+    model_axis: str | None = None,
+    rules=None,
 ):
     """Autoregressive sampling from a :func:`transformer_lm` model.
 
@@ -557,7 +576,15 @@ def generate(
     ``logits[:, t - 1]`` and writes ``tokens[:, t]``. ``kv_cache=True``
     instead decodes one token a step over per-layer K/V caches (the span
     decode kernel on the card); models it cannot run raise
-    (:func:`validate_token_decode_model`). Runs on the model's device."""
+    (:func:`validate_token_decode_model`). Runs on the model's device.
+
+    ``mesh``, ``batch_axes``, ``model_axis`` and ``rules`` are the
+    reference's mesh-aware decode: accepted at their defaults (no mesh),
+    any other value raises ``NotImplementedError``."""
+    for name, value, neutral in (("mesh", mesh, None), ("batch_axes", batch_axes, ("data",)),
+                                 ("model_axis", model_axis, None), ("rules", rules, None)):
+        if not _is_neutral(value, neutral):
+            raise NotImplementedError(_MESH_TODO.format(f"{name}={value!r}"))
     prompt, b, p, maxlen, _vocab = _validate_decode_args(
         model, prompt, steps, top_k, top_p
     )

@@ -13,9 +13,11 @@ reference, not Pallas), with the same public functions:
 - :func:`flash_span_decode` — one query row per slot over the span. A
   CUDA tensor goes through the kernel in ``csrc/span_decode.cu`` (the
   slots' positions stay on the device; the arena views are read through
-  their strides), a CPU tensor through :func:`flash_span_chunk` with one
-  query row. Anything the kernel does not take raises: there is no
-  fallback;
+  their strides; the span is split over :func:`span_splits` blocks whose
+  partials merge by lse), a CPU tensor through :func:`flash_span_chunk`
+  with one query row. Anything the kernel does not take raises: there is
+  no fallback. :func:`span_decode_split_reference` repeats the kernel's
+  split-then-merge arithmetic in plain PyTorch for the tests;
 - :func:`flash_causal_prefill` — causal attention of a prompt bucket from
   position 0: on CUDA the port's flash forward kernel
   (:func:`elephas_tpu_torch.ops.flash_attention.flash_attention`, the
@@ -33,7 +35,7 @@ import ctypes
 import torch
 
 from elephas_tpu_torch.ops import _native
-from elephas_tpu_torch.ops.flash_attention import flash_attention
+from elephas_tpu_torch.ops.flash_attention import _sm_count, flash_attention
 
 NEG_INF = -1e30
 DEFAULT_BLOCK = 128
@@ -41,6 +43,11 @@ SPAN_FLOOR = 64
 HEAD_DIMS = (16, 32, 64, 128)
 # the kernel reads K/V rows as float4: pointers and strides in multiples
 ALIGN_BYTES = 16
+# span_splits: blocks wanted on each SM, the fewest key positions a split
+# covers, and the most splits
+SPLIT_BLOCKS_PER_SM = 2
+SPLIT_MIN_KEYS = 16
+SPLIT_MAX = 64
 
 # kernel launches since the last reset (chip_smoke.py reads it)
 launches = 0
@@ -112,12 +119,67 @@ def flash_span_chunk(q, gk, gv, pos_mat, scale=None, block_k: int = DEFAULT_BLOC
     return acc / torch.where(l == 0.0, 1.0, l)[..., None]
 
 
+def span_splits(span: int, rows: int, sm_count: int) -> tuple[int, int]:
+    """How the kernel splits a span of ``span`` key positions for ``rows``
+    (batch × heads) query rows on a card of ``sm_count`` SMs: returns
+    ``(splits, chunk)``, split ``i`` covering positions ``[i·chunk,
+    (i+1)·chunk)``. Enough splits that the grid holds about
+    SPLIT_BLOCKS_PER_SM blocks an SM, none shorter than SPLIT_MIN_KEYS
+    positions, at most SPLIT_MAX; one split when ``rows`` alone fill the
+    card. Host values only: never the positions, so a call's split (and
+    its bits) do not depend on where the cursors stand."""
+    if span < 1 or rows < 1 or sm_count < 1:
+        raise ValueError(f"span_splits takes positive sizes, got {span}, {rows}, {sm_count}")
+    want = -(-SPLIT_BLOCKS_PER_SM * sm_count // rows)
+    n = max(1, min(want, -(-span // SPLIT_MIN_KEYS), SPLIT_MAX))
+    chunk = -(-span // n)
+    return -(-span // chunk), chunk
+
+
+def span_decode_split_reference(q, gk, gv, positions, splits: int, chunk: int, scale=None):
+    """The kernel's split-then-merge arithmetic in plain PyTorch (for the
+    tests; the card's reference stays :func:`flash_span_chunk`): split
+    ``i`` attends over the visible keys of positions ``[i·chunk,
+    (i+1)·chunk)`` into an unnormalised partial ``(m, l, acc)``, the empty
+    state ``(NEG_INF, 0, 0)`` when it sees none; the partials merge in
+    split order by lse. Shapes as :func:`flash_span_decode`."""
+    b, h, d = q.shape
+    s_len = int(gk.shape[1])
+    if splits * chunk < s_len:
+        raise ValueError(f"{splits} splits of {chunk} do not cover a span of {s_len}")
+    if scale is None:
+        scale = d ** -0.5
+    q = q.float()
+    n = torch.clamp(positions.long() + 1, min=0, max=s_len)  # visible keys a slot
+    parts = []
+    for i in range(splits):
+        j0, j1 = i * chunk, min(s_len, (i + 1) * chunk)
+        kt, vt = gk[:, j0:j1].float(), gv[:, j0:j1].float()  # [B, c, H, D]
+        s = torch.einsum("bhd,bkhd->bhk", q, kt) * scale
+        vis = torch.arange(j0, j1, device=q.device)[None, None, :] < n[:, None, None]
+        s = torch.where(vis, s, NEG_INF)
+        m = torch.where(vis.any(-1), s.amax(-1), NEG_INF)
+        p = torch.where(vis, torch.exp(s - m[..., None]), 0.0)
+        parts.append((m, p.sum(-1), torch.einsum("bhk,bkhd->bhd", p, vt)))
+    live = [pt[1] > 0 for pt in parts]
+    mx = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
+    for (m, _, _), ok in zip(parts, live):
+        mx = torch.where(ok, torch.maximum(mx, m), mx)
+    l = torch.zeros(b, h, dtype=torch.float32, device=q.device)
+    acc = torch.zeros(b, h, d, dtype=torch.float32, device=q.device)
+    for (m, ls, a), ok in zip(parts, live):
+        e = torch.where(ok, torch.exp(m - mx), 0.0)
+        l = l + ls * e
+        acc = acc + a * e[..., None]
+    return torch.where(l[..., None] > 0, acc / torch.where(l > 0, l, 1.0)[..., None], 0.0)
+
+
 def _kernel():
     lib = _native.library("span_decode")
     fn = lib.elephas_span_decode
     if fn.argtypes is None:
         ll = ctypes.c_longlong
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ll] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ll] * 6
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.elephas_cuda_error_string.argtypes = [ctypes.c_int]
@@ -167,21 +229,28 @@ def _check_cuda_operands(q, gk, gv, positions):
             f"positions must be contiguous int32 [{b}] on {q.device}, got "
             f"{positions.dtype} {tuple(positions.shape)} on {positions.device}"
         )
-    if b > 65535:
-        raise ValueError(f"span_decode takes at most 65535 slots, got {b}")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"span_decode takes at most 65535 slots and heads, got {b} and {h}")
 
 
 def _launch(q, gk, gv, positions, scale: float):
-    """One launch of the kernel on checked CUDA operands; returns
+    """One call of the kernel on checked CUDA operands (with more than one
+    split, the split kernel and then the merge kernel); returns
     ``[B, H, D]`` float32."""
     global launches
     b, h, d = q.shape
+    span = gk.shape[1]
+    splits, chunk = span_splits(span, b * h, _sm_count(q.device.index))
     out = torch.empty_like(q)
+    # partials: acc [B·H, splits, D] and (m, l) [B·H, splits, 2]
+    work = torch.empty(b * h * splits * (d + 2), dtype=torch.float32, device=q.device) \
+        if splits > 1 else None
     lib = _kernel()
     with torch.cuda.device(q.device):
         err = lib.elephas_span_decode(
             q.data_ptr(), gk.data_ptr(), gv.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            b, h, d, gk.shape[1], *gk.stride()[:3], *gv.stride()[:3], float(scale),
+            None if work is None else work.data_ptr(), b, h, d, span, splits, chunk,
+            *gk.stride()[:3], *gv.stride()[:3], float(scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:

@@ -37,7 +37,11 @@ import numpy as np
 import torch
 
 from elephas_tpu_torch.device import resolve_device
-from elephas_tpu_torch.models.transformer import _filter_logits, validate_token_decode_model
+from elephas_tpu_torch.models.transformer import (
+    _filter_logits,
+    _is_neutral,
+    validate_token_decode_model,
+)
 from elephas_tpu_torch.ops.flash_serving import span_bucket_for, span_buckets
 from elephas_tpu_torch.serving.kv_cache import SlotKVCache, prefill_forward, token_decode_step
 from elephas_tpu_torch.serving.scheduler import Request, Scheduler, default_buckets
@@ -82,33 +86,55 @@ class InferenceEngine:
     softmax over the whole ``maxlen`` row, the parity oracle. ``device``
     defaults to the model's device; the engine runs where the model is.
 
-    The other options of the reference raise ``NotImplementedError``."""
+    Every other keyword of the reference is accepted: at the value that
+    leaves the behaviour unchanged (the reference's default, and
+    ``flight_recorder=None`` or ``0``: the port records nothing yet), any
+    other value raising ``NotImplementedError`` that names its ROADMAP.md
+    item."""
 
     def __init__(self, model, num_slots: int = 8, mesh=None,
+                 batch_axes=("data",), model_axis=None, rules=None,
                  top_k: int | None = None, top_p: float | None = None,
                  seed: int = 0, buckets=None, steps_per_sync: int = 1,
                  prefix_cache: bool = False,
+                 prefix_min_reuse: int = 1,
                  prefill_chunk: int | None = None,
+                 prefill_budget: int | None = None,
                  paged: bool = False,
+                 block_size: int | None = None,
+                 num_blocks: int | None = None,
                  preemption: bool = False,
                  kv_dtype: str = "fp",
                  speculative: bool = False,
+                 spec_k: int | None = None,
+                 spec_drafter=None,
                  policy=None,
                  attention: str = "flash",
                  sp_prefill=None,
+                 sp_axis: str = "seq",
+                 sp_threshold: int | None = None,
+                 sp_mechanism: str = "ring",
+                 flight_recorder: int | None = None,
                  device=None):
         layers = validate_token_decode_model(
             model, what="the serving engine", hint="use one-shot generate()"
         )
+        # (name, value, the value that leaves the behaviour unchanged, item)
         unported = (
-            ("prefix_cache", prefix_cache, 1), ("prefill_chunk", prefill_chunk, 1),
-            ("paged", paged, 3), ("preemption", preemption, 3),
-            ("kv_dtype", kv_dtype if kv_dtype != "fp" else None, 3),
-            ("speculative", speculative, 3), ("policy", policy, 3),
-            ("sp_prefill", sp_prefill, 5), ("mesh", mesh, 5),
+            ("prefix_cache", prefix_cache, False, 1), ("prefix_min_reuse", prefix_min_reuse, 1, 1),
+            ("prefill_chunk", prefill_chunk, None, 1), ("prefill_budget", prefill_budget, None, 1),
+            ("paged", paged, False, 3), ("block_size", block_size, None, 3),
+            ("num_blocks", num_blocks, None, 3), ("preemption", preemption, False, 3),
+            ("kv_dtype", kv_dtype, "fp", 3), ("speculative", speculative, False, 3),
+            ("spec_k", spec_k, None, 3), ("spec_drafter", spec_drafter, None, 3),
+            ("policy", policy, None, 3), ("flight_recorder", flight_recorder or None, None, 3),
+            ("mesh", mesh, None, 5), ("batch_axes", batch_axes, ("data",), 5),
+            ("model_axis", model_axis, None, 5), ("rules", rules, None, 5),
+            ("sp_prefill", sp_prefill, None, 5), ("sp_axis", sp_axis, "seq", 5),
+            ("sp_threshold", sp_threshold, None, 5), ("sp_mechanism", sp_mechanism, "ring", 5),
         )
-        for name, value, item in unported:
-            if value is not None and value is not False:
+        for name, value, neutral, item in unported:
+            if not _is_neutral(value, neutral):
                 raise NotImplementedError(_TODO.format(f"{name}={value!r}", item))
         self.model = model
         self.maxlen = int(model.maxlen)

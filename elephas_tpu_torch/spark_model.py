@@ -3,16 +3,18 @@
 Counterpart of ``elephas_tpu/spark_model.py``: ``SparkModel(model, mode=,
 frequency=, num_workers=, batch_size=, device=)`` with ``fit``,
 ``predict`` and ``evaluate`` over a simple RDD or ``(x, y)`` arrays, on one
-device (:class:`elephas_tpu_torch.worker.Runner`). ``model`` is a module
-compiled with :func:`elephas_tpu_torch.training.compile_model`, as
+device (:class:`elephas_tpu_torch.worker.Runner`), and ``generate`` and
+``serve`` of a language model. ``model`` is a module compiled with
+:func:`elephas_tpu_torch.training.compile_model`, as
 :func:`~elephas_tpu_torch.transformer_lm` and
 :func:`~elephas_tpu_torch.transformer_classifier` return it.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP.md item: more than one worker, the parameter server, model,
-pipeline and sequence parallelism, streaming inputs, ``validation_split``,
-checkpoints and ``resume``, ``save``/``load_spark_model``, and the serving
-engine's options beyond the fixed arena (:meth:`SparkModel.serve`).
+pipeline and sequence parallelism (item 5), streaming inputs,
+``validation_split``, checkpoints and ``resume``,
+``save``/``load_spark_model``, and the serving engine's options beyond
+the fixed arena (:meth:`SparkModel.serve`).
 ``mixed_bfloat16`` is refused by ``transformer_lm`` and
 ``transformer_classifier``.
 """
@@ -24,6 +26,7 @@ from torch import nn
 
 from elephas_tpu_torch.data.rdd import Rdd
 from elephas_tpu_torch.device import resolve_device, worker_count
+from elephas_tpu_torch.models.transformer import generate as _generate
 from elephas_tpu_torch.serving import InferenceEngine
 from elephas_tpu_torch.utils import rdd_utils
 from elephas_tpu_torch.worker import Runner
@@ -32,10 +35,16 @@ _TRAINING_TODO = (
     "{} is not ported yet (ROADMAP.md, Queue A item 2: what the training "
     "slice left out)"
 )
+_SCALE_OUT_TODO = (
+    "{} is not ported yet (ROADMAP.md, Queue A item 5: model, pipeline and "
+    "sequence parallelism)"
+)
 _SERVING_TODO = (
     "serve({}) is not ported yet (ROADMAP.md, Queue A item 3: the "
     "gateway and SLO tenants)"
 )
+# the reference's serve() binds its gateway here when given a port
+_GATEWAY_HOST = "127.0.0.1"
 
 
 class SparkModel:
@@ -75,7 +84,7 @@ class SparkModel:
                         ("pipeline_parallel", pipeline_parallel),
                         ("sequence_parallel", sequence_parallel)):
             if n > 1:
-                raise NotImplementedError(_TRAINING_TODO.format(f"{name}={n}"))
+                raise NotImplementedError(_SCALE_OUT_TODO.format(f"{name}={n}"))
         self.device = resolve_device(device)
         self.num_workers = worker_count(num_workers, self.device)
         if self.num_workers > 1:
@@ -152,18 +161,34 @@ class SparkModel:
     def save(self, file_name: str, overwrite: bool = False) -> None:
         raise NotImplementedError(_TRAINING_TODO.format("save/load_spark_model"))
 
+    def generate(self, prompt, steps: int, temperature: float = 0.0,
+                 top_k: int | None = None, top_p: float | None = None, seed: int = 0,
+                 kv_cache: bool = False):
+        """Autoregressive generation from the master network on this
+        wrapper's one device: :func:`~elephas_tpu_torch.generate` with the
+        same arguments (the reference decodes over the wrapper's mesh; one
+        device is the port's only mesh). Returns ``[B, P + steps]`` int32
+        tokens."""
+        return _generate(self._master_network, prompt, steps, temperature=temperature,
+                         top_k=top_k, top_p=top_p, seed=seed, kv_cache=kv_cache)
+
     def serve(self, num_slots: int = 8, tenants=None, gateway_port: int | None = None,
-              **engine_options):
+              gateway_host: str = _GATEWAY_HOST, **engine_options):
         """A continuous-batching :class:`~elephas_tpu_torch.serving.\
 InferenceEngine` over the wrapped model, on this wrapper's device.
         ``engine_options`` go to the engine (``top_k``, ``top_p``,
-        ``seed``, ``buckets``, ``steps_per_sync``, ``attention``; its
-        unported options raise there). Submit with ``engine.submit(prompt,
-        max_new_tokens, temperature=, eos_id=)``, drive with
-        ``engine.step()`` / ``stream()`` / ``run()``."""
+        ``seed``, ``buckets``, ``steps_per_sync``, ``attention`` and the
+        reference's other engine keywords, ``flight_recorder`` among them,
+        whose unported values raise there). ``tenants``, ``gateway_port`` and a
+        ``gateway_host`` other than the reference's default raise. Submit
+        with ``engine.submit(prompt, max_new_tokens, temperature=,
+        eos_id=)``, drive with ``engine.step()`` / ``stream()`` /
+        ``run()``."""
         for name, value in (("tenants", tenants), ("gateway_port", gateway_port)):
             if value is not None:
                 raise NotImplementedError(_SERVING_TODO.format(f"{name}={value!r}"))
+        if gateway_host != _GATEWAY_HOST:
+            raise NotImplementedError(_SERVING_TODO.format(f"gateway_host={gateway_host!r}"))
         return InferenceEngine(self._master_network, num_slots=num_slots,
                                device=self.device, **engine_options)
 

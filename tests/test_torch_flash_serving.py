@@ -1,8 +1,10 @@
 """The port's serving attention (``elephas_tpu_torch.ops.flash_serving``)
 against the JAX package's, on the CPU: the span ladder, one-row decode
 over an arena span, chunk attention and causal prefill, for ragged
-positions, a span below ``maxlen`` and head dims 16 and 64; and the span
-kernel's operand checks, which run on CPU tensors.
+positions, a span below ``maxlen`` and head dims 16 and 64; the span
+kernel's split-then-merge arithmetic at every split count the host can
+pick, and the split choice itself; and the span kernel's operand checks,
+which run on CPU tensors.
 
 Inputs are numpy arrays made from a seed. Outputs agree within 1e-5: the
 same online softmax, in another association order.
@@ -108,6 +110,87 @@ def test_causal_prefill_of_strided_views():
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     want = fs.flash_causal_prefill(q.contiguous(), k.contiguous(), v.contiguous())
     torch.testing.assert_close(fs.flash_causal_prefill(q, k, v), want, rtol=0, atol=0)
+
+
+def _pickable_splits(span, sm_counts=(132, 114, 78)):
+    """Every (splits, chunk) that span_splits can pick at ``span``, over
+    every row count up to a card's worth and a few SM counts."""
+    return sorted({fs.span_splits(span, rows, sms)
+                   for sms in sm_counts for rows in range(1, 2 * sms + 2)})
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("span", [64, 128, 256, 512])
+def test_split_then_merge_matches_jax(d, span):
+    """The kernel's split-then-merge arithmetic, at every split count the
+    host can pick, against the JAX flash_span_decode within 1e-5; lanes at
+    position 0 (every split but the first empty), past the span, at its
+    last row, and a negative position (all splits empty: zeros)."""
+    rng = np.random.default_rng(span + d)
+    b, h, maxlen = 6, 3, 600
+    q = _randn(rng, b, h, d)
+    arena_k, arena_v = _randn(rng, b, maxlen, h, d), _randn(rng, b, maxlen, h, d)
+    pos = np.array([0, span + 20, span - 1, span // 3, 5, -1], np.int32)
+    want = np.asarray(jfs.flash_span_decode(q, arena_k[:, :span], arena_v[:, :span], pos))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, arena_k, arena_v))
+    picks = _pickable_splits(span)
+    assert picks[0] == (1, span) and len(picks) > 3
+    for splits, chunk in picks:
+        assert splits * chunk >= span > (splits - 1) * chunk
+        got = fs.span_decode_split_reference(tq, tk[:, :span], tv[:, :span],
+                                             torch.from_numpy(pos), splits, chunk)
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0,
+                                   err_msg=f"{splits} splits of {chunk}")
+        assert torch.equal(got[5], torch.zeros(h, d))
+
+
+def test_span_splits_fill_the_card_and_stop_at_one():
+    """About two blocks an SM at the engine's 16 slots x 4 heads, no split
+    shorter than SPLIT_MIN_KEYS positions, and one split once the rows
+    alone fill the card."""
+    for span in (64, 128, 256, 512):
+        splits, chunk = fs.span_splits(span, 64, 132)
+        assert 64 * splits >= min(2 * 132, 64 * span // fs.SPLIT_MIN_KEYS)
+        assert chunk >= fs.SPLIT_MIN_KEYS
+        assert fs.span_splits(span, 264, 132) == (1, span)
+        assert fs.span_splits(span, 64 * 8, 132) == (1, span)
+    assert fs.span_splits(8, 1, 132) == (1, 8)
+    assert fs.span_splits(4096, 1, 132)[0] == fs.SPLIT_MAX
+    with pytest.raises(ValueError, match="positive"):
+        fs.span_splits(0, 1, 132)
+
+
+def test_split_count_never_depends_on_the_positions(monkeypatch):
+    """The wrapper picks splits and sizes its workspace from host values
+    only: the same operands with other positions launch with the same
+    arguments but the positions pointer (the launch is recorded, not run)."""
+    import contextlib
+    import inspect
+    import types
+
+    assert list(inspect.signature(fs.span_splits).parameters) == ["span", "rows", "sm_count"]
+    calls = []
+
+    class Lib:
+        def elephas_span_decode(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(fs, "_kernel", lambda: Lib())
+    monkeypatch.setattr(fs, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    q, k, v, _ = _operands(b=16, h=4, d=64, span=128, maxlen=128)
+    for pos in ([0] * 16, [127] * 16, list(range(-1, 15)), [500] * 16):
+        fs._launch(q, k, v, torch.tensor(pos, dtype=torch.int32), 0.125)
+    # (q, k, v, positions, out, workspace) pointers, then the sizes and strides
+    sizes = {args[6:] for args in calls}
+    assert len(sizes) == 1
+    b, h, d, span, splits, chunk = next(iter(sizes))[:6]
+    assert (b, h, d, span) == (16, 4, 64, 128)
+    assert (splits, chunk) == fs.span_splits(128, 64, 132) and splits > 1
+    assert all(args[5] for args in calls)  # a workspace for the partials
 
 
 def test_span_decode_refuses_other_devices():

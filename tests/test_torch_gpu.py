@@ -235,8 +235,9 @@ def test_spark_model_fit_on_cuda_matches_cpu(cuda):
 
 
 def _span_case(gen, d, span, b=16, h=4, maxlen=512):
-    """q and an arena cut to ``span``, with ragged positions: 0, the span's
-    last row, a stale cursor past the span and the arena's last row."""
+    """q and an arena cut to ``span``, with ragged positions: 0 (every
+    split but the first empty), the span's last row, a stale cursor past
+    the span and the arena's last row."""
     q = _randn(gen, b, h, d)
     arena_k, arena_v = _randn(gen, b, maxlen, h, d), _randn(gen, b, maxlen, h, d)
     pos = torch.randint(0, span, (b,), generator=gen, device=gen.device, dtype=torch.int32)
@@ -244,13 +245,21 @@ def _span_case(gen, d, span, b=16, h=4, maxlen=512):
     return q, arena_k[:, :span], arena_v[:, :span], pos
 
 
-@pytest.mark.parametrize("span", [64, 128, 256, 512])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
-def test_span_decode_matches_plain(cuda, d, span):
-    """Every head dim over the span ladder, against the plain version on
-    the same operands, within 1e-5 of max(1, |out|)."""
-    gen = torch.Generator(device=cuda).manual_seed(d * 1000 + span)
-    q, k, v, pos = _span_case(gen, d, span)
+# (slots, heads, head_dim): the engine's 16 slots and 4 heads at every head
+# dim, the span split over several blocks; and 64 slots of 8 heads, which
+# fill the card with one split
+SPAN_SHAPES = [(16, 4, 16), (16, 4, 32), (16, 4, 64), (16, 4, 128), (64, 8, 64)]
+SPANS = [64, 128, 256, 512]
+
+
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("b,h,d", SPAN_SHAPES)
+def test_span_decode_matches_plain(cuda, b, h, d, span):
+    """Every shape over the span ladder, against the plain version on the
+    same operands, within 1e-5 of max(1, |out|); one launch counted a
+    call, whatever the split."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 1000 + span + b)
+    q, k, v, pos = _span_case(gen, d, span, b, h)
     before = fs.launches
     out = fs.flash_span_decode(q, k, v, pos)
     assert fs.launches == before + 1
@@ -260,10 +269,46 @@ def test_span_decode_matches_plain(cuda, d, span):
     assert ((out - ref).abs() / ref.abs().clamp_min(1)).max().item() <= 1e-5
 
 
-def test_span_decode_repeats_bit_for_bit(cuda):
-    gen = torch.Generator(device=cuda).manual_seed(8)
-    q, k, v, pos = _span_case(gen, 128, 256)
+def test_span_split_count_on_this_card(cuda):
+    """The engine's shape splits the span over several blocks (about two
+    an SM or more); 64 slots of 8 heads take one split."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for span in SPANS:
+        splits, _ = fs.span_splits(span, 16 * 4, sms)
+        assert splits > 1 and 16 * 4 * splits >= min(2 * sms, 16 * 4 * span // 16)
+        assert fs.span_splits(span, 64 * 8, sms)[0] == 1
+
+
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("b,h,d", SPAN_SHAPES)
+def test_span_decode_repeats_bit_for_bit(cuda, b, h, d, span):
+    gen = torch.Generator(device=cuda).manual_seed(8 + span + d)
+    q, k, v, pos = _span_case(gen, d, span, b, h)
     assert torch.equal(fs.flash_span_decode(q, k, v, pos), fs.flash_span_decode(q, k, v, pos))
+
+
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("b,h,d", [(16, 4, 128), (64, 8, 64)])
+def test_span_decode_replays_in_a_cuda_graph(cuda, b, h, d, span):
+    """A decode call captured in a CUDA graph and replayed gives the eager
+    result bit for bit, twice: the workspace and the merge hold nothing
+    over from one call to the next."""
+    gen = torch.Generator(device=cuda).manual_seed(10 + span)
+    q, k, v, pos = _span_case(gen, d, span, b, h)
+    want = fs.flash_span_decode(q, k, v, pos)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fs.flash_span_decode(q, k, v, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fs.flash_span_decode(q, k, v, pos)
+    for _ in range(2):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_span_decode_refuses_what_the_kernel_does_not_take(cuda):

@@ -400,3 +400,103 @@ def test_engine_runs_on_the_models_device(lm):
     with pytest.raises(ValueError, match="cuda or cpu"):
         InferenceEngine(lm, device="meta")
     assert InferenceEngine(lm, device="cpu").device == torch.device("cpu")
+
+
+# -- every reference keyword: accepted where it changes nothing, else refused
+# by name -------------------------------------------------------------------
+
+# (entry point, keyword, the value that leaves the behaviour unchanged,
+# another value, the ROADMAP.md Queue A item its refusal names)
+REFERENCE_KEYWORDS = [
+    ("engine", "mesh", None, "mesh", 5),
+    ("engine", "batch_axes", ("data",), ("data", "seq"), 5),
+    ("engine", "model_axis", None, "model", 5),
+    ("engine", "rules", None, {"qkv": "col"}, 5),
+    ("engine", "prefix_cache", False, True, 1),
+    ("engine", "prefix_min_reuse", 1, 8, 1),
+    ("engine", "prefill_chunk", None, 4, 1),
+    ("engine", "prefill_budget", None, 64, 1),
+    ("engine", "paged", False, True, 3),
+    ("engine", "block_size", None, 16, 3),
+    ("engine", "num_blocks", None, 64, 3),
+    ("engine", "preemption", False, True, 3),
+    ("engine", "kv_dtype", "fp", "int8", 3),
+    ("engine", "speculative", False, True, 3),
+    ("engine", "spec_k", None, 3, 3),
+    ("engine", "spec_drafter", None, "lookup", 3),
+    ("engine", "policy", None, "fair", 3),
+    ("engine", "flight_recorder", None, 256, 3),
+    ("engine", "sp_prefill", None, "seq", 5),
+    ("engine", "sp_axis", "seq", "ring", 5),
+    ("engine", "sp_threshold", None, 16, 5),
+    ("engine", "sp_mechanism", "ring", "ulysses", 5),
+    ("generate", "mesh", None, "mesh", 5),
+    ("generate", "batch_axes", ("data",), ("workers",), 5),
+    ("generate", "model_axis", None, "model", 5),
+    ("generate", "rules", None, {"qkv": "col"}, 5),
+    ("serve", "tenants", None, {"prod": 1.0}, 3),
+    ("serve", "gateway_port", None, 0, 3),
+    ("serve", "gateway_host", "127.0.0.1", "0.0.0.0", 3),
+    ("serve", "flight_recorder", None, 256, 3),
+    ("serve", "prefill_budget", None, 64, 1),
+    ("serve", "block_size", None, 16, 3),
+]
+
+
+@pytest.fixture(scope="module")
+def small_lm():
+    return et.transformer_lm(vocab_size=8, maxlen=16, d_model=32, num_heads=2, num_layers=1,
+                             device="cpu")
+
+
+def _call(where, model, **kwargs):
+    if where == "engine":
+        return InferenceEngine(model, **kwargs)
+    if where == "generate":
+        return et.generate(model, np.array([[2, 3, 4]], np.int32), 2, **kwargs)
+    return et.SparkModel(model, device="cpu").serve(**kwargs)
+
+
+@pytest.mark.parametrize("where,name,neutral,other,item", REFERENCE_KEYWORDS)
+def test_reference_keywords_pass_or_name_their_item(small_lm, where, name, neutral, other,
+                                                    item):
+    _call(where, small_lm, **{name: neutral})
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md, Queue A item {item}\b"):
+        _call(where, small_lm, **{name: other})
+
+
+def test_reference_keyword_table_covers_every_reference_keyword():
+    """The table above names every keyword of the reference's engine,
+    generate and SparkModel.serve that the port does not otherwise take
+    (the port's own, such as ``top_k``, are exercised elsewhere), and the
+    port's signatures take each of them."""
+    import inspect
+
+    from elephas_tpu.spark_model import SparkModel as JaxSparkModel
+
+    own = {"self", "model", "num_slots", "top_k", "top_p", "seed", "buckets",
+           "steps_per_sync", "attention", "prompt", "steps", "temperature", "kv_cache"}
+    refs = {"engine": JaxEngine.__init__, "generate": jax_generate,
+            "serve": JaxSparkModel.serve}
+    ports = {"engine": InferenceEngine.__init__, "generate": et.generate,
+             "serve": et.SparkModel.serve}
+    for where, ref in refs.items():
+        keywords = set(inspect.signature(ref).parameters) - own
+        table = {n for w, n, *_ in REFERENCE_KEYWORDS if w == where}
+        assert table <= keywords, table - keywords
+        port = inspect.signature(ports[where]).parameters
+        if where == "serve":  # engine keywords pass through **engine_options
+            keywords -= set(inspect.signature(JaxEngine.__init__).parameters)
+            assert "engine_options" in port
+        assert keywords <= set(port), keywords - set(port)
+        assert keywords <= table, keywords - table
+
+
+def test_serve_passes_engine_keywords_through(small_lm):
+    """SparkModel.serve hands the reference's engine keywords to the
+    engine: neutral values build an engine, the others raise there."""
+    sm = et.SparkModel(small_lm, device="cpu")
+    engine = sm.serve(num_slots=2, prefix_min_reuse=1, sp_axis="seq", flight_recorder=None)
+    assert isinstance(engine, InferenceEngine)
+    with pytest.raises(NotImplementedError, match=r"Queue A item 1\b"):
+        sm.serve(prefix_min_reuse=4)

@@ -88,6 +88,31 @@ def test_generate_tokens_match_jax(serving_lm, sampling):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("kv_cache", [False, True])
+def test_spark_model_generate_matches_generate_and_jax(serving_lm, kv_cache):
+    """SparkModel.generate is the port's generate on the master network:
+    token for token, and equal to the JAX generate on the same Keras
+    weights at temperature 0."""
+    port = et.transformer_lm(vocab_size=8, maxlen=32, d_model=32, num_heads=2,
+                             num_layers=2, device="cpu")
+    et.load_keras_weights(port, _keras_weights(serving_lm))
+    rng = np.random.default_rng(9)
+    starts = rng.integers(2, 6, size=3)
+    prompt = ((starts[:, None] + np.arange(5)) % 4 + 2).astype(np.int32)
+    got = et.SparkModel(port, device="cpu").generate(prompt, 12, kv_cache=kv_cache)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, et.generate(port, prompt, 12, kv_cache=kv_cache))
+    np.testing.assert_array_equal(got, jax_generate(serving_lm, prompt, 12, kv_cache=kv_cache))
+
+
+@pytest.mark.parametrize("option", ["model_parallel", "pipeline_parallel", "sequence_parallel"])
+def test_scale_out_refusals_cite_item_5(lm_pair, option):
+    _, port = lm_pair
+    et.SparkModel(port, device="cpu", **{option: 1})
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue A item 5\b"):
+        et.SparkModel(port, device="cpu", **{option: 2})
+
+
 @pytest.mark.parametrize("top_k,top_p", [(5, None), (None, 0.9), (7, 0.5), (None, 1.0)])
 def test_filter_logits_matches_jax(top_k, top_p):
     x = (np.random.default_rng(2).normal(size=(4, 50)) * 3).astype(np.float32)
