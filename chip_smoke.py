@@ -11,11 +11,18 @@ Phases, each printing one JSON line and raising on failure:
             (time, and what -Xptxas -v reports); each flash instantiation's
             registers and spills, and its tensor-core (HMMA), async-copy
             (LDGSTS) and ldmatrix (LDSM) instruction counts from
-            cuobjdump --dump-sass; fails on a spill or a flash kernel
-            without HMMA or LDGSTS;
+            cuobjdump --dump-sass; each LayerNorm forward instantiation's
+            16-byte loads and stores and block barriers; fails on a spill,
+            a flash kernel without HMMA or LDGSTS, a one-warp-a-row
+            LayerNorm forward with a block barrier or a vector one without
+            16-byte loads and stores;
 3. kernel — each kernel against its plain PyTorch version on the card,
             at the main paths' shapes, fp32 and bf16: the flash forward
-            (causal and not) and the LayerNorm forward and backward; and
+            (causal and not) and the LayerNorm forward and backward (at
+            the engine's, generate's and the training rows, an odd width
+            and rows off 16-byte alignment, each on the route it should
+            take, the serving route's y bit for bit the training route's,
+            on a second call and from a CUDA-graph replay); and
             the span decode (fp32) at the engine's slots and heads and at
             a shape whose slots and heads fill the card, over every span
             bucket and head dim, with ragged positions and a stale cursor,
@@ -66,7 +73,15 @@ Phases, each printing one JSON line and raising on failure:
             library). At the training shape also the plain flash backward
             per layer and SDPA's forward + autograd backward. The span
             decode also at each split count of SPLIT_SWEEP, with the
-            host time of its workspace allocation.
+            host time of its workspace allocation. LayerNorm also as the
+            serving paths call it: the entry layer_norm against
+            torch.nn.functional.layer_norm, both under inference_mode, at
+            the engine's, generate's and the training rows; and a sweep of
+            the forward's rows per block (printed on a line of its own);
+8b. ln_host_breakdown — where a LayerNorm call's host time goes (the
+            entry, the autograd Function, checks, allocations, device
+            guard, stream query, ctypes marshalling, the launch) beside
+            torch.nn.functional.layer_norm's.
 
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
 summed over the serve, train and engine paths, times at config A's
@@ -75,9 +90,11 @@ fp32), and last {"ok": true, "device": {...}}. Exits non-zero with no result whe
 not available or the package is not beside this script.
 
 ``--times-only`` runs the card, serve, engine, engine_long, the engine and
-generate profiles and the flash and span-decode times phases alone, for the elephas_tpu_torch package in DIR (default: beside
-this script), building its kernels as that package builds them: run it
-for two checkouts in turns on one card to compare them.
+generate profiles, the flash, span-decode and LayerNorm times phases and
+the LayerNorm host breakdown alone, for the elephas_tpu_torch package in
+DIR (default: beside this script), building its kernels as that package
+builds them: run it for two checkouts in turns on one card to compare
+them.
 """
 
 from __future__ import annotations
@@ -125,10 +142,14 @@ TOL_LSE = 1e-4
 TOL_LOGITS = 1e-3
 MARGIN = 1e-3
 
-# LayerNorm kernels vs plain version: rows N and width d of the training
-# path (batch 128 x 256 tokens at d 1024), of generate's rows for configs
-# A and B (one prompt: maxlen rows), and one ragged case
-LN_CASES = [(32768, 1024), (512, 512), (256, 256), (1000, 200)]
+# LayerNorm kernels vs plain version: rows N, width d and the offset in
+# elements of x's start from an aligned allocation (a contiguous view that
+# is not 16-byte aligned takes the scalar route): the training path (batch
+# 128 x 256 tokens at d 1024), generate's rows for configs A and B (one
+# prompt: maxlen rows), the engine's decode rows (16 slots), a ragged case,
+# an odd width and A's and E's rows off alignment
+LN_CASES = [(32768, 1024, 0), (512, 512, 0), (16, 512, 0), (256, 256, 0), (1000, 200, 0),
+            (37, 333, 0), (16, 512, 1), (512, 512, 1)]
 LN_EPS = 1e-6
 # y and dx: absolute in fp32 (summation order); in bf16 relative to
 # max(1, |value|), since one bf16 rounding of a value in [4, 8) is
@@ -232,12 +253,18 @@ def _ptxas_report(log):
     return report
 
 
-SASS_OPS = ("HMMA", "LDGSTS", "LDSM")
+# SASS instructions counted: op -> pattern. The flash kernels' tensor-core
+# (HMMA), async-copy (LDGSTS) and ldmatrix (LDSM) instructions; in the
+# LayerNorm forward, 16-byte global loads and stores and block barriers
+SASS_OPS = {"HMMA": r"\bHMMA\b", "LDGSTS": r"\bLDGSTS\b", "LDSM": r"\bLDSM\b"}
+LN_SASS_OPS = {"ldg128": r"\bLDG\.E\.(?:\w+\.)*128\b", "stg128": r"\bSTG\.E\.(?:\w+\.)*128\b",
+               "bar": r"\bBAR\.SYNC"}
 
 
-def _sass_counts(library, kernel="flash_fwd_kernel"):
-    """{instantiation: {op: count}} of SASS_OPS in the ``kernel``
-    instantiations of a built library, from cuobjdump --dump-sass."""
+def _sass_counts(library, kernel="flash_fwd_kernel", ops=SASS_OPS):
+    """{instantiation: {op: count}} of the ``ops`` patterns in the
+    instantiations of a built library whose name starts with ``kernel``,
+    from cuobjdump --dump-sass."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", str(library)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
@@ -246,14 +273,31 @@ def _sass_counts(library, kernel="flash_fwd_kernel"):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             name = _instantiation(m.group(1))
-            current = counts.setdefault(name, dict.fromkeys(SASS_OPS, 0)) \
+            current = counts.setdefault(name, dict.fromkeys(ops, 0)) \
                 if name.startswith(kernel) else None
             continue
         if current is not None:
-            m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", ln)
-            if m and m.group(1) in current:
-                current[m.group(1)] += 1
+            for op, pattern in ops.items():
+                if re.search(pattern, ln):
+                    current[op] += 1
     return counts
+
+
+def _ln_sass_faults(ln_sass):
+    """The forward's design checks: every one-warp-a-row instantiation
+    (ln_fwd_vec_kernel, ln_fwd_kernel<T, VPT, 1>) has no block barrier,
+    and every vector one moves x and y in 16-byte loads and stores."""
+    faults = []
+    one_warp = {k: c for k, c in ln_sass.items()
+                if k.startswith("ln_fwd_vec_kernel") or k.endswith(", 1>")}
+    vec = [k for k in one_warp if k.startswith("ln_fwd_vec_kernel")]
+    if len(vec) != 7 or len(one_warp) != 19:
+        faults.append(f"{len(vec)} vector and {len(one_warp)} one-warp forward "
+                      f"instantiations, want 7 and 19")
+    faults += [f"{k} has {c['bar']} block barriers" for k, c in one_warp.items() if c["bar"]]
+    faults += [f"{k} lacks 16-byte loads or stores" for k in vec
+               if not (ln_sass[k]["ldg128"] and ln_sass[k]["stg128"])]
+    return faults
 
 
 def phase_build():
@@ -265,16 +309,19 @@ def phase_build():
     ptxas = {name: _ptxas_report(log["ptxas"]) for name, log in _native.build_log.items()}
     sass = _sass_counts(targets["flash_fwd"])
     span = sorted(_sass_counts(targets["span_decode"], "span_decode"))
+    ln_sass = _sass_counts(targets["layer_norm"], "ln_fwd", LN_SASS_OPS)
     emit({"phase": "build", "seconds": seconds, "sources": sorted(_native.SOURCES),
-          "ptxas": ptxas, "flash_sass": sass, "span_decode_instantiations": span})
+          "ptxas": ptxas, "flash_sass": sass, "span_decode_instantiations": span,
+          "layer_norm_fwd_sass": ln_sass})
     spills = [f"{name}: {r}" for log in ptxas.values() for name, r in log.items()
               if r.get("spill_stores") or r.get("spill_loads")]
     missing = [name for name, c in sass.items() if not (c["HMMA"] and c["LDGSTS"])]
-    if spills or missing or len(sass) != 8 or len(span) != 8:
+    ln_faults = _ln_sass_faults(ln_sass)
+    if spills or missing or len(sass) != 8 or len(span) != 8 or ln_faults:
         raise AssertionError(f"build: spills {spills}; flash kernels without HMMA or "
                              f"LDGSTS {missing}; {len(sass)} flash instantiations, want 8; "
                              f"span decode instantiations {span}, want 8 (split and merge "
-                             f"kernels at 4 head dims)")
+                             f"kernels at 4 head dims); LayerNorm forward {ln_faults}")
 
 
 def _synthetic_tokens(n, maxlen, vocab, classes, seed=0):
@@ -350,26 +397,52 @@ def _err(got, want):
     return diff.max().item()
 
 
+def _ln_route_want(d, offset, dtype):
+    """The forward route a case should take: rows up to 1024 wide get one
+    warp; 16-byte accesses need whole 16-byte rows and an aligned start."""
+    if d > 1024:
+        return "multi_warp"
+    item = torch.finfo(dtype).bits // 8
+    return "vector" if offset == 0 and d * item % 16 == 0 else "scalar"
+
+
 def _kernel_layer_norm(dev):
+    """Forward and backward against the plain versions on every LN_CASES
+    case; the forward's route; and the serving route's y (no statistics,
+    under inference_mode) bit for bit the training route's, on a second
+    call and from a CUDA-graph replay."""
     from elephas_tpu_torch.ops import layer_norm as ln
 
     results, failures = [], []
-    for n, d in LN_CASES:
+    for n, d, offset in LN_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             x, gamma, beta, dy = _ln_inputs(n, d, dtype, dev, n + d)
+            if offset:
+                buf = torch.empty(n * d + offset, dtype=dtype, device=dev)
+                x = buf[offset:].view(n, d).copy_(x)
             y, mean, rstd = ln.layer_norm_forward(x, gamma, beta, LN_EPS)
+            with torch.inference_mode():
+                served = ln.layer_norm(x, gamma, beta, LN_EPS)
+                again = ln.layer_norm(x, gamma, beta, LN_EPS)
+                replayed = _graph_replay(lambda: ln.layer_norm(x, gamma, beta, LN_EPS))  # noqa: B023
             dx, dg, db = ln.layer_norm_backward(x, gamma, dy, mean, rstd)
             ry, rmean, rrstd = ln.layer_norm_forward_reference(x, gamma, beta, LN_EPS)
             rdx, rdg, rdb = ln.layer_norm_backward_reference(x, gamma, dy, rmean, rrstd)
             torch.cuda.synchronize()
+            route = ln.forward_route(x, gamma, beta)
+            bits = torch.equal(served, y) and torch.equal(again, y) \
+                and torch.equal(replayed, y)
             row = {
-                "N": n, "d": d, "dtype": str(dtype).split(".")[-1],
+                "N": n, "d": d, "offset": offset, "dtype": str(dtype).split(".")[-1],
+                "route": route, "route_want": _ln_route_want(d, offset, dtype),
+                "served_bits_equal_training_repeat_replay": bits,
                 "err_y": _err(y, ry),
                 "rel_err_mean": _rel(mean, rmean), "rel_err_rstd": _rel(rstd, rrstd),
                 "err_dx": _err(dx, rdx),
                 "rel_err_dgamma": _rel(dg, rdg), "rel_err_dbeta": _rel(db, rdb),
             }
             row["ok"] = (row["err_y"] <= TOL_LN_Y[dtype] and row["err_dx"] <= TOL_LN_DX[dtype]
+                         and bits and route == row["route_want"]
                          and max(row["rel_err_mean"], row["rel_err_rstd"]) <= TOL_LN_STATS
                          and max(row["rel_err_dgamma"], row["rel_err_dbeta"]) <= TOL_LN_DPARAM)
             results.append(row)
@@ -941,7 +1014,7 @@ KERNEL_CLASSES = (
     ("flash_fwd_kernel", "flash_fwd"),
     ("span_decode_merge_kernel", "span_decode_merge"),
     ("span_decode_kernel", "span_decode"),
-    ("ln_fwd_kernel", "layer_norm_fwd"),
+    ("ln_fwd", "layer_norm_fwd"),
     ("ln_bwd", "layer_norm_bwd"),
     ("gemm", "gemm"), ("nvjet", "gemm"), ("xmma", "gemm"), ("cutlass", "gemm"),
     ("softmax", "softmax"),
@@ -1019,11 +1092,14 @@ def phase_profile(dev, model, batch):
 
 
 PROFILE_STEPS = 8
-# the kernel wrappers whose host time the generate profile reads:
-# (module, function) -> the kernel it launches
-WRAPPERS = {("flash_attention", "_forward"): "flash_fwd",
-            ("layer_norm", "layer_norm_forward"): "layer_norm_fwd",
-            ("flash_serving", "_forward"): "span_decode"}
+# the kernel wrappers whose host time the generate and engine profiles
+# read: (module, function) -> the kernel it launches. For LayerNorm this is
+# the entry the model calls (models.transformer's layer_norm: the route
+# choice, any autograd Function, the checks, allocations and the launch),
+# so two packages compare whatever path each takes.
+WRAPPERS = {("elephas_tpu_torch.ops.flash_attention", "_forward"): "flash_fwd",
+            ("elephas_tpu_torch.models.transformer", "layer_norm"): "layer_norm_fwd",
+            ("elephas_tpu_torch.ops.flash_serving", "_forward"): "span_decode"}
 
 
 def _wrapper_host_ms(dev, fn, per):
@@ -1036,7 +1112,7 @@ def _wrapper_host_ms(dev, fn, per):
     totals = {}
     saved = []
     for (module, name), kernel in WRAPPERS.items():
-        mod = importlib.import_module(f"elephas_tpu_torch.ops.{module}")
+        mod = importlib.import_module(module)
         inner = getattr(mod, name)
         saved.append((mod, name, inner))
 
@@ -1225,15 +1301,16 @@ def phase_times(dev):
     return rows
 
 
-def _time_in_turns(fns, graphs=False):
-    """Each function's time, three rounds in turns: eager calls, or the
-    replay of a CUDA graph of 50 calls (``graphs``)."""
+def _time_in_turns(fns, graphs=False, rounds=3, iters=50):
+    """Each function's time, ``rounds`` rounds in turns: eager calls
+    (``iters`` a round), or the replay of a CUDA graph of 50 calls
+    (``graphs``)."""
     if graphs:
         graphs = {key: _graph(fn) for key, fn in fns.items()}
     samples = {key: [] for key in fns}
-    for _ in range(3):
+    for _ in range(rounds):
         for key, fn in fns.items():
-            samples[key].append(_graph_ms(graphs[key]) if graphs else _time_ms(fn))
+            samples[key].append(_graph_ms(graphs[key]) if graphs else _time_ms(fn, iters))
     return samples
 
 
@@ -1277,7 +1354,15 @@ def phase_times_layer_norm(dev):
     forward and aten.native_layer_norm_backward, the operator that
     backward runs (the autograd engine itself does not capture on the
     graph's stream). Bytes: each input read once and each output written
-    once; operations: about 8 (forward) and 12 (backward) per element."""
+    once; operations: about 8 (forward) and 12 (backward) per element.
+
+    The entry rows time what the serving paths call: ``layer_norm(x, γ,
+    β)`` against ``torch.nn.functional.layer_norm``, both under
+    torch.inference_mode(), eager and from CUDA graphs (the bound counts
+    no statistics). They use only functions every package of the port
+    has, so --times-only times an earlier checkout's path the same way.
+    Then the rows-per-block sweep (_ln_rows_sweep), where the package
+    has that choice."""
     from torch.nn.functional import layer_norm as torch_layer_norm
 
     from elephas_tpu_torch.ops import layer_norm as ln
@@ -1320,8 +1405,163 @@ def phase_times_layer_norm(dev):
             rows[f"layer_norm_bwd_{tag}"] = {"N": n, "d": d, **_summary(
                 _with_device_ms(bwd, bwd_graph),
                 3 * n * d * item + d * 4 + 2 * n * 4 + 2 * d * 4, 12 * n * d, dtype)}
+            entry = {
+                "ms": lambda: ln.layer_norm(x, gamma, beta, LN_EPS),
+                "library_ms": lambda: torch_layer_norm(x, (d,), g_lib, b_lib, LN_EPS),
+            }
+            with torch.inference_mode():
+                samples = _time_in_turns(entry, rounds=ENTRY_ROUNDS, iters=ENTRY_ITERS)
+                graphs = _time_in_turns(entry, graphs=True)
+            samples.update({key[:-2] + "device_ms": t for key, t in graphs.items()})
+            rows[f"layer_norm_entry_{tag}"] = {
+                "N": n, "d": d, "under": "torch.inference_mode()",
+                "eager_timing": f"{ENTRY_ROUNDS} rounds in turns of {ENTRY_ITERS} calls",
+                **_summary(samples, 2 * n * d * item + 2 * d * 4, 8 * n * d, dtype)}
     emit({"phase": "times", "kernel": "layer_norm", "timing": GRAPH_TIMING, **rows})
+    if hasattr(ln, "rows_per_block"):
+        _ln_rows_sweep(dev, ln)
     return rows
+
+
+# the entry rows' eager timing: the host's clock spreads more than the
+# device's, so more rounds of more calls than the kernel rows
+ENTRY_ROUNDS, ENTRY_ITERS = 9, 200
+
+# rows x width of the rows-per-block sweep: E's decode rows, A's generate
+# rows and the training rows
+LN_SWEEP_SHAPES = ((16, 512), (512, 512), (32768, 1024))
+
+
+def _ln_rows_sweep(dev, ln):
+    """Device ms of the serving route (layer_norm under inference_mode,
+    from CUDA graphs, median of 3 replays) with ln.rows_per_block replaced
+    by each count of ln.ROWS_PER_BLOCK, at LN_SWEEP_SHAPES in fp32 and
+    bf16, beside the rule's pick; every count must give the same bits.
+    Printed on a line of its own."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pick = ln.rows_per_block
+    out, faults = {}, []
+    try:
+        for n, d in LN_SWEEP_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                x, gamma, beta, _ = _ln_inputs(n, d, dtype, dev, 23)
+                fn = lambda: ln.layer_norm(x, gamma, beta, LN_EPS)  # noqa: E731
+                times, first = {}, None
+                with torch.inference_mode():
+                    for rows in ln.ROWS_PER_BLOCK:
+                        ln.rows_per_block = lambda *_, r=rows: r
+                        y = fn()
+                        first = y if first is None else first
+                        if not torch.equal(y, first):
+                            faults.append(f"{n} x {d} {dtype}: {rows} rows a block "
+                                          "changes the bits")
+                        graph = _graph(fn)
+                        times[rows] = float(np.median([_graph_ms(graph) for _ in range(3)]))
+                        del graph
+                out[f"{n}x{d}_{str(dtype).split('.')[-1]}"] = {
+                    "device_ms_by_rows_per_block": times, "pick": pick(n, sms)}
+    finally:
+        ln.rows_per_block = pick
+    emit({"phase": "times", "kernel": "layer_norm_rows_per_block_sweep", "sms": sms,
+          "timing": "CUDA-graph replay of 50 calls, median of 3", **out, "faults": faults})
+    if faults:
+        raise AssertionError(f"rows-per-block sweep: {faults}")
+
+
+LN_HOST_ITERS, LN_HOST_ROUNDS = 1000, 7
+
+
+def _host_us(fns):
+    """Host µs per call of each of ``fns``: perf_counter around
+    LN_HOST_ITERS calls (no synchronise inside), LN_HOST_ROUNDS rounds
+    with the functions in turns, the median round."""
+    for fn in fns.values():
+        fn()
+    rounds = {key: [] for key in fns}
+    for _ in range(LN_HOST_ROUNDS):
+        for key, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LN_HOST_ITERS):
+                fn()
+            rounds[key].append((time.perf_counter() - t0) * 1e6 / LN_HOST_ITERS)
+    torch.cuda.synchronize()
+    return {key: float(np.median(v)) for key, v in rounds.items()}
+
+
+def phase_ln_host_breakdown(dev):
+    """Where a LayerNorm call's host time goes, at E's decode rows (16 x
+    512) and A's generate rows (512 x 512), fp32, under
+    torch.inference_mode() as the serving paths call it, γ/β requiring
+    grad as the model's parameters do: the entry (layer_norm), and each
+    piece of the path timed alone: the autograd Function around the
+    forward, the forward wrapper with statistics, its checks, its three
+    allocations, the float casts of γ/β, the device guard, the Stream
+    object for the current stream, six data_ptr calls, the ctypes call
+    that marshals the arguments and returns before launching (n = 0), the
+    same call launching the kernel, and torch.nn.functional.layer_norm as
+    the yardstick; for a package with the inference route also the route
+    predicate, the raw stream handle, the current-device test, one
+    allocation and the route itself."""
+    from torch.nn.functional import layer_norm as torch_layer_norm
+
+    from elephas_tpu_torch.ops import layer_norm as ln
+
+    lib = ln._kernel()
+    routes = hasattr(ln, "layer_norm_inference")
+    out = {}
+    for n, d in ((ENGINE["num_slots"], CONFIGS["A"]["d_model"]),
+                 (CONFIGS["A"]["maxlen"], CONFIGS["A"]["d_model"])):
+        x, gamma, beta, _ = _ln_inputs(n, d, torch.float32, dev, 19)
+        gamma.requires_grad_()
+        beta.requires_grad_()
+        y, mean, rstd = (t.detach() for t in ln.layer_norm_forward(x, gamma, beta, LN_EPS))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # the C entry's arguments: PR 6's eleven, or twelve with the rows a block
+        extra = [1] if len(lib.elephas_ln_fwd.argtypes) == 12 else []
+        args = [x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+                mean.data_ptr(), rstd.data_ptr(), 0, n, d, LN_EPS, *extra, stream]
+        no_launch = [*args[:7], 0, *args[8:]]
+
+        def guard(x=x):
+            with torch.cuda.device(x.device):
+                pass
+
+        pieces = {
+            "entry": lambda: ln.layer_norm(x, gamma, beta, LN_EPS),
+            "autograd_function_with_forward": lambda: ln._LayerNorm.apply(x, gamma, beta,
+                                                                          LN_EPS),
+            "forward_wrapper_with_stats": lambda: ln.layer_norm_forward(x, gamma, beta, LN_EPS),
+            "checks": lambda: (ln._check_cuda_rows(x), ln._check_vector("gamma", gamma, x),
+                               ln._check_vector("beta", beta, x)),
+            "three_allocations": lambda: (
+                torch.empty_like(x), torch.empty(n, dtype=torch.float32, device=x.device),
+                torch.empty(n, dtype=torch.float32, device=x.device)),
+            "float_casts": lambda: (gamma.float(), beta.float()),
+            "device_guard": guard,
+            "stream_object": lambda: torch.cuda.current_stream(x.device).cuda_stream,
+            "six_data_ptrs": lambda: (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                                      y.data_ptr(), mean.data_ptr(), rstd.data_ptr()),
+            "ctypes_call_no_launch": lambda: lib.elephas_ln_fwd(*no_launch),
+            "ctypes_call_with_launch": lambda: lib.elephas_ln_fwd(*args),
+            "library_entry": lambda: torch_layer_norm(x, (d,), gamma.detach(),
+                                                      beta.detach(), LN_EPS),
+        }
+        if routes:
+            index = x.get_device()
+            pieces.update({
+                "route_predicate": lambda: ln.needs_grad(x, gamma, beta),
+                "raw_stream": lambda: ln._current_raw_stream(index),
+                "current_device_test": lambda: index == torch._C._cuda_getDevice(),
+                "one_allocation": lambda: torch.empty_like(x),
+                "inference_route": lambda: ln.layer_norm_inference(x, gamma, beta, LN_EPS),
+            })
+        with torch.inference_mode():
+            out[f"{n}x{d}"] = _host_us(pieces)
+    emit({"phase": "ln_host_breakdown", "unit": "host µs per call",
+          "timing": f"perf_counter around {LN_HOST_ITERS} calls, median of {LN_HOST_ROUNDS} "
+                    "rounds in turns, under torch.inference_mode()", **out})
+    return out
 
 
 def phase_times_train(dev):
@@ -1466,7 +1706,8 @@ def _kernel_entry(name, source, replaces, launches, err, times):
 def times_only(dev):
     """The phases that time the main path (serve, the engine and its
     long-span pass with their decode-window profiles, the generate
-    profiles, the flash and span-decode rows) for the package that
+    profiles, the flash, span-decode and LayerNorm rows, the LayerNorm
+    host breakdown) for the package that
     ``elephas_tpu_torch`` imports, with its kernels built as that package
     builds them."""
     import elephas_tpu_torch
@@ -1484,13 +1725,15 @@ def times_only(dev):
     phase_profile_generate(dev)
     phase_times(dev)
     phase_times_span_decode(dev)
+    phase_times_layer_norm(dev)
+    phase_ln_host_breakdown(dev)
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--times-only", action="store_true",
-                        help="run only the serve, engine, engine_long, profile and "
-                             "flash and span-decode times phases")
+                        help="run only the serve, engine, engine_long, profile, "
+                             "times and LayerNorm host breakdown phases")
     parser.add_argument("--package", metavar="DIR",
                         help="the directory holding the elephas_tpu_torch to drive "
                              "(with --times-only; default: beside this script)")
@@ -1535,6 +1778,7 @@ def main(argv=None) -> int:
     del lm
     flash = phase_times(dev)["A_B8_float32"]
     ln_times = phase_times_layer_norm(dev)
+    phase_ln_host_breakdown(dev)
     phase_times_train(dev)
     span_times = phase_times_span_decode(dev)
 

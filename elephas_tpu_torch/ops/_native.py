@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.PyDLL] = {}
 # name -> {"seconds": wall time of the nvcc run, "ptxas": its -Xptxas -v report}
 build_log: dict[str, dict] = {}
 
@@ -90,10 +90,13 @@ def build(names=None) -> dict[str, Path]:
     return targets
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of source ``name``, built first if needed."""
+def library(name: str) -> ctypes.PyDLL:
+    """The loaded library of source ``name``, built first if needed. Its
+    functions run holding the GIL (``PyDLL``): each only checks its
+    arguments and enqueues a launch, which is shorter than releasing and
+    taking back the lock."""
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        lib = ctypes.PyDLL(str(build([name])[name]))
         _libs[name] = lib
     return lib

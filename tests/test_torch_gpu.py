@@ -216,6 +216,113 @@ def test_layer_norm_refuses_what_the_kernels_do_not_take(cuda):
         ln.layer_norm(x, g.cpu(), b)
 
 
+def _ln_served_case(gen, n, d, dtype, offset):
+    """x, γ, β for n rows of width d; ``offset`` > 0 starts x that many
+    elements into an aligned buffer: contiguous, not 16-byte aligned."""
+    x, g, b, _ = _ln_case(gen, n, d, dtype)
+    if offset:
+        buf = torch.empty(n * d + offset, dtype=dtype, device=x.device)
+        x = buf.view(-1)[offset:offset + n * d].view(n, d).copy_(x)
+    return x, g, b
+
+
+# (rows, width, offset, route): the engine's decode rows and generate's rows
+# aligned (16-byte accesses), an odd width, and both row counts off
+# alignment (column by column)
+LN_SERVED = [(16, 512, 0, "vector"), (512, 512, 0, "vector"), (37, 333, 0, "scalar"),
+             (16, 512, 1, "scalar"), (512, 512, 1, "scalar")]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n,d,offset,route", LN_SERVED)
+def test_layer_norm_serving_rows_match_plain_on_both_routes(cuda, dtype, tol, n, d, offset,
+                                                             route):
+    """The serving route (inference_mode: no autograd, no statistics) and
+    the training route's forward against the plain version at the serving
+    rows, on the 16-byte route and the scalar one; the two routes' y are
+    the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(n * 31 + d + offset)
+    x, g, b = _ln_served_case(gen, n, d, dtype, offset)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == bool(offset)
+    assert ln.forward_route(x, g, b) == route
+    with torch.inference_mode():
+        served = ln.layer_norm(x, g, b, 1e-6)
+    y, _, _ = ln.layer_norm_forward(x, g, b, 1e-6)
+    ry = ln.layer_norm_forward_reference(x, g, b, 1e-6)[0]
+    torch.cuda.synchronize()
+    assert served.dtype == dtype and served.shape == (n, d)
+    scale = ry.float().abs().clamp_min(1) if dtype == torch.bfloat16 else 1.0
+    assert ((served.float() - ry.float()).abs() / scale).max().item() <= tol
+    assert torch.equal(served, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(16, 512), (512, 512)])
+def test_layer_norm_serving_route_repeats_and_replays_bit_for_bit(cuda, dtype, n, d):
+    """The serving route's y equals the training route's (autograd
+    Function, statistics written) bit for bit, on a second call and from
+    a CUDA-graph replay."""
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    x, g, b = _ln_served_case(gen, n, d, dtype, 0)
+    gp, bp = g.clone().requires_grad_(), b.clone().requires_grad_()
+    trained = ln.layer_norm(x, gp, bp, 1e-6)
+    assert trained.grad_fn is not None
+    with torch.inference_mode():
+        served = ln.layer_norm(x, gp, bp, 1e-6)
+        again = ln.layer_norm(x, gp, bp, 1e-6)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ln.layer_norm(x, gp, bp, 1e-6)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = ln.layer_norm(x, gp, bp, 1e-6)
+        graph.replay()
+    torch.cuda.synchronize()
+    assert served.grad_fn is None
+    for got in (again, captured):
+        assert torch.equal(got, served)
+    assert torch.equal(trained.detach(), served)
+
+
+def test_layer_norm_counts_one_launch_per_call_on_both_routes(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x, g, b = _ln_served_case(gen, 16, 512, torch.float32, 0)
+    gp = g.clone().requires_grad_()
+    f0 = ln.fwd_launches
+    with torch.inference_mode():
+        ln.layer_norm(x, gp, b)
+    with torch.no_grad():
+        ln.layer_norm(x, gp, b)
+    assert ln.fwd_launches - f0 == 2
+    y = ln.layer_norm(x, gp, b)
+    assert ln.fwd_launches - f0 == 3
+    b0 = ln.bwd_launches
+    y.sum().backward()
+    assert (ln.fwd_launches - f0, ln.bwd_launches - b0) == (3, 2)
+
+
+def test_layer_norm_serving_route_allocates_y_only(cuda):
+    """Under inference_mode the entry makes one allocation (y) and returns
+    y alone; the training route's forward makes three (y, mean, rstd)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x, g, b = _ln_served_case(gen, 16, 512, torch.float32, 0)
+    gp = g.clone().requires_grad_()
+
+    def allocations(fn):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+        out = fn()
+        return torch.cuda.memory_stats(cuda)["allocation.all.allocated"] - before, out
+
+    with torch.inference_mode():
+        count, y = allocations(lambda: ln.layer_norm(x, gp, b))
+    assert count == 1 and isinstance(y, torch.Tensor) and y.shape == x.shape
+    count, out = allocations(lambda: ln.layer_norm_forward(x, g, b, 1e-6))
+    assert count == 3 and out[1].shape == out[2].shape == (16,)
+
+
 def test_spark_model_fit_on_cuda_matches_cpu(cuda):
     """A tiny classifier trained through the kernels on the card gives the
     history the plain versions give on the CPU (fp32, TF32 off)."""

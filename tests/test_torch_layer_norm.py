@@ -124,3 +124,86 @@ def test_other_devices_raise():
         tln.layer_norm(x, g, g)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tln.layer_norm_backward(x, g, x, g, g)
+
+
+# the engine's decode rows (16 slots of config A's d_model) and generate's
+# rows at config A (one 512-token prompt)
+SERVING_ROWS = [(16, 512), (512, 512)]
+NO_GRAD_MODES = {"inference_mode": torch.inference_mode, "no_grad": torch.no_grad}
+
+
+@pytest.mark.parametrize("mode", sorted(NO_GRAD_MODES))
+@pytest.mark.parametrize("rows", SERVING_ROWS)
+def test_serving_route_matches_jax(mode, rows):
+    """layer_norm where no gradient is wanted (the serving route: y only,
+    no autograd Function) against the JAX kernel, γ/β requiring grad as
+    the model's parameters do."""
+    x, g, b, _ = _inputs(rows, seed=7)
+    want = np.asarray(jax_layer_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b)))
+    gt, bt = (torch.from_numpy(a).requires_grad_() for a in (g, b))
+    with NO_GRAD_MODES[mode]():
+        got = tln.layer_norm(torch.from_numpy(x), gt, bt)
+    assert got.grad_fn is None and got.shape == rows
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("mode", sorted(NO_GRAD_MODES))
+@pytest.mark.parametrize("rows", SERVING_ROWS)
+def test_fused_layer_norm_serving_route_matches_jax_layer(mode, rows):
+    """The module as the engine and generate call it, on [slots or batch,
+    tokens, d] activations, against the JAX package's FusedLayerNorm on
+    the same weights."""
+    n, d = rows
+    x, g, b, _ = _inputs((n // 16, 16, d), seed=8)
+    ref = JaxFusedLayerNorm(epsilon=1e-6)
+    ref.build(x.shape)
+    ref.gamma.assign(g)
+    ref.beta.assign(b)
+    want = np.asarray(ref(x))
+    port = FusedLayerNorm(d)
+    with torch.no_grad():
+        port.gamma.copy_(torch.from_numpy(g))
+        port.beta.copy_(torch.from_numpy(b))
+    with NO_GRAD_MODES[mode]():
+        got = port(torch.from_numpy(x))
+    assert got.grad_fn is None
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_ATOL, rtol=0)
+
+
+GRAD_MODES = {"enable_grad": torch.enable_grad, **NO_GRAD_MODES}
+
+
+@pytest.mark.parametrize("mode", sorted(GRAD_MODES))
+@pytest.mark.parametrize("requires", ["", "x", "gamma", "beta", "x gamma beta"])
+def test_route_predicate(monkeypatch, mode, requires):
+    """needs_grad is true exactly when grad mode is on and x, γ or β
+    requires grad; layer_norm then goes through the autograd Function,
+    and otherwise through layer_norm_inference. Both give the plain y."""
+    x, g, b, _ = _inputs((2, 5, 24), seed=9)
+    ts = {k: torch.from_numpy(a).requires_grad_(k in requires.split())
+          for k, a in zip(("x", "gamma", "beta"), (x, g, b))}
+    calls = []
+    inference, function = tln.layer_norm_inference, tln._LayerNorm.apply
+    monkeypatch.setattr(tln, "layer_norm_inference",
+                        lambda *a: calls.append("inference") or inference(*a))
+    monkeypatch.setattr(tln._LayerNorm, "apply",
+                        lambda *a: calls.append("function") or function(*a))
+    want = mode == "enable_grad" and bool(requires)
+    with GRAD_MODES[mode]():
+        assert tln.needs_grad(ts["x"], ts["gamma"], ts["beta"]) is want
+        y = tln.layer_norm(ts["x"], ts["gamma"], ts["beta"])
+    assert calls == ["function" if want else "inference"]
+    assert (y.grad_fn is not None) is want
+    plain = tln.layer_norm_forward_reference(torch.from_numpy(x.reshape(-1, 24)),
+                                             torch.from_numpy(g), torch.from_numpy(b), 1e-6)[0]
+    torch.testing.assert_close(y.detach(), plain.reshape(x.shape), rtol=0, atol=0)
+
+
+def test_rows_per_block_rule():
+    """One row a block while the rows are no more than the SMs (E's 16
+    rows on an H100's 132 SMs), two above (A's 512, T's 32768): the
+    sweep's pick; always a count the kernel takes."""
+    picks = [tln.rows_per_block(n, 132) for n in (1, 16, 132, 133, 512, 32768)]
+    assert picks == [1, 1, 1, 2, 2, 2]
+    assert {tln.rows_per_block(n, sms) for n in range(1, 70000, 331)
+            for sms in (1, 78, 132)} <= set(tln.ROWS_PER_BLOCK)
