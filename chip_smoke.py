@@ -39,6 +39,25 @@ Phases, each printing one JSON line and raising on failure:
             per step, finite losses, tokens/s and peak memory; and the
             gradients of one batch through the kernels against those of
             the plain path;
+5b. train_bf16 — the same fit in the bench's mixed_bfloat16 (bf16
+            compute on float32 variables): the gradient check at 2e-2 of
+            each tensor's largest gradient, launches per step with the
+            bf16 route's share (every flash forward; every LayerNorm but the first of a
+            step, which normalises the float32 sum of the embeddings and
+            the position table, as the reference's does), float32
+            variables after the fit, a finite history, tokens/s and peak
+            memory beside the fp32 run's;
+5c. train_resnet50 — SparkModel.fit of resnet50 at 224x224, 1000 classes,
+            mixed_bfloat16, batch 256 (halved while it does not fit), 4
+            batches of the bench's synthetic images, 2 epochs: images/s
+            after the first step, peak memory, BatchNorm's moving
+            statistics moved and finite, and the first step's
+            probabilities against the same weights under float32, for
+            two seeds' weights (KL divergence, beside the KL against
+            another row's output and the float32 forward of the input
+            rounded to bf16);
+5d. zoo    — one fit each of mnist_mlp, cifar10_cnn and imdb_lstm at
+            their defaults on synthetic data of their shapes;
 6. engine — the continuous-batching InferenceEngine at config A's full
             width (16 slots, 16 steps a decode window, 48 requests as the
             reference's serving bench sends them), after a warm-up pass:
@@ -54,7 +73,8 @@ Phases, each printing one JSON line and raising on failure:
             tokens/s, TTFT, ITL, the spans the decode windows ran at,
             check (a), and one profiled decode window at the longest
             prompts with the span decode's share of the device time;
-7. profile — one more training step, generate() at config A batch 1
+7. profile — one more training step (fp32, then bf16, then ResNet-50),
+            generate() at config A batch 1
             with rope off and on, and one engine decode window, under
             torch.profiler: device time by kernel class (GEMMs, flash,
             span decode, LayerNorm, elementwise, ...) and the device's
@@ -84,7 +104,7 @@ Phases, each printing one JSON line and raising on failure:
             torch.nn.functional.layer_norm's.
 
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
-summed over the serve, train and engine paths, times at config A's
+summed over the serve, train, train_bf16 and engine paths, times at config A's
 attention shape, at the training rows and at the engine's decode shape,
 fp32), and last {"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
 not available or the package is not beside this script.
@@ -166,8 +186,30 @@ TOL_LN_DPARAM = 1e-4
 TRAIN = dict(vocab_size=8192, maxlen=256, num_classes=2, d_model=1024, num_heads=8,
              num_layers=4, dropout=0.0)
 TRAIN_ROWS, TRAIN_BATCH, TRAIN_EPOCHS = 512, 128, 2
-# kernel vs plain gradients, relative to each tensor's largest gradient
+# kernel vs plain gradients, relative to each tensor's largest plain
+# gradient: fp32, and bf16 (the train_bf16 phase: the same configuration
+# in the bench's mixed_bfloat16)
 TOL_GRAD = 1e-3
+TOL_GRAD_BF16 = 2e-2
+
+# the reference bench's ResNet-50 cell (bench.py:4523-4529, --preset full):
+# 224x224x3, 1000 classes, mixed_bfloat16, batch 256, 4 batches of
+# _synthetic (bench.py:130, seed 0); 2 epochs here. Its first step's
+# probabilities against the same weights under the float32 policy, for
+# the weights of seed 0 and of a second seed (_r50_agreement): the mean
+# KL(float32 || bf16) within R50_KL. Read (H100): 9.2e-3 and 9.4e-3; the
+# float32 forward of the input rounded to bf16 reads 1.7e-3 (the untrained
+# network carries a rounding far), another row's output 3.5e-2 (its output
+# hardly depends on the input). The floor fails a forward that does not
+# compute in bf16, the ceiling one that answers for another input.
+R50 = dict(input_shape=(224, 224, 3), num_classes=1000)
+R50_BATCH, R50_BATCHES, R50_EPOCHS = 256, 4, 2
+R50_SEEDS = (0, 1)
+R50_KL = (3e-3, 2e-2)
+
+# one fit each of the smaller zoo models at their builders' defaults, on
+# synthetic data of their shapes (rows, batch, epochs)
+ZOO_ROWS, ZOO_BATCH, ZOO_EPOCHS = 2048, 128, 1
 
 # span decode vs plain version, over every span bucket of A's maxlen: the
 # engine's 16 slots and 4 heads at every head dim (config A's 128, B's 64),
@@ -557,7 +599,9 @@ def _launches():
     from elephas_tpu_torch.ops import layer_norm as ln
 
     return {"flash_fwd": fa.launches, "layer_norm_fwd": ln.fwd_launches,
-            "layer_norm_bwd": ln.bwd_launches, "span_decode": fs.launches}
+            "layer_norm_bwd": ln.bwd_launches, "span_decode": fs.launches,
+            "flash_fwd_bf16": fa.bf16_launches, "layer_norm_fwd_bf16": ln.fwd_bf16_launches,
+            "layer_norm_bwd_bf16": ln.bwd_bf16_launches}
 
 
 def _reset_launches():
@@ -566,6 +610,7 @@ def _reset_launches():
     from elephas_tpu_torch.ops import layer_norm as ln
 
     fa.launches = ln.fwd_launches = ln.bwd_launches = fs.launches = 0
+    fa.bf16_launches = ln.fwd_bf16_launches = ln.bwd_bf16_launches = 0
 
 
 def _check_launches(what, before, want):
@@ -688,8 +733,10 @@ def phase_serve(dev):
 def _gradient_check(model, x, y):
     """Every parameter's gradient of one batch through the kernels against
     the gradient through the plain path (plain=True), from the same
-    weights; returns {name: error relative to the tensor's largest
-    plain gradient} and {name: that largest magnitude}."""
+    weights; returns {name: error} and {name: the largest plain gradient's
+    magnitude}. The error is the largest difference relative to that
+    tensor's largest plain gradient, in fp32 and bf16 alike, so a tensor
+    whose gradient the kernels lost reads 1."""
     spec = model.training_spec
     grads = {}
     model.train()
@@ -704,35 +751,10 @@ def _gradient_check(model, x, y):
     return errs, scales
 
 
-def phase_train(dev):
-    """The kernel-vs-plain gradient check on the first batch from the
-    initial weights (where no gradient is zero: after the fit, random
-    labels saturate the softmax into the loss's clip, where every
-    gradient is 0); then SparkModel.fit of the classifier at the training
-    widths: launches per step (layers flash forwards, 2·layers+1
-    LayerNorm forwards and as many backwards, each of those two
-    launches), finite losses, a history with loss and accuracy."""
-    from elephas_tpu_torch import SparkModel, transformer_classifier
-
-    x, y = _synthetic_tokens(TRAIN_ROWS, TRAIN["maxlen"], TRAIN["vocab_size"],
-                             TRAIN["num_classes"])
-    model = transformer_classifier(**TRAIN, seed=0, device=dev)
-    layers = TRAIN["num_layers"]
-    steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // TRAIN_BATCH)
-    failures = []
-    xb = torch.from_numpy(x[:TRAIN_BATCH]).long().to(dev)
-    yb = torch.from_numpy(y[:TRAIN_BATCH]).long().to(dev)
-    grad_err, grad_scale = _gradient_check(model, xb, yb)
-    worst = max(grad_err, key=grad_err.get)
-    if grad_err[worst] > TOL_GRAD:
-        failures.append(f"gradient of {worst}: kernel vs plain {grad_err[worst]}")
-    vanished = [n for n, v in grad_scale.items() if not v > 0]
-    if vanished:
-        failures.append(f"all-zero gradients, the check is vacuous for {vanished}")
-
-    sm = SparkModel(model, device=dev)
-    # a stamp at the start of every step's forward (after the previous
-    # step's work has finished) times the steps
+def _timed_fit(sm, model, data, epochs, batch, dev):
+    """``sm.fit`` with a stamp at the start of every step's forward (after
+    the previous step's work has finished) and one at the end; returns
+    the history and the seconds of each step."""
     stamps = []
 
     def stamp(_module, _inputs):
@@ -740,38 +762,273 @@ def phase_train(dev):
         stamps.append(time.perf_counter())
 
     hook = model.register_forward_pre_hook(stamp)
-    torch.cuda.reset_peak_memory_stats(dev)
-    _reset_launches()
     try:
-        history = sm.fit((x, y), epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH)
+        history = sm.fit(data, epochs=epochs, batch_size=batch)
         torch.cuda.synchronize(dev)
         stamps.append(time.perf_counter())
     finally:
         hook.remove()
+    return history, np.diff(stamps)
+
+
+def _float32_state(model):
+    """The names of parameters, buffers and optimizer state that are not
+    float32 (Keras keeps every variable float32 under mixed_bfloat16)."""
+    bad = [n for n, t in model.state_dict().items() if t.dtype != torch.float32]
+    opt = getattr(model, "training_spec", None)
+    if opt is not None:
+        bad += [f"optimizer state {k}" for st in opt.optimizer.state.values()
+                for k, v in st.items() if torch.is_tensor(v) and v.dtype != torch.float32]
+    return bad
+
+
+def phase_train(dev, dtype_policy=None, fp32=None):
+    """The kernel-vs-plain gradient check on the first batch from the
+    initial weights (where no gradient is zero: after the fit, random
+    labels saturate the softmax into the loss's clip, where every
+    gradient is 0); then SparkModel.fit of the classifier at the training
+    widths under ``dtype_policy``: launches per step (layers flash
+    forwards, 2·layers+1 LayerNorm forwards and as many backwards, each
+    of those two launches; under mixed_bfloat16 every flash forward and
+    all but one LayerNorm a step on the bf16 route: the first norm takes
+    the float32 sum of the embeddings and the position table, as the
+    reference's does), finite losses, a history with loss and accuracy,
+    float32 variables. ``fp32`` is the float32 run's line, to print the
+    ratio of tokens/s beside it."""
+    from elephas_tpu_torch import SparkModel, transformer_classifier
+
+    mixed = dtype_policy == "mixed_bfloat16"
+    x, y = _synthetic_tokens(TRAIN_ROWS, TRAIN["maxlen"], TRAIN["vocab_size"],
+                             TRAIN["num_classes"])
+    model = transformer_classifier(**TRAIN, seed=0, dtype_policy=dtype_policy, device=dev)
+    layers = TRAIN["num_layers"]
+    steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // TRAIN_BATCH)
+    failures = []
+    xb = torch.from_numpy(x[:TRAIN_BATCH]).long().to(dev)
+    yb = torch.from_numpy(y[:TRAIN_BATCH]).long().to(dev)
+    grad_err, grad_scale = _gradient_check(model, xb, yb)
+    worst = max(grad_err, key=grad_err.get)
+    tol = TOL_GRAD_BF16 if mixed else TOL_GRAD
+    if grad_err[worst] > tol:
+        failures.append(f"gradient of {worst}: kernel vs plain {grad_err[worst]}")
+    vanished = [n for n, v in grad_scale.items() if not v > 0]
+    if vanished:
+        failures.append(f"all-zero gradients, the check is vacuous for {vanished}")
+
+    sm = SparkModel(model, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    history, step_s = _timed_fit(sm, model, (x, y), TRAIN_EPOCHS, TRAIN_BATCH, dev)
     launches = _launches()
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {"flash_fwd": layers * steps, "layer_norm_fwd": (2 * layers + 1) * steps,
-            "layer_norm_bwd": 2 * (2 * layers + 1) * steps, "span_decode": 0}
+    norms = 2 * layers + 1
+    # the bf16 route: every flash forward, every LayerNorm but the first
+    bf16_norms = norms - 1 if mixed else 0
+    want = {"flash_fwd": layers * steps, "layer_norm_fwd": norms * steps,
+            "layer_norm_bwd": 2 * norms * steps, "span_decode": 0,
+            "flash_fwd_bf16": layers * steps if mixed else 0,
+            "layer_norm_fwd_bf16": bf16_norms * steps,
+            "layer_norm_bwd_bf16": 2 * bf16_norms * steps}
     if launches != want:
         failures.append(f"launches {launches}, expected {want}")
     if sorted(history) != ["accuracy", "loss"] or \
             any(len(v) != TRAIN_EPOCHS or not np.all(np.isfinite(v)) for v in history.values()):
         failures.append(f"bad history {history}")
-    step_s = np.diff(stamps)
+    not_f32 = _float32_state(model)
+    if not_f32:
+        failures.append(f"not float32 after the fit: {not_f32[:5]}")
     if len(step_s) != steps:
         failures.append(f"{len(step_s)} steps timed, expected {steps}")
     tokens_s = (steps - 1) * TRAIN_BATCH * TRAIN["maxlen"] / float(np.sum(step_s[1:]))
-    emit({"phase": "train", "config": TRAIN, "rows": TRAIN_ROWS, "batch": TRAIN_BATCH,
-          "epochs": TRAIN_EPOCHS, "steps": steps, "launches": launches,
-          "launches_expected": want, "history": history,
-          "step_seconds": step_s.tolist(), "median_step_s_after_first": float(np.median(step_s[1:])),
-          "tokens_s_after_first": tokens_s, "max_memory_allocated": peak,
-          "grad_tol_relative": TOL_GRAD, "grad_max_rel_err": grad_err[worst],
-          "grad_worst_param": worst, "grad_min_scale": min(grad_scale.values()),
-          "failures": failures})
+    out = {"phase": "train_bf16" if mixed else "train", "config": TRAIN,
+           "dtype_policy": dtype_policy or "float32", "rows": TRAIN_ROWS, "batch": TRAIN_BATCH,
+           "epochs": TRAIN_EPOCHS, "steps": steps, "launches": launches,
+           "launches_expected": want, "history": history,
+           "step_seconds": step_s.tolist(),
+           "median_step_s_after_first": float(np.median(step_s[1:])),
+           "tokens_s_after_first": tokens_s, "max_memory_allocated": peak,
+           "grad_tol": tol, "grad_max_err": grad_err[worst],
+           "grad_worst_param": worst,
+           "grad_smallest_scales": dict(sorted(grad_scale.items(), key=lambda kv: kv[1])[:4]),
+           "failures": failures}
+    if fp32 is not None:
+        out["tokens_s_over_fp32"] = tokens_s / fp32["tokens_s_after_first"]
+        out["fp32_median_step_s_after_first"] = fp32["median_step_s_after_first"]
+    emit(out)
     if failures:
-        raise AssertionError(f"training path check failed: {failures}")
-    return launches, model, (xb, yb)
+        raise AssertionError(f"training path check failed ({out['phase']}): {failures}")
+    return launches, model, (xb, yb), out
+
+
+def _synthetic_images(n, img, classes, seed=0):
+    """The reference bench's image data (bench.py:130, _synthetic)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, img, img, 3)).astype(np.float32)
+    y = rng.integers(0, classes, size=n).astype(np.int32)
+    return x, y
+
+
+def _kl_rows(p, q):
+    """KL(p ‖ q) of each row of two probability tensors, in float64."""
+    p, q = p.double(), q.double()
+    return (p * (p.clamp_min(1e-300).log() - q.clamp_min(1e-300).log())).sum(dim=1)
+
+
+def _centred_log(p):
+    """Row-centred log-probabilities: the logits, their row's common
+    shift aside."""
+    log_p = p.double().clamp_min(1e-300).log()
+    return log_p - log_p.mean(dim=1, keepdim=True)
+
+
+def _r50_agreement(dev, xb):
+    """The first step's forward (train mode: batch statistics) of
+    ResNet-50 under mixed_bfloat16 against the same weights under float32,
+    for the weights of each seed of R50_SEEDS. Per seed: the bf16
+    probabilities' dtype and finiteness; the mean KL(float32 ‖ bf16), the
+    same against the bf16 output of the next row (``kl_other_row``: what
+    an output of the right kind but for another input reads) and against
+    the uniform distribution (``kl_uniform``); each
+    row's largest difference over its largest float32 probability; top-1
+    agreement; the median of the rows' largest float32 probability; the
+    largest error of the row-centred logits beside their largest
+    magnitude; and, to show how far the untrained network carries a bf16
+    rounding, the float32 forward of the input rounded to bf16 against
+    the float32 forward (``input_rounding_*``)."""
+    from elephas_tpu_torch import keras_weights, load_keras_weights, resnet50
+
+    out = {}
+    for seed in R50_SEEDS:
+        weights = None
+        probs = []
+        for policy, x in (("mixed_bfloat16", xb), (None, xb), (None, xb.bfloat16().float())):
+            m = resnet50(**R50, dtype_policy=policy, compile_model=False, seed=seed,
+                         device=dev)
+            if weights is None:
+                weights = keras_weights(m)
+            load_keras_weights(m, weights)
+            m.train()
+            with torch.no_grad():
+                probs.append(m(x))
+            del m
+        bf16, f32, f32_rounded_in = probs
+        row_max = f32.max(dim=1).values
+        out[seed] = {
+            "float32_out": bf16.dtype == torch.float32,
+            "finite": bool(torch.isfinite(bf16).all()),
+            "kl_mean": _kl_rows(f32, bf16).mean().item(),
+            "kl_other_row": _kl_rows(f32, bf16.roll(1, dims=0)).mean().item(),
+            "kl_uniform": _kl_rows(f32, torch.full_like(f32, 1 / f32.shape[1])).mean().item(),
+            "row_rel_err": ((bf16 - f32).abs().max(dim=1).values / row_max).max().item(),
+            "max_abs_err": (bf16 - f32).abs().max().item(),
+            "top1_agree": (bf16.argmax(dim=1) == f32.argmax(dim=1)).double().mean().item(),
+            "median_row_max_prob": row_max.median().item(),
+            "logit_err": (_centred_log(bf16) - _centred_log(f32)).abs().max().item(),
+            "max_abs_centred_logit": _centred_log(f32).abs().max().item(),
+            "input_rounding_kl_mean": _kl_rows(f32, f32_rounded_in).mean().item(),
+            "input_rounding_logit_err":
+                (_centred_log(f32_rounded_in) - _centred_log(f32)).abs().max().item()}
+    return out
+
+
+def phase_train_resnet50(dev):
+    """SparkModel.fit of ResNet-50 as the reference bench trains it
+    (mixed_bfloat16, batch 256, 4 batches, here 2 epochs): images/s after
+    the first step, peak memory, finite history, BatchNorm's moving
+    statistics moved and finite, variables float32; the first step's
+    probabilities against the same weights under float32. Batch 256 is
+    halved while it runs out of memory (printed as a cut)."""
+    from elephas_tpu_torch import SparkModel, resnet50
+
+    batch, cut = R50_BATCH, None
+    while True:
+        x, y = _synthetic_images(batch * R50_BATCHES, R50["input_shape"][0],
+                                 R50["num_classes"])
+        model = resnet50(**R50, dtype_policy="mixed_bfloat16", device=dev)
+        xb = torch.from_numpy(x[:batch]).to(dev)
+        try:
+            agreement = _r50_agreement(dev, xb)
+            moving = {n: b.clone() for n, b in model.named_buffers()}
+            torch.cuda.reset_peak_memory_stats(dev)
+            history, step_s = _timed_fit(SparkModel(model, device=dev), model, (x, y),
+                                         R50_EPOCHS, batch, dev)
+            break
+        except torch.cuda.OutOfMemoryError:
+            del model
+            torch.cuda.empty_cache()
+            if batch == 1:
+                raise
+            cut = f"batch {batch} ran out of memory; halved"
+            batch //= 2
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = R50_EPOCHS * R50_BATCHES
+    failures = []
+    for seed, a in agreement.items():
+        if not (a["float32_out"] and a["finite"] and R50_KL[0] <= a["kl_mean"] <= R50_KL[1]):
+            failures.append(f"first step probabilities, weights of seed {seed}: "
+                            f"bf16 vs float32 {a}")
+    stale = [n for n, b in model.named_buffers() if torch.equal(b, moving[n])]
+    bad = [n for n, b in model.named_buffers() if not torch.isfinite(b).all()]
+    if stale or bad:
+        failures.append(f"moving statistics unmoved {stale[:4]}, not finite {bad[:4]}")
+    if sorted(history) != ["accuracy", "loss"] or \
+            any(len(v) != R50_EPOCHS or not np.all(np.isfinite(v)) for v in history.values()):
+        failures.append(f"bad history {history}")
+    not_f32 = _float32_state(model)
+    if not_f32:
+        failures.append(f"not float32 after the fit: {not_f32[:5]}")
+    if len(step_s) != steps:
+        failures.append(f"{len(step_s)} steps timed, expected {steps}")
+    images_s = (steps - 1) * batch / float(np.sum(step_s[1:]))
+    out = {"phase": "train_resnet50", "config": {**R50, "dtype_policy": "mixed_bfloat16"},
+           "batch": batch, "batch_cut": cut, "batches": R50_BATCHES, "epochs": R50_EPOCHS,
+           "steps": steps, "history": history, "step_seconds": step_s.tolist(),
+           "median_step_s_after_first": float(np.median(step_s[1:])),
+           "images_s_after_first": images_s, "max_memory_allocated": peak,
+           "moving_statistics": len(moving), "moving_statistics_moved": len(moving) - len(stale),
+           "first_step_probs_bf16_vs_float32": agreement,
+           "kl_mean_limits": R50_KL, "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"ResNet-50 training check failed: {failures}")
+    return model, (xb, torch.from_numpy(y[:batch]).long().to(dev))
+
+
+def phase_zoo(dev):
+    """One SparkModel.fit each of mnist_mlp, cifar10_cnn and imdb_lstm at
+    their builders' defaults on synthetic data of their shapes
+    (np.random.default_rng(0)): a finite history, samples/s, and finite
+    predictions of the right shape."""
+    from elephas_tpu_torch import SparkModel, cifar10_cnn, imdb_lstm, mnist_mlp
+
+    rng = np.random.default_rng(0)
+    n = ZOO_ROWS
+    cases = (
+        ("mnist_mlp", mnist_mlp, rng.normal(size=(n, 784)).astype(np.float32), 10),
+        ("cifar10_cnn", cifar10_cnn, rng.normal(size=(n, 32, 32, 3)).astype(np.float32), 10),
+        ("imdb_lstm", imdb_lstm, rng.integers(1, 20000, (n, 80)).astype(np.int32), 1),
+    )
+    out, failures = {}, []
+    for name, build, x, classes in cases:
+        y = rng.integers(0, max(classes, 2), n).astype(np.int32)
+        model = build(device=dev)
+        sm = SparkModel(model, device=dev)
+        sm.fit((x[:ZOO_BATCH], y[:ZOO_BATCH]), epochs=1, batch_size=ZOO_BATCH)  # warm-up
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        history = sm.fit((x, y), epochs=ZOO_EPOCHS, batch_size=ZOO_BATCH)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        pred = sm.predict(x[:64], batch_size=ZOO_BATCH)
+        if not all(np.all(np.isfinite(v)) for v in history.values()) or \
+                pred.shape != (64, classes) or not np.isfinite(pred).all():
+            failures.append(f"{name}: history {history}, predictions {pred.shape}")
+        out[name] = {"history": history, "seconds": seconds,
+                     "samples_s": ZOO_EPOCHS * n / seconds}
+    emit({"phase": "zoo", "rows": ZOO_ROWS, "batch": ZOO_BATCH, "epochs": ZOO_EPOCHS,
+          "note": "samples_s after a one-batch warm-up fit", **out, "failures": failures})
+    if failures:
+        raise AssertionError(f"zoo fits failed: {failures}")
 
 
 def _engine_workload(vocab, n):
@@ -1016,6 +1273,8 @@ KERNEL_CLASSES = (
     ("span_decode_kernel", "span_decode"),
     ("ln_fwd", "layer_norm_fwd"),
     ("ln_bwd", "layer_norm_bwd"),
+    ("fprop", "conv"), ("dgrad", "conv"), ("wgrad", "conv"), ("conv", "conv"),
+    ("batch_norm", "batch_norm"), ("bn_fw", "batch_norm"), ("bn_bw", "batch_norm"),
     ("gemm", "gemm"), ("nvjet", "gemm"), ("xmma", "gemm"), ("cutlass", "gemm"),
     ("softmax", "softmax"),
     ("reduce", "reduction"),
@@ -1073,9 +1332,9 @@ def _profile(dev, fn, what, per=1, extra=None):
     return out
 
 
-def phase_profile(dev, model, batch):
-    """One training step of the trained classifier (forward, loss,
-    backward, Adam) under torch.profiler, after one warm-up step."""
+def phase_profile(dev, model, batch, what="one training step, TRAIN config"):
+    """One training step of a trained model (forward, loss, backward, the
+    optimizer) under torch.profiler, after one warm-up step."""
     spec = model.training_spec
     xb, yb = batch
 
@@ -1087,7 +1346,7 @@ def phase_profile(dev, model, batch):
 
     model.train()
     step()
-    _profile(dev, step, "one training step, TRAIN config")
+    _profile(dev, step, what)
     model.eval()
 
 
@@ -1744,13 +2003,20 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this script runs on a GPU",
               file=sys.stderr)
         return 1
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
+    try:
+        import elephas_tpu_torch  # noqa: F401
+    except ImportError as err:
+        print(f"chip_smoke: the elephas_tpu_torch package is not beside this script "
+              f"(or in --package): {err}", file=sys.stderr)
+        return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
+    _reset_launches()
 
     if args.times_only:
-        if args.package:
-            sys.path.insert(0, os.path.abspath(args.package))
         phase_card()
         times_only(dev)
         print(nvidia_smi(), flush=True)
@@ -1760,19 +2026,28 @@ def main(argv=None) -> int:
     phase_build()
     errs = phase_kernel(dev)
     serve = phase_serve(dev)
-    train, model, batch = phase_train(dev)
+    train, model, batch, fp32_line = phase_train(dev)
+    train_bf16, model_bf16, batch_bf16, _ = phase_train(dev, "mixed_bfloat16", fp32_line)
+    r50, r50_batch = phase_train_resnet50(dev)
+    phase_zoo(dev)
     engine, lm = phase_engine(dev)
     phase_engine_long(dev, lm)
     for path, launches, kernels in (
         ("serve", serve, ("flash_fwd", "layer_norm_fwd")),
         ("train", train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
+        ("train_bf16", train_bf16, ("flash_fwd_bf16", "layer_norm_fwd_bf16",
+                                    "layer_norm_bwd_bf16")),
         ("engine", engine, ("span_decode", "flash_fwd", "layer_norm_fwd")),
     ):
         idle = [k for k in kernels if launches[k] == 0]
         if idle:
             raise AssertionError(f"the {path} path never launched {idle}")
     phase_profile(dev, model, batch)
-    del model, batch
+    phase_profile(dev, model_bf16, batch_bf16, "one training step, TRAIN config, "
+                  "mixed_bfloat16")
+    phase_profile(dev, r50, r50_batch, "one training step, ResNet-50 mixed_bfloat16, "
+                  f"batch {len(r50_batch[0])}")
+    del model, batch, model_bf16, batch_bf16, r50, r50_batch
     phase_profile_generate(dev)
     phase_profile_engine(dev, lm)
     del lm
@@ -1783,7 +2058,7 @@ def main(argv=None) -> int:
     span_times = phase_times_span_decode(dev)
 
     print(nvidia_smi(), flush=True)
-    total = {k: serve[k] + train[k] + engine[k] for k in serve}
+    total = {k: serve[k] + train[k] + train_bf16[k] + engine[k] for k in serve}
     emit({"kernels": [
         _kernel_entry(
             "flash_fwd", "elephas_tpu_torch/csrc/flash_fwd.cu",

@@ -4,24 +4,34 @@ The JAX package ``elephas_tpu`` stays the reference; this package is its
 counterpart beside it, slice by slice (ROADMAP.md). It imports torch and
 numpy, never jax, keras or ``elephas_tpu``.
 
-The first slice serves :func:`transformer_lm` through :func:`generate`,
-with the flash-attention forward as a CUDA kernel written for sm_90a
-(``csrc/flash_fwd.cu``). The second trains through :class:`SparkModel`
-(one device), with the LayerNorm forward and backward as CUDA kernels
-(``csrc/layer_norm.cu``, behind :class:`FusedLayerNorm`), the flash
-backward in plain PyTorch, and Keras's Adam. The fifth serves through the
-continuous-batching :class:`InferenceEngine` on the fixed KV arena and
-``generate(kv_cache=True)``, with decode attention as a CUDA kernel
-(``csrc/span_decode.cu``). Entry points run on ``cuda`` by default; only an
-explicit ``device="cpu"`` selects the CPU, where the kernels' plain
-PyTorch versions run.
+What runs: the reference's model zoo (:func:`mnist_mlp`,
+:func:`cifar10_cnn`, :func:`imdb_lstm`, :func:`resnet`, :func:`resnet50`,
+:func:`transformer_classifier`, :func:`transformer_lm`) builds, trains,
+evaluates and predicts through :class:`SparkModel` on one device, in
+float32 and, where the reference takes it (the transformers and ResNet),
+``mixed_bfloat16``. The transformers run the flash-attention forward
+(``csrc/flash_fwd.cu``) and the LayerNorm forward and backward
+(``csrc/layer_norm.cu``, behind :class:`FusedLayerNorm`) as CUDA kernels
+written for sm_90a, on their bf16 routes under ``mixed_bfloat16``; the
+flash backward is plain PyTorch. :func:`transformer_lm` serves through
+:func:`generate` and the continuous-batching :class:`InferenceEngine` on
+the fixed KV arena, with decode attention as a CUDA kernel
+(``csrc/span_decode.cu``). Weights cross from and to the reference by
+Keras path (:func:`load_keras_weights`, :func:`keras_weights`). Entry
+points run on ``cuda`` by default; only an explicit ``device="cpu"``
+selects the CPU, where the kernels' plain PyTorch versions run.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
-from elephas_tpu_torch.models.transformer import (  # noqa: F401
+from elephas_tpu_torch.models import (  # noqa: F401
     FusedLayerNorm,
+    cifar10_cnn,
     generate,
+    imdb_lstm,
+    mnist_mlp,
+    resnet,
+    resnet50,
     transformer_classifier,
     transformer_lm,
 )
@@ -35,10 +45,15 @@ __all__ = [
     "InferenceEngine",
     "RequestCancelled",
     "SparkModel",
+    "cifar10_cnn",
     "generate",
+    "imdb_lstm",
     "keras_weights",
     "load_keras_weights",
     "load_spark_model",
+    "mnist_mlp",
+    "resnet",
+    "resnet50",
     "to_simple_rdd",
     "transformer_classifier",
     "transformer_lm",

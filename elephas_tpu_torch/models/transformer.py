@@ -17,6 +17,13 @@ Counterpart of ``elephas_tpu/models/transformer.py``:
 - :func:`validate_token_decode_model` — the gate of cached decode and of
   the serving engine.
 
+Both builders take the reference's ``dtype_policy`` (``None``,
+``"float32"`` or ``"mixed_bfloat16"``, :mod:`elephas_tpu_torch.models.layers`).
+Under ``mixed_bfloat16`` the matmuls, the flash kernel and the LayerNorm
+kernels run in bf16 on float32 variables, and the ``head`` / ``lm_head``
+stay float32, as in the reference (``elephas_tpu/models/transformer.py:338,
+391``).
+
 The modules keep the reference's layer names, so Keras weights load by
 path (:func:`elephas_tpu_torch.utils.weights.load_keras_weights`).
 """
@@ -30,7 +37,13 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from elephas_tpu_torch.device import resolve_device
+from elephas_tpu_torch.models.layers import (
+    Dense,
+    Dropout,
+    build_module,
+    cast,
+    dense_paths,
+)
 from elephas_tpu_torch.ops.flash_attention import (
     attention_reference,
     flash_attention,
@@ -64,13 +77,6 @@ def _is_neutral(value, neutral) -> bool:
     if isinstance(neutral, tuple) and isinstance(value, (list, tuple)):
         return tuple(value) == neutral
     return type(value) is type(neutral) and value == neutral
-
-
-_BF16_TODO = (
-    "dtype_policy={!r} is not ported yet: the port trains and serves "
-    "float32 (ROADMAP.md, Queue A item 2: the mixed_bfloat16 policy follows "
-    "the float32 training slice)"
-)
 
 
 def _positions(maxlen: int, d_model: int) -> np.ndarray:
@@ -124,8 +130,8 @@ class FlashMHA(nn.Module):
         self.head_dim = head_dim
         self.causal = causal
         self.rope = rope
-        self.qkv = nn.Linear(d_model, 3 * num_heads * head_dim, bias=False)
-        self.proj = nn.Linear(num_heads * head_dim, d_model)
+        self.qkv = Dense(d_model, 3 * num_heads * head_dim, bias=False)
+        self.proj = Dense(num_heads * head_dim, d_model)
         if rope:
             cos, sin = _rope_tables(maxlen, head_dim)
             self.register_buffer("rope_cos", torch.from_numpy(cos), persistent=False)
@@ -209,50 +215,38 @@ class FlashMHA(nn.Module):
 
 class FusedLayerNorm(nn.Module):
     """LayerNormalization over the last axis (Keras's math: f32
-    statistics, affine ``gamma``/``beta``), through the LayerNorm kernels.
-    ``plain=True`` in :meth:`forward` runs the kernels' plain version
-    instead, differentiated by autograd — the reference a run on the card
-    is checked against."""
+    statistics, affine float32 ``gamma``/``beta``), through the LayerNorm
+    kernels, with its output in the compute dtype. Like the reference's
+    stock ``LayerNormalization`` it does not cast its input: under
+    ``mixed_bfloat16`` the residual stream is bf16 and the kernels take
+    their bf16 route, but the first norm of a model with the additive
+    position table normalises the float32 sum of embeddings and table (on
+    the fp32 route), as the reference does. ``plain=True`` in
+    :meth:`forward` runs the kernels' plain version instead,
+    differentiated by autograd — the reference a run on the card is
+    checked against."""
 
     def __init__(self, d_model: int, epsilon: float = 1e-6):
         super().__init__()
         self.epsilon = float(epsilon)
         self.gamma = nn.Parameter(torch.ones(d_model))
         self.beta = nn.Parameter(torch.zeros(d_model))
+        self.compute_dtype = torch.float32
 
     def forward(self, x, plain: bool = False):
         if plain:
             d = x.shape[-1]
             y = layer_norm_forward_reference(x.reshape(-1, d), self.gamma, self.beta,
                                              self.epsilon)[0]
-            return y.reshape(x.shape)
-        return layer_norm(x, self.gamma, self.beta, self.epsilon)
-
-
-class Dropout(nn.Module):
-    """Inverted dropout whose masks come from its own ``torch.Generator``,
-    seeded from the builder's seed. It draws other bits than Keras's
-    dropout from the same seed: the same in distribution, not bit for
-    bit."""
-
-    def __init__(self, rate: float, seed: int):
-        super().__init__()
-        self.rate = float(rate)
-        self.seed = int(seed)
-        self._generator = None
-
-    def forward(self, x):
-        if not self.training:
-            return x
-        if self._generator is None or self._generator.device != x.device:
-            self._generator = torch.Generator(device=x.device).manual_seed(self.seed)
-        keep = torch.rand(x.shape, generator=self._generator, device=x.device) >= self.rate
-        return x * keep / (1.0 - self.rate)
+            return cast(y.reshape(x.shape), self.compute_dtype)
+        return cast(layer_norm(x, self.gamma, self.beta, self.epsilon), self.compute_dtype)
 
 
 class Block(nn.Module):
     """Pre-norm transformer block: LayerNorm → attention → residual,
-    LayerNorm → Dense(gelu, exact) → Dense → residual."""
+    LayerNorm → Dense(gelu, exact) → Dense → residual. Each residual sum
+    runs in the branch's (compute) dtype, as Keras's ``Add`` casts both
+    inputs to it."""
 
     def __init__(self, d_model, num_heads, head_dim, mlp_ratio, dropout,
                  causal, rope, maxlen, seed=0):
@@ -261,8 +255,8 @@ class Block(nn.Module):
         self.ln1 = FusedLayerNorm(d_model)
         self.attn = FlashMHA(d_model, num_heads, head_dim, causal, rope, maxlen)
         self.ln2 = FusedLayerNorm(d_model)
-        self.mlp1 = nn.Linear(d_model, hidden)
-        self.mlp2 = nn.Linear(hidden, d_model)
+        self.mlp1 = Dense(d_model, hidden)
+        self.mlp2 = Dense(hidden, d_model)
         # rate-0 dropout is elided, as in the reference
         if dropout > 0:
             self.drop1, self.drop2 = Dropout(dropout, seed), Dropout(dropout, seed + 1)
@@ -270,8 +264,8 @@ class Block(nn.Module):
             self.drop1 = self.drop2 = nn.Identity()
 
     def forward(self, x, plain: bool = False):
-        x = x + self.drop1(self.attn(self.ln1(x, plain=plain), plain=plain))
-        return self.mlp(x, plain=plain)
+        h = self.drop1(self.attn(self.ln1(x, plain=plain), plain=plain))
+        return self.mlp(cast(x, h.dtype) + h, plain=plain)
 
     def mlp(self, x, plain: bool = False):
         """``x`` plus the MLP branch: LayerNorm → Dense(gelu) → Dense."""
@@ -303,9 +297,12 @@ class _Transformer(nn.Module):
             for i in range(num_layers)
         )
         self.final_ln = FusedLayerNorm(d_model)
+        self.compute_dtype = torch.float32
 
     def features(self, tokens, plain: bool = False):
-        x = self.tok_embed(tokens)
+        # Keras's Embedding outputs the compute dtype; the f32 position
+        # table then makes the sum f32, as in the reference
+        x = cast(self.tok_embed(tokens), self.compute_dtype)
         if self.positions is not None:
             x = x + self.positions[: tokens.shape[1]]
         for block in self.blocks:
@@ -316,16 +313,38 @@ class _Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.tok_embed.weight.device
 
+    def keras_paths(self) -> dict:
+        """Keras variable path → (the port's tensor, the permutation of
+        the Keras array's axes into it)."""
+        paths = {"tok_embed/embeddings": (self.tok_embed.weight, None)}
+
+        def norm(prefix: str, ln: FusedLayerNorm):
+            paths[f"{prefix}/gamma"] = (ln.gamma, None)
+            paths[f"{prefix}/beta"] = (ln.beta, None)
+
+        for i, blk in enumerate(self.blocks):
+            norm(f"blk{i}_ln1", blk.ln1)
+            paths.update(dense_paths(f"blk{i}_attn/qkv", blk.attn.qkv))
+            paths.update(dense_paths(f"blk{i}_attn/proj", blk.attn.proj))
+            norm(f"blk{i}_ln2", blk.ln2)
+            paths.update(dense_paths(f"blk{i}_mlp1", blk.mlp1))
+            paths.update(dense_paths(f"blk{i}_mlp2", blk.mlp2))
+        norm("final_ln", self.final_ln)
+        for head in ("lm_head", "head"):
+            if hasattr(self, head):
+                paths.update(dense_paths(head, getattr(self, head)))
+        return paths
+
 
 class TransformerLM(_Transformer):
     """Decoder-only causal LM: ``[B, S]`` int tokens → ``[B, S, vocab]``
-    fp32 logits."""
+    fp32 logits (the ``lm_head`` is float32 under every policy)."""
 
     def __init__(self, vocab_size, maxlen, d_model, num_heads, num_layers,
                  mlp_ratio, dropout, rope, seed):
         super().__init__(vocab_size, maxlen, d_model, num_heads, num_layers,
                          mlp_ratio, dropout, True, rope, seed)
-        self.lm_head = nn.Linear(d_model, vocab_size)
+        self.lm_head = Dense(d_model, vocab_size, keep_float32=True)
 
     def forward(self, tokens, plain: bool = False):
         return self.lm_head(self.features(tokens, plain=plain))
@@ -334,14 +353,15 @@ class TransformerLM(_Transformer):
 class TransformerClassifier(_Transformer):
     """Encoder-stack classifier: ``[B, S]`` int tokens → ``[B, classes]``
     probabilities (sigmoid for one class, softmax otherwise), as the
-    reference's model outputs them."""
+    reference's model outputs them: the mean over the sequence in the
+    compute dtype, then the float32 ``head``."""
 
     def __init__(self, vocab_size, maxlen, num_classes, d_model, num_heads,
                  num_layers, mlp_ratio, dropout, seed):
         super().__init__(vocab_size, maxlen, d_model, num_heads, num_layers,
                          mlp_ratio, dropout, False, False, seed)
         self.num_classes = num_classes
-        self.head = nn.Linear(d_model, num_classes)
+        self.head = Dense(d_model, num_classes, keep_float32=True)
 
     def forward(self, tokens, plain: bool = False):
         logits = self.head(self.features(tokens, plain=plain).mean(dim=1))
@@ -350,30 +370,11 @@ class TransformerClassifier(_Transformer):
         return torch.softmax(logits, dim=-1)
 
 
-def _keras_init(model: nn.Module) -> None:
-    """The reference's Keras initialisers: glorot-uniform Dense kernels,
-    zero biases, uniform(±0.05) embeddings (LayerNorm is ones/zeros)."""
-    for mod in model.modules():
-        if isinstance(mod, nn.Linear):
-            nn.init.xavier_uniform_(mod.weight)
-            if mod.bias is not None:
-                nn.init.zeros_(mod.bias)
-        elif isinstance(mod, nn.Embedding):
-            nn.init.uniform_(mod.weight, -0.05, 0.05)
-
-
 def _build(cls, seed, dtype_policy, device, lr, loss, *args):
-    """The module in eval mode on its device, compiled as the reference
-    compiles its Keras model: ``Adam(lr)``, ``loss``, ``["accuracy"]``."""
-    if dtype_policy not in (None, "float32"):
-        raise NotImplementedError(_BF16_TODO.format(dtype_policy))
-    dev = resolve_device(device)
-    # weights from the seed alone, without touching the global generator
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        model = cls(*args, seed)
-        _keras_init(model)
-    model = model.to(dev).eval()
+    """The module in eval mode on its device, under ``dtype_policy``,
+    compiled as the reference compiles its Keras model: ``Adam(lr)``,
+    ``loss``, ``["accuracy"]``."""
+    model = build_module(lambda: cls(*args, seed), seed, dtype_policy, device)
     return compile_model(model, Adam(model.parameters(), lr=lr), loss, ["accuracy"])
 
 
@@ -392,7 +393,8 @@ def transformer_classifier(
     device=None,
 ):
     """Encoder-stack text classifier, in eval mode on ``device``
-    (``cuda:0`` by default), compiled with Keras's ``Adam(lr)``, binary
+    (``cuda:0`` by default) under ``dtype_policy``, compiled with Keras's
+    ``Adam(lr)``, binary
     cross-entropy for one class (sparse categorical otherwise, on the
     softmax probabilities) and ``accuracy``."""
     loss = binary_crossentropy if num_classes == 1 else sparse_categorical_crossentropy
@@ -417,7 +419,7 @@ def transformer_lm(
     device=None,
 ):
     """Decoder-only causal LM, in eval mode on ``device`` (``cuda:0`` by
-    default). ``rope=True`` uses rotary position embeddings in every
+    default) under ``dtype_policy``. ``rope=True`` uses rotary position embeddings in every
     attention layer instead of the additive sinusoidal table. Compiled
     with Keras's ``Adam(lr)``, sparse categorical cross-entropy from the
     logits and ``accuracy``."""
@@ -487,7 +489,9 @@ def validate_token_decode_model(model, what: str = "kv_cache decode",
     """Compatibility gate for token-at-a-time cached decode, shared by
     ``generate(kv_cache=True)`` and the serving engine
     (:mod:`elephas_tpu_torch.serving`): a :func:`transformer_lm` module
-    whose every ``FlashMHA`` is causal and whose weights are float32.
+    whose every ``FlashMHA`` is causal and that computes in float32 (the
+    reference reads the policy's compute dtype: a ``mixed_bfloat16``
+    model, whose variables are float32, is refused).
     Returns the attention layers as ``[(name, FlashMHA)]`` by their Keras
     names (``blk{i}_attn``); raises ``ValueError`` (messages prefixed
     ``what``, suffixed ``hint``, as the reference words them) otherwise."""
@@ -509,11 +513,11 @@ def validate_token_decode_model(model, what: str = "kv_cache decode",
             f"{what} replays the model one token at a time; "
             f"{type(model).__name__} pools the sequence axis — {hint}"
         )
-    dtype = model.tok_embed.weight.dtype
+    dtype = model.compute_dtype
     if dtype != torch.float32:
         raise ValueError(
             f"{what} computes in float32, which would diverge "
-            f"from this model's {dtype} forward (argmax flips "
+            f"from this model's {str(dtype).removeprefix('torch.')} forward (argmax flips "
             f"where top logits are close) — {hint} for "
             f"mixed-precision models"
         )

@@ -43,8 +43,10 @@ WARP_CHOICES = (4, 8)
 # cp.async copies 16 bytes: base pointers and strides must be multiples
 ALIGN_BYTES = 16
 
-# kernel launches since the last reset (chip_smoke.py reads it)
+# kernel launches since the last reset (chip_smoke.py reads them), and
+# those of them on the bf16 route
 launches = 0
+bf16_launches = 0
 
 def _resolve_blocks(block_q, block_k, s_q, s_k):
     block_q = min(block_q, s_q)
@@ -207,7 +209,7 @@ def _forward(q, k, v, out, scale: float, causal: bool):
 def _launch(q, k, v, out, scale: float, causal: bool, warps: int):
     """One launch of the kernel on checked CUDA operands with blocks of
     ``warps`` warps; returns lse ``[B·H, Sq]``."""
-    global launches
+    global launches, bf16_launches
     b, h, s_q, _ = q.shape
     lse = torch.empty(b * h, s_q, dtype=torch.float32, device=q.device)
     lib = _kernel()
@@ -225,6 +227,7 @@ def _launch(q, k, v, out, scale: float, causal: bool, warps: int):
             + lib.elephas_cuda_error_string(err).decode()
         )
     launches += 1
+    bf16_launches += q.dtype is torch.bfloat16
     return lse
 
 

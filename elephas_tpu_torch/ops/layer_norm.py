@@ -38,10 +38,13 @@ MAX_WIDTH = 8192
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _F32 = torch.float32
 
-# kernel launches since the last reset (chip_smoke.py reads them); the
-# backward counts each of its two launches
+# kernel launches since the last reset (chip_smoke.py reads them), and
+# those of them on the bf16 route; the backward counts each of its two
+# launches
 fwd_launches = 0
 bwd_launches = 0
+fwd_bf16_launches = 0
+bwd_bf16_launches = 0
 
 # the rows (one warp each) a forward block may take for d <= 1024
 ROWS_PER_BLOCK = (1, 2, 4, 8)
@@ -204,7 +207,7 @@ def layer_norm_forward(x2, gamma, beta, eps: float, stats: bool = True):
     """``[N, d]`` rows → ``(y, mean [N], rstd [N])``; with ``stats=False``
     ``(y, None, None)``, the kernel writing y only. CPU tensors take the
     plain version; CUDA tensors launch the forward kernel."""
-    global fwd_launches
+    global fwd_launches, fwd_bf16_launches
     if _device_of(x2) == "cpu":
         y, mean, rstd = layer_norm_forward_reference(x2, gamma, beta, eps)
         return (y, mean, rstd) if stats else (y, None, None)
@@ -222,13 +225,14 @@ def layer_norm_forward(x2, gamma, beta, eps: float, stats: bool = True):
     _launch_fwd(x2.get_device(), x2, gamma.float(), beta.float(), y, mean, rstd, n, d,
                 float(eps))
     fwd_launches += 1
+    fwd_bf16_launches += x2.dtype is torch.bfloat16
     return y, mean, rstd
 
 
 def layer_norm_backward(x2, gamma, dy, mean, rstd):
     """``(dx, dγ, dβ)`` for ``[N, d]`` rows. CPU tensors take the plain
     version; CUDA tensors launch the two backward kernels."""
-    global bwd_launches
+    global bwd_launches, bwd_bf16_launches
     if _device_of(x2) == "cpu":
         return layer_norm_backward_reference(x2, gamma, dy, mean, rstd)
     _check_cuda_rows(x2)
@@ -259,12 +263,14 @@ def layer_norm_backward(x2, gamma, dy, mean, rstd):
         )
         _raise_on(lib, err, "backward launch")
         bwd_launches += 1
+        bwd_bf16_launches += x2.dtype is torch.bfloat16
         err = lib.elephas_ln_bwd_reduce(
             parts[0].data_ptr(), parts[1].data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
             blocks.value, d, stream,
         )
         _raise_on(lib, err, "backward reduction launch")
         bwd_launches += 1
+        bwd_bf16_launches += x2.dtype is torch.bfloat16
     return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
 
 
@@ -299,7 +305,7 @@ def layer_norm_inference(x, gamma, beta, eps: float = 1e-6):
     device) is decided by one predicate and launched at once; any other
     input takes the full checks, which raise what the kernel does not
     take. A CPU tensor takes the plain version."""
-    global fwd_launches
+    global fwd_launches, fwd_bf16_launches
     d = x.shape[-1]
     index = x.get_device()
     if (x.is_cuda and x.dtype in _DTYPES and gamma.dtype is _F32
@@ -311,6 +317,7 @@ def layer_norm_inference(x, gamma, beta, eps: float = 1e-6):
         y = torch.empty_like(x)
         _launch_fwd(index, x, gamma, beta, y, None, None, x.numel() // d, d, float(eps))
         fwd_launches += 1
+        fwd_bf16_launches += x.dtype is torch.bfloat16
         return y
     return layer_norm_forward(x.reshape(-1, d), gamma, beta, eps, stats=False)[0].reshape(
         x.shape)

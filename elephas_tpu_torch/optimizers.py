@@ -1,6 +1,7 @@
-"""Keras's Adam as a ``torch.optim.Optimizer``.
+"""Keras's Adam and SGD as ``torch.optim.Optimizer``s.
 
-The reference's builders compile ``keras.optimizers.Adam(lr)``, whose
+The reference's builders compile ``keras.optimizers.Adam(lr)`` (ResNet:
+``keras.optimizers.SGD(lr, momentum=0.9)``, see :class:`SGD`). Adam's
 update (``keras/src/optimizers/adam.py``, ``Adam.update_step``) is, at step
 ``t`` and with every quantity in the variable's dtype::
 
@@ -68,4 +69,45 @@ class Adam(torch.optim.Optimizer):
                 m.add_((g - m) * (1 - b1))
                 v.add_((g * g - v) * (1 - b2))
                 p.sub_(m * alpha / (torch.sqrt(v) + eps))
+        return loss
+
+
+class SGD(torch.optim.Optimizer):
+    """Keras's SGD (no Nesterov momentum, weight decay or clipping). Its
+    update (``keras/src/optimizers/sgd.py``, ``SGD.update_step``), in the
+    variable's dtype::
+
+        m = m * momentum - g * lr; var += m      # momentum != 0
+        var -= g * lr                            # momentum == 0
+
+    ``torch.optim.SGD`` keeps ``buf = μ·buf + g`` and steps ``p −= lr·buf``,
+    which rounds differently; so the update is written out here, one
+    parameter at a time. State per parameter: ``m`` (with momentum). A
+    parameter whose ``grad`` is ``None`` takes a zero gradient, as in
+    :class:`Adam`."""
+
+    def __init__(self, params, lr: float = 0.01, momentum: float = 0.0):
+        if lr <= 0 or not 0 <= momentum <= 1:
+            raise ValueError(f"bad SGD settings: lr={lr}, momentum={momentum}")
+        super().__init__(params, dict(lr=lr, momentum=momentum))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            lr, mu = group["lr"], group["momentum"]
+            for p in group["params"]:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                if mu == 0:
+                    p.sub_(g * lr)
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["m"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                m = state["m"]
+                m.mul_(mu).sub_(g * lr)
+                p.add_(m)
         return loss

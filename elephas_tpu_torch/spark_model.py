@@ -5,18 +5,19 @@ frequency=, num_workers=, batch_size=, device=)`` with ``fit``,
 ``predict`` and ``evaluate`` over a simple RDD or ``(x, y)`` arrays, on one
 device (:class:`elephas_tpu_torch.worker.Runner`), and ``generate`` and
 ``serve`` of a language model. ``model`` is a module compiled with
-:func:`elephas_tpu_torch.training.compile_model`, as
-:func:`~elephas_tpu_torch.transformer_lm` and
-:func:`~elephas_tpu_torch.transformer_classifier` return it.
+:func:`elephas_tpu_torch.training.compile_model`, as every builder of the
+zoo returns it (``mnist_mlp``, ``cifar10_cnn``, ``imdb_lstm``,
+``resnet``/``resnet50``, ``transformer_classifier``, ``transformer_lm``),
+in float32 or, where the reference takes it, ``mixed_bfloat16``.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP.md item: more than one worker, the parameter server, model,
 pipeline and sequence parallelism (item 5), streaming inputs,
 ``validation_split``, checkpoints and ``resume``,
 ``save``/``load_spark_model``, and the serving engine's options beyond
-the fixed arena (:meth:`SparkModel.serve`).
-``mixed_bfloat16`` is refused by ``transformer_lm`` and
-``transformer_classifier``.
+the fixed arena (:meth:`SparkModel.serve`). A ``mixed_bfloat16`` language
+model is refused by :meth:`SparkModel.serve` and ``generate(kv_cache=True)``,
+as in the reference.
 """
 
 from __future__ import annotations

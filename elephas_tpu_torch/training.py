@@ -40,6 +40,18 @@ def sparse_categorical_crossentropy(y_true, y_pred, from_logits: bool = False):
     return -log_prob.gather(-1, y_true.long()[..., None])[..., 0]
 
 
+def categorical_crossentropy(y_true, y_pred, from_logits: bool = False):
+    """One-hot (or soft) ``y_true`` ``[..., C]`` and ``y_pred`` ``[..., C]``
+    → values ``[...]``: ``−Σ y_true · log p``, with ``p`` renormalised and
+    clipped to ``[ε, 1−ε]`` as in the sparse version."""
+    if from_logits:
+        log_prob = torch.log_softmax(y_pred, dim=-1)
+    else:
+        p = y_pred / y_pred.sum(dim=-1, keepdim=True)
+        log_prob = torch.log(p.clamp(EPSILON, 1.0 - EPSILON))
+    return -(y_true.to(log_prob.dtype) * log_prob).sum(dim=-1)
+
+
 def binary_crossentropy(y_true, y_pred):
     """Probabilities ``y_pred`` ``[..., K]`` and 0/1 ``y_true`` (``[...]``
     gains the trailing axis) → values ``[...]``, the mean over the last
@@ -59,6 +71,11 @@ def sparse_categorical_accuracy(y_true, y_pred):
     return (y_pred.argmax(dim=-1) == y_true.long()).float()
 
 
+def categorical_accuracy(y_true, y_pred):
+    """1.0 where ``argmax(y_pred)`` equals ``argmax(y_true)``, else 0.0."""
+    return (y_pred.argmax(dim=-1) == y_true.argmax(dim=-1)).float()
+
+
 def binary_accuracy(y_true, y_pred, threshold: float = 0.5):
     """1.0 where ``y_pred > threshold`` equals the 0/1 label, else 0.0."""
     if y_true.ndim == y_pred.ndim - 1:
@@ -68,8 +85,15 @@ def binary_accuracy(y_true, y_pred, threshold: float = 0.5):
 
 LOSSES = {
     "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
+    "categorical_crossentropy": categorical_crossentropy,
     "binary_crossentropy": binary_crossentropy,
 }
+
+
+def classification_loss(sparse_labels: bool) -> str:
+    """The zoo builders' loss: sparse categorical cross-entropy on integer
+    labels, categorical on one-hot ones (``sparse_labels=False``)."""
+    return "sparse_categorical_crossentropy" if sparse_labels else "categorical_crossentropy"
 
 
 def _base(fn):
@@ -78,13 +102,16 @@ def _base(fn):
 
 def _resolve_metric(name: str, loss: Callable) -> Callable:
     """Keras's resolution of ``"accuracy"``: binary for a binary loss,
-    sparse categorical for a sparse categorical one."""
+    sparse categorical for a sparse categorical one, categorical for a
+    categorical one."""
     if name != "accuracy":
         raise ValueError(f"unsupported metric {name!r}: the port knows 'accuracy'")
     if _base(loss) is binary_crossentropy:
         return binary_accuracy
     if _base(loss) is sparse_categorical_crossentropy:
         return sparse_categorical_accuracy
+    if _base(loss) is categorical_crossentropy:
+        return categorical_accuracy
     raise ValueError(f"no 'accuracy' for the loss {loss!r}")
 
 

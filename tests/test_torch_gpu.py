@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import elephas_tpu_torch as et
+from elephas_tpu_torch.models.layers import Dropout
 from elephas_tpu_torch.ops import flash_attention as fa
 from elephas_tpu_torch.ops import flash_serving as fs
 from elephas_tpu_torch.ops import layer_norm as ln
@@ -25,7 +26,9 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the flash kernel runs only on the GPU")
+    # fp32 as the reference computes it: no TF32 in GEMMs or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda:0")
 
 
@@ -466,3 +469,100 @@ def test_engine_on_cuda_matches_cpu(cuda):
         with torch.inference_mode():
             top2 = cpu(seq, plain=True)[0, -1].topk(2).values
         assert (top2[0] - top2[1]).item() < 1e-3, (prompt, got, want)
+
+
+# -- mixed_bfloat16 training and the zoo on the card -------------------------
+
+MIXED_CLF = dict(vocab_size=61, maxlen=64, num_classes=2, d_model=256, num_heads=2,
+                 num_layers=2, dropout=0.0, seed=6)
+
+
+def _bf16_counts():
+    return (fa.launches, fa.bf16_launches, ln.fwd_launches, ln.fwd_bf16_launches,
+            ln.bwd_launches, ln.bwd_bf16_launches)
+
+
+def test_mixed_training_step_takes_the_bf16_routes(cuda):
+    """One SparkModel step of a mixed classifier: the flash forward once a
+    layer and each LayerNorm 2·layers+1 times (the backward as two
+    launches), every launch on the bf16 route but the first norm's, which
+    normalises the float32 sum of the embeddings and the position table
+    (as the reference's stock LayerNormalization does); the variables stay
+    float32."""
+    model = et.transformer_classifier(**MIXED_CLF, dtype_policy="mixed_bfloat16", device=cuda)
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, 61, (8, 64)).astype(np.int32)
+    y = rng.integers(0, 2, 8).astype(np.int32)
+    before = _bf16_counts()
+    hist = et.SparkModel(model, device=cuda).fit((x, y), epochs=1, batch_size=8)
+    got = [a - b for a, b in zip(_bf16_counts(), before)]
+    norms = 2 * MIXED_CLF["num_layers"] + 1
+    assert got == [2, 2, norms, norms - 1, 2 * norms, 2 * (norms - 1)]
+    assert np.isfinite(hist["loss"]).all()
+    assert all(t.dtype == torch.float32 for t in model.state_dict().values())
+
+
+@pytest.mark.parametrize("rope", [False, True])
+def test_mixed_step_gradients_kernel_against_plain(cuda, rope):
+    """One batch's gradients of a mixed LM through the kernels against
+    the plain path's, from the same weights: within 2e-2 of each tensor's
+    largest plain gradient (a gradient the kernels lost reads 1)."""
+    model = et.transformer_lm(vocab_size=64, maxlen=64, d_model=256, num_heads=2,
+                              num_layers=2, rope=rope, dtype_policy="mixed_bfloat16",
+                              device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randint(0, 64, (4, 64), generator=gen, device=cuda)
+    y = torch.roll(x, -1, dims=1)
+    grads = {}
+    model.train()
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        model.training_spec.loss(y, model(x, plain=plain)).mean().backward()
+        grads[plain] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    for name, want in grads[True].items():
+        got = grads[False][name]
+        assert got.dtype == torch.float32
+        assert want.abs().max() > 0, name
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        assert err <= 2e-2, (name, err)
+
+
+ZOO = {
+    "mnist_mlp": (lambda dev, **kw: et.mnist_mlp(device=dev, **kw),
+                  lambda rng: rng.normal(size=(8, 784)).astype(np.float32)),
+    "cifar10_cnn": (lambda dev, **kw: et.cifar10_cnn(device=dev, **kw),
+                    lambda rng: rng.normal(size=(8, 32, 32, 3)).astype(np.float32)),
+    "imdb_lstm": (lambda dev, **kw: et.imdb_lstm(device=dev, **kw),
+                  lambda rng: rng.integers(0, 20000, (8, 80)).astype(np.int64)),
+    "resnet": (lambda dev, **kw: et.resnet(input_shape=(64, 64, 3), num_classes=10,
+                                           depths=(1, 1, 1), width=16, device=dev, **kw),
+               lambda rng: rng.normal(size=(8, 64, 64, 3)).astype(np.float32)),
+}
+
+
+@pytest.mark.parametrize("name,policy", [(name, None) for name in ZOO]
+                         + [("resnet", "mixed_bfloat16")])
+def test_zoo_forward_on_cuda_matches_cpu(cuda, name, policy):
+    """Each zoo model from the same seed on the card and on the CPU, in
+    eval and train mode (batch statistics; dropout off: the two devices'
+    generators draw other masks): float32 within 1e-4, mixed (ResNet
+    only: the others have no policy in the reference) within 2e-2 of
+    max(1, |value|)."""
+    build, make_x = ZOO[name]
+    kwargs = {"dtype_policy": policy} if policy else {}
+    cpu, card = build("cpu", **kwargs), build(cuda, **kwargs)
+    for mod in (*cpu.modules(), *card.modules()):
+        if isinstance(mod, Dropout):
+            mod.rate = 0.0
+    x = torch.from_numpy(make_x(np.random.default_rng(3)))
+    tol = 2e-2 if policy else 1e-4
+    for train in (False, True):
+        cpu.train(train)
+        card.train(train)
+        with torch.no_grad():
+            want, got = cpu(x), card(x.to(cuda)).cpu()
+        assert got.dtype == want.dtype == torch.float32
+        err = ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
+        assert err <= tol, (name, train, err)
+    if policy:
+        assert card.compute_dtype == torch.bfloat16

@@ -151,7 +151,7 @@ def test_unported_options_raise(lm_pair):
         et.InferenceEngine(port, prefix_cache=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         et.transformer_lm(vocab_size=8, maxlen=16, d_model=32, num_heads=2,
-                          num_layers=1, dtype_policy="mixed_bfloat16", device="cpu")
+                          num_layers=1, dtype_policy="mixed_float16", device="cpu")
 
 
 def test_load_keras_weights_rejects_mismatches(lm_pair):
