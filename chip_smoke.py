@@ -58,6 +58,19 @@ Phases, each printing one JSON line and raising on failure:
             rounded to bf16);
 5d. zoo    — one fit each of mnist_mlp, cifar10_cnn and imdb_lstm at
             their defaults on synthetic data of their shapes;
+5e. train_workers — the train phase's fp32 fit of T on 4 workers of the
+            one card (force_devices(4), 32 rows a worker step, the same
+            global batch): synchronous/epoch with the workers' mean
+            first-step gradient against one model's on their 128 rows,
+            replicas bit-identical to the master, 4x the train phase's
+            launches, tokens/s over all workers, the median global step,
+            the device time of one averaging, peak memory;
+            asynchronous/batch and hogwild/epoch with identical replicas
+            and the master equal to the replicas' mean before the last
+            average; a 1-epoch fit with checkpoints resumed to 2 epochs by
+            a fresh wrapper against the uninterrupted fit, bit for bit;
+            save -> load_spark_model -> predict, bit for bit; and
+            validation_split=0.25;
 6. engine — the continuous-batching InferenceEngine at config A's full
             width (16 slots, 16 steps a decode window, 48 requests as the
             reference's serving bench sends them), after a warm-up pass:
@@ -104,7 +117,8 @@ Phases, each printing one JSON line and raising on failure:
             torch.nn.functional.layer_norm's.
 
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
-summed over the serve, train, train_bf16 and engine paths, times at config A's
+summed over the serve, train, train_bf16, train_workers and engine paths,
+times at config A's
 attention shape, at the training rows and at the engine's decode shape,
 fp32), and last {"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
 not available or the package is not beside this script.
@@ -186,6 +200,17 @@ TOL_LN_DPARAM = 1e-4
 TRAIN = dict(vocab_size=8192, maxlen=256, num_classes=2, d_model=1024, num_heads=8,
              num_layers=4, dropout=0.0)
 TRAIN_ROWS, TRAIN_BATCH, TRAIN_EPOCHS = 512, 128, 2
+# T again on WORKERS workers of the one card (force_devices): the same
+# global batch, WORKER_BATCH rows a worker step. The workers' mean
+# first-step gradient against one model's on their 128 rows, relative to
+# each tensor's largest; the master against the float64 mean of the
+# replicas before the last average, the same way; predictions on
+# PREDICT_ROWS rows before and after save/load
+WORKERS = 4
+WORKER_BATCH = TRAIN_BATCH // WORKERS
+TOL_MEAN_GRAD = 1e-4
+TOL_MASTER_MEAN = 1e-6
+PREDICT_ROWS = 256
 # kernel vs plain gradients, relative to each tensor's largest plain
 # gradient: fp32, and bf16 (the train_bf16 phase: the same configuration
 # in the bench's mixed_bfloat16)
@@ -754,12 +779,15 @@ def _gradient_check(model, x, y):
 def _timed_fit(sm, model, data, epochs, batch, dev):
     """``sm.fit`` with a stamp at the start of every step's forward (after
     the previous step's work has finished) and one at the end; returns
-    the history and the seconds of each step."""
+    the history and the seconds of each step. With several workers the
+    master is worker 0, whose forward starts each global step (the
+    replicas copy the hook, and skip it)."""
     stamps = []
 
-    def stamp(_module, _inputs):
-        torch.cuda.synchronize(dev)
-        stamps.append(time.perf_counter())
+    def stamp(module, _inputs):
+        if module is model:
+            torch.cuda.synchronize(dev)
+            stamps.append(time.perf_counter())
 
     hook = model.register_forward_pre_hook(stamp)
     try:
@@ -1029,6 +1057,247 @@ def phase_zoo(dev):
           "note": "samples_s after a one-batch warm-up fit", **out, "failures": failures})
     if failures:
         raise AssertionError(f"zoo fits failed: {failures}")
+
+
+def _state_equal(a, b, optimizer=True):
+    """Names of the state_dict entries (and, with ``optimizer``, the
+    optimizer-state entries) on which two compiled modules differ, bit for
+    bit."""
+    sa, sb = a.state_dict(), b.state_dict()
+    bad = [n for n in sa if not torch.equal(sa[n], sb[n])]
+    if not optimizer:
+        return bad
+    oa = a.training_spec.optimizer.state_dict()["state"]
+    ob = b.training_spec.optimizer.state_dict()["state"]
+    bad += [f"optimizer {i}/{k}" for i in oa for k, v in oa[i].items()
+            if not (torch.equal(v, ob[i][k]) if torch.is_tensor(v) else v == ob[i][k])]
+    return bad
+
+
+def _rel_state_err(got, want):
+    """Per state_dict entry: the largest difference relative to the
+    largest magnitude of ``want``'s tensor; the worst entry and its error."""
+    errs = {n: _rel(got[n].double(), w.double().to(got[n].device)) for n, w in want.items()}
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def _time_call_ms(fn, iters=10):
+    """Median device time of ``fn()`` over ``iters`` calls, each between
+    two CUDA events."""
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_train_workers(dev):
+    """SparkModel.fit of T on WORKERS workers on the one card
+    (force_devices): fp32, TRAIN_ROWS rows, WORKER_BATCH rows a worker
+    step, TRAIN_EPOCHS epochs. synchronous/epoch: the workers' mean
+    first-step gradient against one model's gradient on their
+    concatenated first batches (TOL_MEAN_GRAD of each tensor's largest),
+    replicas bit-identical to the master afterwards (weights, buffers,
+    optimizer state), launches WORKERS x phase_train's, a finite history,
+    tokens/s over all workers after the first global step, the median
+    global step, the device time of one gradient and one weight averaging
+    (CUDA events, median of 10), peak memory. asynchronous/batch and
+    hogwild/epoch: replicas bit-identical after the fit, the master the
+    mean of the replicas' weights taken just before the last average
+    (float64, TOL_MASTER_MEAN of each tensor's largest). Then checkpoints:
+    fit(1 epoch, checkpoint_dir) and a fresh wrapper's fit(2 epochs,
+    resume=True) against the synchronous 2-epoch fit, bit for bit; save ->
+    load_spark_model -> predict on PREDICT_ROWS rows against predict
+    before saving, bit for bit; a fit with validation_split=0.25 gives
+    finite val_loss and val_accuracy per epoch."""
+    from elephas_tpu_torch import SparkModel, load_spark_model, transformer_classifier, worker
+    from elephas_tpu_torch.device import force_devices
+
+    x, y = _synthetic_tokens(TRAIN_ROWS, TRAIN["maxlen"], TRAIN["vocab_size"],
+                             TRAIN["num_classes"])
+    layers = TRAIN["num_layers"]
+    per_worker = TRAIN_ROWS // WORKERS
+    global_steps = TRAIN_EPOCHS * -(-per_worker // WORKER_BATCH)
+    failures = []
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_workers")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    previous = force_devices(WORKERS)
+    real_mean_gradients, real_mean_weights = worker.mean_gradients, worker.mean_weights
+    kept, first_grad, expected = [], {}, {}
+
+    def spy_gradients(replicas):
+        real_mean_gradients(replicas)
+        if not first_grad:
+            first_grad.update({n: p.grad.clone() for n, p in replicas[0].named_parameters()})
+        kept[:] = replicas
+
+    def spy_weights(replicas):
+        states = [r.state_dict() for r in replicas]
+        expected.clear()
+        expected.update({n: torch.stack([st[n].double() for st in states]).mean(0)
+                         for n, t in states[0].items() if t.is_floating_point()})
+        real_mean_weights(replicas)
+        kept[:] = replicas
+
+    def build():
+        return transformer_classifier(**TRAIN, seed=0, device=dev)
+
+    try:
+        worker.mean_gradients, worker.mean_weights = spy_gradients, spy_weights
+        out = {"phase": "train_workers", "config": TRAIN, "dtype_policy": "float32",
+               "workers": WORKERS, "rows": TRAIN_ROWS, "worker_batch": WORKER_BATCH,
+               "global_batch": WORKERS * WORKER_BATCH, "epochs": TRAIN_EPOCHS,
+               "global_steps": global_steps}
+
+        # synchronous / epoch: the north-star path
+        model = build()
+        first = np.concatenate([x[w * per_worker:w * per_worker + WORKER_BATCH]
+                                for w in range(WORKERS)])
+        first_y = np.concatenate([y[w * per_worker:w * per_worker + WORKER_BATCH]
+                                  for w in range(WORKERS)])
+        spec = model.training_spec
+        model.train()
+        # what one worker step at WORKER_BATCH rows adds to the memory held
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        spec.loss(torch.from_numpy(y[:WORKER_BATCH]).long().to(dev),
+                  model(torch.from_numpy(x[:WORKER_BATCH]).long().to(dev))).mean().backward()
+        one_step_bytes = torch.cuda.max_memory_allocated(dev) - held
+        model.zero_grad(set_to_none=True)
+        spec.loss(torch.from_numpy(first_y).long().to(dev),
+                  model(torch.from_numpy(first).long().to(dev))).mean().backward()
+        want_grad = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        model.eval()
+        # weights, gradients and Adam's m and v of every replica
+        state_bytes = 4 * WORKERS * sum(p.numel() * p.element_size()
+                                        for p in model.parameters())
+        sm = SparkModel(model, num_workers=WORKERS, device=dev)
+        # earlier phases' models stay allocated (the profiles reuse them)
+        held_before_fit = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches()
+        history, step_s = _timed_fit(sm, model, (x, y), TRAIN_EPOCHS, WORKER_BATCH, dev)
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated(dev)
+        norms = 2 * layers + 1
+        worker_steps = WORKERS * global_steps
+        want = {"flash_fwd": layers * worker_steps, "layer_norm_fwd": norms * worker_steps,
+                "layer_norm_bwd": 2 * norms * worker_steps, "span_decode": 0,
+                "flash_fwd_bf16": 0, "layer_norm_fwd_bf16": 0, "layer_norm_bwd_bf16": 0}
+        if launches != want:
+            failures.append(f"launches {launches}, expected {want}")
+        grad_err = {n: _rel(first_grad[n], g) for n, g in want_grad.items()}
+        worst = max(grad_err, key=grad_err.get)
+        if grad_err[worst] > TOL_MEAN_GRAD:
+            failures.append(f"mean first-step gradient of {worst}: {grad_err[worst]}")
+        if len(kept) != WORKERS or kept[0] is not model:
+            failures.append(f"{len(kept)} replicas seen, worker 0 the master: "
+                            f"{bool(kept) and kept[0] is model}")
+        diverged = {i: _state_equal(r, model)[:3] for i, r in enumerate(kept[1:], 1)}
+        if any(diverged.values()):
+            failures.append(f"synchronous replicas differ from the master: {diverged}")
+        if sorted(history) != ["accuracy", "loss"] or \
+                any(len(v) != TRAIN_EPOCHS or not np.all(np.isfinite(v))
+                    for v in history.values()):
+            failures.append(f"bad history {history}")
+        if len(step_s) != global_steps:
+            failures.append(f"{len(step_s)} global steps timed, expected {global_steps}")
+        replicas = list(kept)
+        grad_ms = _time_call_ms(lambda: real_mean_gradients(replicas))
+        weights_ms = _time_call_ms(lambda: real_mean_weights(replicas))
+        del replicas
+        kept.clear()
+        tokens = WORKERS * WORKER_BATCH * TRAIN["maxlen"]
+        out["synchronous_epoch"] = {
+            "launches": launches, "launches_expected": want, "history": history,
+            "global_step_seconds": step_s.tolist(),
+            "median_global_step_s_after_first": float(np.median(step_s[1:])),
+            "tokens_s_after_first": (global_steps - 1) * tokens / float(np.sum(step_s[1:])),
+            "max_memory_allocated": peak, "allocated_before_fit": held_before_fit,
+            "replica_state_bytes": state_bytes,
+            "one_worker_step_bytes": one_step_bytes, "mean_gradients_ms": grad_ms,
+            "mean_weights_ms": weights_ms,
+            "averaging_timing": "CUDA events around one call on the fit's replicas, median "
+                                "of 10",
+            "mean_grad_tol": TOL_MEAN_GRAD, "mean_grad_max_err": grad_err[worst],
+            "mean_grad_worst_param": worst}
+        uninterrupted = {n: t.detach().cpu().clone() for n, t in model.state_dict().items()}
+        predict_before = sm.predict(x[:PREDICT_ROWS])
+        sm.save(os.path.join(scratch, "model.pt"))
+        loaded = load_spark_model(os.path.join(scratch, "model.pt"), device=dev)
+        predict_after = loaded.predict(x[:PREDICT_ROWS])
+        out["save_load"] = {"rows": PREDICT_ROWS,
+                            "predictions_equal": bool(np.array_equal(predict_before,
+                                                                     predict_after)),
+                            "num_workers": loaded.num_workers}
+        if not out["save_load"]["predictions_equal"] or loaded.num_workers != WORKERS:
+            failures.append(f"save/load: {out['save_load']}")
+        del sm, model, loaded, want_grad
+
+        for mode, frequency in (("asynchronous", "batch"), ("hogwild", "epoch")):
+            model = build()
+            history = SparkModel(model, mode=mode, frequency=frequency, num_workers=WORKERS,
+                                 device=dev).fit((x, y), epochs=TRAIN_EPOCHS,
+                                                 batch_size=WORKER_BATCH)
+            # optimizer state is never averaged here: weights and buffers
+            diverged = {i: _state_equal(r, model, optimizer=False)[:3]
+                        for i, r in enumerate(kept[1:], 1)}
+            got = model.state_dict()
+            worst, err = _rel_state_err(got, expected)
+            key = f"{mode}_{frequency}"
+            out[key] = {"history": history, "master_vs_replica_mean_err": err,
+                        "worst_tensor": worst, "tol": TOL_MASTER_MEAN,
+                        "replicas_identical": not any(diverged.values())}
+            if len(kept) != WORKERS or any(diverged.values()) or err > TOL_MASTER_MEAN or \
+                    not all(np.all(np.isfinite(v)) for v in history.values()):
+                failures.append(f"{key}: {len(kept)} replicas, differ {diverged}, "
+                                f"master vs mean {worst} {err}, history {history}")
+            kept.clear()
+            expected.clear()
+            del model, got
+
+        # checkpoints and resume against the uninterrupted synchronous fit
+        ckpt_dir = os.path.join(scratch, "ckpt")
+        SparkModel(build(), num_workers=WORKERS, device=dev).fit(
+            (x, y), epochs=1, batch_size=WORKER_BATCH, checkpoint_dir=ckpt_dir)
+        resumed = build()
+        history = SparkModel(resumed, num_workers=WORKERS, device=dev).fit(
+            (x, y), epochs=TRAIN_EPOCHS, batch_size=WORKER_BATCH, checkpoint_dir=ckpt_dir,
+            resume=True)
+        state = resumed.state_dict()
+        differ = [n for n, t in uninterrupted.items() if not torch.equal(state[n].cpu(), t)]
+        worst, err = _rel_state_err(state, uninterrupted)
+        out["resume"] = {"epochs_run": len(history["loss"]), "bit_equal": not differ,
+                         "differing_tensors": len(differ), "max_rel_err": err,
+                         "worst_tensor": worst, "checkpoints": sorted(os.listdir(ckpt_dir))}
+        if differ or len(history["loss"]) != TRAIN_EPOCHS - 1:
+            failures.append(f"resume: {out['resume']}")
+        del resumed, state, uninterrupted
+
+        model = build()
+        history = SparkModel(model, num_workers=WORKERS, device=dev).fit(
+            (x, y), epochs=TRAIN_EPOCHS, batch_size=WORKER_BATCH, validation_split=0.25)
+        out["validation"] = {"split": 0.25, "history": history}
+        if any(len(history.get(k, [])) != TRAIN_EPOCHS or not np.all(np.isfinite(history[k]))
+               for k in ("val_loss", "val_accuracy")):
+            failures.append(f"validation history {history}")
+        del model
+    finally:
+        worker.mean_gradients, worker.mean_weights = real_mean_gradients, real_mean_weights
+        force_devices(previous)
+        shutil.rmtree(scratch, ignore_errors=True)
+    out["failures"] = failures
+    emit(out)
+    if failures:
+        raise AssertionError(f"train_workers check failed: {failures}")
+    return launches
 
 
 def _engine_workload(vocab, n):
@@ -2030,6 +2299,7 @@ def main(argv=None) -> int:
     train_bf16, model_bf16, batch_bf16, _ = phase_train(dev, "mixed_bfloat16", fp32_line)
     r50, r50_batch = phase_train_resnet50(dev)
     phase_zoo(dev)
+    train_workers = phase_train_workers(dev)
     engine, lm = phase_engine(dev)
     phase_engine_long(dev, lm)
     for path, launches, kernels in (
@@ -2037,6 +2307,7 @@ def main(argv=None) -> int:
         ("train", train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
         ("train_bf16", train_bf16, ("flash_fwd_bf16", "layer_norm_fwd_bf16",
                                     "layer_norm_bwd_bf16")),
+        ("train_workers", train_workers, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
         ("engine", engine, ("span_decode", "flash_fwd", "layer_norm_fwd")),
     ):
         idle = [k for k in kernels if launches[k] == 0]
@@ -2058,7 +2329,8 @@ def main(argv=None) -> int:
     span_times = phase_times_span_decode(dev)
 
     print(nvidia_smi(), flush=True)
-    total = {k: serve[k] + train[k] + train_bf16[k] + engine[k] for k in serve}
+    total = {k: serve[k] + train[k] + train_bf16[k] + train_workers[k] + engine[k]
+             for k in serve}
     emit({"kernels": [
         _kernel_entry(
             "flash_fwd", "elephas_tpu_torch/csrc/flash_fwd.cu",

@@ -7,9 +7,12 @@ numpy, never jax, keras or ``elephas_tpu``.
 What runs: the reference's model zoo (:func:`mnist_mlp`,
 :func:`cifar10_cnn`, :func:`imdb_lstm`, :func:`resnet`, :func:`resnet50`,
 :func:`transformer_classifier`, :func:`transformer_lm`) builds, trains,
-evaluates and predicts through :class:`SparkModel` on one device, in
-float32 and, where the reference takes it (the transformers and ResNet),
-``mixed_bfloat16``. The transformers run the flash-attention forward
+evaluates and predicts through :class:`SparkModel` in float32 and, where
+the reference takes it (the transformers and ResNet), ``mixed_bfloat16``:
+on W workers in every mode and frequency of the reference, all on one
+device (:func:`elephas_tpu_torch.device.force_devices` offers the worker
+slots), with validation, checkpoints and resume, and
+:meth:`SparkModel.save` / :func:`load_spark_model`. The transformers run the flash-attention forward
 (``csrc/flash_fwd.cu``) and the LayerNorm forward and backward
 (``csrc/layer_norm.cu``, behind :class:`FusedLayerNorm`) as CUDA kernels
 written for sm_90a, on their bf16 routes under ``mixed_bfloat16``; the

@@ -10,16 +10,16 @@ from __future__ import annotations
 import re
 from typing import Any, Iterable
 
-import torch
-
 from elephas_tpu_torch.data.rdd import Rdd
+from elephas_tpu_torch.device import num_available_workers
 
 
 class SparkContext:
     """Local stand-in for ``pyspark.SparkContext``.
 
     ``master='local[N]'`` sets the default parallelism N; ``local[*]``
-    uses the number of CUDA devices (at least one), the port's workers."""
+    uses the port's worker slots (at least one): the CUDA devices, or
+    what :func:`~elephas_tpu_torch.device.force_devices` offers."""
 
     def __init__(self, master: str = "local[*]", appName: str = "elephas_tpu_torch"):
         self.master = master
@@ -36,7 +36,7 @@ class SparkContext:
                 f"unsupported master {master!r}; this shim is local-only"
             )
         if m.group(1) == "*":
-            return max(1, torch.cuda.device_count())
+            return max(1, num_available_workers("cuda"))
         return max(1, int(m.group(1)))
 
     @property

@@ -22,6 +22,7 @@ from elephas_tpu_torch.models.layers import (
     conv_paths,
     dense_paths,
     max_pool,
+    zoo_builder,
 )
 from elephas_tpu_torch.optimizers import Adam
 from elephas_tpu_torch.training import classification_loss, compile_model
@@ -70,6 +71,7 @@ class Cifar10CNN(nn.Module):
         return paths
 
 
+@zoo_builder
 def cifar10_cnn(
     input_shape: tuple[int, int, int] = (32, 32, 3),
     num_classes: int = 10,

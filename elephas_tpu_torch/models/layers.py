@@ -28,6 +28,9 @@ so no copy changes the layout.
 
 from __future__ import annotations
 
+import functools
+import inspect
+
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -244,6 +247,35 @@ def build_module(make, seed: int, dtype_policy, device) -> nn.Module:
         keras_init(model)
     model = model.to(dev, memory_format=torch.channels_last).eval()
     return apply_policy(model, dtype_policy)
+
+
+# builder name -> builder, for rebuilding a saved model
+# (elephas_tpu_torch.utils.serialization)
+ZOO: dict = {}
+
+
+def zoo_builder(fn):
+    """Register a builder of the zoo, and record on each module it returns
+    the builder's name and every argument but ``device`` (defaults
+    filled in) as ``build_spec``, so that a saved model can be rebuilt."""
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def build(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        arguments = {}
+        for name, value in bound.arguments.items():
+            if sig.parameters[name].kind is inspect.Parameter.VAR_KEYWORD:
+                arguments.update(value)
+            elif name != "device":
+                arguments[name] = value
+        model = fn(*args, **kwargs)
+        model.build_spec = {"builder": fn.__name__, "kwargs": arguments}
+        return model
+
+    ZOO[fn.__name__] = build
+    return build
 
 
 def dense_paths(prefix: str, lin: nn.Linear) -> dict:

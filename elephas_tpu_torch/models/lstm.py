@@ -21,6 +21,7 @@ from elephas_tpu_torch.models.layers import (
     Dropout,
     build_module,
     dense_paths,
+    zoo_builder,
 )
 from elephas_tpu_torch.optimizers import Adam
 from elephas_tpu_torch.training import compile_model
@@ -67,6 +68,7 @@ class ImdbLSTM(nn.Module):
         }
 
 
+@zoo_builder
 def imdb_lstm(
     vocab_size: int = 20000,
     maxlen: int = 80,

@@ -8,7 +8,13 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from elephas_tpu_torch.models.layers import Dense, Dropout, build_module, dense_paths
+from elephas_tpu_torch.models.layers import (
+    Dense,
+    Dropout,
+    build_module,
+    dense_paths,
+    zoo_builder,
+)
 from elephas_tpu_torch.optimizers import Adam
 from elephas_tpu_torch.training import classification_loss, compile_model
 
@@ -40,6 +46,7 @@ class MnistMLP(nn.Module):
         return paths
 
 
+@zoo_builder
 def mnist_mlp(
     input_dim: int = 784,
     num_classes: int = 10,

@@ -30,6 +30,7 @@ from elephas_tpu_torch.models.layers import (
     conv_paths,
     dense_paths,
     max_pool,
+    zoo_builder,
 )
 from elephas_tpu_torch.optimizers import SGD
 
@@ -110,6 +111,7 @@ class ResNet(nn.Module):
         return paths
 
 
+@zoo_builder
 def resnet(
     input_shape: tuple[int, int, int] = (224, 224, 3),
     num_classes: int = 1000,
@@ -136,6 +138,7 @@ def resnet(
                                   training.classification_loss(sparse_labels), ["accuracy"])
 
 
+@zoo_builder
 def resnet50(
     input_shape: tuple[int, int, int] = (224, 224, 3),
     num_classes: int = 1000,

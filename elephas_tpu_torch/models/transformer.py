@@ -41,6 +41,7 @@ from elephas_tpu_torch.models.layers import (
     Dense,
     Dropout,
     build_module,
+    zoo_builder,
     cast,
     dense_paths,
 )
@@ -378,6 +379,7 @@ def _build(cls, seed, dtype_policy, device, lr, loss, *args):
     return compile_model(model, Adam(model.parameters(), lr=lr), loss, ["accuracy"])
 
 
+@zoo_builder
 def transformer_classifier(
     vocab_size: int = 20000,
     maxlen: int = 128,
@@ -404,6 +406,7 @@ def transformer_classifier(
     )
 
 
+@zoo_builder
 def transformer_lm(
     vocab_size: int = 32000,
     maxlen: int = 256,

@@ -18,6 +18,8 @@ and no fused or multi-tensor path.
 
 from __future__ import annotations
 
+import inspect
+
 import numpy as np
 import torch
 
@@ -111,3 +113,12 @@ class SGD(torch.optim.Optimizer):
                 m.mul_(mu).sub_(g * lr)
                 p.add_(m)
         return loss
+
+
+def hyperparameters(optimizer: torch.optim.Optimizer) -> dict:
+    """The keyword arguments that rebuild ``optimizer``'s class with its
+    defaults (``torch.optim.Optimizer.load_state_dict`` adds keys of its
+    own, such as ``differentiable``, that the constructors here do not
+    take)."""
+    taken = inspect.signature(type(optimizer)).parameters
+    return {k: v for k, v in optimizer.defaults.items() if k in taken}

@@ -22,6 +22,8 @@ from typing import Callable
 import torch
 from torch import nn
 
+from elephas_tpu_torch.optimizers import hyperparameters
+
 # keras.backend.epsilon(): the clip of probabilities before the log
 EPSILON = 1e-7
 
@@ -138,6 +140,22 @@ def compile_model(model: nn.Module, optimizer: torch.optim.Optimizer, loss,
         optimizer, loss, {name: _resolve_metric(name, loss) for name in metrics}
     )
     return model
+
+
+def compile_config(model: nn.Module) -> dict:
+    """The module's training spec as plain values, for saving: the
+    optimizer's class name and hyperparameters, the loss's name in
+    :data:`LOSSES` and its keyword arguments, the metrics' names."""
+    spec = model.training_spec
+    base = _base(spec.loss)
+    names = [name for name, fn in LOSSES.items() if fn is base]
+    if not names:
+        raise ValueError(f"cannot save the loss {spec.loss!r}: not one of {sorted(LOSSES)}")
+    keywords = spec.loss.keywords if isinstance(spec.loss, functools.partial) else {}
+    return {"optimizer": type(spec.optimizer).__name__,
+            "hyperparameters": hyperparameters(spec.optimizer),
+            "loss": names[0], "loss_kwargs": dict(keywords),
+            "metrics": list(spec.metrics)}
 
 
 class MeanMetric:

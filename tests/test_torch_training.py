@@ -320,7 +320,7 @@ def test_fit_trains_in_train_mode_with_seeded_dropout():
     assert run()[2] == hist
 
 
-def test_refusals():
+def test_refusals(tmp_path):
     port = et.transformer_classifier(**CLF, device="cpu")
     bare = torch.nn.Linear(2, 2)
     with pytest.raises(ValueError, match="compiled"):
@@ -337,15 +337,17 @@ def test_refusals():
             et.SparkModel(port, device="cpu", **kwargs)
     sm = et.SparkModel(port, device="cpu")
     data = (_tokens(61, (4, 16), 0), _labels(2, 4, 0))
-    for kwargs in (dict(validation_split=0.2), dict(checkpoint_dir="ckpt"),
-                   dict(resume=True), dict(steps_per_epoch=2),
-                   dict(stream_block_steps=2)):
+    for kwargs in (dict(steps_per_epoch=2), dict(stream_block_steps=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             sm.fit(data, epochs=1, **kwargs)
-    for call in (lambda: sm.save("m.pt"), lambda: sm.serve(gateway_port=0),
-                 lambda: et.load_spark_model("m.pt")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    # ported since: validation, checkpoints and resume, save and load
+    hist = sm.fit(data, epochs=1, validation_split=0.25,
+                  checkpoint_dir=str(tmp_path / "ckpt"), resume=True)
+    assert sorted(hist) == ["accuracy", "loss", "val_accuracy", "val_loss"]
+    sm.save(str(tmp_path / "m.pt"))
+    assert et.load_spark_model(str(tmp_path / "m.pt"), device="cpu").num_workers == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        sm.serve(gateway_port=0)
     # the engine is ported: a classifier is refused as the reference refuses it
     with pytest.raises(ValueError, match="causal by construction"):
         sm.serve()
@@ -356,11 +358,14 @@ def test_worker_count_clamps_like_the_reference(monkeypatch, caplog):
         assert worker_count(4, "cpu") == 1
     assert "clamping" in caplog.text
     assert worker_count(None, "cpu") == 1
-    # a host with two cards: the port refuses a second worker
+    # a host with two cards: several physical GPUs are refused, naming
+    # their item, rather than quietly taking one worker
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    assert worker_count(None, "cuda:0") == 2
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        worker_count(None, "cuda:0")
+    assert worker_count(1, "cuda:0") == 1
     port = et.transformer_classifier(**CLF, device="cpu")
-    with pytest.raises(NotImplementedError, match="2 workers"):
+    with pytest.raises(NotImplementedError, match="2 workers on 2 CUDA devices"):
         et.SparkModel(port, device="cuda:0")
     assert et.SparkModel(port, num_workers=1, device="cpu").num_workers == 1
