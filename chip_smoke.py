@@ -71,6 +71,18 @@ Phases, each printing one JSON line and raising on failure:
             a fresh wrapper against the uninterrupted fit, bit for bit;
             save -> load_spark_model -> predict, bit for bit; and
             validation_split=0.25;
+5f. train_stream — SparkModel.fit streaming into the card: T in
+            mixed_bfloat16 from a memmap (S-T), bit-equal to the staged
+            fit at 1 and 4 workers with equal launches, a streamed resume
+            bit-equal, streamed validation, frequency='fit' refused; and
+            ResNet-50 on 1.23 GB of images streamed by the size threshold
+            (S-R50) against the same rows staged, in turns: images/s, H2D
+            copy GB/s and gather ms per block, idle share of a profiled
+            streamed epoch, peak device memory and pinned host bytes, the
+            loss history within 1e-3 of the staged fit's;
+5g. ml_pipeline — examples/ml_pipeline.py's configuration through
+            Pipeline(ElephasEstimator) on the card: its test accuracy
+            against the example's bar of 0.7;
 6. engine — the continuous-batching InferenceEngine at config A's full
             width (16 slots, 16 steps a decode window, 48 requests as the
             reference's serving bench sends them), after a warm-up pass:
@@ -117,7 +129,8 @@ Phases, each printing one JSON line and raising on failure:
             torch.nn.functional.layer_norm's.
 
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
-summed over the serve, train, train_bf16, train_workers and engine paths,
+summed over the serve, train, train_bf16, train_workers, train_stream and
+engine paths,
 times at config A's
 attention shape, at the training rows and at the engine's decode shape,
 fp32), and last {"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
@@ -231,6 +244,23 @@ R50 = dict(input_shape=(224, 224, 3), num_classes=1000)
 R50_BATCH, R50_BATCHES, R50_EPOCHS = 256, 4, 2
 R50_SEEDS = (0, 1)
 R50_KL = (3e-3, 2e-2)
+
+# train_stream: T in mixed_bfloat16 (S-T) streamed from a memmap of
+# STREAM_T_ROWS rows in blocks of STREAM_BLOCK_STEPS worker steps, held bit
+# for bit to the staged fit at W = 1 and at W = WORKERS (WORKER_BATCH rows
+# a worker step); ResNet-50 (S-R50) streamed in blocks of STREAM_BLOCK_STEPS
+# steps from STREAM_R50_ROWS images in a float32 ndarray (1.23 GB, over the
+# 1 GiB threshold, so the default fit would stream it too), its
+# loss history within TOL_STREAM_R50 (relative) of the staged fit from the
+# same weights (cuDNN's backward may sum in another order), timed in turns
+# against the staged fit STREAM_R50_ROUNDS times
+STREAM_T_ROWS, STREAM_BLOCK_STEPS, STREAM_EPOCHS = 1024, 2, 2
+STREAM_R50_ROWS, STREAM_R50_ROUNDS = 2048, 2
+TOL_STREAM_R50 = 1e-3
+# ml_pipeline: examples/ml_pipeline.py's configuration (rows, features,
+# hidden units, batch, epochs, Adam's learning rate) and its accuracy bar
+PIPELINE = dict(rows=3000, features=20, hidden=32, batch=64, epochs=5, lr=1e-2)
+PIPELINE_BAR = 0.7
 
 # one fit each of the smaller zoo models at their builders' defaults, on
 # synthetic data of their shapes (rows, batch, epochs)
@@ -776,7 +806,7 @@ def _gradient_check(model, x, y):
     return errs, scales
 
 
-def _timed_fit(sm, model, data, epochs, batch, dev):
+def _timed_fit(sm, model, data, epochs, batch, dev, **kwargs):
     """``sm.fit`` with a stamp at the start of every step's forward (after
     the previous step's work has finished) and one at the end; returns
     the history and the seconds of each step. With several workers the
@@ -791,7 +821,7 @@ def _timed_fit(sm, model, data, epochs, batch, dev):
 
     hook = model.register_forward_pre_hook(stamp)
     try:
-        history = sm.fit(data, epochs=epochs, batch_size=batch)
+        history = sm.fit(data, epochs=epochs, batch_size=batch, **kwargs)
         torch.cuda.synchronize(dev)
         stamps.append(time.perf_counter())
     finally:
@@ -2221,6 +2251,366 @@ def phase_times_span_decode(dev):
     return rows
 
 
+def _memmap(path, a):
+    """``a`` written to an ``.npy`` memmap at ``path``, opened read-only."""
+    m = np.lib.format.open_memmap(path, mode="w+", dtype=a.dtype, shape=a.shape)
+    m[:] = a
+    m.flush()
+    del m
+    return np.load(path, mmap_mode="r")
+
+
+def _optimizer_state(model):
+    """Every optimizer state tensor of a compiled module, on the host."""
+    state = model.training_spec.optimizer.state_dict()["state"]
+    return {f"{i}/{k}": v.detach().cpu().clone() for i, st in state.items()
+            for k, v in st.items() if torch.is_tensor(v)}
+
+
+def _fit_state(model):
+    """Weights, buffers and optimizer state of a module, on the host."""
+    return ({n: t.detach().cpu().clone() for n, t in model.state_dict().items()},
+            _optimizer_state(model))
+
+
+def _bit_equal(a, b):
+    """The names of the tensors on which two ``_fit_state``s differ."""
+    return [n for part_a, part_b in zip(a, b) for n in part_a
+            if not torch.equal(part_a[n], part_b[n])]
+
+
+def _event_timed_fit(sm, model, data, dev, **kwargs):
+    """``sm.fit`` with a CUDA event recorded (no synchronize) at the start
+    of every step's forward of the master and one at the end: device-side
+    step times, which keep the copy-compute overlap a synchronizing stamp
+    would remove. Returns the history, the step times (s) and the wall
+    seconds of the whole fit (synchronized at its start and end)."""
+    events = []
+
+    def stamp(module, _inputs):
+        if module is model:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+    hook = model.register_forward_pre_hook(stamp)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    try:
+        history = sm.fit(data, **kwargs)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        events.append(end)
+        torch.cuda.synchronize(dev)
+    finally:
+        hook.remove()
+    wall = time.perf_counter() - t0
+    steps = np.array([a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])])
+    return history, steps, wall
+
+
+def _stream_t(dev, x, y, xm, ym, workers, batch, failures, out):
+    """S-T at ``workers`` workers: the staged fit from the arrays, then the
+    streamed fit from the memmaps, from the same weights: history,
+    weights, buffers and Adam state bit for bit, and equal launches.
+    Returns the streamed fit's launches."""
+    from elephas_tpu_torch import SparkModel, transformer_classifier
+
+    runs = {}
+    for name, data, kwargs in (("staged", (x, y), {}),
+                               ("streamed", (xm, ym), {"stream_block_steps": STREAM_BLOCK_STEPS})):
+        model = transformer_classifier(**TRAIN, seed=0, dtype_policy="mixed_bfloat16", device=dev)
+        sm = SparkModel(model, num_workers=workers, device=dev)
+        _reset_launches()
+        history, step_s = _timed_fit(sm, model, data, STREAM_EPOCHS, batch, dev, **kwargs)
+        runs[name] = (history, _launches(), _fit_state(model), step_s)
+        del model, sm
+    (h1, l1, s1, t1), (h2, l2, s2, t2) = runs["staged"], runs["streamed"]
+    differ = _bit_equal(s1, s2)
+    key = f"W{workers}"
+    out[key] = {"workers": workers, "worker_batch": batch, "history_staged": h1,
+                "history_streamed": h2, "history_equal": h1 == h2,
+                "state_bit_equal": not differ, "differing_tensors": differ[:5],
+                "launches_staged": l1, "launches_streamed": l2,
+                "median_step_s_staged": float(np.median(t1[1:])),
+                "median_step_s_streamed": float(np.median(t2[1:]))}
+    if h1 != h2 or differ or l1 != l2:
+        failures.append(f"S-T {key}: streamed differs from staged: {out[key]}")
+    return l2
+
+
+def _stream_r50_round(dev, x, y, batch, streamed):
+    """One S-R50 fit of ResNet-50 from seed 0's weights: streamed in blocks
+    of STREAM_BLOCK_STEPS steps (copies logged), or staged by raising the
+    instance's threshold."""
+    from elephas_tpu_torch import SparkModel, resnet50
+
+    model = resnet50(**R50, dtype_policy="mixed_bfloat16", seed=0, device=dev)
+    sm = SparkModel(model, device=dev)
+    blocks = {"stream_block_steps": STREAM_BLOCK_STEPS} if streamed else {}
+    if not streamed:
+        sm.STREAM_THRESHOLD_BYTES = 1 << 62
+    sm._runner.h2d_log = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    history, step_s, wall = _event_timed_fit(sm, model, (x, y), dev, epochs=R50_EPOCHS,
+                                             batch_size=batch, **blocks)
+    steps = len(step_s)
+    log = sm._runner.h2d_log
+    run = {"history": history, "steps": steps, "wall_s": wall,
+           "images_s_fit": R50_EPOCHS * len(x) / wall,
+           "images_s_after_first": (steps - 1) * batch / float(np.sum(step_s[1:])),
+           "median_step_s": float(np.median(step_s[1:])),
+           "step_s": step_s.tolist(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "pinned_bytes": sm._runner.pinned_bytes, "blocks_copied": len(log)}
+    if log:
+        copy_ms = [e["start"].elapsed_time(e["end"]) for e in log]
+        run.update(h2d_bytes_per_block=log[0]["bytes"], copy_ms_per_block=copy_ms,
+                   copy_gb_s=[e["bytes"] / (ms * 1e6) for e, ms in zip(log, copy_ms)],
+                   gather_ms_per_block=[e["gather_ms"] for e in log],
+                   gather_threads=sorted({e["gather_thread"] for e in log}),
+                   gather_gb_s=[e["bytes"] / (e["gather_ms"] * 1e6) for e in log])
+    return run, sm, model
+
+
+def _stream_r50(dev, card, failures):
+    """S-R50 of phase_train_stream: the rounds in turns, the profiled
+    streamed epoch and the gates; returns the report."""
+    from elephas_tpu_torch import SparkModel, resnet50
+    from elephas_tpu_torch.data import streaming
+
+    x, y = _synthetic_images(STREAM_R50_ROWS, R50["input_shape"][0], R50["num_classes"])
+    nbytes = streaming.estimate_nbytes(x, y)
+    r50 = {"rows": STREAM_R50_ROWS, "batch": R50_BATCH, "epochs": R50_EPOCHS,
+           "dataset_bytes": nbytes, "threshold_bytes": SparkModel.STREAM_THRESHOLD_BYTES,
+           "order": [], "streamed": [], "staged": []}
+    if nbytes <= SparkModel.STREAM_THRESHOLD_BYTES:
+        failures.append(f"S-R50's {nbytes} bytes do not cross the threshold")
+    # the process's first ResNet-50 steps pay cuDNN's and cuBLAS's set-up:
+    # not the first round's to carry
+    warm = resnet50(**R50, dtype_policy="mixed_bfloat16", seed=0, device=dev)
+    SparkModel(warm, device=dev).fit((x[:R50_BATCH], y[:R50_BATCH]), epochs=1,
+                                     batch_size=R50_BATCH)
+    del warm
+    order = [True, False] * STREAM_R50_ROUNDS
+    for i in range(1, len(order), 2):  # streamed, staged, staged, streamed, ...
+        if (i // 2) % 2:
+            order[i - 1], order[i] = order[i], order[i - 1]
+    for streamed in order:
+        run, sm, model = _stream_r50_round(dev, x, y, R50_BATCH, streamed)
+        r50["order"].append("streamed" if streamed else "staged")
+        r50["streamed" if streamed else "staged"].append(run)
+        del sm, model
+    # one streamed epoch under the profiler, after the rounds' warm-up
+    model = resnet50(**R50, dtype_policy="mixed_bfloat16", seed=0, device=dev)
+    sm = SparkModel(model, device=dev)
+    steps = -(-STREAM_R50_ROWS // R50_BATCH)
+    prof = _profile(dev, lambda: sm.fit((x, y), epochs=1, batch_size=R50_BATCH,
+                                        stream_block_steps=STREAM_BLOCK_STEPS),
+                    "one streamed epoch, S-R50", per=steps,
+                    extra={"card": card, "steps": steps})
+    if prof.get("device_ms"):
+        copies = prof["by_class_ms"].get("memcpy", 0.0)
+        r50["profile"] = {"wall_ms_per_step": prof["wall_ms"],
+                          "device_ms_per_step": prof["device_ms"],
+                          "idle_share": prof["idle_share"],
+                          "memcpy_ms_per_step": copies,
+                          "idle_share_without_copies":
+                              1 - (prof["device_ms"] - copies) / prof["wall_ms"]}
+    del sm, model
+    first_streamed, first_staged = r50["streamed"][0], r50["staged"][0]
+    for run in r50["streamed"] + r50["staged"]:
+        if not all(np.all(np.isfinite(v)) for v in run["history"].values()):
+            failures.append(f"S-R50: non-finite history {run['history']}")
+    for run in r50["streamed"]:
+        if run["blocks_copied"] != R50_EPOCHS * -(-STREAM_R50_ROWS // (
+                R50_BATCH * STREAM_BLOCK_STEPS)) or set(run.get("gather_threads", [])) \
+                != {"block-prefetch"}:
+            failures.append(f"S-R50: {run['blocks_copied']} blocks copied, gathered in "
+                            f"{run.get('gather_threads')}")
+    if any(run["blocks_copied"] for run in r50["staged"]):
+        failures.append("S-R50: a staged round streamed")
+    loss_rel = float(np.max(np.abs(np.subtract(first_streamed["history"]["loss"],
+                                               first_staged["history"]["loss"]))
+                            / np.abs(first_staged["history"]["loss"])))
+    r50["loss_rel_err_streamed_vs_staged"] = loss_rel
+    r50["loss_tol"] = TOL_STREAM_R50
+    if loss_rel > TOL_STREAM_R50:
+        failures.append(f"S-R50: streamed loss parts from staged by {loss_rel}")
+    for metric in ("images_s_after_first", "images_s_fit"):
+        med = {k: float(np.median([r[metric] for r in r50[k]])) for k in ("streamed",
+                                                                          "staged")}
+        r50[f"{metric}_median"] = med
+        r50[f"{metric}_streamed_over_staged"] = med["streamed"] / med["staged"]
+    return r50
+
+
+def phase_train_stream(dev):
+    """Streaming into the card (SparkModel.fit's out-of-core path).
+
+    S-T: T in mixed_bfloat16 from a memmap of STREAM_T_ROWS
+    _synthetic_tokens rows (under build/, removed after), blocks of
+    STREAM_BLOCK_STEPS steps, STREAM_EPOCHS epochs: history, weights and
+    Adam state bit for bit and launches equal to the staged fit of the same
+    rows, at W = 1 (batch TRAIN_BATCH) and W = WORKERS (force_devices,
+    WORKER_BATCH rows a worker step); a 1-epoch streamed fit with
+    checkpoints resumed to STREAM_EPOCHS by a fresh wrapper bit-equal to
+    the uninterrupted streamed fit; validation_split=0.25 over the memmap
+    with finite val_loss and val_accuracy each epoch; frequency="fit"
+    refused with the reference's message.
+
+    S-R50: ResNet-50 as phase_train_resnet50 trains it, on
+    STREAM_R50_ROWS _synthetic_images rows in a float32 ndarray (over
+    STREAM_THRESHOLD_BYTES, checked), streamed in blocks of
+    STREAM_BLOCK_STEPS steps against the same instance staged by raising
+    its STREAM_THRESHOLD_BYTES, STREAM_R50_ROUNDS rounds in turns
+    (streamed, staged, staged, streamed, ...), each from seed 0's weights:
+    images/s (device step times after the first, CUDA events without
+    synchronizing; and the whole fit's wall time, staging and gathers
+    included), their ratio, H2D bytes, copy ms and GB/s per block on the
+    copy stream, the host gather ms per block in the reader thread, peak
+    device memory and pinned host bytes; the loss history of the first
+    streamed fit within TOL_STREAM_R50 of the first staged one; and one
+    streamed epoch under torch.profiler (device idle share, with and
+    without the copies). Returns the launches of the S-T streamed fits."""
+    from elephas_tpu_torch import SparkModel, transformer_classifier
+    from elephas_tpu_torch.device import force_devices
+
+    card = nvidia_smi()
+    failures = []
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_stream")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    launches = {k: 0 for k in _launches()}
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    out = {"phase": "train_stream", "card": card, "config": TRAIN,
+           "dtype_policy": "mixed_bfloat16", "rows": STREAM_T_ROWS,
+           "block_steps": STREAM_BLOCK_STEPS, "epochs": STREAM_EPOCHS}
+    previous = None
+    try:
+        x, y = _synthetic_tokens(STREAM_T_ROWS, TRAIN["maxlen"], TRAIN["vocab_size"],
+                                 TRAIN["num_classes"])
+        xm = _memmap(os.path.join(scratch, "x.npy"), x)
+        ym = _memmap(os.path.join(scratch, "y.npy"), y)
+        add(_stream_t(dev, x, y, xm, ym, 1, TRAIN_BATCH, failures, out))
+        previous = force_devices(WORKERS)
+        add(_stream_t(dev, x, y, xm, ym, WORKERS, WORKER_BATCH, failures, out))
+        force_devices(previous)
+        previous = None
+
+        def streamed_fit(epochs, **kwargs):
+            model = transformer_classifier(**TRAIN, seed=0, dtype_policy="mixed_bfloat16",
+                                           device=dev)
+            history = SparkModel(model, device=dev).fit(
+                (xm, ym), epochs=epochs, batch_size=TRAIN_BATCH,
+                stream_block_steps=STREAM_BLOCK_STEPS, **kwargs)
+            return model, history
+
+        whole, _ = streamed_fit(STREAM_EPOCHS)
+        want = _fit_state(whole)
+        del whole
+        ckpt = os.path.join(scratch, "ckpt")
+        streamed_fit(1, checkpoint_dir=ckpt)
+        resumed, history = streamed_fit(STREAM_EPOCHS, checkpoint_dir=ckpt, resume=True)
+        differ = _bit_equal(want, _fit_state(resumed))
+        out["resume"] = {"epochs_run": len(history["loss"]), "bit_equal": not differ,
+                         "differing_tensors": differ[:5]}
+        if differ or len(history["loss"]) != STREAM_EPOCHS - 1:
+            failures.append(f"S-T resume: {out['resume']}")
+        del resumed, want
+        _, history = streamed_fit(STREAM_EPOCHS, validation_split=0.25)
+        out["validation"] = {"split": 0.25, "history": history}
+        if any(len(history.get(k, [])) != STREAM_EPOCHS or not np.all(np.isfinite(history[k]))
+               for k in ("val_loss", "val_accuracy")):
+            failures.append(f"S-T validation history {history}")
+        model = transformer_classifier(**TRAIN, seed=0, dtype_policy="mixed_bfloat16",
+                                       device=dev)
+        try:
+            SparkModel(model, frequency="fit", device=dev).fit(
+                (xm, ym), epochs=1, batch_size=TRAIN_BATCH)
+            failures.append("frequency='fit' streamed instead of refusing")
+        except ValueError as err:
+            out["frequency_fit_refused"] = str(err)
+        del model
+
+        out["S-R50"] = _stream_r50(dev, card, failures)
+    finally:
+        if previous is not None:
+            force_devices(previous)
+        shutil.rmtree(scratch, ignore_errors=True)
+    out["launches_streamed"] = launches
+    out["failures"] = failures
+    emit(out)
+    if failures:
+        raise AssertionError(f"train_stream check failed: {failures}")
+    return launches
+
+
+def _pipeline_json(features, hidden, classes):
+    """examples/ml_pipeline.py's model as ``keras.Sequential.to_json()``
+    writes it: Input(features) → Dense(hidden, relu) → Dense(classes,
+    softmax)."""
+    policy = {"module": "keras", "class_name": "DTypePolicy", "config": {"name": "float32"},
+              "registered_name": None}
+
+    def dense(name, units, activation):
+        return {"module": "keras.layers", "class_name": "Dense", "config": {
+            "name": name, "trainable": True, "dtype": policy, "units": units,
+            "activation": activation, "use_bias": True, "kernel_regularizer": None,
+            "bias_regularizer": None, "kernel_constraint": None, "bias_constraint": None}}
+
+    return json.dumps({"module": "keras", "class_name": "Sequential", "config": {
+        "name": "sequential", "trainable": True, "dtype": policy, "layers": [
+            {"module": "keras.layers", "class_name": "InputLayer",
+             "config": {"batch_shape": [None, features], "dtype": "float32",
+                        "name": "input_layer"}},
+            dense("dense", hidden, "relu"), dense("dense_1", classes, "softmax")]}})
+
+
+def phase_ml_pipeline(dev):
+    """examples/ml_pipeline.py's configuration through the port on the card:
+    its synthetic tabular data (PIPELINE rows and features, seed 0) in a
+    DataFrame, randomSplit([0.8, 0.2], seed=1), Pipeline(ElephasEstimator)
+    of Dense(hidden, relu) → Dense(2, softmax), Adam(lr) from its
+    serialized config, categorical cross-entropy, batch and epochs as
+    there; the test accuracy of the fitted PipelineModel's prediction
+    column against the example's bar."""
+    from elephas_tpu_torch import ElephasEstimator
+    from elephas_tpu_torch.data.dataframe import SparkSession
+    from elephas_tpu_torch.ml import Pipeline
+
+    n, d = PIPELINE["rows"], PIPELINE["features"]
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=d)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y = (x @ w + 0.3 * rng.normal(size=n) > 0).astype(np.float32)
+    df = SparkSession().createDataFrame([(row, float(label)) for row, label in zip(x, y)],
+                                        schema=["features", "label"])
+    train_df, test_df = df.randomSplit([0.8, 0.2], seed=1)
+    estimator = ElephasEstimator(
+        keras_model_config=_pipeline_json(d, PIPELINE["hidden"], 2),
+        optimizer_config={"class_name": "Adam", "config": {"learning_rate": PIPELINE["lr"]}},
+        loss="categorical_crossentropy", metrics=["accuracy"], categorical_labels=True,
+        nb_classes=2, epochs=PIPELINE["epochs"], batch_size=PIPELINE["batch"],
+        mode="synchronous", predict_classes=True, device=dev)
+    t0 = time.perf_counter()
+    fitted = Pipeline(stages=[estimator]).fit(train_df)
+    fit_s = time.perf_counter() - t0
+    rows = fitted.transform(test_df).collect()
+    accuracy = float(np.mean([r.prediction == r.label for r in rows]))
+    out = {"phase": "ml_pipeline", "card": nvidia_smi(), "config": PIPELINE,
+           "train_rows": train_df.count(), "test_rows": len(rows), "fit_s": fit_s,
+           "test_accuracy": accuracy, "bar": PIPELINE_BAR}
+    emit(out)
+    if not accuracy > PIPELINE_BAR:
+        raise AssertionError(f"ml_pipeline accuracy {accuracy} <= {PIPELINE_BAR}")
+
+
 def _kernel_entry(name, source, replaces, launches, err, times):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2300,6 +2690,8 @@ def main(argv=None) -> int:
     r50, r50_batch = phase_train_resnet50(dev)
     phase_zoo(dev)
     train_workers = phase_train_workers(dev)
+    train_stream = phase_train_stream(dev)
+    phase_ml_pipeline(dev)
     engine, lm = phase_engine(dev)
     phase_engine_long(dev, lm)
     for path, launches, kernels in (
@@ -2308,6 +2700,8 @@ def main(argv=None) -> int:
         ("train_bf16", train_bf16, ("flash_fwd_bf16", "layer_norm_fwd_bf16",
                                     "layer_norm_bwd_bf16")),
         ("train_workers", train_workers, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
+        ("train_stream", train_stream, ("flash_fwd_bf16", "layer_norm_fwd_bf16",
+                                        "layer_norm_bwd_bf16")),
         ("engine", engine, ("span_decode", "flash_fwd", "layer_norm_fwd")),
     ):
         idle = [k for k in kernels if launches[k] == 0]
@@ -2329,8 +2723,8 @@ def main(argv=None) -> int:
     span_times = phase_times_span_decode(dev)
 
     print(nvidia_smi(), flush=True)
-    total = {k: serve[k] + train[k] + train_bf16[k] + train_workers[k] + engine[k]
-             for k in serve}
+    total = {k: serve[k] + train[k] + train_bf16[k] + train_workers[k] + train_stream[k]
+             + engine[k] for k in serve}
     emit({"kernels": [
         _kernel_entry(
             "flash_fwd", "elephas_tpu_torch/csrc/flash_fwd.cu",

@@ -20,12 +20,26 @@ flash backward is plain PyTorch. :func:`transformer_lm` serves through
 :func:`generate` and the continuous-batching :class:`InferenceEngine` on
 the fixed KV arena, with decode attention as a CUDA kernel
 (``csrc/span_decode.cu``). Weights cross from and to the reference by
-Keras path (:func:`load_keras_weights`, :func:`keras_weights`). Entry
-points run on ``cuda`` by default; only an explicit ``device="cpu"``
-selects the CPU, where the kernels' plain PyTorch versions run.
+Keras path (:func:`load_keras_weights`, :func:`keras_weights`).
+
+Inputs the reference streams (a memmap or other lazy source, a lazy RDD,
+``steps_per_epoch``, ``stream_block_steps``, arrays over
+``SparkModel.STREAM_THRESHOLD_BYTES``) stream into the card in blocks
+(:mod:`elephas_tpu_torch.data.streaming`): a reader thread gathers the
+next blocks, which cross from pinned host buffers on a side CUDA stream
+while the card trains on the current one. The Spark ML surface runs on
+the same ``SparkModel``: :class:`ElephasEstimator` and
+:class:`ElephasTransformer` in a :class:`~elephas_tpu_torch.ml.Pipeline`
+over the DataFrame stand-in (:mod:`elephas_tpu_torch.data.dataframe`),
+the model read from its Keras JSON (:mod:`elephas_tpu_torch.models.\
+keras_config`), and :class:`SparkMLlibModel` over ``LabeledPoint`` RDDs.
+
+Entry points run on ``cuda`` by default; only an explicit
+``device="cpu"`` selects the CPU, where the kernels' plain PyTorch
+versions run.
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 from elephas_tpu_torch.models import (  # noqa: F401
     FusedLayerNorm,
@@ -38,21 +52,36 @@ from elephas_tpu_torch.models import (  # noqa: F401
     transformer_classifier,
     transformer_lm,
 )
+from elephas_tpu_torch.ml_model import (  # noqa: F401
+    ElephasEstimator,
+    ElephasTransformer,
+    load_ml_estimator,
+    load_ml_transformer,
+)
 from elephas_tpu_torch.serving import InferenceEngine, RequestCancelled  # noqa: F401
-from elephas_tpu_torch.spark_model import SparkModel, load_spark_model  # noqa: F401
+from elephas_tpu_torch.spark_model import (  # noqa: F401
+    SparkMLlibModel,
+    SparkModel,
+    load_spark_model,
+)
 from elephas_tpu_torch.utils.rdd_utils import to_simple_rdd  # noqa: F401
 from elephas_tpu_torch.utils.weights import keras_weights, load_keras_weights  # noqa: F401
 
 __all__ = [
+    "ElephasEstimator",
+    "ElephasTransformer",
     "FusedLayerNorm",
     "InferenceEngine",
     "RequestCancelled",
+    "SparkMLlibModel",
     "SparkModel",
     "cifar10_cnn",
     "generate",
     "imdb_lstm",
     "keras_weights",
     "load_keras_weights",
+    "load_ml_estimator",
+    "load_ml_transformer",
     "load_spark_model",
     "mnist_mlp",
     "resnet",

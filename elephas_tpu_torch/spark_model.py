@@ -17,18 +17,22 @@ the number of devices of its mesh, and the port's the slots of
 several physical GPUs are refused). ``fit`` takes the reference's
 ``validation_split``, ``checkpoint_dir``/``checkpoint_every``/``resume``
 (:mod:`elephas_tpu_torch.utils.checkpoint`), ``history_log`` and
-``profile_dir`` (a ``torch.profiler`` Chrome trace). ``save`` writes the
-module (:mod:`elephas_tpu_torch.utils.serialization`) and the reference's
-``<file>.elephas.json`` sidecar.
+``profile_dir`` (a ``torch.profiler`` Chrome trace), and streams what the
+reference streams (:mod:`elephas_tpu_torch.data.streaming`): a memmap or
+other lazy source, a lazy RDD, ``steps_per_epoch``, ``stream_block_steps``
+or more than :attr:`SparkModel.STREAM_THRESHOLD_BYTES`. ``save`` writes
+the module (:mod:`elephas_tpu_torch.utils.serialization`) and the
+reference's ``<file>.elephas.json`` sidecar. :class:`SparkMLlibModel`
+trains on an RDD of ``LabeledPoint``s.
 
 Every keyword of the reference is accepted. At the value that leaves the
 behaviour unchanged (the reference's default) it passes; any other value
 raises ``NotImplementedError`` naming its ROADMAP.md item: the parameter
 server and fault tolerance (item 4), model, pipeline and sequence
-parallelism (item 5), streaming inputs (item 2), and the serving engine's
-options beyond the fixed arena (:meth:`SparkModel.serve`, item 3). A
-``mixed_bfloat16`` language model is refused by :meth:`SparkModel.serve`
-and ``generate(kv_cache=True)``, as in the reference.
+parallelism (item 5), and the serving engine's options beyond the fixed
+arena (:meth:`SparkModel.serve`, item 3). A ``mixed_bfloat16`` language
+model is refused by :meth:`SparkModel.serve` and
+``generate(kv_cache=True)``, as in the reference.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from elephas_tpu_torch.data import streaming
+from elephas_tpu_torch.data.linalg import DenseVector
 from elephas_tpu_torch.data.rdd import Rdd
 from elephas_tpu_torch.device import resolve_device, worker_count
 from elephas_tpu_torch.models.transformer import _is_neutral
@@ -55,24 +61,12 @@ from elephas_tpu_torch.worker import Runner
 logger = logging.getLogger(__name__)
 
 _TODO = "{} is not ported yet (ROADMAP.md, Queue A item {})"
-_STREAMING = (
-    "streaming inputs ({}: the reference streams these in blocks, which the "
-    "port's staged batches would not reproduce)"
-)
 _SERVING_TODO = (
     "serve({}) is not ported yet (ROADMAP.md, Queue A item 3: the "
     "gateway and SLO tenants)"
 )
 # the reference's serve() binds its gateway here when given a port
 _GATEWAY_HOST = "127.0.0.1"
-
-
-def _is_lazy_source(a) -> bool:
-    """An out-of-core row store (memmap, h5py, zarr), as the reference's
-    ``data/streaming.py::is_lazy_source`` detects it."""
-    if type(a) is np.ndarray or hasattr(a, "iloc"):
-        return False
-    return all(hasattr(a, name) for name in ("__getitem__", "__len__", "ndim", "dtype"))
 
 
 class SparkModel:
@@ -87,7 +81,7 @@ class SparkModel:
     name (checkpoints load into the live module, ``load_spark_model``
     rebuilds through the zoo's builders)."""
 
-    # datasets larger than this stream blockwise in the reference
+    # array datasets larger than this stream in blocks, as in the reference
     STREAM_THRESHOLD_BYTES = 1 << 30
 
     def __init__(
@@ -212,10 +206,11 @@ class SparkModel:
         **kwargs,
     ) -> dict:
         """Train on a simple RDD of ``(x_row, y_row)`` pairs, or on an
-        ``(x, y)`` pair of arrays, ``batch_size`` rows a worker step.
-        Returns the Keras-style history dict (``loss`` and each compiled
-        metric per epoch, ``val_*`` with ``validation_split``), also
-        appended to ``training_histories``.
+        ``(x, y)`` pair of array-likes (``np.ndarray``, ``np.memmap``, an
+        h5py-like dataset), ``batch_size`` rows a worker step. Returns the
+        Keras-style history dict (``loss`` and each compiled metric per
+        epoch, ``val_*`` with ``validation_split``), also appended to
+        ``training_histories``.
 
         As in the reference: an RDD whose partition count is not the
         worker count is repartitioned round-robin, arrays are split into
@@ -226,37 +221,80 @@ class SparkModel:
         at the end, and ``resume=True`` restarts from the newest snapshot
         and trains the epochs left; ``history_log`` appends one JSON line
         an epoch and a final one with the whole history; ``profile_dir``
-        receives a ``torch.profiler`` Chrome trace of the epochs. Inputs
-        the reference would stream (``steps_per_epoch``,
-        ``stream_block_steps``, a memmap or other lazy source, more than
-        :attr:`STREAM_THRESHOLD_BYTES`) raise ``NotImplementedError``."""
+        receives a ``torch.profiler`` Chrome trace of the epochs.
+
+        The fit streams (:meth:`~elephas_tpu_torch.worker.Runner.\
+run_epochs_stream`) instead of staging whole epochs on the device when
+        ``stream_block_steps`` or ``steps_per_epoch`` is given, when x or
+        y is a lazy source, when the arrays hold more than
+        :attr:`STREAM_THRESHOLD_BYTES`, or for a lazy RDD (except with
+        ``frequency="fit"``, which reads it in one ranged read a partition
+        and stages it). Blocks hold ``stream_block_steps`` (else 16)
+        worker steps; workers own contiguous ceil-split row ranges. A
+        streamed ``validation_split`` keeps the training rows lazy and
+        evaluates the tail in blocks of ``block steps × batch × workers``
+        rows, as a row-weighted mean (exact: every metric of the port is a
+        mean). ``frequency="fit"`` cannot stream
+        and raises ``ValueError``."""
         batch_size = batch_size or self.batch_size
-        for name, value in (("steps_per_epoch", steps_per_epoch),
-                            ("stream_block_steps", stream_block_steps)):
-            if value is not None:
-                raise NotImplementedError(_TODO.format(_STREAMING.format(f"{name}={value!r}"), 2))
-        if isinstance(rdd, Rdd):
-            if rdd.getNumPartitions() != self.num_workers:
-                rdd = rdd.repartition(self.num_workers)
-            partitions = rdd_utils.partition_arrays(rdd)
-        else:
+        options = dict(profile_dir=profile_dir, checkpoint_dir=checkpoint_dir,
+                       checkpoint_every=checkpoint_every, resume=resume,
+                       history_log=history_log)
+        if not isinstance(rdd, Rdd):
             x, y = rdd
-            if _is_lazy_source(x) or _is_lazy_source(y):
-                raise NotImplementedError(_TODO.format(_STREAMING.format("a lazy source"), 2))
-            x, y = np.asarray(x), np.asarray(y)
-            if x.nbytes + y.nbytes > self.STREAM_THRESHOLD_BYTES:
-                raise NotImplementedError(_TODO.format(
-                    _STREAMING.format(f"{x.nbytes + y.nbytes} bytes"), 2))
+            return self._fit_arrays(x, y, epochs, batch_size, verbose, validation_split,
+                                    steps_per_epoch, stream_block_steps, options)
+        if rdd.is_lazy() and self.frequency != "fit":
+            # row ranges of backing stores: stream them
+            x, y = streaming.lazy_rdd_sources(rdd)
+            return self._fit_arrays(x, y, epochs, batch_size, verbose, validation_split,
+                                    steps_per_epoch, stream_block_steps, options)
+        if not rdd.is_lazy() and rdd.getNumPartitions() != self.num_workers:
+            # a lazy RDD is not repartitioned row by row: its ranged reads
+            # are re-split to the workers by the runner
+            rdd = rdd.repartition(self.num_workers)
+        return self._fit_partitions(rdd_utils.partition_arrays(rdd), epochs, batch_size, verbose,
+                                    validation_split, **options)
+
+    def _fit_arrays(self, x, y, epochs, batch_size, verbose, validation_split, steps_per_epoch,
+                    stream_block_steps, options) -> dict:
+        # each member on its own: a memmap x with a list y still streams x
+        if not streaming.is_lazy_source(x) and type(x) is not np.ndarray:
+            x = np.asarray(x)
+        if not streaming.is_lazy_source(y) and type(y) is not np.ndarray:
+            y = np.asarray(y)
+        should_stream = (stream_block_steps is not None or steps_per_epoch is not None
+                         or streaming.is_lazy_source(x) or streaming.is_lazy_source(y)
+                         or streaming.estimate_nbytes(x, y) > self.STREAM_THRESHOLD_BYTES)
+        if not should_stream:
             # fewer rows than workers leaves empty splits: the runner fills
             partitions = [(a, b) for a, b in zip(np.array_split(x, self.num_workers),
                                                  np.array_split(y, self.num_workers)) if len(a)]
-        return self._fit_partitions(partitions, epochs, batch_size, verbose, validation_split,
-                                    profile_dir, checkpoint_dir, checkpoint_every, resume,
-                                    history_log)
+            return self._fit_partitions(partitions, epochs, batch_size, verbose,
+                                        validation_split, **options)
+        n = len(x)
+        block_steps = stream_block_steps or 16
+        val_spec, num_rows = None, None
+        if validation_split and validation_split > 0.0:
+            # the training rows stay a lazy view (num_rows), the tail is
+            # evaluated in blocks: neither span is read whole
+            n_val = min(max(1, int(n * validation_split)), n - 1)
+            num_rows = n - n_val
+            val_spec = (x, y, n, n_val, max(batch_size, block_steps * batch_size)
+                        * max(1, self.num_workers))
+        stream = streaming.ShardedStream(x, y, batch_size, self.num_workers,
+                                         block_steps=block_steps,
+                                         steps_per_epoch=steps_per_epoch, num_rows=num_rows)
+        return self._fit_partitions(None, epochs, batch_size, verbose, 0.0, stream=stream,
+                                    val_spec=val_spec, **options)
 
     def _fit_partitions(self, partitions, epochs, batch_size, verbose, validation_split,
                         profile_dir, checkpoint_dir, checkpoint_every, resume,
-                        history_log) -> dict:
+                        history_log, stream=None, val_spec=None) -> dict:
+        """The fit over staged ``partitions``, or over ``stream`` with the
+        streamed validation of ``val_spec`` (``(x, y, n, n_val, block)``:
+        the last ``n_val`` of ``n`` rows, evaluated ``block`` rows at a
+        time)."""
         runner = self._runner
         start_epoch = 0
         if checkpoint_dir and resume:
@@ -285,7 +323,14 @@ class SparkModel:
                     val_partitions.append((px[k:], py[k:]))
                 lo += n
             partitions = train_parts
-        partitions = runner._fit_partitions_to_mesh(partitions)
+        if partitions is not None:
+            partitions = runner._fit_partitions_to_mesh(partitions)
+        val_evaluate = None
+        if val_partitions is not None:
+            def val_evaluate():
+                return runner.evaluate(val_partitions, batch_size)
+        elif val_spec is not None:
+            val_evaluate = _block_evaluate(runner, val_spec, batch_size)
 
         callbacks = []
         if checkpoint_dir:
@@ -305,20 +350,23 @@ class SparkModel:
 
             callbacks.append(log_epoch)
         val_history: dict[str, list[float]] = {}
-        if val_partitions is not None and self.frequency != "fit":
+        if val_evaluate is not None and self.frequency != "fit":
             # per epoch, like keras.fit's val_* history
             def eval_cb(_epoch, _loss):
-                for k, v in runner.evaluate(val_partitions, batch_size).items():
+                for k, v in val_evaluate().items():
                     val_history.setdefault(f"val_{k}", []).append(v)
 
             callbacks.append(eval_cb)
 
         with self._profile(profile_dir):
-            history = runner.run_epochs(partitions, epochs, batch_size, verbose, callbacks)
-        if val_partitions is not None and self.frequency == "fit":
+            if stream is not None:
+                history = runner.run_epochs_stream(stream, epochs, verbose, callbacks)
+            else:
+                history = runner.run_epochs(partitions, epochs, batch_size, verbose, callbacks)
+        if val_evaluate is not None and self.frequency == "fit":
             # 'fit' averages the workers once, after the epochs: validate
             # the averaged model once, not worker 0's replica per epoch
-            for k, v in runner.evaluate(val_partitions, batch_size).items():
+            for k, v in val_evaluate().items():
                 val_history[f"val_{k}"] = [v]
         if checkpoint_dir:
             # terminal snapshot, whatever the checkpoint_every cadence
@@ -409,6 +457,46 @@ InferenceEngine` over the wrapped model, on this wrapper's device.
             raise NotImplementedError(_SERVING_TODO.format(f"gateway_host={gateway_host!r}"))
         return InferenceEngine(self._master_network, num_slots=num_slots,
                                device=self.device, **engine_options)
+
+
+def _block_evaluate(runner, val_spec, batch_size):
+    """Evaluate the held-out tail of a streamed fit ``block`` rows at a
+    time, as the row-weighted mean of the blocks' results (the
+    reference's ``_make_val_evaluate``, ``elephas_tpu/spark_model.py:993``).
+    Exact for the loss and every metric of the port, which are all
+    row-weighted means, so the reference's warning for a metric that is
+    not one has nothing to warn of."""
+    x, y, n, n_val, block = val_spec
+
+    def evaluate_blocks():
+        totals: dict[str, float] = {}
+        for lo in range(n - n_val, n, block):
+            hi = min(n, lo + block)
+            res = runner.evaluate([(np.asarray(x[lo:hi]), np.asarray(y[lo:hi]))], batch_size)
+            for k, v in res.items():
+                totals[k] = totals.get(k, 0.0) + float(v) * (hi - lo)
+        return {k: v / n_val for k, v in totals.items()}
+
+    return evaluate_blocks
+
+
+class SparkMLlibModel(SparkModel):
+    """SparkModel over MLlib-style ``LabeledPoint`` RDDs (counterpart of
+    ``elephas_tpu/spark_model.py:1409``)."""
+
+    def train(self, labeled_points: Rdd, epochs: int = 10, batch_size: int = 32,
+              categorical: bool = False, nb_classes: int | None = None, **kwargs) -> dict:
+        rdd = rdd_utils.lp_to_simple_rdd(labeled_points, categorical, nb_classes)
+        return self.fit(rdd, epochs=epochs, batch_size=batch_size, **kwargs)
+
+    def predict(self, data, batch_size: int | None = None) -> np.ndarray:
+        """Predictions for an Rdd of ``DenseVector``s or arrays, a
+        ``DenseVector`` (one row) or an array."""
+        if isinstance(data, Rdd):
+            data = data.map(lambda el: el.toArray() if isinstance(el, DenseVector) else el)
+        elif isinstance(data, DenseVector):
+            data = data.toArray()[None]
+        return super().predict(data, batch_size)
 
 
 def load_spark_model(file_name: str, device=None) -> SparkModel:

@@ -85,10 +85,16 @@ def binary_accuracy(y_true, y_pred, threshold: float = 0.5):
     return ((y_pred > threshold).float() == y_true.float()).float()
 
 
+def mean_squared_error(y_true, y_pred):
+    """``mean((y_true − y_pred)²)`` over the last axis, as Keras's."""
+    return (y_true.to(y_pred.dtype) - y_pred).square().mean(dim=-1)
+
+
 LOSSES = {
     "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
     "categorical_crossentropy": categorical_crossentropy,
     "binary_crossentropy": binary_crossentropy,
+    "mean_squared_error": mean_squared_error,
 }
 
 
@@ -176,6 +182,11 @@ class MeanMetric:
         else:
             self.total += (values * sample_weight).sum()
             self.count += sample_weight.sum()
+
+    def merge(self, other: "MeanMetric") -> None:
+        """Add ``other``'s total and count (a block's contribution)."""
+        self.total += other.total
+        self.count += other.count
 
     def result(self) -> float:
         """``total / count`` in f32, 0 when nothing was counted."""

@@ -33,18 +33,26 @@ train identically.
 Per worker step: forward in ``train()`` mode, the compiled loss (the mean
 over every element), backward, the optimizer's step. Batches come in the
 reference's order, wrap-padded (:func:`pad_to_batches`), with no
-shuffling.
+shuffling. :meth:`Runner.run_epochs` stages a whole epoch on the device;
+:meth:`Runner.run_epochs_stream` takes the same steps in blocks of a
+:class:`~elephas_tpu_torch.data.streaming.ShardedStream`, which
+:class:`BlockStager` moves onto the device while it trains.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import logging
+import math
+import threading
+import time
 
 import numpy as np
 import torch
 
+from elephas_tpu_torch.data.streaming import prefetch_blocks
 from elephas_tpu_torch.optimizers import hyperparameters
 from elephas_tpu_torch.training import MeanMetric
 
@@ -143,6 +151,113 @@ def mean_weights(replicas) -> None:
     _mean_into([_trainable(r) + _float_state(r) for r in replicas])
 
 
+class BlockStager:
+    """The device blocks of a stream's epochs, for the worker steps.
+    Integer arrays (tokens, labels) cross in their own width (int32 tokens
+    as int32) and become int64 on the device.
+
+    On ``cuda`` the host makes one copy of each row and the card's copy
+    overlaps its work on earlier blocks. The reader thread of
+    :func:`~elephas_tpu_torch.data.streaming.prefetch_blocks` gathers each
+    block straight into one of two reused pinned host buffers (a flat view
+    of it for a short last block), after waiting on the event of the last
+    copy out of that buffer, and at once copies it with
+    ``non_blocking=True`` on a side stream into memory allocated on that
+    stream (``record_stream`` keeps the caching allocator from handing it
+    on while the compute stream reads it). The compute stream waits on the
+    copy's event before the block's first step; nothing synchronizes the
+    host with the card per block. A failed pin, copy or stream raises:
+    there is no synchronous fallback. On the CPU the blocks go through as
+    tensors, with no pinning and no streams.
+
+    ``log``, when a list, receives one entry a block on ``cuda``:
+    ``bytes`` copied, CUDA events ``start`` and ``end`` around the copy on
+    the side stream (timed; read them after a synchronize), and
+    ``gather_ms`` with the ``gather_thread`` that gathered it."""
+
+    def __init__(self, device: torch.device, log: list | None = None):
+        self.device = device
+        self.log = log
+        self.pinned_bytes = 0
+        self._pinned: list[list[torch.Tensor]] | None = None
+        self._copied: list[torch.cuda.Event | None] = [None, None]
+
+    def blocks(self, stream, epochs: int = 1):
+        """Yields ``(x [W, steps, B, ...], y, steps)`` on the device for
+        ``epochs`` epochs of ``stream``, one after the other, from one
+        reader thread."""
+        if self.device.type != "cuda":
+            host = itertools.chain.from_iterable(stream.blocks() for _ in range(epochs))
+            for xs, ys, steps in prefetch_blocks(host):
+                yield _as_input(torch.from_numpy(xs)), _as_input(torch.from_numpy(ys)), steps
+            return
+        if self._pinned is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._pinned = [self._pin(stream) for _ in range(2)]
+        compute = torch.cuda.current_stream(self.device)
+        gathered = prefetch_blocks(self._gather_and_copy(stream, epochs, compute))
+        try:
+            for dev, steps, copied in gathered:
+                compute.wait_event(copied)
+                yield _as_input(dev[0]), _as_input(dev[1]), steps
+        finally:
+            gathered.close()
+
+    def _gather_and_copy(self, stream, epochs, compute):
+        """In the reader thread: each block gathered into the next pinned
+        buffer, then copied to the card on the side stream; yields the
+        device arrays, the block's steps and the copy's event."""
+        timed = self.log is not None
+        ranges = itertools.chain.from_iterable(stream.step_ranges() for _ in range(epochs))
+        for b, (lo, hi) in enumerate(ranges):
+            slot = b % 2
+            if self._copied[slot] is not None:
+                self._copied[slot].synchronize()
+            views = [_view(buf, (stream.num_workers, hi - lo) + shape)
+                     for buf, shape in zip(self._pinned[slot], self._row_shapes)]
+            t0 = time.perf_counter()
+            stream.gather(lo, hi, out=[v.numpy() for v in views])
+            gather_ms = (time.perf_counter() - t0) * 1e3
+            with torch.cuda.device(self.device), torch.cuda.stream(self._copy_stream):
+                start = torch.cuda.Event(enable_timing=True) if timed else None
+                if timed:
+                    start.record()
+                dev = [torch.empty(v.shape, dtype=v.dtype, device=self.device) for v in views]
+                for d, v in zip(dev, views):
+                    d.copy_(v, non_blocking=True)
+                    d.record_stream(compute)
+                copied = torch.cuda.Event(enable_timing=timed)
+                copied.record()
+            self._copied[slot] = copied
+            if timed:
+                self.log.append({"bytes": sum(v.nbytes for v in views), "start": start,
+                                 "end": copied, "gather_ms": gather_ms,
+                                 "gather_thread": threading.current_thread().name})
+            yield dev, hi - lo, copied
+
+    def _pin(self, stream) -> list[torch.Tensor]:
+        """Flat pinned buffers for a full block of x and of y."""
+        rows = [np.asarray(src[0:1]) for src in (stream.x, stream.y)]
+        self._row_shapes = [(stream.batch_size,) + r.shape[1:] for r in rows]
+        block = stream.num_workers * stream.block_steps
+        bufs = [torch.empty(block * math.prod(shape), pin_memory=True,
+                            dtype=torch.from_numpy(r[:0]).dtype)
+                for r, shape in zip(rows, self._row_shapes)]
+        self.pinned_bytes += sum(b.nbytes for b in bufs)
+        return bufs
+
+
+def _view(buf: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """The first elements of a flat buffer, shaped ``shape``."""
+    return buf[:math.prod(shape)].view(shape)
+
+
+def _as_input(t: torch.Tensor) -> torch.Tensor:
+    """Integers (tokens, labels) as int64, as the embedding and the label
+    gather take them."""
+    return t if t.is_floating_point() else t.long()
+
+
 class Runner:
     """Runs a compiled module's training, evaluation and prediction on the
     module's device, over ``num_workers`` workers (counterpart of
@@ -172,6 +287,10 @@ class Runner:
         self.mode = mode
         self.frequency = frequency
         self.num_workers = num_workers
+        # BlockStager's log of the streamed fits (None: nothing logged),
+        # and the pinned host bytes the last streamed fit held
+        self.h2d_log: list | None = None
+        self.pinned_bytes = 0
 
     @property
     def device(self) -> torch.device:
@@ -180,10 +299,7 @@ class Runner:
     def _stage(self, arr: np.ndarray) -> torch.Tensor:
         """Host array → device tensor; integers (tokens, labels) as int64,
         as the embedding and the label gather take them."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if not t.is_floating_point():
-            t = t.long()
-        return t.to(self.device)
+        return _as_input(torch.from_numpy(np.ascontiguousarray(arr))).to(self.device)
 
     def run_epochs(
         self,
@@ -193,19 +309,61 @@ class Runner:
         verbose: int = 0,
         callbacks=(),
     ) -> dict:
-        """Train ``epochs`` epochs, one partition a worker; returns a
-        Keras-style history dict: each epoch's loss is the mean over the
-        workers of each worker's mean step loss, and each compiled metric
-        is accumulated over every worker's padded batches (wrap-padded rows
-        count, as in the reference). After each epoch every
-        ``callbacks(epoch, loss)`` runs, the master holding worker 0's
-        state."""
+        """Train ``epochs`` epochs, one partition a worker, the whole epoch
+        staged on the device; returns a Keras-style history dict: each
+        epoch's loss is the mean over the workers of each worker's mean
+        step loss, and each compiled metric is accumulated over every
+        worker's padded batches (wrap-padded rows count, as in the
+        reference). After each epoch every ``callbacks(epoch, loss)``
+        runs, the master holding worker 0's state."""
         if len(partitions) != self.num_workers:
             raise ValueError(
                 f"got {len(partitions)} partitions for {self.num_workers} workers"
             )
         xs, ys, _counts, nb = stack_worker_batches(partitions, batch_size)
-        xb, yb = self._stage(xs), self._stage(ys)
+        staged = [(self._stage(xs), self._stage(ys), nb)]
+        return self._train(itertools.repeat(staged, epochs), epochs, verbose, callbacks)
+
+    def run_epochs_stream(self, stream, epochs: int, verbose: int = 0, callbacks=()) -> dict:
+        """Train on a :class:`~elephas_tpu_torch.data.streaming.ShardedStream`:
+        each epoch arrives in blocks of worker steps that never all live
+        on the device at once (counterpart of
+        ``MeshRunner.run_epochs_stream``, ``elephas_tpu/worker.py:588``).
+
+        The blocks go through the same worker steps as :meth:`run_epochs`,
+        so a stream of the staged rows trains bit-equal to the staged
+        fit. Each block enters with zero metric state and its additive
+        contribution accumulates (exact for the integer-valued counts);
+        the epoch loss is the mean of every step's loss, which is the
+        block losses weighted by their steps. :func:`~elephas_tpu_torch.\
+data.streaming.prefetch_blocks` gathers the next blocks on the host in
+        a reader thread; :class:`BlockStager` moves each to the device (on
+        ``cuda`` gathered into pinned buffers, copied on a side stream).
+        Losses and metric state stay on the device until the end of the
+        epoch."""
+        if self.frequency == "fit":
+            raise ValueError(
+                "frequency='fit' (train whole fit locally, average once) "
+                "contradicts streaming; use 'epoch' or 'batch'"
+            )
+        if stream.num_workers != self.num_workers:
+            raise ValueError(
+                f"a stream over {stream.num_workers} workers for {self.num_workers}"
+            )
+        stager = BlockStager(self.device, self.h2d_log)
+        # one reader for every epoch: the next epoch's first blocks cross
+        # while this one ends
+        blocks = stager.blocks(stream, epochs)
+        try:
+            return self._train((itertools.islice(blocks, stream.num_blocks)
+                                for _ in range(epochs)), epochs, verbose, callbacks)
+        finally:
+            blocks.close()
+            self.pinned_bytes = stager.pinned_bytes
+
+    def _train(self, epoch_blocks, epochs, verbose, callbacks) -> dict:
+        """The ``epochs`` epochs of ``epoch_blocks``: for each, an iterable
+        of device blocks ``(x [W, steps, B, ...], y, steps)``."""
         replicas = [self.model] + [replicate(self.model) for _ in range(self.num_workers - 1)]
         several = len(replicas) > 1
         synchronous = self.mode == "synchronous"
@@ -215,26 +373,15 @@ class Runner:
         for rep in replicas:
             rep.train()
         try:
-            for epoch in range(epochs):
+            for epoch, blocks in zip(range(epochs), epoch_blocks):
                 metrics = {name: MeanMetric(self.device) for name in metric_names}
                 losses = [[] for _ in replicas]
-                for i in range(nb):
-                    for w, rep in enumerate(replicas):
-                        spec = rep.training_spec
-                        y_pred = rep(xb[w, i])
-                        loss = spec.loss(yb[w, i], y_pred).mean()
-                        spec.optimizer.zero_grad(set_to_none=True)
-                        loss.backward()
-                        losses[w].append(loss.detach())
-                        with torch.no_grad():
-                            for name, fn in spec.metrics.items():
-                                metrics[name].update(fn(yb[w, i], y_pred))
-                    if several and synchronous and self.frequency != "fit":
-                        mean_gradients(replicas)
-                    for rep in replicas:
-                        rep.training_spec.optimizer.step()
-                    if several and not synchronous and self.frequency == "batch":
-                        mean_weights(replicas)
+                for xb, yb, steps in blocks:
+                    block = {name: MeanMetric(self.device) for name in metric_names}
+                    for i in range(steps):
+                        self._global_step(replicas, xb, yb, i, block, losses)
+                    for name, metric in block.items():
+                        metrics[name].merge(metric)
                 if several and not synchronous and self.frequency == "epoch":
                     mean_weights(replicas)
                 epoch_loss = torch.stack([torch.stack(l).mean() for l in losses]).mean().item()
@@ -250,6 +397,28 @@ class Runner:
         finally:
             self.model.train(was_training)
         return history
+
+    def _global_step(self, replicas, xb, yb, i, metrics, losses) -> None:
+        """Each worker's step ``i`` of the block, then the collective the
+        mode and frequency put there."""
+        synchronous = self.mode == "synchronous"
+        several = len(replicas) > 1
+        for w, rep in enumerate(replicas):
+            spec = rep.training_spec
+            y_pred = rep(xb[w, i])
+            loss = spec.loss(yb[w, i], y_pred).mean()
+            spec.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            losses[w].append(loss.detach())
+            with torch.no_grad():
+                for name, fn in spec.metrics.items():
+                    metrics[name].update(fn(yb[w, i], y_pred))
+        if several and synchronous and self.frequency != "fit":
+            mean_gradients(replicas)
+        for rep in replicas:
+            rep.training_spec.optimizer.step()
+        if several and not synchronous and self.frequency == "batch":
+            mean_weights(replicas)
 
     def evaluate(
         self,

@@ -566,3 +566,106 @@ def test_zoo_forward_on_cuda_matches_cpu(cuda, name, policy):
         assert err <= tol, (name, train, err)
     if policy:
         assert card.compute_dtype == torch.bfloat16
+
+
+# -- streaming into the card -------------------------------------------------
+
+STREAM_CLF = dict(vocab_size=61, maxlen=32, num_classes=2, d_model=64, num_heads=2,
+                  num_layers=2, dropout=0.0, seed=5)
+
+
+def _stream_data(rows=96):
+    rng = np.random.default_rng(1)
+    return (rng.integers(0, 61, (rows, 32)).astype(np.int32),
+            rng.integers(0, 2, rows).astype(np.int32))
+
+
+def test_streamed_fit_on_cuda_is_bit_equal_to_staged(cuda):
+    """One step a block over 6 blocks an epoch at W = 2 (48 rows a worker,
+    batch 8), so each of the two pinned buffers is refilled twice an epoch:
+    a refill before its copy completed would corrupt a block. History,
+    weights and Adam state bit for bit against the staged fit; one timed
+    copy a block, int32 tokens crossing as int32."""
+    from elephas_tpu_torch.device import force_devices
+
+    x, y = _stream_data()
+    previous = force_devices(2)
+    try:
+        fits = {}
+        for name, kwargs in (("staged", {}), ("streamed", dict(stream_block_steps=1))):
+            model = et.transformer_classifier(**STREAM_CLF, device=cuda)
+            sm = et.SparkModel(model, num_workers=2, device=cuda)
+            sm._runner.h2d_log = []
+            hist = sm.fit((x, y), epochs=2, batch_size=8, **kwargs)
+            fits[name] = (hist, model, sm._runner)
+    finally:
+        force_devices(previous)
+    (h1, staged, _), (h2, streamed, runner) = fits["staged"], fits["streamed"]
+    assert h1 == h2
+    for (n, a), b in zip(staged.state_dict().items(), streamed.state_dict().values()):
+        assert torch.equal(a, b), n
+    sa = staged.training_spec.optimizer.state_dict()["state"]
+    sb = streamed.training_spec.optimizer.state_dict()["state"]
+    assert all(torch.equal(sa[i][k], sb[i][k]) for i in sa for k in ("m", "v"))
+    log = runner.h2d_log
+    assert len(log) == 12
+    assert all(e["bytes"] == 2 * 8 * (32 + 1) * 4 for e in log)
+    torch.cuda.synchronize()
+    assert all(e["start"].elapsed_time(e["end"]) >= 0 for e in log)
+    assert runner.pinned_bytes == 2 * 2 * 8 * (32 + 1) * 4
+
+
+def test_block_stager_takes_int32_tokens_to_int64_on_the_card(cuda):
+    """The blocks of a stream of int32 tokens and float features, two epochs
+    of five blocks through the two pinned buffers, the last block short (a
+    view of a buffer): each equal to the host's block, tokens as int64, the
+    copies logged at the int32 width, gathered in the reader thread."""
+    from elephas_tpu_torch.data.streaming import ShardedStream
+    from elephas_tpu_torch.worker import BlockStager
+
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, 2**31 - 1, (2 * 8 * 9, 5)).astype(np.int32)
+    feats = rng.normal(size=(2 * 8 * 9, 7)).astype(np.float32)
+    stream = ShardedStream(tokens, feats, 8, 2, block_steps=2)
+    stager = BlockStager(cuda, log=[])
+    want = list(stream.blocks())
+    assert [s for _, _, s in want] == [2, 2, 2, 2, 1]
+    got = [(t.cpu(), f.cpu(), s) for t, f, s in stager.blocks(stream, epochs=2)]
+    for (t, f, s), (ht, hf, hs) in zip(got, want * 2, strict=True):
+        assert s == hs and t.dtype == torch.int64 and f.dtype == torch.float32
+        assert torch.equal(t, torch.from_numpy(ht).long())
+        assert torch.equal(f, torch.from_numpy(hf))
+    assert [e["bytes"] for e in stager.log] == [a.nbytes + b.nbytes for a, b, _ in want] * 2
+    assert {e["gather_thread"] for e in stager.log} == {"block-prefetch"}
+    assert stager.pinned_bytes == 2 * (want[0][0].nbytes + want[0][1].nbytes)
+
+
+def test_streamed_fit_raises_on_a_failed_copy_or_pin(cuda, monkeypatch):
+    """No synchronous fallback: a failed copy to the card, and a failed pin,
+    raise out of the fit."""
+    x, y = _stream_data(32)
+    real_copy = torch.Tensor.copy_
+
+    def failing_copy(self, src, non_blocking=False):
+        if non_blocking and self.is_cuda and not src.is_cuda:
+            raise RuntimeError("injected: host-to-device copy failed")
+        return real_copy(self, src, non_blocking)
+
+    model = et.transformer_classifier(**STREAM_CLF, device=cuda)
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "copy_", failing_copy)
+        with pytest.raises(RuntimeError, match="injected: host-to-device"):
+            et.SparkModel(model, device=cuda).fit((x, y), epochs=1, batch_size=8,
+                                                  stream_block_steps=1)
+    real_empty = torch.empty
+
+    def failing_empty(*args, **kwargs):
+        if kwargs.get("pin_memory"):
+            raise RuntimeError("injected: cudaHostAlloc failed")
+        return real_empty(*args, **kwargs)
+
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", failing_empty)
+        with pytest.raises(RuntimeError, match="injected: cudaHostAlloc"):
+            et.SparkModel(model, device=cuda).fit((x, y), epochs=1, batch_size=8,
+                                                  stream_block_steps=1)

@@ -178,7 +178,8 @@ UNPORTED_INIT = {
     "pipeline_microbatches": (8, 5), "sequence_parallel": (2, 5),
     "sequence_attention": ("ulysses", 5),
 }
-UNPORTED_FIT = {"steps_per_epoch": (2, 2), "stream_block_steps": (2, 2)}
+# fit keywords that make the reference stream its input
+STREAMED_FIT = {"steps_per_epoch": 2, "stream_block_steps": 2}
 
 
 def _keywords(fn, skip=("self", "model", "rdd", "args", "kwargs")):
@@ -216,16 +217,26 @@ def test_unported_init_values_name_their_item(name):
         et.SparkModel(_mlp(4, 2), **{name: value}, device="cpu")
 
 
-def test_streamed_inputs_name_item_2(tmp_path):
+def test_streamed_inputs_name_item_2(tmp_path, monkeypatch):
+    """Inputs the reference streams stream in the port too (ROADMAP item 2
+    ported them): the two keywords, a memmap and an array over the
+    instance's threshold; ``frequency="fit"`` refuses to stream."""
+    streams = []
+    real = et.worker.Runner.run_epochs_stream
+    monkeypatch.setattr(et.worker.Runner, "run_epochs_stream",
+                        lambda self, stream, *a, **kw: streams.append(stream) or real(
+                            self, stream, *a, **kw))
     sm = et.SparkModel(_mlp(4, 2), device="cpu")
     x, y = np.zeros((8, 4), np.float32), np.zeros(8, np.int32)
-    for name, (value, item) in UNPORTED_FIT.items():
-        with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-            sm.fit((x, y), epochs=1, **{name: value})
+    for name, value in STREAMED_FIT.items():
+        assert len(sm.fit((x, y), epochs=1, batch_size=2, **{name: value})["loss"]) == 1
     mm = np.lib.format.open_memmap(str(tmp_path / "x.npy"), mode="w+", dtype=np.float32,
                                    shape=(8, 4))
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        sm.fit((mm, y), epochs=1)
+    sm.fit((mm, y), epochs=1)
     sm.STREAM_THRESHOLD_BYTES = 64
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        sm.fit((x, y), epochs=1)
+    sm.fit((x, y), epochs=1)
+    assert len(streams) == 4
+    with pytest.raises(ValueError, match="contradicts streaming"):
+        et.SparkModel(_mlp(4, 2), frequency="fit", device="cpu").fit((mm, y), epochs=1)
+
+

@@ -337,10 +337,9 @@ def test_refusals(tmp_path):
             et.SparkModel(port, device="cpu", **kwargs)
     sm = et.SparkModel(port, device="cpu")
     data = (_tokens(61, (4, 16), 0), _labels(2, 4, 0))
+    # ported since: streaming, validation, checkpoints and resume, save and load
     for kwargs in (dict(steps_per_epoch=2), dict(stream_block_steps=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            sm.fit(data, epochs=1, **kwargs)
-    # ported since: validation, checkpoints and resume, save and load
+        assert len(sm.fit(data, epochs=1, batch_size=2, **kwargs)["loss"]) == 1
     hist = sm.fit(data, epochs=1, validation_split=0.25,
                   checkpoint_dir=str(tmp_path / "ckpt"), resume=True)
     assert sorted(hist) == ["accuracy", "loss", "val_accuracy", "val_loss"]

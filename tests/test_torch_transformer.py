@@ -209,5 +209,7 @@ def test_import_check_walks_every_module():
                  "worker", "spark_model", "device", "data.context", "data.rdd",
                  "utils.rdd_utils", "utils.weights", "models.transformer",
                  "ops.flash_serving", "serving.kv_cache", "serving.scheduler",
-                 "serving.engine"):
+                 "serving.engine", "data.streaming", "data.dataframe", "data.linalg",
+                 "mllib.adapter", "ml.params", "ml.adapter", "ml.pipeline", "ml_model",
+                 "models.keras_config"):
         assert f"elephas_tpu_torch.{name}" in found
