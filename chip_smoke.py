@@ -26,7 +26,11 @@ Phases, each printing one JSON line and raising on failure:
             the span decode (fp32) at the engine's slots and heads and at
             a shape whose slots and heads fill the card, over every span
             bucket and head dim, with ragged positions and a stale cursor,
-            repeating bit for bit eagerly and from a CUDA-graph replay;
+            repeating bit for bit eagerly and from a CUDA-graph replay; and the span
+            chunk (fp32) at the engine's chunk shape (16 slots, 4 heads of
+            128, 64 rows a slot, spans 128-512) and at one slot of the
+            arena through a slot map, with ragged offsets and rows past
+            the span, repeating bit for bit;
 4. serve  — the serving path: generate() on transformer_lm at full width
             (config A with and without rope, config B), and one
             transformer_classifier forward, with launch counts of the
@@ -83,6 +87,13 @@ Phases, each printing one JSON line and raising on failure:
 5g. ml_pipeline — examples/ml_pipeline.py's configuration through
             Pipeline(ElephasEstimator) on the card: its test accuracy
             against the example's bar of 0.7;
+5h. hyperparam — examples/hyperparam_optimization.py's search through
+            HyperParamModel on the card (synthetic MNIST, 8 evals, 2 epochs,
+            batch 64, seed 0): at the card's one worker (adaptive), and at
+            force_devices(4) with devices_per_trial=2 (random): every
+            trial's loss finite, the best trial the least loss, the
+            returned module evaluating to that loss bit for bit, the
+            random strategy's params the numpy sampler's; seconds a trial;
 6. engine — the continuous-batching InferenceEngine at config A's full
             width (16 slots, 16 steps a decode window, 48 requests as the
             reference's serving bench sends them), after a warm-up pass:
@@ -98,6 +109,13 @@ Phases, each printing one JSON line and raising on failure:
             tokens/s, TTFT, ITL, the spans the decode windows ran at,
             check (a), and one profiled decode window at the longest
             prompts with the span decode's share of the device time;
+6c. engine_chunked — the same engine with prefill_chunk=64 and
+            prefix_cache=True on requests whose prompts share a 64-256-token
+            prefix and on engine_long's prompts, beside the same requests
+            without the options: tokens at temperature 0 equal to theirs
+            and to the plain path's (check (a)), prefix hits, the span
+            chunk, span decode and LayerNorm launches; TTFT, ITL and
+            tokens/s of both;
 7. profile — one more training step (fp32, then bf16, then ResNet-50),
             generate() at config A batch 1
             with rope off and on, and one engine decode window, under
@@ -118,7 +136,8 @@ Phases, each printing one JSON line and raising on failure:
             library). At the training shape also the plain flash backward
             per layer and SDPA's forward + autograd backward. The span
             decode also at each split count of SPLIT_SWEEP, with the
-            host time of its workspace allocation. LayerNorm also as the
+            host time of its workspace allocation. The span chunk at the
+            engine's chunk shape, beside a masked SDPA over [B, H, C, span]. LayerNorm also as the
             serving paths call it: the entry layer_norm against
             torch.nn.functional.layer_norm, both under inference_mode, at
             the engine's, generate's and the training rows; and a sweep of
@@ -129,16 +148,17 @@ Phases, each printing one JSON line and raising on failure:
             torch.nn.functional.layer_norm's.
 
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
-summed over the serve, train, train_bf16, train_workers, train_stream and
-engine paths,
+summed over the serve, train, train_bf16, train_workers, train_stream,
+engine and engine_chunked paths,
 times at config A's
-attention shape, at the training rows and at the engine's decode shape,
-fp32), and last {"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
+attention shape, at the training rows, at the engine's decode shape and
+chunk shape, fp32), and last {"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
 not available or the package is not beside this script.
 
-``--times-only`` runs the card, serve, engine, engine_long, the engine and
-generate profiles, the flash, span-decode and LayerNorm times phases and
-the LayerNorm host breakdown alone, for the elephas_tpu_torch package in
+``--times-only`` runs the card, serve, engine, engine_long, engine_chunked,
+the engine and generate profiles, the flash, span-decode, span-chunk and
+LayerNorm times phases and the LayerNorm host breakdown alone (the
+span-chunk phases where the package has that kernel), for the elephas_tpu_torch package in
 DIR (default: beside this script), building its kernels as that package
 builds them: run it for two checkouts in turns on one card to compare
 them.
@@ -262,6 +282,12 @@ TOL_STREAM_R50 = 1e-3
 PIPELINE = dict(rows=3000, features=20, hidden=32, batch=64, epochs=5, lr=1e-2)
 PIPELINE_BAR = 0.7
 
+# hyperparam: examples/hyperparam_optimization.py's configuration (its
+# synthetic MNIST rows, evals, epochs, batch, seed) and the worker slots and
+# slots a trial of the second run
+HYPER = dict(rows=3000, max_evals=8, epochs=2, batch=64, seed=0)
+HYPER_SLOTS, HYPER_PER_TRIAL = 4, 2
+
 # one fit each of the smaller zoo models at their builders' defaults, on
 # synthetic data of their shapes (rows, batch, epochs)
 ZOO_ROWS, ZOO_BATCH, ZOO_EPOCHS = 2048, 128, 1
@@ -288,6 +314,18 @@ ENGINE_REQUESTS = 48
 ENGINE_LONG_PROMPT_LENS = (200, 280, 360, 440)
 ENGINE_LONG_BUDGET = 48
 ENGINE_LONG_REQUESTS = 16
+
+# span chunk vs plain version: the engine's chunk shape (slots, heads, head
+# dim, rows a slot) over the spans its chunks attend, within TOL_SPAN
+CHUNK_CASE = (16, 4, 128, 64)
+CHUNK_SPANS = (128, 256, 512)
+# engine_chunked: config A's engine with these options, on prompts that
+# share a prefix of each CHUNKED_PREFIX_LENS length (CHUNKED_PER_PREFIX
+# requests each, suffixes of 8-40 tokens, ENGINE_BUDGETS) and on
+# engine_long's prompts
+CHUNKED = dict(prefill_chunk=64, prefix_cache=True)
+CHUNKED_PREFIX_LENS = (64, 128, 192, 256)
+CHUNKED_PER_PREFIX = 4
 
 TIMING = "CUDA events, mean of 50 launches after 5 warm-up, median of 3 rounds in turns"
 GRAPH_TIMING = ("*device_ms: CUDA events around the replay of a CUDA graph of 50 calls "
@@ -406,18 +444,20 @@ def phase_build():
     ptxas = {name: _ptxas_report(log["ptxas"]) for name, log in _native.build_log.items()}
     sass = _sass_counts(targets["flash_fwd"])
     span = sorted(_sass_counts(targets["span_decode"], "span_decode"))
+    chunk = sorted(_sass_counts(targets["span_chunk"], "span_chunk"))
     ln_sass = _sass_counts(targets["layer_norm"], "ln_fwd", LN_SASS_OPS)
     emit({"phase": "build", "seconds": seconds, "sources": sorted(_native.SOURCES),
           "ptxas": ptxas, "flash_sass": sass, "span_decode_instantiations": span,
-          "layer_norm_fwd_sass": ln_sass})
+          "span_chunk_instantiations": chunk, "layer_norm_fwd_sass": ln_sass})
     spills = [f"{name}: {r}" for log in ptxas.values() for name, r in log.items()
               if r.get("spill_stores") or r.get("spill_loads")]
     missing = [name for name, c in sass.items() if not (c["HMMA"] and c["LDGSTS"])]
     ln_faults = _ln_sass_faults(ln_sass)
-    if spills or missing or len(sass) != 8 or len(span) != 8 or ln_faults:
+    if spills or missing or len(sass) != 8 or len(span) != 8 or len(chunk) != 8 or ln_faults:
         raise AssertionError(f"build: spills {spills}; flash kernels without HMMA or "
                              f"LDGSTS {missing}; {len(sass)} flash instantiations, want 8; "
-                             f"span decode instantiations {span}, want 8 (split and merge "
+                             f"span decode instantiations {span} and span chunk "
+                             f"instantiations {chunk}, want 8 each (split and merge "
                              f"kernels at 4 head dims); LayerNorm forward {ln_faults}")
 
 
@@ -594,7 +634,7 @@ def _kernel_span_decode(dev):
             out = fs.flash_span_decode(q, k, v, pos)
             again = fs.flash_span_decode(q, k, v, pos)
             replayed = _graph_replay(lambda: fs.flash_span_decode(q, k, v, pos))  # noqa: B023
-            ref = fs.flash_span_chunk(q[:, :, None], k, v, pos[:, None])[:, :, 0]
+            ref = fs.span_chunk_reference(q[:, :, None], k, v, pos[:, None])[:, :, 0]
             torch.cuda.synchronize()
             lanes = torch.arange(b, device=dev) != STALE_LANE
             diff = (out - ref).abs()[lanes]
@@ -612,6 +652,55 @@ def _kernel_span_decode(dev):
     return results, failures
 
 
+def _chunk_inputs(b, h, d, c, span, dev, seed, slots=None):
+    """Chunk queries ``[b, h, c, d]`` and an arena pair of ``slots`` (default
+    ``b``) slots of SPAN_MAXLEN rows cut to ``span``, with int32 positions
+    ``offset + 0..c-1`` at ragged offsets: 0 on row 0, the chunk ending on
+    the span's last row on row 1, and rows past the span (an engine's
+    padded tail) on row 2."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, c, d, generator=g, device=dev)
+    arena = torch.randn(2, slots or b, SPAN_MAXLEN, h, d, generator=g, device=dev)
+    offs = torch.randint(0, max(1, span - c), (b,), generator=g, device=dev)
+    special = torch.tensor([0, max(0, span - c), span - c // 2])[:b]
+    offs[:len(special)] = special
+    pos = (offs[:, None] + torch.arange(c, device=dev)[None, :]).to(torch.int32).contiguous()
+    return q, arena[0, :, :span], arena[1, :, :span], pos
+
+
+def _kernel_span_chunk(dev):
+    """The span chunk against its plain version at the engine's chunk
+    shape over CHUNK_SPANS (splits and chunk as the wrapper picks them),
+    and at one row of a 16-slot arena through a slot map (the engine's
+    chunk of one prefilling slot); a second call must give the same bits."""
+    from elephas_tpu_torch.ops import flash_serving as fs
+
+    b, h, d, c = CHUNK_CASE
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    results, failures = [], []
+    for span in CHUNK_SPANS:
+        for rows, slots in ((b, None), (1, b)):
+            q, k, v, pos = _chunk_inputs(rows, h, d, c, span, dev, span + rows, slots)
+            slot_map = None if slots is None else torch.tensor([slots - 3], device=dev)
+            out = fs.flash_span_chunk(q, k, v, pos, slots=slot_map)
+            again = fs.flash_span_chunk(q, k, v, pos, slots=slot_map)
+            kk, vv = (k, v) if slot_map is None else (k[slot_map], v[slot_map])
+            ref = fs.span_chunk_reference(q, kk, vv, pos)
+            torch.cuda.synchronize()
+            diff = (out - ref).abs()
+            err = (diff / ref.abs().clamp_min(1.0)).max().item()
+            repeats = torch.equal(out, again)
+            splits, chunk = fs.span_splits(span, rows * h, sms)
+            row = {"B": rows, "H": h, "D": d, "C": c, "span": span, "slot_map": slots is not None,
+                   "splits": splits, "chunk": chunk, "rel_err": err,
+                   "abs_err": diff.max().item(), "repeats_bit_for_bit": repeats,
+                   "ok": err <= TOL_SPAN and repeats and bool(torch.isfinite(out).all())}
+            results.append(row)
+            if not row["ok"]:
+                failures.append(row)
+    return results, failures
+
+
 def phase_kernel(dev):
     """Each kernel against its plain version; returns each kernel's
     largest fp32 error (flash out, LayerNorm y, LayerNorm dx, span decode
@@ -619,6 +708,7 @@ def phase_kernel(dev):
     flash, flash_failures = _kernel_flash(dev)
     ln_rows, ln_failures = _kernel_layer_norm(dev)
     span_rows, span_failures = _kernel_span_decode(dev)
+    chunk_rows, chunk_failures = _kernel_span_chunk(dev)
     emit({"phase": "kernel",
           "tol": {"flash_out": {"float32": TOL_OUT[torch.float32],
                                 "bfloat16": TOL_OUT[torch.bfloat16]},
@@ -629,9 +719,11 @@ def phase_kernel(dev):
                   "ln_dx": {"float32": TOL_LN_DX[torch.float32],
                             "bfloat16_of_max_1_abs_dx": TOL_LN_DX[torch.bfloat16]},
                   "ln_dgamma_dbeta_relative": TOL_LN_DPARAM,
-                  "span_decode_of_max_1_abs_out": TOL_SPAN},
-          "flash": flash, "layer_norm": ln_rows, "span_decode": span_rows})
-    failures = flash_failures + ln_failures + span_failures
+                  "span_decode_of_max_1_abs_out": TOL_SPAN,
+                  "span_chunk_of_max_1_abs_out": TOL_SPAN},
+          "flash": flash, "layer_norm": ln_rows, "span_decode": span_rows,
+          "span_chunk": chunk_rows})
+    failures = flash_failures + ln_failures + span_failures + chunk_failures
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: {failures}")
     f32 = [r for r in ln_rows if r["dtype"] == "float32"]
@@ -640,6 +732,7 @@ def phase_kernel(dev):
         "layer_norm_fwd": max(r["err_y"] for r in f32),
         "layer_norm_bwd": max(r["err_dx"] for r in f32),
         "span_decode": max(r["abs_err"] for r in span_rows),
+        "span_chunk": max(r["abs_err"] for r in chunk_rows),
     }
 
 
@@ -655,6 +748,7 @@ def _launches():
 
     return {"flash_fwd": fa.launches, "layer_norm_fwd": ln.fwd_launches,
             "layer_norm_bwd": ln.bwd_launches, "span_decode": fs.launches,
+            "span_chunk": getattr(fs, "chunk_launches", 0),
             "flash_fwd_bf16": fa.bf16_launches, "layer_norm_fwd_bf16": ln.fwd_bf16_launches,
             "layer_norm_bwd_bf16": ln.bwd_bf16_launches}
 
@@ -664,7 +758,7 @@ def _reset_launches():
     from elephas_tpu_torch.ops import flash_serving as fs
     from elephas_tpu_torch.ops import layer_norm as ln
 
-    fa.launches = ln.fwd_launches = ln.bwd_launches = fs.launches = 0
+    fa.launches = ln.fwd_launches = ln.bwd_launches = fs.launches = fs.chunk_launches = 0
     fa.bf16_launches = ln.fwd_bf16_launches = ln.bwd_bf16_launches = 0
 
 
@@ -883,7 +977,7 @@ def phase_train(dev, dtype_policy=None, fp32=None):
     # the bf16 route: every flash forward, every LayerNorm but the first
     bf16_norms = norms - 1 if mixed else 0
     want = {"flash_fwd": layers * steps, "layer_norm_fwd": norms * steps,
-            "layer_norm_bwd": 2 * norms * steps, "span_decode": 0,
+            "layer_norm_bwd": 2 * norms * steps, "span_decode": 0, "span_chunk": 0,
             "flash_fwd_bf16": layers * steps if mixed else 0,
             "layer_norm_fwd_bf16": bf16_norms * steps,
             "layer_norm_bwd_bf16": 2 * bf16_norms * steps}
@@ -1220,6 +1314,7 @@ def phase_train_workers(dev):
         worker_steps = WORKERS * global_steps
         want = {"flash_fwd": layers * worker_steps, "layer_norm_fwd": norms * worker_steps,
                 "layer_norm_bwd": 2 * norms * worker_steps, "span_decode": 0,
+                "span_chunk": 0,
                 "flash_fwd_bf16": 0, "layer_norm_fwd_bf16": 0, "layer_norm_bwd_bf16": 0}
         if launches != want:
             failures.append(f"launches {launches}, expected {want}")
@@ -1490,8 +1585,8 @@ def phase_engine(dev):
     return launches, model
 
 
-def _long_workload(vocab):
-    rng = np.random.default_rng(1)
+def _long_workload(vocab, seed=1):
+    rng = np.random.default_rng(seed)
     return [(rng.integers(1, vocab, size=ENGINE_LONG_PROMPT_LENS[i % len(ENGINE_LONG_PROMPT_LENS)])
              .astype(np.int32), ENGINE_LONG_BUDGET) for i in range(ENGINE_LONG_REQUESTS)]
 
@@ -1565,11 +1660,144 @@ def phase_engine_long(dev, model):
                          f"{ENGINE_LONG_PROMPT_LENS}")
 
 
+def _chunked_workload(vocab):
+    """``(warm-up passes, timed)`` requests. For each CHUNKED_PREFIX_LENS
+    length a prefix (a system prompt) from np.random.default_rng(2), and
+    1 + CHUNKED_PER_PREFIX requests of it, each with its own suffix of 8-40
+    tokens and ENGINE_BUDGETS: the first warms up (its prompt stays
+    resident, as on a server that has run), the others are timed. Then
+    engine_long's requests are timed. The warm-up runs long prompts of
+    another seed, then the system prompts' requests in a pass of their
+    own, so that they stay resident."""
+    rng = np.random.default_rng(2)
+    warm, timed = [], []
+    for n in CHUNKED_PREFIX_LENS:
+        prefix = rng.integers(1, vocab, size=n)
+        for i in range(CHUNKED_PER_PREFIX + 1):
+            suffix = rng.integers(1, vocab, size=int(rng.integers(8, 41)))
+            (timed if i else warm).append((np.concatenate([prefix, suffix]).astype(np.int32),
+                                           ENGINE_BUDGETS[i % len(ENGINE_BUDGETS)]))
+    return (_long_workload(vocab, seed=3), warm), timed + _long_workload(vocab)
+
+
+def _serve_pass(engine, workload, dev):
+    """One timed pass: every request submitted at once, run to the end."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    reqs = [engine.submit(prompt, budget) for prompt, budget in workload]
+    engine.run()
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    tokens = sum(len(r.tokens) for r in reqs)
+    ttfts = [r.ttft for r in reqs]
+    itls = [d for r in reqs for d in r.inter_token_times]
+    return reqs, {"seconds": seconds, "tokens_s": tokens / seconds, "generated_tokens": tokens,
+                  "ttft_s": {"p50": float(np.percentile(ttfts, 50)),
+                             "p99": float(np.percentile(ttfts, 99))},
+                  "inter_token_s": {"p50": float(np.percentile(itls, 50)),
+                                    "p99": float(np.percentile(itls, 99))}}
+
+
+def phase_engine_chunked(dev, model):
+    """The engine of phase ``engine`` (config A, fp32, 16 slots, windows of
+    16, flash) with CHUNKED's prefill_chunk and prefix_cache, and the same
+    engine without them, on _chunked_workload: for each its warm-up
+    requests (which leave the chunked engine's system prompts resident),
+    then the timed pass; tokens/s, TTFT and ITL of both, the chunked pass's launches and
+    prefix-cache counters. Gates: every request's tokens equal the plain
+    engine's and the plain path's argmax (check (a)) wherever the plain
+    path's top-2 margin is >= MARGIN; prefix hits; the span chunk, span
+    decode and LayerNorm kernels launched. Returns the chunked pass's
+    launches."""
+    from elephas_tpu_torch import InferenceEngine
+
+    warm, workload = _chunked_workload(model.vocab_size)
+    plain_engine = InferenceEngine(model, **ENGINE)
+    for requests in warm:
+        plain_engine.run(requests)
+    plain_reqs, plain_row = _serve_pass(plain_engine, workload, dev)
+    engine = InferenceEngine(model, **ENGINE, **CHUNKED)
+    for requests in warm:
+        engine.run(requests)
+    hits0 = engine.stats()["prefix_cache"]["hits"]
+    _reset_launches()
+    reqs, row = _serve_pass(engine, workload, dev)
+    launches = _launches()
+    cache = engine.stats()["prefix_cache"]
+    failures = []
+    idle = [k for k in ("span_chunk", "span_decode", "layer_norm_fwd") if not launches[k] > 0]
+    if idle:
+        failures.append(f"the chunked engine path never launched {idle}")
+    if not cache["hits"] > hits0:
+        failures.append(f"no prefix hit in the timed pass: {cache}")
+    mismatches, close, check_failures, plain = _check_emitted(model, reqs, dev)
+    failures += check_failures
+    differ = []
+    for i, (r, pr) in enumerate(zip(reqs, plain_reqs)):
+        p = len(r.prompt)
+
+        def logits_of(j, i=i, p=p):
+            return plain[i, p - 1 + j]
+
+        bad = _first_divergence(r.tokens, pr.tokens, logits_of)
+        if r.tokens != pr.tokens:
+            differ.append(i)
+        if bad:
+            failures.append(f"request {i} against the engine without the options: {bad}")
+    emit({"phase": "engine_chunked", "config": CONFIGS["A"], "options": {**ENGINE, **CHUNKED},
+          "requests": len(reqs), "prefix_lens": CHUNKED_PREFIX_LENS,
+          "per_prefix": CHUNKED_PER_PREFIX, "long_prompt_lens": ENGINE_LONG_PROMPT_LENS,
+          "chunked": row, "without_options": plain_row,
+          "reused_tokens": sum(r.reused_tokens for r in reqs), "prefix_cache": cache,
+          "prefix_hits_timed_pass": cache["hits"] - hits0, "launches": launches,
+          "a_token_mismatches": mismatches, "a_within_margin": close,
+          "requests_differing_from_without_options": differ,
+          "nvidia_smi": nvidia_smi(), "failures": failures})
+    if failures:
+        raise AssertionError(f"chunked engine check failed: {failures}")
+    _profile_chunked_step(dev, model, max((p for p, _ in workload), key=len))
+    return launches
+
+
+def _profile_chunked_step(dev, model, long_prompt):
+    """One step of the chunked engine under torch.profiler: 15 slots
+    decoding (E's prompts) while ``long_prompt`` prefills, i.e. one chunk
+    pass of prefill_chunk tokens and one decode window; after a warm-up
+    step, with the span chunk's share of the device time."""
+    from elephas_tpu_torch import InferenceEngine
+
+    steps = ENGINE["steps_per_sync"]
+    engine = InferenceEngine(model, **ENGINE, **CHUNKED)
+    for prompt, _ in _engine_workload(model.vocab_size, ENGINE["num_slots"] - 1):
+        engine.submit(prompt, 8 * steps)
+    while engine._prefilling or engine.scheduler.waiting:
+        engine.step()
+    engine.submit(long_prompt, steps)
+    engine.step()  # admission, the first chunk and a window
+    progress = next(iter(engine._prefilling.values()))[1]
+    out = _profile(dev, engine.step, f"chunked engine step at config A: one chunk of "
+                   f"{CHUNKED['prefill_chunk']} tokens of a {len(long_prompt)}-token prompt "
+                   f"(from {progress}) and one window of {steps} steps over "
+                   f"{ENGINE['num_slots'] - 1} decoding slots")
+    by_class = out.get("by_class_ms", {})
+    if out["device_ms"] > 0:
+        share = (by_class.get("span_chunk", 0.0) + by_class.get("span_chunk_merge", 0.0)) \
+            / out["device_ms"]
+        emit({"phase": "profile", "what": "span chunk share of the chunked engine step",
+              "span_chunk_share_of_device": share,
+              "span_chunk_ms": by_class.get("span_chunk", 0.0),
+              "span_chunk_merge_ms": by_class.get("span_chunk_merge", 0.0)})
+        if not by_class.get("span_chunk", 0.0) > 0:
+            raise AssertionError("the chunked engine profile shows no span_chunk_kernel time")
+
+
 # kernel name fragment → class, first match wins
 KERNEL_CLASSES = (
     ("flash_fwd_kernel", "flash_fwd"),
     ("span_decode_merge_kernel", "span_decode_merge"),
     ("span_decode_kernel", "span_decode"),
+    ("span_chunk_merge_kernel", "span_chunk_merge"),
+    ("span_chunk_kernel", "span_chunk"),
     ("ln_fwd", "layer_norm_fwd"),
     ("ln_bwd", "layer_norm_bwd"),
     ("fprop", "conv"), ("dgrad", "conv"), ("wgrad", "conv"), ("conv", "conv"),
@@ -2228,7 +2456,7 @@ def phase_times_span_decode(dev):
         mask = (cols[None, :] <= pos[:, None])[:, None, None, :].expand(b, h, 1, span)
         fns = {
             "ms": lambda: fs.flash_span_decode(q, k, v, pos),
-            "plain_ms": lambda: fs.flash_span_chunk(q4, k, v, pos[:, None]),
+            "plain_ms": lambda: fs.span_chunk_reference(q4, k, v, pos[:, None]),
             "library_ms": lambda: scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
         }
         lib_err = (fns["library_ms"]()[:, :, 0] - fns["ms"]()).abs().max().item()
@@ -2248,6 +2476,47 @@ def phase_times_span_decode(dev):
                             b * h * splits * (d + 2), dev) if splits > 1 else 0.0})
         rows[f"span{span}"] = row
     emit({"phase": "times", "kernel": "span_decode", "timing": GRAPH_TIMING, **rows})
+    return rows
+
+
+def phase_times_span_chunk(dev):
+    """The span-chunk kernel at the engine's chunk shape (CHUNK_CASE) with
+    the ragged offsets of _chunk_inputs, beside its plain version and SDPA
+    with a boolean mask over [B, H, C, span] (the library yardstick, never
+    called by the port), eager and from CUDA graphs. Bytes: each slot's
+    visible K and V rows (up to its deepest row's position), q, out and the
+    positions; operations: 4 per visible key and dim of every row."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from elephas_tpu_torch.ops import flash_serving as fs
+
+    b, h, d, c = CHUNK_CASE
+    rows = {}
+    for span in CHUNK_SPANS:
+        q, k, v, pos = _chunk_inputs(b, h, d, c, span, dev, 19)
+        k4, v4 = k.transpose(1, 2), v.transpose(1, 2)
+        cols = torch.arange(span, device=dev)
+        mask = (cols[None, None, :] <= pos[:, :, None])[:, None].expand(b, h, c, span)
+        fns = {
+            "ms": lambda: fs.flash_span_chunk(q, k, v, pos),
+            "plain_ms": lambda: fs.span_chunk_reference(q, k, v, pos),
+            "library_ms": lambda: scaled_dot_product_attention(q, k4, v4, attn_mask=mask),
+        }
+        lib_err = (fns["library_ms"]() - fns["ms"]()).abs().max().item()
+        samples = _time_in_turns(fns)
+        graphs = _time_in_turns(fns, graphs=True)
+        samples.update({key[:-2] + "device_ms": t for key, t in graphs.items()})
+        visible = torch.clamp(pos.long() + 1, min=0, max=span)  # [B, C]
+        keys_read = int(visible.amax(dim=1).sum())
+        nbytes = 2 * keys_read * h * d * 4 + 2 * b * h * c * d * 4 + b * c * 4
+        flops = 4 * int(visible.sum()) * h * d
+        rows[f"span{span}"] = {**_summary(samples, nbytes, flops, torch.float32),
+                               "shape": {"B": b, "H": h, "D": d, "C": c, "span": span},
+                               "splits_chunk": fs.span_splits(
+                                   span, b * h,
+                                   torch.cuda.get_device_properties(dev).multi_processor_count),
+                               "library_max_abs_diff": lib_err}
+    emit({"phase": "times", "kernel": "span_chunk", "timing": GRAPH_TIMING, **rows})
     return rows
 
 
@@ -2611,6 +2880,107 @@ def phase_ml_pipeline(dev):
         raise AssertionError(f"ml_pipeline accuracy {accuracy} <= {PIPELINE_BAR}")
 
 
+def _synthetic_mnist(n, seed=0):
+    """examples/_datasets.py's synthetic_mnist: (n, 784) float32 in [0, 1],
+    10 classes, per-class blob templates."""
+    rng = np.random.default_rng(seed)
+    templates = rng.uniform(0.0, 1.0, size=(10, 784)).astype(np.float32)
+    y = rng.integers(0, 10, size=n).astype(np.int32)
+    x = templates[y] + rng.normal(0, 0.35, size=(n, 784)).astype(np.float32)
+    return np.clip(x, 0.0, 1.0), y
+
+
+def phase_hyperparam(dev):
+    """examples/hyperparam_optimization.py's search through the port on the
+    card: its synthetic MNIST (HYPER rows, the last fifth held out), a
+    builder of Dense(units, relu) → Dropout(dropout) → Dense(10, softmax)
+    compiled with Adam(lr), sparse categorical cross-entropy and accuracy,
+    its search space, evals, epochs, batch and seed. Run once at the card's
+    one worker (the example's adaptive strategy) and once at
+    force_devices(HYPER_SLOTS) with devices_per_trial=HYPER_PER_TRIAL
+    (strategy "random"). Gates: every trial's loss finite; best_trial() the
+    least loss; the returned module, evaluated again, gives that loss bit
+    for bit; the random run's params the numpy sampler's for the seed."""
+    from torch import nn
+    from torch.nn import functional as F
+
+    from elephas_tpu_torch import HyperParamModel
+    from elephas_tpu_torch import hyperparam as hp
+    from elephas_tpu_torch.device import force_devices
+    from elephas_tpu_torch.models.layers import Dense, Dropout
+    from elephas_tpu_torch.optimizers import Adam
+    from elephas_tpu_torch.training import compile_model
+    from elephas_tpu_torch.worker import Runner
+
+    class Net(nn.Module):
+        def __init__(self, units, rate):
+            super().__init__()
+            self.dense = Dense(784, units)
+            self.drop = Dropout(rate, HYPER["seed"])
+            self.dense_1 = Dense(units, 10)
+
+        def forward(self, x):
+            return torch.softmax(self.dense_1(self.drop(F.relu(self.dense(x)))), dim=-1)
+
+    def build(params):
+        model = Net(int(params["units"]), params["dropout"]).to(dev)
+        return compile_model(model, Adam(model.parameters(), lr=params["lr"]),
+                             "sparse_categorical_crossentropy", ["accuracy"])
+
+    def space():
+        return {"units": hp.quniform(32, 128, 32), "dropout": hp.choice([0.0, 0.2, 0.5]),
+                "lr": hp.loguniform(1e-4, 1e-2)}
+
+    x, y = _synthetic_mnist(HYPER["rows"])
+    n_test = int(len(x) * 0.2)
+    data = (x[:-n_test], y[:-n_test], x[-n_test:], y[-n_test:])
+    torch.manual_seed(HYPER["seed"])
+    runs, failures = [], []
+    for slots, per_trial, strategy in ((None, 1, "adaptive"),
+                                       (HYPER_SLOTS, HYPER_PER_TRIAL, "random")):
+        previous = force_devices(slots)
+        try:
+            search = HyperParamModel(seed=HYPER["seed"], device=dev)
+            t0 = time.perf_counter()
+            best = search.minimize(build, data, max_evals=HYPER["max_evals"],
+                                   search_space=space(), epochs=HYPER["epochs"],
+                                   batch_size=HYPER["batch"], strategy=strategy,
+                                   devices_per_trial=per_trial)
+            torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+        finally:
+            force_devices(previous)
+        losses = [t.loss for t in search.trials]
+        again = Runner(best, "synchronous", "epoch").evaluate([(data[2], data[3])],
+                                                              HYPER["batch"])["loss"]
+        run = {"workers": search.num_workers, "devices_per_trial": per_trial,
+               "strategy": strategy, "seconds": seconds,
+               "seconds_a_trial": seconds / HYPER["max_evals"], "losses": losses,
+               "best_params": search.best_model_params(), "best_loss": search.best_trial().loss,
+               "best_accuracy": search.best_trial().metrics.get("accuracy"),
+               "evaluated_again": again}
+        if not all(np.isfinite(losses)) or len(losses) != HYPER["max_evals"]:
+            failures.append(f"{strategy}: trial losses {losses}")
+        if search.best_trial().loss != min(losses):
+            failures.append(f"{strategy}: best trial {search.best_trial().loss} is not the "
+                            f"least loss {min(losses)}")
+        if again != search.best_trial().loss:
+            failures.append(f"{strategy}: the returned module evaluates to {again}, its "
+                            f"trial to {search.best_trial().loss}")
+        if strategy == "random":
+            rng = np.random.default_rng(HYPER["seed"] * 1009)
+            want = [hp.sample_space(space(), rng) for _ in range(HYPER["max_evals"])]
+            run["params_equal_numpy_sampler"] = [t.params for t in search.trials] == want
+            if not run["params_equal_numpy_sampler"]:
+                failures.append(f"random params {[t.params for t in search.trials]} are not "
+                                f"the numpy sampler's {want}")
+        runs.append(run)
+    emit({"phase": "hyperparam", "config": HYPER, "runs": runs, "nvidia_smi": nvidia_smi(),
+          "failures": failures})
+    if failures:
+        raise AssertionError(f"hyperparam check failed: {failures}")
+
+
 def _kernel_entry(name, source, replaces, launches, err, times):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2622,14 +2992,15 @@ def _kernel_entry(name, source, replaces, launches, err, times):
 
 
 def times_only(dev):
-    """The phases that time the main path (serve, the engine and its
-    long-span pass with their decode-window profiles, the generate
-    profiles, the flash, span-decode and LayerNorm rows, the LayerNorm
-    host breakdown) for the package that
-    ``elephas_tpu_torch`` imports, with its kernels built as that package
-    builds them."""
+    """The phases that time the main path (serve, the engine, its
+    long-span pass and, where the package has the span chunk, its chunked
+    pass, with their decode-window profiles, the generate profiles, the
+    flash, span-decode, span-chunk and LayerNorm rows, the LayerNorm host
+    breakdown) for the package that ``elephas_tpu_torch`` imports, with its
+    kernels built as that package builds them."""
     import elephas_tpu_torch
     from elephas_tpu_torch.ops import _native
+    from elephas_tpu_torch.ops import flash_serving as fs
 
     t0 = time.perf_counter()
     _native.build()
@@ -2638,11 +3009,16 @@ def times_only(dev):
     phase_serve(dev)
     _, lm = phase_engine(dev)
     phase_engine_long(dev, lm)
+    chunking = hasattr(fs, "chunk_launches")
+    if chunking:
+        phase_engine_chunked(dev, lm)
     phase_profile_engine(dev, lm)
     del lm
     phase_profile_generate(dev)
     phase_times(dev)
     phase_times_span_decode(dev)
+    if chunking:
+        phase_times_span_chunk(dev)
     phase_times_layer_norm(dev)
     phase_ln_host_breakdown(dev)
 
@@ -2650,8 +3026,8 @@ def times_only(dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--times-only", action="store_true",
-                        help="run only the serve, engine, engine_long, profile, "
-                             "times and LayerNorm host breakdown phases")
+                        help="run only the serve, engine, engine_long, engine_chunked, "
+                             "profile, times and LayerNorm host breakdown phases")
     parser.add_argument("--package", metavar="DIR",
                         help="the directory holding the elephas_tpu_torch to drive "
                              "(with --times-only; default: beside this script)")
@@ -2692,8 +3068,10 @@ def main(argv=None) -> int:
     train_workers = phase_train_workers(dev)
     train_stream = phase_train_stream(dev)
     phase_ml_pipeline(dev)
+    phase_hyperparam(dev)
     engine, lm = phase_engine(dev)
     phase_engine_long(dev, lm)
+    chunked = phase_engine_chunked(dev, lm)
     for path, launches, kernels in (
         ("serve", serve, ("flash_fwd", "layer_norm_fwd")),
         ("train", train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
@@ -2703,6 +3081,7 @@ def main(argv=None) -> int:
         ("train_stream", train_stream, ("flash_fwd_bf16", "layer_norm_fwd_bf16",
                                         "layer_norm_bwd_bf16")),
         ("engine", engine, ("span_decode", "flash_fwd", "layer_norm_fwd")),
+        ("engine_chunked", chunked, ("span_chunk", "span_decode", "layer_norm_fwd")),
     ):
         idle = [k for k in kernels if launches[k] == 0]
         if idle:
@@ -2721,10 +3100,11 @@ def main(argv=None) -> int:
     phase_ln_host_breakdown(dev)
     phase_times_train(dev)
     span_times = phase_times_span_decode(dev)
+    chunk_times = phase_times_span_chunk(dev)
 
     print(nvidia_smi(), flush=True)
     total = {k: serve[k] + train[k] + train_bf16[k] + train_workers[k] + train_stream[k]
-             + engine[k] for k in serve}
+             + engine[k] + chunked[k] for k in serve}
     emit({"kernels": [
         _kernel_entry(
             "flash_fwd", "elephas_tpu_torch/csrc/flash_fwd.cu",
@@ -2748,6 +3128,12 @@ def main(argv=None) -> int:
             "elephas_tpu/ops/flash_serving.py:153 (flash_span_decode: flash_span_chunk :93 "
             "with one query row; plain XLA in the reference, not a Pallas kernel)",
             total["span_decode"], errs["span_decode"], span_times["span128"]),
+        _kernel_entry(
+            "span_chunk", "elephas_tpu_torch/csrc/span_chunk.cu",
+            "elephas_tpu/ops/flash_serving.py:93 (flash_span_chunk, run by "
+            "chunked_prefill_forward and verify_forward, elephas_tpu/serving/kv_cache.py:476, "
+            ":603; plain XLA in the reference, not a Pallas kernel)",
+            total["span_chunk"], errs["span_chunk"], chunk_times["span256"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -32,7 +32,9 @@ the same ``SparkModel``: :class:`ElephasEstimator` and
 :class:`ElephasTransformer` in a :class:`~elephas_tpu_torch.ml.Pipeline`
 over the DataFrame stand-in (:mod:`elephas_tpu_torch.data.dataframe`),
 the model read from its Keras JSON (:mod:`elephas_tpu_torch.models.\
-keras_config`), and :class:`SparkMLlibModel` over ``LabeledPoint`` RDDs.
+keras_config`), and :class:`SparkMLlibModel` over ``LabeledPoint`` RDDs. :class:`HyperParamModel`
+searches hyperparameters over the worker slots, its trials trained by the
+same runner.
 
 Entry points run on ``cuda`` by default; only an explicit
 ``device="cpu"`` selects the CPU, where the kernels' plain PyTorch
@@ -41,6 +43,7 @@ versions run.
 
 __version__ = "0.5.0"
 
+from elephas_tpu_torch.hyperparam import HyperParamModel  # noqa: F401
 from elephas_tpu_torch.models import (  # noqa: F401
     FusedLayerNorm,
     cifar10_cnn,
@@ -71,6 +74,7 @@ __all__ = [
     "ElephasEstimator",
     "ElephasTransformer",
     "FusedLayerNorm",
+    "HyperParamModel",
     "InferenceEngine",
     "RequestCancelled",
     "SparkMLlibModel",

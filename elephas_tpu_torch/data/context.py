@@ -1,8 +1,8 @@
 """SparkContext stand-in (copy of ``elephas_tpu/data/context.py``).
 
 The context only creates partitioned host datasets
-(:class:`~elephas_tpu_torch.data.rdd.Rdd`); placing them on the device is
-the runner's job.
+(:class:`~elephas_tpu_torch.data.rdd.Rdd`) and broadcasts (plain host
+references); placing them on the device is the runner's job.
 """
 
 from __future__ import annotations
@@ -12,6 +12,19 @@ from typing import Any, Iterable
 
 from elephas_tpu_torch.data.rdd import Rdd
 from elephas_tpu_torch.device import num_available_workers
+
+
+class Broadcast:
+    """Driver-held broadcast variable (``sc.broadcast(v).value``)."""
+
+    def __init__(self, value: Any):
+        self.value = value
+
+    def unpersist(self) -> None:
+        pass
+
+    def destroy(self) -> None:
+        self.value = None
 
 
 class SparkContext:
@@ -55,3 +68,9 @@ class SparkContext:
             parts.append(elements[start : start + size])
             start += size
         return Rdd(parts)
+
+    def broadcast(self, value: Any) -> Broadcast:
+        return Broadcast(value)
+
+    def stop(self) -> None:
+        pass

@@ -125,6 +125,11 @@ class ShardedStream:
             xb, yb = self.gather(lo, hi, worker_indices=worker_indices)
             yield xb, yb, hi - lo
 
+    def nbytes_per_block(self) -> int:
+        """Host bytes of one full block over every worker."""
+        row = np.asarray(self.x[0:1]).nbytes + np.asarray(self.y[0:1]).nbytes
+        return row * self.batch_size * self.block_steps * self.num_workers
+
 
 def prefetch_blocks(block_iter, depth: int = 1):
     """Iterate ``block_iter`` from a reader thread through a bounded queue,

@@ -53,6 +53,7 @@ from elephas_tpu_torch.ops.flash_attention import (
 )
 from elephas_tpu_torch.ops.flash_serving import (
     flash_causal_prefill,
+    flash_span_chunk,
     flash_span_decode,
     span_bucket_for,
     span_buckets,
@@ -117,7 +118,8 @@ class FlashMHA(nn.Module):
     version on any device — the reference a run on the card is checked
     against. :meth:`prefill` and :meth:`decode` are the serving
     counterparts of ``elephas_tpu/serving/kv_cache.py``'s attention
-    handlers: they write K/V into a slot arena in place."""
+    handlers, as is :meth:`chunk`: they write K/V into a slot arena in
+    place."""
 
     def __init__(self, d_model: int, num_heads: int, head_dim: int,
                  causal: bool = False, rope: bool = False,
@@ -212,6 +214,49 @@ class FlashMHA(nn.Module):
             att = torch.softmax(att.masked_fill(~visible, -torch.inf), dim=-1)
             out = torch.einsum("bhs,bshd->bhd", att, cv)
         return self.proj(out.reshape(b, h * d))
+
+    def chunk(self, x, pos_mat, valid, cache_k, cache_v, slots=None,
+              attention: str = "flash", span: int | None = None):
+        """``C`` tokens a slot from per-slot offsets, over the resident
+        arena row: ``x`` ``[n, C, d_model]`` at the absolute positions
+        ``pos_mat`` (``[n, C]`` int32, on ``x``'s device) of the arena slots
+        ``slots`` (``[n]`` int64; ``None`` = slot ``i`` for row ``i``).
+        Writes the K/V of each ``valid`` (``[n, C]`` bool) token into
+        ``cache_k`` / ``cache_v`` (``[slots, maxlen, H, D]``) in place
+        FIRST, then attends over the keys at positions ``<= pos_mat[b, c]``
+        of ``cache[:, :span]``: a chunk's queries see the copied prefix,
+        the earlier chunks and their own chunk's causal part. Rows that are
+        not valid compute values nobody reads. Fixed shapes, no host sync.
+        Returns ``[n, C, d_model]``."""
+        n, c, _ = x.shape
+        h, d = self.num_heads, self.head_dim
+        maxlen = cache_k.shape[1]
+        q, k, v = self.qkv(x).view(n, c, 3, h, d).unbind(2)  # [n, C, H, D]
+        if self.rope:
+            # a padded tail may run past the tables: its rows are never read
+            tbl = pos_mat.clamp(max=maxlen - 1).long()
+            cos, sin = self.rope_cos[tbl][:, :, None], self.rope_sin[tbl][:, :, None]
+            q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
+        rows = torch.arange(n, device=x.device) if slots is None else slots
+        # a padded position past the arena writes (its own old value) C rows
+        # earlier, before the chunk: no valid row shares that index
+        wpos = torch.where(pos_mat < maxlen, pos_mat, pos_mat - c).long()
+        lanes, keep = rows[:, None], valid[..., None, None]
+        cache_k[lanes, wpos] = torch.where(keep, k, cache_k[lanes, wpos])
+        cache_v[lanes, wpos] = torch.where(keep, v, cache_v[lanes, wpos])
+        span = maxlen if span is None else int(span)
+        q = q.transpose(1, 2).contiguous()  # [n, H, C, D]
+        if attention == "flash":
+            out = flash_span_chunk(q, cache_k[:, :span], cache_v[:, :span], pos_mat,
+                                   scale=d ** -0.5, slots=slots)
+        else:
+            ck, cv = cache_k[rows, :span], cache_v[rows, :span]
+            att = torch.einsum("bhcd,bshd->bhcs", q, ck) * d ** -0.5
+            visible = (torch.arange(span, device=x.device)[None, None, None, :]
+                       <= pos_mat[:, None, :, None])
+            att = torch.softmax(att.masked_fill(~visible, -torch.inf), dim=-1)
+            out = torch.einsum("bhcs,bshd->bhcd", att, cv)
+        return self.proj(out.transpose(1, 2).reshape(n, c, h * d))
 
 
 class FusedLayerNorm(nn.Module):

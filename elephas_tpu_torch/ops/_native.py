@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -22,6 +23,7 @@ SOURCES = {
     "flash_fwd": _PKG / "csrc" / "flash_fwd.cu",
     "layer_norm": _PKG / "csrc" / "layer_norm.cu",
     "span_decode": _PKG / "csrc" / "span_decode.cu",
+    "span_chunk": _PKG / "csrc" / "span_chunk.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_TIMEOUT_S = 600
@@ -31,6 +33,10 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.PyDLL] = {}
+# one build or load at a time in a process: threads (a hyperparameter
+# search's trials) that need the same library would otherwise race on its
+# temporary file, which is named by the pid
+_lock = threading.RLock()
 # name -> {"seconds": wall time of the nvcc run, "ptxas": its -Xptxas -v report}
 build_log: dict[str, dict] = {}
 
@@ -55,7 +61,11 @@ def _target(name: str) -> Path:
 def build(names=None) -> dict[str, Path]:
     """Compile every named source whose library is missing, one ``nvcc``
     each, all started together; returns each name's library path."""
-    names = list(SOURCES) if names is None else list(names)
+    with _lock:
+        return _build(list(SOURCES) if names is None else list(names))
+
+
+def _build(names) -> dict[str, Path]:
     targets = {n: _target(n) for n in names}
     missing = [n for n in names if not targets[n].exists()]
     if missing:
@@ -97,6 +107,9 @@ def library(name: str) -> ctypes.PyDLL:
     taking back the lock."""
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.PyDLL(str(build([name])[name]))
-        _libs[name] = lib
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = ctypes.PyDLL(str(build([name])[name]))
+                _libs[name] = lib
     return lib

@@ -1,20 +1,25 @@
-"""Serving attention on Hopper: decode over the fixed KV arena as a
-hand-written kernel, beside the tiled online-softmax functions of the
-reference.
+"""Serving attention on Hopper: decode and chunk attention over the fixed KV
+arena as hand-written kernels, beside the tiled online-softmax functions of
+the reference.
 
 Counterpart of ``elephas_tpu/ops/flash_serving.py`` (plain XLA in the
 reference, not Pallas), with the same public functions:
 
 - :func:`span_buckets` / :func:`span_bucket_for` — the attention-span
   ladder (host code, copied);
-- :func:`flash_span_chunk` — tiled attention of chunk queries over a
-  resident K/V span, in plain PyTorch (chunked prefill is a later slice:
-  it has no kernel yet);
+- :func:`flash_span_chunk` — attention of chunk queries over a resident
+  K/V span (chunked prefill, the suffix after a prefix-cache hit, the
+  speculative verify pass). A CUDA tensor goes through the kernel in
+  ``csrc/span_chunk.cu`` (a K/V tile staged in shared memory serves all
+  the slot's chunk rows; the positions stay on the device; the span is
+  split over :func:`span_splits` blocks whose partials merge by lse), a
+  CPU tensor through :func:`span_chunk_reference`, the reference's tile
+  loop. Anything the kernel does not take raises;
 - :func:`flash_span_decode` — one query row per slot over the span. A
   CUDA tensor goes through the kernel in ``csrc/span_decode.cu`` (the
   slots' positions stay on the device; the arena views are read through
   their strides; the span is split over :func:`span_splits` blocks whose
-  partials merge by lse), a CPU tensor through :func:`flash_span_chunk`
+  partials merge by lse), a CPU tensor through :func:`span_chunk_reference`
   with one query row. Anything the kernel does not take raises: there is
   no fallback. :func:`span_decode_split_reference` repeats the kernel's
   split-then-merge arithmetic in plain PyTorch for the tests;
@@ -49,8 +54,10 @@ SPLIT_BLOCKS_PER_SM = 2
 SPLIT_MIN_KEYS = 16
 SPLIT_MAX = 64
 
-# kernel launches since the last reset (chip_smoke.py reads it)
+# kernel launches since the last reset, span decode and span chunk
+# (chip_smoke.py reads them)
 launches = 0
+chunk_launches = 0
 
 
 def span_buckets(maxlen: int, floor: int = SPAN_FLOOR) -> tuple[int, ...]:
@@ -92,8 +99,9 @@ def _online_update(m, l, acc, s, vt):
     return m_new, l, acc
 
 
-def flash_span_chunk(q, gk, gv, pos_mat, scale=None, block_k: int = DEFAULT_BLOCK):
-    """Tiled attention of chunk queries over a resident K/V span.
+def span_chunk_reference(q, gk, gv, pos_mat, scale=None, block_k: int = DEFAULT_BLOCK):
+    """The plain version of :func:`flash_span_chunk`: the reference's tiled
+    attention of chunk queries over a resident K/V span.
 
     ``q``: ``[B, H, C, Dh]`` queries at absolute positions ``pos_mat``
     (``[B, C]`` integers); ``gk``/``gv``: ``[B, S, H, Dh]``, the arena rows
@@ -138,7 +146,7 @@ def span_splits(span: int, rows: int, sm_count: int) -> tuple[int, int]:
 
 def span_decode_split_reference(q, gk, gv, positions, splits: int, chunk: int, scale=None):
     """The kernel's split-then-merge arithmetic in plain PyTorch (for the
-    tests; the card's reference stays :func:`flash_span_chunk`): split
+    tests; the card's reference stays :func:`span_chunk_reference`): split
     ``i`` attends over the visible keys of positions ``[i·chunk,
     (i+1)·chunk)`` into an unnormalised partial ``(m, l, acc)``, the empty
     state ``(NEG_INF, 0, 0)`` when it sees none; the partials merge in
@@ -269,7 +277,7 @@ def flash_span_decode(q, gk, gv, positions, scale=None, block_k: int = DEFAULT_B
 
     A CUDA tensor launches the span-decode kernel (``positions`` int32 on
     the device; ``block_k`` is the CPU version's tile); a CPU tensor runs
-    :func:`flash_span_chunk` with one query row."""
+    :func:`span_chunk_reference` with one query row."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return _forward(q, gk, gv, positions, float(scale), block_k)
@@ -279,12 +287,132 @@ def _forward(q, gk, gv, positions, scale: float, block_k: int):
     """CPU tensors take the plain version; CUDA tensors are checked and
     launch the kernel."""
     if q.device.type == "cpu":
-        out = flash_span_chunk(q[:, :, None], gk, gv, positions[:, None], scale, block_k)
+        out = span_chunk_reference(q[:, :, None], gk, gv, positions[:, None], scale, block_k)
         return out[:, :, 0]
     if q.device.type != "cuda":
         raise ValueError(f"span_decode runs on cuda or cpu, not {q.device}")
     _check_cuda_operands(q, gk, gv, positions)
     return _launch(q, gk, gv, positions, scale)
+
+
+def _chunk_kernel():
+    lib = _native.library("span_chunk")
+    fn = lib.elephas_span_chunk
+    if fn.argtypes is None:
+        ll = ctypes.c_longlong
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ll] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.elephas_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.elephas_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_chunk_operands(q, gk, gv, pos_mat, slots):
+    """Raise on what the span-chunk kernel does not take: float32 only, q
+    ``[B, H, C, D]`` contiguous with D in HEAD_DIMS, K/V ``[slots, S, H,
+    D]`` views with unit stride on D and 16-byte aligned pointers and
+    strides (at least B slots unless ``slots`` maps q's rows to them),
+    ``pos_mat`` contiguous ``[B, C]`` int32, ``slots`` contiguous ``[B]``
+    int64, all on one device."""
+    if q.ndim != 4:
+        raise ValueError(f"span_chunk takes q [B, H, C, D], got {tuple(q.shape)}")
+    b, h, c, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"span_chunk takes head_dim in {HEAD_DIMS}, got {d}")
+    for name, t in (("q", q), ("k", gk), ("v", gv)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"span_chunk takes float32, {name} is {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if not q.is_contiguous() or q.data_ptr() % ALIGN_BYTES:
+        raise ValueError("span_chunk takes a contiguous, 16-byte-aligned q")
+    for name, t in (("k", gk), ("v", gv)):
+        if t.ndim != 4 or t.shape[2:] != (h, d) or t.shape[1] < 1 or t.shape[0] < 1:
+            raise ValueError(f"{name} must be [slots, S >= 1, {h}, {d}], got {tuple(t.shape)}")
+        if slots is None and t.shape[0] < b:
+            raise ValueError(f"{name} holds {t.shape[0]} slots for {b} rows and no slot map")
+        st = t.stride()
+        if st[-1] != 1 or min(st) < 0:
+            raise ValueError(f"{name} needs unit stride on head_dim, got strides {tuple(st)}")
+        if (t.data_ptr() | (st[0] | st[1] | st[2]) * 4) % ALIGN_BYTES:
+            raise ValueError(
+                f"{name} needs a {ALIGN_BYTES}-byte-aligned base pointer and strides "
+                f"for the kernel's float4 loads, got pointer {t.data_ptr()} and "
+                f"strides {tuple(st)}"
+            )
+    if gk.shape[:2] != gv.shape[:2]:
+        raise ValueError(f"k is {tuple(gk.shape[:2])} slots x positions, v {tuple(gv.shape[:2])}")
+    if pos_mat.dtype != torch.int32 or pos_mat.shape != (b, c) \
+            or pos_mat.device != q.device or not pos_mat.is_contiguous():
+        raise ValueError(
+            f"pos_mat must be contiguous int32 [{b}, {c}] on {q.device}, got "
+            f"{pos_mat.dtype} {tuple(pos_mat.shape)} on {pos_mat.device}"
+        )
+    if slots is not None and (slots.dtype != torch.int64 or slots.shape != (b,)
+                              or slots.device != q.device or not slots.is_contiguous()):
+        raise ValueError(
+            f"slots must be contiguous int64 [{b}] on {q.device}, got "
+            f"{slots.dtype} {tuple(slots.shape)} on {slots.device}"
+        )
+    if b > 65535 or h > 65535:
+        raise ValueError(f"span_chunk takes at most 65535 rows and heads, got {b} and {h}")
+
+
+def _launch_chunk(q, gk, gv, pos_mat, slots, scale: float):
+    """One call of the span-chunk kernel on checked CUDA operands (with more
+    than one split, the split kernel and then the merge kernel); returns
+    ``[B, H, C, D]`` float32."""
+    global chunk_launches
+    b, h, c, d = q.shape
+    span = gk.shape[1]
+    splits, chunk = span_splits(span, b * h, _sm_count(q.device.index))
+    out = torch.empty_like(q)
+    # partials: acc [B·H, splits, C, D] and (m, l) [B·H, splits, C, 2]
+    work = torch.empty(b * h * splits * c * (d + 2), dtype=torch.float32, device=q.device) \
+        if splits > 1 else None
+    lib = _chunk_kernel()
+    with torch.cuda.device(q.device):
+        err = lib.elephas_span_chunk(
+            q.data_ptr(), gk.data_ptr(), gv.data_ptr(), pos_mat.data_ptr(),
+            None if slots is None else slots.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), b, h, c, d, span, splits, chunk,
+            gk.shape[0], *gk.stride()[:3], *gv.stride()[:3], float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(
+            "span_chunk launch failed: " + lib.elephas_cuda_error_string(err).decode()
+        )
+    chunk_launches += 1
+    return out
+
+
+def flash_span_chunk(q, gk, gv, pos_mat, scale=None, block_k: int = DEFAULT_BLOCK,
+                     slots=None):
+    """Attention of chunk queries over a resident K/V span: ``q`` ``[B, H,
+    C, Dh]`` at absolute positions ``pos_mat`` (``[B, C]``), ``gk``/``gv``
+    ``[B, S, H, Dh]`` (``cache[:, :span]`` views of the arena). Key ``j`` is
+    visible to a query at position ``p`` iff ``j <= p``. Returns ``[B, H, C,
+    Dh]`` float32; a row that sees no key outputs zeros.
+
+    ``slots`` (``[B]`` int64, optional) maps q's rows to arena slots: row
+    ``b`` attends over ``gk[slots[b]]``, so ``gk``/``gv`` may be the whole
+    arena's span view while ``q`` holds only this call's slots.
+
+    A CUDA tensor launches the span-chunk kernel (``pos_mat`` int32 on the
+    device; ``block_k`` is the CPU version's tile); a CPU tensor runs
+    :func:`span_chunk_reference`."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        if slots is not None:
+            gk, gv = gk[slots], gv[slots]
+        return span_chunk_reference(q, gk, gv, pos_mat, scale, block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"span_chunk runs on cuda or cpu, not {q.device}")
+    _check_chunk_operands(q, gk, gv, pos_mat, slots)
+    return _launch_chunk(q, gk, gv, pos_mat, slots, float(scale))
 
 
 def flash_causal_prefill(q, k, v, scale=None, block_q: int = DEFAULT_BLOCK,

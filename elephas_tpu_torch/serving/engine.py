@@ -1,15 +1,21 @@
 """InferenceEngine — the continuous-batching serving loop.
 
-Counterpart of ``elephas_tpu/serving/engine.py`` on its default path: the
-fixed slot arena, whole-prompt prefill, ``attention="flash"`` (or
-``"naive"``, the parity oracle). One engine wraps one causal
-:func:`~elephas_tpu_torch.transformer_lm` and serves any number of
-generation requests through two kinds of device work:
+Counterpart of ``elephas_tpu/serving/engine.py`` on the fixed slot arena,
+single device: whole-prompt or chunked prefill, the prefix cache,
+``attention="flash"`` (or ``"naive"``, the parity oracle). One engine
+wraps one causal :func:`~elephas_tpu_torch.transformer_lm` and serves any
+number of generation requests through these kinds of device work:
 
 - **prefill**, one forward per prompt-length bucket of an admission wave
   (:func:`~elephas_tpu_torch.serving.kv_cache.prefill_forward`; the flash
   forward kernel on the card), writing each prompt's K/V into its leased
   slot;
+- **chunks** (:func:`~elephas_tpu_torch.serving.kv_cache.\
+chunked_prefill_forward`; the span-chunk kernel on the card): with
+  ``prefill_chunk`` every prompt streams in chunks under a per-step token
+  budget between decode windows, and a prefix-cache hit prefills only its
+  suffix after :func:`~elephas_tpu_torch.serving.kv_cache.prefix_copy`
+  has copied the donor's rows;
 - a **decode window** of ``steps_per_sync`` steps over the whole arena
   (:func:`~elephas_tpu_torch.serving.kv_cache.token_decode_step`; the
   span-decode kernel on the card), each advancing every in-flight sequence
@@ -18,14 +24,15 @@ generation requests through two kinds of device work:
   host reads the window once.
 
 Each :meth:`InferenceEngine.step`: admit waiting requests into free slots
-(prefill), run one decode window, reclaim slots that hit EOS or their
-token budget. Requests may be submitted at any time and join the next
-step's admission wave.
+(copies and prefill), spend the step's chunk budget, run one decode window
+over the slots whose prefill is complete, reclaim slots that hit EOS or
+their token budget. Requests may be submitted at any time and join the
+next step's admission wave.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: the prefix cache and chunked prefill, the paged arena,
-preemption and quantized KV, speculative decoding, SLO policies,
-sequence-parallel prefill, meshes, the gateway and telemetry.
+ROADMAP.md item: the paged arena, preemption and quantized KV, speculative
+decoding, SLO policies, sequence-parallel prefill, meshes, the gateway and
+telemetry.
 """
 
 from __future__ import annotations
@@ -43,7 +50,13 @@ from elephas_tpu_torch.models.transformer import (
     validate_token_decode_model,
 )
 from elephas_tpu_torch.ops.flash_serving import span_bucket_for, span_buckets
-from elephas_tpu_torch.serving.kv_cache import SlotKVCache, prefill_forward, token_decode_step
+from elephas_tpu_torch.serving.kv_cache import (
+    SlotKVCache,
+    chunked_prefill_forward,
+    prefill_forward,
+    prefix_copy,
+    token_decode_step,
+)
 from elephas_tpu_torch.serving.scheduler import Request, Scheduler, default_buckets
 
 logger = logging.getLogger(__name__)
@@ -86,6 +99,16 @@ class InferenceEngine:
     softmax over the whole ``maxlen`` row, the parity oracle. ``device``
     defaults to the model's device; the engine runs where the model is.
 
+    ``prefix_cache=True`` keeps finished requests' prompt K/V resident as
+    donor slots under a deterministic radix index: a request sharing a
+    prompt prefix (at least ``prefix_min_reuse`` tokens) pays one
+    slot-to-slot copy plus a suffix-only prefill. ``prefill_chunk=c``
+    splits prefill into ``c``-token chunks run under a per-step token
+    budget (``prefill_budget``, default one chunk) between decode windows,
+    so a long prompt no longer stalls every in-flight request's next
+    token. Both compose; temperature-0 tokens are those of the engine
+    without them.
+
     Every other keyword of the reference is accepted: at the value that
     leaves the behaviour unchanged (the reference's default, and
     ``flight_recorder=None`` or ``0``: the port records nothing yet), any
@@ -121,8 +144,6 @@ class InferenceEngine:
         )
         # (name, value, the value that leaves the behaviour unchanged, item)
         unported = (
-            ("prefix_cache", prefix_cache, False, 1), ("prefix_min_reuse", prefix_min_reuse, 1, 1),
-            ("prefill_chunk", prefill_chunk, None, 1), ("prefill_budget", prefill_budget, None, 1),
             ("paged", paged, False, 3), ("block_size", block_size, None, 3),
             ("num_blocks", num_blocks, None, 3), ("preemption", preemption, False, 3),
             ("kv_dtype", kv_dtype, "fp", 3), ("speculative", speculative, False, 3),
@@ -158,6 +179,27 @@ class InferenceEngine:
                     f"buckets {bad} outside (0, maxlen={self.maxlen}] — "
                     f"a bucket beyond maxlen would overflow the KV arena"
                 )
+        if prefill_chunk is not None:
+            prefill_chunk = int(prefill_chunk)
+            if not 0 < prefill_chunk <= self.maxlen:
+                raise ValueError(
+                    f"prefill_chunk={prefill_chunk} outside "
+                    f"(0, maxlen={self.maxlen}]"
+                )
+        self.prefill_chunk = prefill_chunk
+        if prefill_budget is not None:
+            if prefill_chunk is None:
+                raise ValueError(
+                    "prefill_budget requires prefill_chunk — without "
+                    "chunking, prefill is a single blocking wave and "
+                    "the budget would be silently ignored"
+                )
+            if int(prefill_budget) < 1:
+                raise ValueError(f"prefill_budget={prefill_budget} < 1")
+        # prefill tokens a step() spends in chunked mode: one chunk by default
+        self._prefill_budget = (
+            int(prefill_budget) if prefill_budget is not None else (prefill_chunk or 0)
+        )
         if attention not in ("flash", "naive"):
             raise ValueError(
                 f"attention must be 'flash' or 'naive', got "
@@ -177,7 +219,13 @@ class InferenceEngine:
         self.steps_per_sync = max(1, int(steps_per_sync))
 
         self.arena = SlotKVCache(layers, self.num_slots, self.maxlen, self.device)
-        self.scheduler = Scheduler(self.num_slots, buckets or default_buckets(self.maxlen))
+        self.scheduler = Scheduler(self.num_slots, buckets or default_buckets(self.maxlen),
+                                   prefix_cache=prefix_cache,
+                                   prefix_min_reuse=prefix_min_reuse)
+        # slots mid-chunked-prefill: slot -> [Admission, progress], progress
+        # the prompt tokens already resident (a copied prefix included); the
+        # slot decodes once progress == len(prompt)
+        self._prefilling: dict[int, list] = {}
         self._generator = torch.Generator(device=self.device).manual_seed(int(seed))
         # per-slot device state: cursor (resident length), last token,
         # temperature, and the decode-active mask (host mirror + device
@@ -242,8 +290,10 @@ class InferenceEngine:
         if temperature < 0:
             raise ValueError(f"temperature={temperature} < 0")
         # fail here, not mid-flight with a slot leased: a custom bucket
-        # ladder may top out below the model's maxlen
-        self.scheduler.bucket_for(p)
+        # ladder may top out below the model's maxlen (chunked prefill pads
+        # to no prompt bucket)
+        if not self.prefill_chunk:
+            self.scheduler.bucket_for(p)
         if priority:
             logger.warning(
                 "submit(priority=%d) on an engine without "
@@ -326,15 +376,22 @@ class InferenceEngine:
                     self._finished_bound, victim, self.finished_evicted,
                 )
 
-    def _decode_span(self):
-        """Span bucket for one decode window: every decoding slot's
-        resident length plus the window's new positions; ``None`` (the
-        whole ``maxlen`` row) for the naive oracle."""
+    def _fixed_span(self, max_pos_excl: int):
+        """The smallest span bucket covering ``max_pos_excl`` resident
+        positions; ``None`` (the whole ``maxlen`` row) for the naive
+        oracle."""
         if self.attention != "flash":
             return None
-        m = max(len(r.prompt) + len(r.tokens) - 1 for r in self.scheduler.active.values())
-        n = max(1, min(self.maxlen, m + self.steps_per_sync))
+        n = max(1, min(self.maxlen, int(max_pos_excl)))
         return span_bucket_for(n, self._sbuckets)
+
+    def _decode_span(self):
+        """Span bucket for one decode window: every decoding slot's
+        resident length plus the window's new positions."""
+        m = max((len(r.prompt) + len(r.tokens) - 1
+                 for slot, r in self.scheduler.active.items() if slot not in self._prefilling),
+                default=0)
+        return self._fixed_span(m + self.steps_per_sync)
 
     def _set_active(self, slot: int, value: bool) -> None:
         if bool(self._active_host[slot]) != value:
@@ -375,27 +432,146 @@ class InferenceEngine:
             self._temps[slots] = temps
             toks = firsts.cpu().numpy()
             for i, req in enumerate(reqs):
+                # the prompt rows are resident: index them before _emit (a
+                # one-token request reclaims inside it, and reclaim retains
+                # only slots the cache knows)
+                self.scheduler.on_prefill_complete(req)
                 self._set_active(req.slot, True)
                 self._emit(req, int(toks[i]))
 
+    def _copy_vectors(self, copies):
+        """``(src_idx, copy_mask, copy_len)`` device vectors of a wave's
+        donor transplants."""
+        src = np.zeros((self.num_slots,), np.int64)
+        mask = np.zeros((self.num_slots,), bool)
+        clen = np.zeros((self.num_slots,), np.int64)
+        for a in copies:
+            src[a.slot] = a.donor_slot
+            mask[a.slot] = True
+            clen[a.slot] = a.reuse_len
+        return tuple(torch.from_numpy(v).to(self.device) for v in (src, mask, clen))
+
+    @torch.inference_mode()
+    def _copy_prefixes(self, copies) -> None:
+        if copies:
+            prefix_copy(self.arena, *self._copy_vectors(copies))
+
+    @torch.inference_mode()
+    def _run_chunk(self, items: list, width: int, copies=()):
+        """One chunk pass: each ``(admission, progress, take)`` item
+        advances ``take`` prompt tokens (``<= width``) of its slot from
+        absolute offset ``progress``, after ``copies``' donor rows land.
+        Items whose prompt completes sample their first token from their
+        prompt-end logits and join decode. Only the items' slots are
+        computed. Returns the ``(request, token, done)`` emissions of the
+        finished prefills."""
+        self._copy_prefixes(copies)
+        n, dev = len(items), self.device
+        rows = np.zeros((n, width), np.int64)
+        offs = np.zeros((n,), np.int32)
+        clens = np.zeros((n,), np.int32)
+        for i, (adm, progress, take) in enumerate(items):
+            rows[i, :take] = adm.req.prompt[progress:progress + take]
+            offs[i], clens[i] = progress, take
+        slots = torch.tensor([a.slot for a, _p, _t in items], dtype=torch.long, device=dev)
+        offs_d = torch.from_numpy(offs).to(dev)
+        # the attended row need only cover this call's deepest written
+        # position: queries see the copied prefix and earlier chunks below it
+        span = self._fixed_span(int((offs + clens).max()))
+        logits = chunked_prefill_forward(self.model, torch.from_numpy(rows).to(dev), self.arena,
+                                         offs_d, torch.from_numpy(clens).to(dev),
+                                         attention=self.attention, span=span, slots=slots)
+        fin = [i for i, (a, p, t) in enumerate(items) if p + t == len(a.req.prompt)]
+        if not fin:
+            return []
+        idx = torch.tensor(fin, dtype=torch.long, device=dev)
+        ends = torch.tensor([len(items[i][0].req.prompt) - items[i][1] - 1 for i in fin],
+                            dtype=torch.long, device=dev)
+        p_lens = torch.tensor([len(items[i][0].req.prompt) for i in fin], dtype=torch.int32,
+                              device=dev)
+        temps = torch.tensor([items[i][0].req.temperature for i in fin], dtype=torch.float32,
+                             device=dev)
+        firsts = _sample_dynamic(logits[idx, ends], self._generator, temps, self.top_k,
+                                 self.top_p)
+        fin_slots = slots[idx]
+        self._lengths[fin_slots] = p_lens
+        self._last[fin_slots] = firsts
+        self._temps[fin_slots] = temps
+        toks = firsts.cpu().numpy()
+        emitted = []
+        for j, i in enumerate(fin):
+            req = items[i][0].req
+            self._prefilling.pop(items[i][0].slot, None)
+            self.scheduler.on_prefill_complete(req)
+            self._set_active(req.slot, True)
+            self._emit(req, int(toks[j]))
+            emitted.append((req, req.tokens[-1], req.done))
+        return emitted
+
     def _admit_wave(self, plan) -> list[tuple[Request, int, bool]]:
-        """Execute one admission wave (the cold path: every admitted
-        request prefills its whole prompt)."""
-        cold = [a.req for a in plan]
-        self._prefill_wave(cold)
-        return [(req, req.tokens[-1], req.done) for req in cold]
+        """Execute one admission wave. Without chunking: the bucketed
+        whole-prompt prefill for the cold requests, and for the prefix hits
+        their donor copies and one suffix chunk pass per suffix bucket.
+        With chunking: the wave's copies land now (the donors are pinned
+        only through this wave), and every admission queues for budgeted
+        chunks."""
+        emitted: list[tuple[Request, int, bool]] = []
+        copies = [a for a in plan if a.donor_slot is not None]
+        if self.prefill_chunk:
+            self._copy_prefixes(copies)
+            for a in plan:
+                self._prefilling[a.slot] = [a, a.reuse_len]
+            return emitted
+        cold = [a.req for a in plan if a.donor_slot is None]
+        if cold:
+            self._prefill_wave(cold)
+            emitted.extend((req, req.tokens[-1], req.done) for req in cold)
+        by_width: dict[int, list] = {}
+        for a in copies:
+            suffix = len(a.req.prompt) - a.reuse_len
+            by_width.setdefault(self.scheduler.bucket_for(suffix), []).append(
+                (a, a.reuse_len, suffix))
+        for width in sorted(by_width):
+            emitted.extend(self._run_chunk(by_width[width], width,
+                                           copies=[a for a, _p, _t in by_width[width]]))
+        return emitted
+
+    def _prefill_progress(self):
+        """Spend this step's prefill token budget on chunk passes: each
+        mid-prefill slot advances by up to ``prefill_chunk`` tokens a pass,
+        lowest slot first, until the budget (total tokens, not per slot)
+        is spent or no slot is mid-prefill. Decode windows run between
+        these slices."""
+        emitted: list[tuple[Request, int, bool]] = []
+        budget = self._prefill_budget
+        while self._prefilling and budget > 0:
+            items = []
+            for slot in sorted(self._prefilling):
+                if budget <= 0:
+                    break
+                adm, progress = self._prefilling[slot]
+                take = min(self.prefill_chunk, len(adm.req.prompt) - progress)
+                items.append((adm, progress, take))
+                budget -= take
+            emitted.extend(self._run_chunk(items, self.prefill_chunk))
+            for adm, progress, take in items:
+                if adm.slot in self._prefilling:
+                    self._prefilling[adm.slot][1] = progress + take
+        return emitted
 
     def step(self) -> list[tuple[Request, int, bool]]:
         """One engine iteration: admission of waiting requests into free
-        slots (prefill), then one arena-wide decode window of
-        ``steps_per_sync`` steps. Returns ``(request, token, done)``
-        triples in generation order; ``done`` is per TOKEN, True only on a
-        request's final token."""
+        slots (prefix copies and prefill: whole-wave, or budgeted chunks),
+        then one arena-wide decode window of ``steps_per_sync`` steps over
+        the slots whose prefill is complete. Returns ``(request, token,
+        done)`` triples in generation order; ``done`` is per TOKEN, True
+        only on a request's final token."""
         emitted: list[tuple[Request, int, bool]] = []
         plan = self.scheduler.admit()
         if plan:
             emitted.extend(self._admit_wave(plan))
-        if self.scheduler.active:
+        emitted.extend(self._prefill_progress())
+        if any(slot not in self._prefilling for slot in self.scheduler.active):
             emitted.extend(self._decode_window())
         return emitted
 
@@ -426,6 +602,8 @@ class InferenceEngine:
                 break  # the window's tail decoded for empty slots
             self.scheduler.note_step()
             for slot, req in sorted(self.scheduler.active.items()):
+                if slot in self._prefilling:
+                    continue  # mid-prefill: no decode tokens yet
                 done = self._emit(req, int(toks[i, slot]))
                 emitted.append((req, req.tokens[-1], done))
         return emitted
@@ -480,6 +658,7 @@ class InferenceEngine:
             slot = next((s for s, r in sched.active.items() if r.rid == rid), None)
             if slot is None:
                 return False
+            self._prefilling.pop(slot, None)
             req = sched.reclaim(slot)
             self._set_active(slot, False)
         req.done = True
@@ -496,6 +675,16 @@ class InferenceEngine:
 
     # -- introspection -------------------------------------------------
 
+    def prefix_warm_probe(self, prompt) -> int:
+        """How many leading tokens of ``prompt`` the prefix cache would
+        serve without recompute (0 without a prefix cache). Pure: no hit,
+        recency or pin moves, and equal to the reuse admission would then
+        commit."""
+        cache = self.scheduler.prefix_cache
+        if cache is None:
+            return 0
+        return cache.match_len(np.asarray(prompt).reshape(-1))
+
     @staticmethod
     def _percentiles(xs) -> dict:
         """``{p50, p99, n}`` summary (seconds) of a latency sample."""
@@ -510,8 +699,9 @@ class InferenceEngine:
     def stats(self) -> dict:
         """Serving counters: generated tokens, decode steps, mean slot
         occupancy, per-request latencies, TTFT (submit → first token) and
-        inter-token percentiles of the finished requests, and decode-only
-        tokens/s (each request's first-to-last token window)."""
+        inter-token percentiles of the finished requests, decode-only
+        tokens/s (each request's first-to-last token window), and the
+        prefix cache's hit and eviction counters when it is on."""
         finished = list(self.finished.values())
         lat = [
             r.finish_time - r.submit_time
@@ -524,7 +714,7 @@ class InferenceEngine:
         d_secs = sum(
             r.token_times[-1] - r.token_times[0] for r in finished if len(r.token_times) > 1
         )
-        return {
+        out = {
             "total_generated": self.total_generated,
             "attention": self.attention,
             "decode_steps": self.scheduler._steps,
@@ -539,3 +729,6 @@ class InferenceEngine:
             "decode_tok_s": (d_toks / d_secs) if d_secs > 0 else None,
             "cancelled": self.cancelled,
         }
+        if self.scheduler.prefix_cache is not None:
+            out["prefix_cache"] = self.scheduler.prefix_cache.stats()
+        return out

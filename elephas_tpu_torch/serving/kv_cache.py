@@ -20,10 +20,12 @@ the arena **in place**:
   rows;
 - :func:`token_decode_step` — one token for EVERY slot at its own
   position (fixed shapes: all ``num_slots`` rows each step, writes masked
-  by ``active``), the step a CUDA graph of the decode window will hold.
-
-``chunked_prefill_forward``, ``verify_forward`` and ``prefix_copy`` are
-later slices (ROADMAP.md, Queue A item 1).
+  by ``active``), the step a CUDA graph of the decode window will hold;
+- :func:`chunked_prefill_forward` — ``C`` tokens a slot resuming from
+  per-slot offsets, over the resident row (chunked prefill, and the
+  suffix after a prefix-cache copy), and :func:`verify_forward`, the same
+  pass over speculative windows;
+- :func:`prefix_copy` — a slot-to-slot transplant of a donor's first rows.
 """
 
 from __future__ import annotations
@@ -105,3 +107,69 @@ def prefill_forward(model, tokens_rows, cache: SlotKVCache, slots, attention: st
         x = x + block.attn.prefill(block.ln1(x), ck, cv, slots, attention)
         x = block.mlp(x)
     return model.lm_head(model.final_ln(x))
+
+
+def chunked_prefill_forward(model, tokens_chunk, cache: SlotKVCache, offsets, chunk_lens,
+                            active=None, attention: str = "flash", span: int | None = None,
+                            slots=None):
+    """A bounded chunk of each slot's prompt, resuming from its absolute
+    offset: row ``b`` of ``tokens_chunk`` (``[n, C]`` int64) holds the
+    tokens of positions ``offsets[b] .. offsets[b] + C - 1`` of arena slot
+    ``slots[b]`` (``slots`` ``[n]`` int64; ``None`` = every slot, ``n ==
+    num_slots``, as the reference runs it). ``chunk_lens`` (``[n]``) masks a
+    final partial chunk's padded tail off the cache write, ``active``
+    (``[n]`` bool, ``None`` = all) the rows not prefilling this call;
+    ``offsets``, ``chunk_lens`` and ``active`` stay on the device.
+
+    Each chunk's K/V lands in the arena before its attention reads it, and
+    attention runs over ``cache[:, :span]`` (``span`` ``None`` =
+    ``max_len``; the caller buckets it to cover every active row's
+    ``offsets + chunk_lens``) masked to ``position <= query position``:
+    ``"flash"`` through :func:`~elephas_tpu_torch.ops.flash_serving.\
+flash_span_chunk` (the span-chunk kernel on the card), ``"naive"`` the
+    dense masked softmax. Returns ``[n, C, vocab]`` logits; padded and
+    inactive rows hold values nobody reads."""
+    c = tokens_chunk.shape[1]
+    dev = tokens_chunk.device
+    pos_mat = (offsets.to(torch.int32)[:, None]
+               + torch.arange(c, dtype=torch.int32, device=dev)[None, :]).contiguous()
+    valid = torch.arange(c, device=dev)[None, :] < chunk_lens[:, None]
+    if active is not None:
+        valid = valid & active[:, None]
+    x = model.tok_embed(tokens_chunk)
+    if model.positions is not None:
+        # a padded tail may run past the table: its rows are never read
+        x = x + model.positions[pos_mat.clamp(max=cache.max_len - 1).long()]
+    for block, (ck, cv) in zip(model.blocks, cache.layers()):
+        x = x + block.attn.chunk(block.ln1(x), pos_mat, valid, ck, cv, slots, attention, span)
+        x = block.mlp(x)
+    return model.lm_head(model.final_ln(x))
+
+
+def verify_forward(model, tokens_window, cache: SlotKVCache, offsets, n_fed, active=None,
+                   attention: str = "flash", span: int | None = None, slots=None):
+    """The speculative verify pass: slot ``b`` feeds ``n_fed[b]`` tokens (its
+    last sampled token and up to ``K - 1`` drafted ones) at positions
+    ``offsets[b] ..``, writes their K/V and returns a logits row a window
+    position (row ``j`` scores the token at ``offsets[b] + j + 1``). It is
+    :func:`chunked_prefill_forward` with generated tokens in place of prompt
+    tokens; rejected positions hold K/V that a later feed rewrites before
+    any query can see it."""
+    return chunked_prefill_forward(model, tokens_window, cache, offsets, n_fed, active,
+                                   attention, span, slots)
+
+
+def prefix_copy(cache: SlotKVCache, src_idx, copy_mask, copy_len) -> None:
+    """Slot-to-slot prefix transplant, in place: every slot ``d`` with
+    ``copy_mask[d]`` receives donor slot ``src_idx[d]``'s first
+    ``copy_len[d]`` K/V rows in every layer (``[num_slots]`` vectors on the
+    device: no host sync). The copied rows are bitwise what the slot's own
+    prefill would write, since position ``i``'s K/V depends on tokens
+    ``0..i`` only."""
+    dev = src_idx.device
+    rows = torch.arange(cache.max_len, device=dev)[None, :] < copy_len[:, None]
+    sel = (copy_mask[:, None] & rows)[:, :, None, None]
+    src = src_idx.long()
+    for ck, cv in cache.layers():
+        ck.copy_(torch.where(sel, ck[src], ck))
+        cv.copy_(torch.where(sel, cv[src], cv))

@@ -12,9 +12,14 @@ Prompt lengths are padded up to a fixed **bucket ladder**
 (:func:`default_buckets`: powers of two, capped at the model's
 ``maxlen``), so prefill runs at a small closed set of shapes.
 
+With ``prefix_cache=True`` finished requests' prompt rows stay resident as
+donor slots under a :class:`~elephas_tpu_torch.serving.prefix_cache.\
+PrefixCache`: admission matches each request against them, and evicts the
+least recently used donor when no slot is free.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: the prefix cache, paged admission with preemption, SLO
-policies, wave-aware slot placement and the telemetry counters.
+ROADMAP.md item: paged admission with preemption, SLO policies, wave-aware
+slot placement and the telemetry counters.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from __future__ import annotations
 import itertools
 from collections import deque
 from dataclasses import dataclass, field
+
+from elephas_tpu_torch.serving.prefix_cache import PrefixCache
 
 _TODO = "Scheduler({}) is not ported yet (ROADMAP.md, Queue A item {})"
 
@@ -82,6 +89,8 @@ class Request:
     on_token: object | None = None
     error: BaseException | None = None
     token_times: list = field(default_factory=list)
+    # prompt tokens served from the prefix cache instead of prefill
+    reused_tokens: int = 0
 
     @property
     def full_sequence(self) -> list:
@@ -103,11 +112,14 @@ class Request:
 
 @dataclass
 class Admission:
-    """One admission decision: ``req`` leases ``slot`` (cold: its whole
-    prompt prefills)."""
+    """One admission decision: ``req`` leases ``slot``; when the prefix
+    cache found a donor, ``donor_slot``'s first ``reuse_len`` arena rows
+    are copied before the (suffix-only) prefill."""
 
     req: Request
     slot: int
+    donor_slot: int | None = None
+    reuse_len: int = 0
 
 
 class Scheduler:
@@ -115,10 +127,10 @@ class Scheduler:
     :class:`~elephas_tpu_torch.serving.engine.InferenceEngine`."""
 
     def __init__(self, num_slots: int, buckets, prefix_cache: bool = False,
-                 allocator=None, preemption: bool = False, policy=None,
+                 prefix_min_reuse: int = 1, allocator=None,
+                 preemption: bool = False, policy=None,
                  wave_slots: int | None = None):
-        for name, value, item in (("prefix_cache", prefix_cache, 1),
-                                  ("allocator", allocator, 3),
+        for name, value, item in (("allocator", allocator, 3),
                                   ("preemption", preemption, 3),
                                   ("policy", policy, 3),
                                   ("wave_slots", wave_slots, 5)):
@@ -131,6 +143,10 @@ class Scheduler:
         self._free: list[int] = list(range(self.num_slots))
         self.rid_base = next(_rid_bases) * RID_STRIDE
         self._ids = itertools.count(self.rid_base)
+        self.prefix_cache = PrefixCache() if prefix_cache else None
+        # matches shallower than this admit cold: a 1-2 token coincidental
+        # prefix is not worth a copy
+        self.prefix_min_reuse = max(1, int(prefix_min_reuse))
         # occupancy accounting: decode steps, and busy slots summed over them
         self._steps = 0
         self._busy_slot_steps = 0
@@ -172,17 +188,72 @@ class Scheduler:
     # -- per-step decisions --------------------------------------------
 
     def admit(self) -> list[Admission]:
-        """Lease free slots to waiting requests, FIFO, lowest free slot
-        first. Returns the wave's :class:`Admission` plan; the engine runs
-        the prefills."""
+        """Lease slots to waiting requests (FIFO), lowest free slot first,
+        evicting LRU prefix-cache donors under slot pressure. Returns the
+        wave's :class:`Admission` plan (donor and reuse length resolved per
+        request); the engine runs the copies and prefills.
+
+        A donor chosen for one admission is pinned through the wave, so a
+        later admission cannot evict it before the engine's copy reads it.
+        When the only evictable slot is that pinned donor, the request
+        drops its reuse and is admitted cold into the evicted donor:
+        progress beats reuse, and a one-slot engine must not livelock."""
         admitted: list[Admission] = []
-        while self.waiting and self._free:
-            req = self._dequeue_head()
-            slot = self._pop_free_slot()
+        pinned: list[int] = []
+        cache = self.prefix_cache
+        while self.waiting:
+            req = self.waiting[0]
+            donor, reuse = (None, 0)
+            if cache is not None:
+                # match() is pure: a blocked queue head is probed every step
+                donor, reuse = cache.match(req.prompt)
+                if donor is not None and reuse < self.prefix_min_reuse:
+                    donor, reuse = None, 0
+                if donor is not None:
+                    cache.pin(donor)
+                    pinned.append(donor)
+            if self._free:
+                slot = self._pop_free_slot()
+            else:
+                slot = cache.evict_lru() if cache is not None else None
+                if slot is None and donor is not None:
+                    cache.unpin(donor)
+                    pinned.pop()
+                    donor, reuse = None, 0
+                    slot = cache.evict_lru()
+                if slot is None:
+                    break  # full: the request keeps waiting
+            self._dequeue_head()
+            if cache is not None:
+                cache.remove(slot)  # its rows are about to be overwritten
+                if donor is not None:
+                    cache.commit_hit(donor, reuse)
+                else:
+                    cache.record_miss()
             req.slot = slot
+            req.reused_tokens = reuse
             self.active[slot] = req
-            admitted.append(Admission(req=req, slot=slot))
+            admitted.append(Admission(req=req, slot=slot, donor_slot=donor, reuse_len=reuse))
+        # the engine copies the donors' rows right after this wave returns,
+        # and nothing evicts before the next admit(): the pins end here
+        if cache is not None:
+            for slot in pinned:
+                cache.unpin(slot)
         return admitted
+
+    def on_prefill_complete(self, req: Request) -> None:
+        """Register the request's prompt rows as a reusable prefix (its
+        slot's first ``len(prompt)`` rows now hold that K/V)."""
+        if req.slot is not None and self.prefix_cache is not None:
+            self.prefix_cache.insert(req.slot, req.prompt)
+
+    def flush_prefix_cache(self) -> None:
+        """Invalidate every cached prefix and return the donor slots to the
+        free list (their rows are stale after a weight refresh)."""
+        if self.prefix_cache is None:
+            return
+        self._free.extend(self.prefix_cache.flush())
+        self._free.sort()
 
     def on_token(self, slot: int, token: int) -> bool:
         """Record one generated token for the slot's occupant; returns
@@ -199,9 +270,13 @@ class Scheduler:
 
     def reclaim(self, slot: int) -> Request:
         """Free the slot immediately: the next :meth:`admit` can hand it
-        to a waiting request in the same engine step."""
+        to a waiting request in the same engine step. With the prefix
+        cache on, a slot whose prompt rows are indexed is retained as a
+        donor instead (evicted LRU under pressure)."""
         req = self.active.pop(slot)
         req.slot = None
+        if self.prefix_cache is not None and self.prefix_cache.release(slot):
+            return req  # resident donor: off the free list
         self._free.append(slot)
         self._free.sort()
         return req

@@ -373,7 +373,7 @@ def test_span_decode_matches_plain(cuda, b, h, d, span):
     before = fs.launches
     out = fs.flash_span_decode(q, k, v, pos)
     assert fs.launches == before + 1
-    ref = fs.flash_span_chunk(q[:, :, None], k, v, pos[:, None])[:, :, 0]
+    ref = fs.span_chunk_reference(q[:, :, None], k, v, pos[:, None])[:, :, 0]
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert ((out - ref).abs() / ref.abs().clamp_min(1)).max().item() <= 1e-5
@@ -439,6 +439,124 @@ def test_span_decode_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         fs.flash_span_decode(q[..., :48].contiguous(), k[..., :48], v[..., :48], pos)
     assert fs.launches == before
+
+
+def _chunk_case(gen, d, span, c, b=16, h=4, maxlen=512, slots=None):
+    """Chunk queries at ragged offsets over an arena cut to ``span``: one
+    slot at offset 0 (rows past its first see later keys), one whose chunk
+    ends on the span's last row, padded rows past the span and past the
+    arena (clamped, as an engine's padded tail or an inactive lane), and a
+    slot whose rows all sit before the first split's end."""
+    q = _randn(gen, b, h, c, d)
+    n = b if slots is None else slots
+    arena_k, arena_v = _randn(gen, n, maxlen, h, d), _randn(gen, n, maxlen, h, d)
+    offs = torch.randint(0, max(1, span - c), (b,), generator=gen, device=gen.device)
+    special = torch.tensor([0, max(0, span - c), span + 3, maxlen - 1])[:b]
+    offs[:len(special)] = special
+    pos = (offs[:, None] + torch.arange(c, device=gen.device)[None, :]).to(torch.int32)
+    return q, arena_k[:, :span], arena_v[:, :span], pos.contiguous()
+
+
+CHUNK_SHAPES = [(16, 4, 128), (16, 4, 64), (16, 4, 16), (4, 2, 32), (64, 8, 64)]
+
+
+@pytest.mark.parametrize("c", [1, 7, 64])
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("b,h,d", CHUNK_SHAPES)
+def test_span_chunk_matches_plain(cuda, b, h, d, span, c):
+    """Every shape over the span ladder at chunk widths 1, 7 and 64,
+    against the plain version on the same operands, within 1e-5 of
+    max(1, |out|); one launch counted a call, whatever the split; bit for
+    bit on a repeat."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 1000 + span + b + c)
+    q, k, v, pos = _chunk_case(gen, d, span, c, b, h)
+    before = fs.chunk_launches
+    out = fs.flash_span_chunk(q, k, v, pos)
+    assert fs.chunk_launches == before + 1
+    ref = fs.span_chunk_reference(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert ((out - ref).abs() / ref.abs().clamp_min(1)).max().item() <= 1e-5
+    assert torch.equal(fs.flash_span_chunk(q, k, v, pos), out)
+
+
+@pytest.mark.parametrize("span", [128, 512])
+def test_span_chunk_with_a_slot_map(cuda, span):
+    """Rows of some arena slots (the engine's chunk of a few slots): row b
+    reads slot slots[b] of the whole arena's span view, as the plain
+    version reads the gathered slots."""
+    gen = torch.Generator(device=cuda).manual_seed(span)
+    q, k, v, pos = _chunk_case(gen, 128, span, 64, b=3, h=4, slots=16)
+    slots = torch.tensor([5, 0, 15], dtype=torch.long, device=cuda)
+    out = fs.flash_span_chunk(q, k, v, pos, slots=slots)
+    ref = fs.span_chunk_reference(q, k[slots], v[slots], pos)
+    torch.cuda.synchronize()
+    assert ((out - ref).abs() / ref.abs().clamp_min(1)).max().item() <= 1e-5
+
+
+def test_span_chunk_rows_without_keys_are_zero(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, pos = _chunk_case(gen, 64, 128, 7, b=4, h=2)
+    pos[1] = -1
+    out = fs.flash_span_chunk(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert not out[1].any() and out[0].abs().sum() > 0
+
+
+def test_span_chunk_refuses_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, pos = _chunk_case(gen, 64, 64, 4, b=4, h=2, maxlen=80)
+    before = fs.chunk_launches
+    with pytest.raises(ValueError, match="float32"):
+        fs.flash_span_chunk(q.bfloat16(), k, v, pos)
+    with pytest.raises(ValueError, match="float32"):
+        fs.flash_span_chunk(q, k.bfloat16(), v, pos)
+    odd = torch.zeros(4, 80, 2, 65, device=cuda)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        fs.flash_span_chunk(q, odd, v, pos)
+    with pytest.raises(ValueError, match="int32"):
+        fs.flash_span_chunk(q, k, v, pos.long())
+    with pytest.raises(ValueError, match="head_dim"):
+        fs.flash_span_chunk(q[..., :48].contiguous(), k[..., :48], v[..., :48], pos)
+    with pytest.raises(ValueError, match="int64"):
+        fs.flash_span_chunk(q, k, v, pos, slots=torch.arange(4, device=cuda, dtype=torch.int32))
+    with pytest.raises(ValueError, match="no slot map"):
+        fs.flash_span_chunk(q, k[:2], v[:2], pos)
+    assert fs.chunk_launches == before
+
+
+def test_chunked_engine_on_cuda_matches_cpu(cuda):
+    """Chunked prefill and the prefix cache on the card (span chunk, span
+    decode and LayerNorm kernels) emit the CPU engine's tokens from the
+    same random weights, wherever the plain path's top-2 margin is at least
+    1e-3."""
+    cfg = dict(vocab_size=64, maxlen=64, d_model=64, num_heads=2, num_layers=2, seed=3)
+    cpu = et.transformer_lm(**cfg, device="cpu")
+    card = et.transformer_lm(**cfg, device=cuda)
+    et.load_keras_weights(card, et.keras_weights(cpu))
+    rng = np.random.default_rng(0)
+    shared = list(rng.integers(1, 64, 12))
+    prompts = [shared + list(rng.integers(1, 64, n)) for n in (3, 9, 17, 5, 12, 30)]
+    outs = {}
+    before = fs.chunk_launches
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        engine = et.InferenceEngine(model, num_slots=4, steps_per_sync=4, prefix_cache=True,
+                                    prefill_chunk=8)
+        first = engine.submit(prompts[0], 12)
+        engine.run()
+        reqs = [first] + [engine.submit(p, 12) for p in prompts[1:]]
+        engine.run()
+        outs[name] = [r.tokens for r in reqs]
+        assert engine.stats()["prefix_cache"]["hits"] > 0
+    assert fs.chunk_launches > before
+    for prompt, got, want in zip(prompts, outs["cuda"], outs["cpu"]):
+        if got == want:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        seq = torch.tensor([list(prompt) + want[:i]])
+        with torch.inference_mode():
+            top2 = cpu(seq, plain=True)[0, -1].topk(2).values
+        assert (top2[0] - top2[1]).item() < 1e-3, (prompt, got, want)
 
 
 def test_engine_on_cuda_matches_cpu(cuda):

@@ -387,7 +387,7 @@ def test_submit_errors_match_jax(engine_pair, args, kwargs):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(prefix_cache=True), dict(prefill_chunk=4), dict(paged=True), dict(preemption=True),
+    dict(block_size=16), dict(spec_k=3), dict(paged=True), dict(preemption=True),
     dict(kv_dtype="int8"), dict(speculative=True), dict(policy="fair"),
     dict(sp_prefill="seq"), dict(mesh="mesh"),
 ])
@@ -402,11 +402,11 @@ def test_engine_runs_on_the_models_device(lm):
     assert InferenceEngine(lm, device="cpu").device == torch.device("cpu")
 
 
-# -- every reference keyword: accepted where it changes nothing, else refused
-# by name -------------------------------------------------------------------
+# -- every reference keyword: accepted where it changes nothing or is ported,
+# else refused by name ------------------------------------------------------
 
 # (entry point, keyword, the value that leaves the behaviour unchanged,
-# another value, the ROADMAP.md Queue A item its refusal names)
+# another value, the ROADMAP.md Queue A item that ports it)
 REFERENCE_KEYWORDS = [
     ("engine", "mesh", None, "mesh", 5),
     ("engine", "batch_axes", ("data",), ("data", "seq"), 5),
@@ -457,10 +457,19 @@ def _call(where, model, **kwargs):
     return et.SparkModel(model, device="cpu").serve(**kwargs)
 
 
+# Queue A items ported since: their keywords take the other value too
+# (a budget with the chunk it needs)
+PORTED_ITEMS = {1}
+
+
 @pytest.mark.parametrize("where,name,neutral,other,item", REFERENCE_KEYWORDS)
 def test_reference_keywords_pass_or_name_their_item(small_lm, where, name, neutral, other,
                                                     item):
     _call(where, small_lm, **{name: neutral})
+    if item in PORTED_ITEMS:
+        extra = {"prefill_chunk": 4} if name == "prefill_budget" else {}
+        _call(where, small_lm, **{name: other}, **extra)
+        return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md, Queue A item {item}\b"):
         _call(where, small_lm, **{name: other})
 
@@ -498,5 +507,8 @@ def test_serve_passes_engine_keywords_through(small_lm):
     sm = et.SparkModel(small_lm, device="cpu")
     engine = sm.serve(num_slots=2, prefix_min_reuse=1, sp_axis="seq", flight_recorder=None)
     assert isinstance(engine, InferenceEngine)
-    with pytest.raises(NotImplementedError, match=r"Queue A item 1\b"):
-        sm.serve(prefix_min_reuse=4)
+    engine = sm.serve(num_slots=2, prefix_cache=True, prefix_min_reuse=4, prefill_chunk=4,
+                      prefill_budget=8)
+    assert engine.scheduler.prefix_min_reuse == 4 and engine.prefill_chunk == 4
+    with pytest.raises(NotImplementedError, match=r"Queue A item 3\b"):
+        sm.serve(paged=True)
