@@ -11,9 +11,10 @@ Phases, each printing one JSON line and raising on failure:
             (time, and what -Xptxas -v reports); each flash instantiation's
             registers and spills, and its tensor-core (HMMA), async-copy
             (LDGSTS) and ldmatrix (LDSM) instruction counts from
-            cuobjdump --dump-sass; each LayerNorm forward instantiation's
-            16-byte loads and stores and block barriers; fails on a spill,
-            a flash kernel without HMMA or LDGSTS, a one-warp-a-row
+            cuobjdump --dump-sass, and the span chunk's; each LayerNorm
+            forward instantiation's 16-byte loads and stores and block
+            barriers; fails on a spill, a flash or span-chunk kernel
+            without HMMA or LDGSTS, a one-warp-a-row
             LayerNorm forward with a block barrier or a vector one without
             16-byte loads and stores;
 3. kernel — each kernel against its plain PyTorch version on the card,
@@ -27,10 +28,12 @@ Phases, each printing one JSON line and raising on failure:
             a shape whose slots and heads fill the card, over every span
             bucket and head dim, with ragged positions and a stale cursor,
             repeating bit for bit eagerly and from a CUDA-graph replay; and the span
-            chunk (fp32) at the engine's chunk shape (16 slots, 4 heads of
-            128, 64 rows a slot, spans 128-512) and at one slot of the
-            arena through a slot map, with ragged offsets and rows past
-            the span, repeating bit for bit;
+            chunk (fp32) at 16 slots of 4 heads of 128 with chunk widths 1,
+            64, 100 and 512 over spans 128-512, with ragged offsets and rows
+            past the span, at the engine's launch (one slot of its 16-slot
+            arena through the slot map, 64 rows, every span bucket) and at a
+            prefix-hit pass (4 slots through the slot map, 32 rows),
+            repeating bit for bit eagerly and from a CUDA-graph replay;
 4. serve  — the serving path: generate() on transformer_lm at full width
             (config A with and without rope, config B), and one
             transformer_classifier forward, with launch counts of the
@@ -136,8 +139,12 @@ Phases, each printing one JSON line and raising on failure:
             library). At the training shape also the plain flash backward
             per layer and SDPA's forward + autograd backward. The span
             decode also at each split count of SPLIT_SWEEP, with the
-            host time of its workspace allocation. The span chunk at the
-            engine's chunk shape, beside a masked SDPA over [B, H, C, span]. LayerNorm also as the
+            host time of its workspace allocation. The span chunk at 16
+            slots of 64 rows (where the first design was timed), at the engine's launch
+            (one slot through the slot map, every span bucket) and at a
+            512-row chunk from position 0, beside a masked SDPA over [B, H,
+            C, span], its bound at the 3xTF32 rate, and at each split
+            count of CHUNK_SPLIT_SWEEP. LayerNorm also as the
             serving paths call it: the entry layer_norm against
             torch.nn.functional.layer_norm, both under inference_mode, at
             the engine's, generate's and the training rows; and a sweep of
@@ -152,7 +159,7 @@ summed over the serve, train, train_bf16, train_workers, train_stream,
 engine and engine_chunked paths,
 times at config A's
 attention shape, at the training rows, at the engine's decode shape and
-chunk shape, fp32), and last {"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
+its chunk launch at span 256, fp32), and last {"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
 not available or the package is not beside this script.
 
 ``--times-only`` runs the card, serve, engine, engine_long, engine_chunked,
@@ -315,10 +322,18 @@ ENGINE_LONG_PROMPT_LENS = (200, 280, 360, 440)
 ENGINE_LONG_BUDGET = 48
 ENGINE_LONG_REQUESTS = 16
 
-# span chunk vs plain version: the engine's chunk shape (slots, heads, head
-# dim, rows a slot) over the spans its chunks attend, within TOL_SPAN
+# span chunk vs plain version, within TOL_SPAN: 16 slots of 4 heads of 128
+# with 64 rows a slot (slots, heads, head dim, rows a slot) over the spans
+# the engine's chunks attend, also at chunk widths 1 (verify), 100 (two
+# ragged row groups) and 512 (a suffix bucket of A's maxlen); the engine's
+# own launch, one prefilling slot of its 16-slot arena through the slot map
+# (CHUNK_ENGINE: rows, heads, head dim, rows a slot) at every span bucket;
+# and a prefix-hit pass, 4 slots through the slot map with 32 suffix rows
 CHUNK_CASE = (16, 4, 128, 64)
 CHUNK_SPANS = (128, 256, 512)
+CHUNK_WIDTHS = (1, 64, 100, 512)
+CHUNK_ENGINE = (1, 4, 128, 64)
+CHUNK_PREFIX_HIT = (4, 4, 128, 32)
 # engine_chunked: config A's engine with these options, on prompts that
 # share a prefix of each CHUNKED_PREFIX_LENS length (CHUNKED_PER_PREFIX
 # requests each, suffixes of 8-40 tokens, ENGINE_BUDGETS) and on
@@ -444,19 +459,24 @@ def phase_build():
     ptxas = {name: _ptxas_report(log["ptxas"]) for name, log in _native.build_log.items()}
     sass = _sass_counts(targets["flash_fwd"])
     span = sorted(_sass_counts(targets["span_decode"], "span_decode"))
-    chunk = sorted(_sass_counts(targets["span_chunk"], "span_chunk"))
+    chunk_sass = _sass_counts(targets["span_chunk"], "span_chunk")
+    chunk = sorted(chunk_sass)
     ln_sass = _sass_counts(targets["layer_norm"], "ln_fwd", LN_SASS_OPS)
     emit({"phase": "build", "seconds": seconds, "sources": sorted(_native.SOURCES),
           "ptxas": ptxas, "flash_sass": sass, "span_decode_instantiations": span,
-          "span_chunk_instantiations": chunk, "layer_norm_fwd_sass": ln_sass})
+          "span_chunk_sass": chunk_sass, "layer_norm_fwd_sass": ln_sass})
     spills = [f"{name}: {r}" for log in ptxas.values() for name, r in log.items()
               if r.get("spill_stores") or r.get("spill_loads")]
     missing = [name for name, c in sass.items() if not (c["HMMA"] and c["LDGSTS"])]
+    # the span chunk's split kernels (not its merge) run on the tensor cores
+    # from a cp.async ring
+    missing += [name for name, c in chunk_sass.items()
+                if name.startswith("span_chunk_kernel") and not (c["HMMA"] and c["LDGSTS"])]
     ln_faults = _ln_sass_faults(ln_sass)
     if spills or missing or len(sass) != 8 or len(span) != 8 or len(chunk) != 8 or ln_faults:
-        raise AssertionError(f"build: spills {spills}; flash kernels without HMMA or "
-                             f"LDGSTS {missing}; {len(sass)} flash instantiations, want 8; "
-                             f"span decode instantiations {span} and span chunk "
+        raise AssertionError(f"build: spills {spills}; flash or span chunk kernels without "
+                             f"HMMA or LDGSTS {missing}; {len(sass)} flash instantiations, "
+                             f"want 8; span decode instantiations {span} and span chunk "
                              f"instantiations {chunk}, want 8 each (split and merge "
                              f"kernels at 4 head dims); LayerNorm forward {ln_faults}")
 
@@ -652,52 +672,75 @@ def _kernel_span_decode(dev):
     return results, failures
 
 
-def _chunk_inputs(b, h, d, c, span, dev, seed, slots=None):
+def _chunk_inputs(b, h, d, c, span, dev, seed, slots=None, offset=None):
     """Chunk queries ``[b, h, c, d]`` and an arena pair of ``slots`` (default
     ``b``) slots of SPAN_MAXLEN rows cut to ``span``, with int32 positions
-    ``offset + 0..c-1`` at ragged offsets: 0 on row 0, the chunk ending on
-    the span's last row on row 1, and rows past the span (an engine's
-    padded tail) on row 2."""
+    ``offset + 0..c-1``: at ``offset`` for every row, or at ragged offsets,
+    0 on row 0, the chunk ending on the span's last row on row 1, and rows
+    past the span (an engine's padded tail) on row 2."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, h, c, d, generator=g, device=dev)
     arena = torch.randn(2, slots or b, SPAN_MAXLEN, h, d, generator=g, device=dev)
     offs = torch.randint(0, max(1, span - c), (b,), generator=g, device=dev)
-    special = torch.tensor([0, max(0, span - c), span - c // 2])[:b]
-    offs[:len(special)] = special
+    if offset is None:
+        special = torch.tensor([0, max(0, span - c), span - c // 2])[:b]
+        offs[:len(special)] = special
+    else:
+        offs[:] = offset
     pos = (offs[:, None] + torch.arange(c, device=dev)[None, :]).to(torch.int32).contiguous()
     return q, arena[0, :, :span], arena[1, :, :span], pos
 
 
+def _chunk_slot_map(b, slots, dev):
+    """Rows ``b`` of an arena of ``slots`` slots, off its first ones (the
+    last slots, in reverse), or None for an arena of ``b`` slots."""
+    return None if slots is None else torch.arange(slots - 1, slots - 1 - b, -1, device=dev)
+
+
+def _chunk_cases():
+    """The gated span-chunk shapes: (name, (B, H, D, C), span, arena slots
+    or None for B, offset or None for ragged offsets). The engine's chunk
+    ends on its span bucket's last row (the bucket covers the chunk)."""
+    b, h, d, _ = CHUNK_CASE
+    c_engine = CHUNK_ENGINE[3]
+    cases = [(f"C{c}", (b, h, d, c), span, None, None)
+             for c in CHUNK_WIDTHS for span in CHUNK_SPANS]
+    cases += [("engine", CHUNK_ENGINE, span, ENGINE["num_slots"], span - c_engine)
+              for span in SPAN_TIMES]
+    cases += [("prefix_hit", CHUNK_PREFIX_HIT, span, ENGINE["num_slots"], None)
+              for span in CHUNK_SPANS]
+    return cases
+
+
 def _kernel_span_chunk(dev):
-    """The span chunk against its plain version at the engine's chunk
-    shape over CHUNK_SPANS (splits and chunk as the wrapper picks them),
-    and at one row of a 16-slot arena through a slot map (the engine's
-    chunk of one prefilling slot); a second call must give the same bits."""
+    """The span chunk against its plain version at every _chunk_cases shape
+    (splits and chunk as the wrapper picks them); a second call and a
+    CUDA-graph replay must give the same bits."""
     from elephas_tpu_torch.ops import flash_serving as fs
 
-    b, h, d, c = CHUNK_CASE
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results, failures = [], []
-    for span in CHUNK_SPANS:
-        for rows, slots in ((b, None), (1, b)):
-            q, k, v, pos = _chunk_inputs(rows, h, d, c, span, dev, span + rows, slots)
-            slot_map = None if slots is None else torch.tensor([slots - 3], device=dev)
-            out = fs.flash_span_chunk(q, k, v, pos, slots=slot_map)
-            again = fs.flash_span_chunk(q, k, v, pos, slots=slot_map)
-            kk, vv = (k, v) if slot_map is None else (k[slot_map], v[slot_map])
-            ref = fs.span_chunk_reference(q, kk, vv, pos)
-            torch.cuda.synchronize()
-            diff = (out - ref).abs()
-            err = (diff / ref.abs().clamp_min(1.0)).max().item()
-            repeats = torch.equal(out, again)
-            splits, chunk = fs.span_splits(span, rows * h, sms)
-            row = {"B": rows, "H": h, "D": d, "C": c, "span": span, "slot_map": slots is not None,
-                   "splits": splits, "chunk": chunk, "rel_err": err,
-                   "abs_err": diff.max().item(), "repeats_bit_for_bit": repeats,
-                   "ok": err <= TOL_SPAN and repeats and bool(torch.isfinite(out).all())}
-            results.append(row)
-            if not row["ok"]:
-                failures.append(row)
+    for name, (rows, h, d, c), span, slots, offset in _chunk_cases():
+        q, k, v, pos = _chunk_inputs(rows, h, d, c, span, dev, span + rows + c, slots, offset)
+        slot_map = _chunk_slot_map(rows, slots, dev)
+        out = fs.flash_span_chunk(q, k, v, pos, slots=slot_map)
+        again = fs.flash_span_chunk(q, k, v, pos, slots=slot_map)
+        replayed = _graph_replay(
+            lambda: fs.flash_span_chunk(q, k, v, pos, slots=slot_map))  # noqa: B023
+        kk, vv = (k, v) if slot_map is None else (k[slot_map], v[slot_map])
+        ref = fs.span_chunk_reference(q, kk, vv, pos)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        err = (diff / ref.abs().clamp_min(1.0)).max().item()
+        repeats = torch.equal(out, again) and torch.equal(out, replayed)
+        splits, chunk = fs.span_chunk_splits(span, rows * h, c, d, sms)
+        row = {"case": name, "B": rows, "H": h, "D": d, "C": c, "span": span,
+               "slot_map": slots is not None, "splits": splits, "chunk": chunk,
+               "rel_err": err, "abs_err": diff.max().item(), "repeats_bit_for_bit": repeats,
+               "ok": err <= TOL_SPAN and repeats and bool(torch.isfinite(out).all())}
+        results.append(row)
+        if not row["ok"]:
+            failures.append(row)
     return results, failures
 
 
@@ -2479,43 +2522,103 @@ def phase_times_span_decode(dev):
     return rows
 
 
-def phase_times_span_chunk(dev):
-    """The span-chunk kernel at the engine's chunk shape (CHUNK_CASE) with
-    the ragged offsets of _chunk_inputs, beside its plain version and SDPA
-    with a boolean mask over [B, H, C, span] (the library yardstick, never
-    called by the port), eager and from CUDA graphs. Bytes: each slot's
-    visible K and V rows (up to its deepest row's position), q, out and the
-    positions; operations: 4 per visible key and dim of every row."""
+# the span-chunk rows of phase_times beside the CHUNK_CASE rows: the
+# engine's launch at every span bucket and a cold 512-row chunk from 0
+CHUNK_C512 = (1, 4, 128, 512)
+# split counts timed beside span_chunk_splits' own pick, at each row
+CHUNK_SPLIT_SWEEP = (1, 2, 4, 8)
+
+
+def _chunk_split_sweep(fs, fn, span):
+    """{splits: device ms} of ``fn`` (a span-chunk call) with
+    span_chunk_splits replaced by each count of CHUNK_SPLIT_SWEEP that
+    leaves every split whole tiles; medians of 3 graph replays."""
+    pick, out = fs.span_chunk_splits, {}
+    tiles = -(-span // fs.CHUNK_TILE)
+    try:
+        for n in CHUNK_SPLIT_SWEEP:
+            if n > tiles:
+                continue
+            chunk = fs.CHUNK_TILE * -(-tiles // n)
+            fs.span_chunk_splits = lambda *_, c=chunk: (-(-span // c), c)
+            graph = _graph(fn)
+            out[-(-span // chunk)] = float(np.median([_graph_ms(graph) for _ in range(3)]))
+    finally:
+        fs.span_chunk_splits = pick
+    return out
+
+
+def _chunk_row(fs, q, k, v, pos, slot_map, sms):
+    """The span chunk, its plain version and SDPA with a boolean mask over
+    [B, H, C, span] (the library yardstick, never called by the port) on one
+    input, eager and from CUDA graphs, with the bound of the work: bytes of
+    each slot's visible K and V rows (up to its deepest row's position), q,
+    out, the positions and the slot map; operations, 4 per visible key and
+    dim of every row, at the 3xTF32 rate (also at fp32 FMA's,
+    ``fma_bound_ms``)."""
     from torch.nn.functional import scaled_dot_product_attention
 
+    b, h, c, d = q.shape
+    span = k.shape[1]
+    kk, vv = (k, v) if slot_map is None else (k[slot_map], v[slot_map])
+    k4, v4 = kk.transpose(1, 2), vv.transpose(1, 2)
+    cols = torch.arange(span, device=q.device)
+    mask = (cols[None, None, :] <= pos[:, :, None])[:, None].expand(b, h, c, span)
+    fns = {
+        "ms": lambda: fs.flash_span_chunk(q, k, v, pos, slots=slot_map),
+        "plain_ms": lambda: fs.span_chunk_reference(q, kk, vv, pos),
+        "library_ms": lambda: scaled_dot_product_attention(q, k4, v4, attn_mask=mask),
+    }
+    lib_err = (fns["library_ms"]() - fns["ms"]()).abs().max().item()
+    samples = _time_in_turns(fns)
+    graphs = _time_in_turns(fns, graphs=True)
+    samples.update({key[:-2] + "device_ms": t for key, t in graphs.items()})
+    visible = torch.clamp(pos.long() + 1, min=0, max=span)  # [B, C]
+    keys_read = int(visible.amax(dim=1).sum())
+    nbytes = (2 * keys_read * h * d * 4 + 2 * b * h * c * d * 4 + b * c * 4
+              + (0 if slot_map is None else b * 8))
+    flops = 4 * int(visible.sum()) * h * d
+    row = {**_summary(samples, nbytes, flops, torch.float32, PEAK_3XTF32_S),
+           "shape": {"B": b, "H": h, "D": d, "C": c, "span": span,
+                     "slot_map": slot_map is not None},
+           "library_max_abs_diff": lib_err}
+    if hasattr(fs, "span_chunk_splits"):
+        row["splits_chunk"] = fs.span_chunk_splits(span, b * h, c, d, sms)
+        row["split_sweep_device_ms"] = _chunk_split_sweep(fs, fns["ms"], span)
+    else:  # an earlier package split as the decode does
+        row["splits_chunk"] = fs.span_splits(span, b * h, sms)
+    return row
+
+
+def phase_times_span_chunk(dev):
+    """The span-chunk kernel, its plain version and masked SDPA, eager and
+    from CUDA graphs (_chunk_row), at the shapes the main path launches:
+    CHUNK_CASE with the ragged offsets of _chunk_inputs over CHUNK_SPANS
+    (``span<n>``, where the first design was timed); the engine's launch, one slot of its
+    16-slot arena through the slot map with the chunk ending on the span's
+    last row, at every span bucket (``engine_span<n>``); and CHUNK_C512, a
+    512-row chunk from position 0 through the slot map (``c512_offset0``).
+    Each row also times the kernel at each split count of
+    CHUNK_SPLIT_SWEEP (span_chunk_splits replaced for the sweep). Works
+    for a package whose span chunk predates span_chunk_splits (the splits
+    are then the decode's rule, as that package took them; no sweep)."""
     from elephas_tpu_torch.ops import flash_serving as fs
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     b, h, d, c = CHUNK_CASE
     rows = {}
     for span in CHUNK_SPANS:
         q, k, v, pos = _chunk_inputs(b, h, d, c, span, dev, 19)
-        k4, v4 = k.transpose(1, 2), v.transpose(1, 2)
-        cols = torch.arange(span, device=dev)
-        mask = (cols[None, None, :] <= pos[:, :, None])[:, None].expand(b, h, c, span)
-        fns = {
-            "ms": lambda: fs.flash_span_chunk(q, k, v, pos),
-            "plain_ms": lambda: fs.span_chunk_reference(q, k, v, pos),
-            "library_ms": lambda: scaled_dot_product_attention(q, k4, v4, attn_mask=mask),
-        }
-        lib_err = (fns["library_ms"]() - fns["ms"]()).abs().max().item()
-        samples = _time_in_turns(fns)
-        graphs = _time_in_turns(fns, graphs=True)
-        samples.update({key[:-2] + "device_ms": t for key, t in graphs.items()})
-        visible = torch.clamp(pos.long() + 1, min=0, max=span)  # [B, C]
-        keys_read = int(visible.amax(dim=1).sum())
-        nbytes = 2 * keys_read * h * d * 4 + 2 * b * h * c * d * 4 + b * c * 4
-        flops = 4 * int(visible.sum()) * h * d
-        rows[f"span{span}"] = {**_summary(samples, nbytes, flops, torch.float32),
-                               "shape": {"B": b, "H": h, "D": d, "C": c, "span": span},
-                               "splits_chunk": fs.span_splits(
-                                   span, b * h,
-                                   torch.cuda.get_device_properties(dev).multi_processor_count),
-                               "library_max_abs_diff": lib_err}
+        rows[f"span{span}"] = _chunk_row(fs, q, k, v, pos, None, sms)
+    slots = ENGINE["num_slots"]
+    for name, (b, h, d, c), spans, offset in (
+            ("engine_span", CHUNK_ENGINE, SPAN_TIMES, None),
+            ("c512_offset", CHUNK_C512, (SPAN_MAXLEN,), 0)):
+        for span in spans:
+            off = span - c if offset is None else offset
+            q, k, v, pos = _chunk_inputs(b, h, d, c, span, dev, 19, slots, off)
+            key = f"{name}{span}" if offset is None else f"{name}{offset}"
+            rows[key] = _chunk_row(fs, q, k, v, pos, _chunk_slot_map(b, slots, dev), sms)
     emit({"phase": "times", "kernel": "span_chunk", "timing": GRAPH_TIMING, **rows})
     return rows
 
@@ -3133,7 +3236,7 @@ def main(argv=None) -> int:
             "elephas_tpu/ops/flash_serving.py:93 (flash_span_chunk, run by "
             "chunked_prefill_forward and verify_forward, elephas_tpu/serving/kv_cache.py:476, "
             ":603; plain XLA in the reference, not a Pallas kernel)",
-            total["span_chunk"], errs["span_chunk"], chunk_times["span256"]),
+            total["span_chunk"], errs["span_chunk"], chunk_times["engine_span256"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

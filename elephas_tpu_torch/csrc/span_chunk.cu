@@ -1,7 +1,7 @@
 // Chunk attention over the fixed KV arena for Hopper (sm_90a): C query rows
 // a slot, each at its own absolute position, over the first `span` positions
-// of the slot's arena row, with the span split over the card and the splits
-// merged by their lse.
+// of the slot's arena row, on the tensor cores in 3xTF32, with the span split
+// over the card and the splits merged by their lse.
 //
 // Replaces elephas_tpu/ops/flash_serving.py::flash_span_chunk (:93), plain
 // XLA in the reference, not a Pallas kernel: the attention of chunked
@@ -22,225 +22,462 @@
 // with unit stride on D; row b of q reads arena slot slot_map[b] (int64,
 // null = b), so a call over some of the arena's slots copies nothing.
 //
-// What bounds it on the H100: the K and V rows of the visible span are read
-// once (2 * sum_b n_b * H * D * 4 bytes, n_b the slot's visible keys) and
-// each serves C rows with 4 * D flops a key: 4 * C * D flops a key against
-// 8 * D bytes, so at C = 64 it is bound by fp32 operations (67 TFLOP/s
-// outside the tensor cores), and below C ~ 16 by device memory.
+// What bounds it on the H100: each row does 4 * D flops a visible key, and a
+// slot's K and V rows (8 * D bytes a key) serve all its C rows, so at C = 64
+// it is bound by operations. On the CUDA cores (fp32 FMA, 67 TFLOP/s) that
+// bound is 2.5x the one on the tensor cores in 3xTF32 (495 / 3 TFLOP/s).
 //
-// Design. The difference from the decode kernel is reuse: the grid is
-// (splits, heads, batch) and a block owns one fixed range of `chunk` key
-// positions of one (slot, head) for ALL the slot's C rows. It stages a tile
-// of kTile keys of K and V in shared memory once, and every query row of
-// the slot reads it there. The rows go kRows a warp, four warps, 64 rows a
-// group (larger C loops over groups; the q rows of a group sit in shared
-// memory). In a tile, lane j computes the scores of key j for the warp's
-// rows (K rows padded by 4 floats, so the float4 reads of 8 lanes hit
-// distinct banks), the warp folds them into each row's (m, l) by shuffles,
-// writes p to shared memory, and each lane accumulates the float4 piece of
-// the output it owns over the tile's keys. The host picks `splits` from the
-// span, batch * heads and the SM count (ops/flash_serving.py::span_splits),
-// never from the positions. With more than one split each block writes its
-// unnormalised partial (m, l, acc[D]) per row to a workspace the wrapper
-// allocates, and a second kernel merges a row's partials in split order by
-// lse. Every order is fixed: a call repeats bit for bit, and a CUDA graph
-// replays it as it is.
+// Design.
+// - Tensor cores: both products, S = Q.K^T and O += P.V, are warp-level
+//   mma.sync.m16n8k8 in TF32 with the 3xTF32 split (x = hi + lo, hi the 10
+//   mantissa bits TF32 keeps, lo = x - hi exact; lo.hi + hi.lo + hi.hi
+//   accumulated in fp32), as csrc/flash_fwd.cu's fp32 route: fp32 accuracy
+//   at a third of the TF32 rate. mma.sync and not wgmma: wgmma takes TF32
+//   operands K-major only, so V would need a transpose in shared memory
+//   (and P a round trip through it), and a warp's 16 rows fit the chunk's
+//   ragged row counts (1 for verify) better than a warpgroup's 64. The k
+//   index of each mma is permuted so q and k fragments load as 128-bit
+//   words and the score C fragment is P's A fragment with no shuffle.
+// - Q in registers: a warp owns 16 rows; their fragments are loaded once
+//   from device memory, scaled by scale * log2(e) (softmax in exp2) before
+//   the split, and kept raw in registers over the whole span (split again
+//   at each use: two instructions, where keeping hi and lo would double the
+//   D / 2 registers they take). At D = 128 those 64 registers beside the
+//   output's 64 spill, so there the scaled fragments are written once to a
+//   Q tile in shared memory and read back each step, as flash_fwd.cu reads
+//   its Q tile.
+// - Eight warps a block, two a slice of 16 rows: one takes the first 32
+//   keys of every tile, the other the last 32, each with its own online
+//   softmax state, and the second's state folds into the first's through
+//   shared memory at the end, in that order. A 32-key step keeps the score
+//   fragments small beside Q and the output at D = 128, and two warps a
+//   slice keep two independent chains of mma on each SM sub-partition,
+//   where the grid is small (one slot's chunk: 4 heads x a few splits).
+// - Tiles: 64 keys of K and V a stage, in a ring of two stages in shared
+//   memory filled by 16-byte cp.async (keys past the block's last visible
+//   one zero-filled), so the copy of tile j + 1 runs under tile j's
+//   products; one barrier a tile. Row strides are padded so the fragment
+//   loads hit distinct banks (K: rows 16 words apart mod 32 for 128-bit
+//   loads; V: 4 words for scalar loads).
+// - Masks: a half tile wholly visible to the warp's rows takes no mask;
+//   only one that crosses a row's visible count is masked; halves past the
+//   warp's deepest row are skipped, and tiles past the block's deepest row
+//   are never loaded.
+// - Grid: (slot x group of 64 rows, head, split); the deeper groups of a
+//   slot start first. Each block stops at its own group's deepest visible
+//   key, so the early groups of a wide chunk (a prefix hit's suffix of up
+//   to maxlen rows) read fewer tiles. C is any count from 1 (verify) up.
+// - Splits: the host picks them from the span, the rows and groups, the
+//   head dim and the SM count (ops/flash_serving.py::span_chunk_splits),
+//   never from the positions; every split is whole 64-key tiles. With more
+//   than one, each block writes its unnormalised partial (m, l, acc[D]) per
+//   row to a workspace the wrapper allocates on the caller's stream, and a
+//   second kernel merges a row's partials in split order by lse; with one,
+//   the block writes the output and nothing else runs. Every order is
+//   fixed: a call repeats bit for bit, and a CUDA graph replays it as it is.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <climits>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 4;
-constexpr int kRows = 16;                    // query rows a warp
-constexpr int kGroup = kWarps * kRows;       // query rows a block holds
-constexpr int kTile = 32;                    // keys a tile: one a lane
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kRowWarps = 4;          // 16 query rows a warp
+constexpr int kWarps = 2 * kRowWarps;  // two warps a row slice, one a tile half
+constexpr int kGroup = 16 * kRowWarps;  // query rows a block
+constexpr int kTile = 64;              // keys a staged tile; a split is whole tiles
+constexpr int kStep = kTile / 2;       // keys a warp takes of each tile
+constexpr int kStages = 2;
 constexpr int kMergeThreads = 128;
 
-__device__ __forceinline__ float4 scale4(float4 a, float s) {
-  return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
-}
-
-__device__ __forceinline__ float4 fma4(float4 a, float s, float4 c) {
-  return make_float4(fmaf(a.x, s, c.x), fmaf(a.y, s, c.y), fmaf(a.z, s, c.z),
-                     fmaf(a.w, s, c.w));
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
-  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, c))));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 template <int D>
-struct Smem {
-  static constexpr int kKStride = D + 4;  // floats a staged K row
-  static constexpr int kQ = kGroup * D;
-  static constexpr int kK = kTile * kKStride;
-  static constexpr int kV = kTile * D;
-  static constexpr int kP = kWarps * kRows * kTile;
-  static constexpr size_t kBytes = (kQ + kK + kV + kP) * sizeof(float) + kGroup * sizeof(int);
+struct Cfg {
+  // K rows 16 words apart mod 32 (128-bit fragment loads of two rows);
+  // V rows 4 words apart (scalar loads of four rows)
+  static constexpr int kKStride = (D + 16) % 32 == 16 ? D + 16 : D + 32;
+  static constexpr int kVStride = D + 4;
+  static constexpr int kStage = kTile * (kKStride + kVStride);  // floats
+  // Q's fragments: in registers, but at D = 128 their D / 2 registers (beside
+  // the output's D / 2) push a thread past 255 and it spills, so there they
+  // sit in shared memory after the ring, rows kKStride apart as K's
+  static constexpr bool kQShared = D == 128;
+  static constexpr int kQ = kQShared ? kGroup * kKStride : 0;  // floats
+  static constexpr int kBytes = (kStages * kStage + kQ) * static_cast<int>(sizeof(float));
+  // after the loop the ring holds the second halves' states for the first
+  // halves to fold in: (m, l) of two rows and acc, a thread
+  static constexpr int kState = 4 + D / 2;
+  static_assert(kRowWarps * 32 * kState <= kStages * kStage, "the combine fits the ring");
 };
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo: hi keeps the 10 mantissa bits a tf32 operand holds (by
+// truncation: one AND), lo = x - hi is exact in fp32; what the tensor core
+// drops of lo is below 2^-21 of |x|. Rounding hi to nearest instead
+// (cvt.rna.tf32, or adding half a unit before the AND) makes those drops
+// unbiased, but on an H100 it slowed the kernel more than it cut the error:
+// the splits are much of the kernel's instruction issue.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a.b in fp32 accuracy: the small products first, then hi.hi
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(c, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32(c, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32(c, a_hi, b_hi[0], b_hi[1]);
+}
+
+// keys [k0, k0 + kTile) of the slot's K and V into one stage of the ring;
+// keys at or past `end` are zero-filled
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ void load_tile(float* stage, const float* kb, long long k_pos,
+                                          const float* vb, long long v_pos, int k0, int end) {
+  using C = Cfg<D>;
+  constexpr int kChunks = D / 4;  // 16-byte pieces of a row
+  float* ks = stage;
+  float* vs = stage + kTile * C::kKStride;
+  for (int e = threadIdx.x; e < kTile * kChunks; e += kWarps * 32) {
+    const int r = e / kChunks, col = (e % kChunks) * 4;
+    const int j = k0 + r;
+    const bool in = j < end;
+    cp_async16(ks + r * C::kKStride + col, kb + (in ? j * k_pos : 0) + col, in ? 16 : 0);
+    cp_async16(vs + r * C::kVStride + col, vb + (in ? j * v_pos : 0) + col, in ? 16 : 0);
+  }
+}
+
+// The warp's q fragments: qf[kc][r] holds columns kc*16 + 4t..+3 of row
+// g + 8r in registers; with Cfg<D>::kQShared they are read from the warp's
+// rows of the shared Q tile (Qw) instead, and qf is empty.
+template <int D>
+using QFrag = float4[Cfg<D>::kQShared ? 1 : D / 16][2];
+
+template <int D>
+__device__ __forceinline__ float4 q_frag(const QFrag<D>& qf, const float* Qw, int kc, int r,
+                                         int g, int t) {
+  if constexpr (Cfg<D>::kQShared) {
+    return *reinterpret_cast<const float4*>(Qw + (g + 8 * r) * Cfg<D>::kKStride + kc * 16 +
+                                            4 * t);
+  } else {
+    return qf[kc][r];
+  }
+}
+
+// s[n] (keys 8n.. of the step, C fragments) = q.k^T for the warp's 16 rows.
+// In each 16-column chunk the first k-step's index t and t + 4 are columns
+// 4t and 4t + 1, the second's 4t + 2 and 4t + 3.
+template <int D, int NS>
+__device__ __forceinline__ void scores(float (&s)[NS][4], const QFrag<D>& qf, const float* Qw,
+                                       const float* Ks, int g, int t) {
+  constexpr int kStride = Cfg<D>::kKStride;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    const float4 qa = q_frag<D>(qf, Qw, kc, 0, g, t), qb = q_frag<D>(qf, Qw, kc, 1, g, t);
+    uint32_t a_hi[2][4], a_lo[2][4];
+    split_tf32(qa.x, a_hi[0][0], a_lo[0][0]);
+    split_tf32(qb.x, a_hi[0][1], a_lo[0][1]);
+    split_tf32(qa.y, a_hi[0][2], a_lo[0][2]);
+    split_tf32(qb.y, a_hi[0][3], a_lo[0][3]);
+    split_tf32(qa.z, a_hi[1][0], a_lo[1][0]);
+    split_tf32(qb.z, a_hi[1][1], a_lo[1][1]);
+    split_tf32(qa.w, a_hi[1][2], a_lo[1][2]);
+    split_tf32(qb.w, a_hi[1][3], a_lo[1][3]);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const float4 kb =
+          *reinterpret_cast<const float4*>(Ks + (n * 8 + g) * kStride + kc * 16 + 4 * t);
+      uint32_t b_hi[2][2], b_lo[2][2];
+      split_tf32(kb.x, b_hi[0][0], b_lo[0][0]);
+      split_tf32(kb.y, b_hi[0][1], b_lo[0][1]);
+      split_tf32(kb.z, b_hi[1][0], b_lo[1][0]);
+      split_tf32(kb.w, b_hi[1][1], b_lo[1][1]);
+      mma_3xtf32(s[n], a_hi[0], a_lo[0], b_hi[0], b_lo[0]);
+      mma_3xtf32(s[n], a_hi[1], a_lo[1], b_hi[1], b_lo[1]);
+    }
+  }
+}
+
+// acc[n] (columns 8n..) += p.v. With the k index permuted (index t is key
+// 2t, t + 4 is key 2t + 1) the C fragment of score tile j is the A fragment
+// of keys 8j..8j+7.
+template <int D, int NS>
+__device__ __forceinline__ void pv(float (&acc)[D / 8][4], const float (&p)[NS][4],
+                                   const float* Vs, int g, int t) {
+  constexpr int kStride = Cfg<D>::kVStride;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    uint32_t a_hi[4], a_lo[4];
+    split_tf32(p[j][0], a_hi[0], a_lo[0]);
+    split_tf32(p[j][2], a_hi[1], a_lo[1]);
+    split_tf32(p[j][1], a_hi[2], a_lo[2]);
+    split_tf32(p[j][3], a_hi[3], a_lo[3]);
+    const float* v0 = Vs + (j * 8 + 2 * t) * kStride + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      uint32_t b_hi[2], b_lo[2];
+      split_tf32(v0[n * 8], b_hi[0], b_lo[0]);
+      split_tf32(v0[kStride + n * 8], b_hi[1], b_lo[1]);
+      mma_3xtf32(acc[n], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32, 1)
 span_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const int* __restrict__ pos,
                   const long long* __restrict__ slot_map, float* __restrict__ out,
                   float* __restrict__ part_acc, float* __restrict__ part_ml, int rows_c,
-                  int span, int chunk, int num_slots, long long k_slot, long long k_pos,
-                  long long k_head, long long v_slot, long long v_pos, long long v_head,
-                  float scale) {
-  using S = Smem<D>;
-  constexpr int kPieces = D / 4;  // float4 pieces of a row
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* q_s = smem;                  // [kGroup][D]
-  float* k_s = q_s + S::kQ;           // [kTile][D + 4]
-  float* v_s = k_s + S::kK;           // [kTile][D]
-  float* p_s = v_s + S::kV;           // [kWarps][kRows][kTile]
-  int* pos_s = reinterpret_cast<int*>(p_s + S::kP);  // [kGroup]
-  __shared__ int s_nvis[kWarps];
+                  int groups, int span, int chunk, int num_slots, long long k_slot,
+                  long long k_pos, long long k_head, long long v_slot, long long v_pos,
+                  long long v_head, float q_scale) {
+  using C = Cfg<D>;
+  constexpr int NS = kStep / 8;  // score n-tiles of a step
+  constexpr int DT = D / 8;      // output n-tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  __shared__ int s_deep[kWarps];
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int splits = gridDim.x, heads = gridDim.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x / groups;
+  const int grp = groups - 1 - static_cast<int>(blockIdx.x % groups);  // deeper groups first
+  const int h = blockIdx.y, split = blockIdx.z;
+  const int heads = gridDim.y, splits = gridDim.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // warp w holds rows slice w % kRowWarps and takes keys half w / kRowWarps
+  // of every tile
+  const int slice = warp % kRowWarps, half = warp / kRowWarps;
+  // a thread holds rows g and g + 8 of its warp's 16, and columns 2t and
+  // 2t + 1 of every n-tile
+  const int g = lane >> 2, t = lane & 3;
   const long long bh = static_cast<long long>(b) * heads + h;
   long long slot = slot_map == nullptr ? b : slot_map[b];
   const bool slot_ok = slot >= 0 && slot < num_slots;
   if (!slot_ok) slot = 0;
   const float* kb = k + slot * k_slot + h * k_head;
   const float* vb = v + slot * v_slot + h * v_head;
+
+  // each row's visible keys (0 for none, clamped to the span); over the
+  // warp's live rows the deepest and the shallowest
+  const int r0 = grp * kGroup + slice * 16;
+  int n_vis[2], deep = 0, shallow = INT_MAX;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int c = r0 + g + 8 * r;
+    int n = 0;
+    if (c < rows_c) {
+      const int p = slot_ok ? pos[static_cast<long long>(b) * rows_c + c] : -1;
+      n = p < 0 ? 0 : min(p, span - 1) + 1;
+      shallow = min(shallow, n);
+    }
+    n_vis[r] = n;
+    deep = max(deep, n);
+  }
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {  // lanes of one t hold the warp's 16 rows
+    deep = max(deep, __shfl_xor_sync(0xffffffffu, deep, o));
+    shallow = min(shallow, __shfl_xor_sync(0xffffffffu, shallow, o));
+  }
+  if (lane == 0) s_deep[warp] = deep;
+
+  // q fragments, scaled for the exp2 softmax; rows past C are zeros. In
+  // shared memory the first half's warp writes its slice's rows, and the
+  // barrier below publishes them to the second's.
+  QFrag<D> qf;
+  float* Qw = ring + kStages * C::kStage + slice * 16 * C::kKStride;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int c = r0 + g + 8 * r;
+    const float4* qr = reinterpret_cast<const float4*>(q + (bh * rows_c + c) * D + 4 * t);
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c < rows_c) {
+        x = __ldg(qr + kc * 4);
+        x = make_float4(x.x * q_scale, x.y * q_scale, x.z * q_scale, x.w * q_scale);
+      }
+      if constexpr (C::kQShared) {
+        if (half == 0)
+          *reinterpret_cast<float4*>(Qw + (g + 8 * r) * C::kKStride + kc * 16 + 4 * t) = x;
+      } else {
+        qf[kc][r] = x;
+      }
+    }
+  }
+  __syncthreads();
+  int group_deep = s_deep[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) group_deep = max(group_deep, s_deep[w]);
   const int begin = split * chunk;
+  const int end = min(begin + chunk, group_deep);  // the block reads keys [begin, end)
+  const int n_tiles = end > begin ? (end - begin + kTile - 1) / kTile : 0;
 
-  for (int g0 = 0; g0 < rows_c; g0 += kGroup) {
-    __syncthreads();  // the previous group's readers are done with q_s, pos_s
-    // the group's positions, and the visible keys of its deepest row
-    int nv = 0;
-    for (int r = threadIdx.x; r < kGroup; r += kWarps * 32) {
-      const int c = g0 + r;
-      int p = c < rows_c && slot_ok ? pos[static_cast<long long>(b) * rows_c + c] : -1;
-      pos_s[r] = p;
-      nv = max(nv, p < 0 ? 0 : min(p, span - 1) + 1);
-    }
-    nv = static_cast<int>(warp_max(static_cast<float>(nv)));
-    if (lane == 0) s_nvis[warp] = nv;
-    for (int i = threadIdx.x; i < kGroup * kPieces; i += kWarps * 32) {
-      const int r = i / kPieces, piece = i % kPieces;
-      const int c = g0 + r;
-      reinterpret_cast<float4*>(q_s)[i] =
-          c < rows_c ? reinterpret_cast<const float4*>(q + (bh * rows_c + c) * D)[piece]
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    __syncthreads();
-    int n_vis = s_nvis[0];
+  if (n_tiles > 0) load_tile<D>(ring, kb, k_pos, vb, v_pos, begin, end);
+  cp_async_commit();
+
+  float acc[DT][4];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) n_vis = max(n_vis, s_nvis[w]);
-    const int end = min(begin + chunk, n_vis);
-
-    float m[kRows], l[kRows];
-    float4 acc[kRows];
+  for (int n = 0; n < DT; ++n)
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      m[r] = kNegInf;
-      l[r] = 0.f;
-      acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    // a row of this warp: group row warp * kRows + r
-    const float* qw = q_s + warp * kRows * D;
-    const int* pw = pos_s + warp * kRows;
-    float* pp = p_s + warp * kRows * kTile;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-    for (int t0 = begin; t0 < end; t0 += kTile) {  // uniform over the block
-      __syncthreads();  // every warp is done with the previous tile
-      for (int i = threadIdx.x; i < kTile * kPieces; i += kWarps * 32) {
-        const int jj = i / kPieces, piece = i % kPieces;
-        const int j = t0 + jj;
-        float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-        if (j < end) {
-          kv = __ldg(reinterpret_cast<const float4*>(kb + j * k_pos) + piece);
-          vv = __ldg(reinterpret_cast<const float4*>(vb + j * v_pos) + piece);
-        }
-        reinterpret_cast<float4*>(k_s + jj * S::kKStride)[piece] = kv;
-        reinterpret_cast<float4*>(v_s)[i] = vv;
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait_all();  // tile i landed ...
+    __syncthreads();      // ... for every thread; tile i - 1's stage is free
+    if (i + 1 < n_tiles)
+      load_tile<D>(ring + ((i + 1) % kStages) * C::kStage, kb, k_pos, vb, v_pos,
+                   begin + (i + 1) * kTile, end);
+    cp_async_commit();
+
+    const int k0 = begin + i * kTile + half * kStep;
+    if (k0 >= deep) continue;  // no row of the warp sees these keys (warp-uniform)
+    const float* Ks = ring + (i % kStages) * C::kStage + half * kStep * C::kKStride;
+    const float* Vs = ring + (i % kStages) * C::kStage + kTile * C::kKStride +
+                      half * kStep * C::kVStride;
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    scores<D, NS>(s, qf, Qw, Ks, g, t);
+
+    // mask only a step that crosses a live row's visible count
+    const bool edge = k0 + kStep > shallow;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e];
+        if (edge && k0 + n * 8 + 2 * t + (e & 1) >= n_vis[e >> 1]) x = kNegInf;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-      __syncthreads();
-
-      // scores of key t0 + lane for the warp's rows
-      float s[kRows];
+    float alpha[2], m_new[2];
+    bool dead[2];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-      const float4* kr = reinterpret_cast<const float4*>(k_s + lane * S::kKStride);
-#pragma unroll 4
-      for (int piece = 0; piece < kPieces; ++piece) {
-        const float4 kv = kr[piece];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          s[r] = dot4(reinterpret_cast<const float4*>(qw + r * D)[piece], kv, s[r]);
-      }
-      const int j = t0 + lane;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const bool live = j < end && j <= pw[r];
-        const float sv = live ? s[r] * scale : kNegInf;
-        const float mx = fmaxf(m[r], warp_max(sv));
-        // a masked key adds nothing, also while no key has been seen
-        const float p = sv > 0.5f * kNegInf ? expf(sv - mx) : 0.f;
-        const float alpha = expf(m[r] - mx);
-        l[r] = l[r] * alpha + warp_sum(p);
-        acc[r] = scale4(acc[r], alpha);
-        m[r] = mx;
-        pp[r * kTile + lane] = p;
-      }
-      __syncwarp();
-      if (lane < kPieces) {
-        const float4* vr = reinterpret_cast<const float4*>(v_s) + lane;
-#pragma unroll 4
-        for (int jj = 0; jj < kTile; ++jj) {
-          const float4 vv = vr[jj * kPieces];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) acc[r] = fma4(vv, pp[r * kTile + jj], acc[r]);
-        }
-      }
-      __syncwarp();
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_new[r] = fmaxf(m[r], mx[r]);
+      // a row masked so far keeps p = 0, so l stays 0 and it outputs zeros
+      dead[r] = m_new[r] <= 0.5f * kNegInf;
+      alpha[r] = exp2f(m[r] - m_new[r]);
+      m[r] = m_new[r];
     }
-
-    // each row's result: the output itself with one split (a visible key
-    // makes l >= 1), else the partial
-    if (lane < kPieces) {
+    float row_sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int c = g0 + warp * kRows + r;
-        if (c >= rows_c) break;
-        const long long row = bh * rows_c + c;
-        if (splits == 1) {
-          reinterpret_cast<float4*>(out + row * D)[lane] =
-              l[r] > 0.f ? scale4(acc[r], 1.f / l[r]) : make_float4(0.f, 0.f, 0.f, 0.f);
-        } else {
-          const long long part = (bh * splits + split) * rows_c + c;
-          if (l[r] > 0.f) reinterpret_cast<float4*>(part_acc + part * D)[lane] = acc[r];
-          if (lane == 0) {
-            part_ml[2 * part] = l[r] > 0.f ? m[r] : kNegInf;
-            part_ml[2 * part + 1] = l[r];
-          }
-        }
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = dead[r] ? 0.f : exp2f(s[n][e] - m_new[r]);
+        s[n][e] = p;
+        row_sum[r] += p;
+      }
+    // l is this thread's share of the row sum; the quad adds them at the end
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + row_sum[r];
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    pv<D, NS>(acc, s, Vs, g, t);
+  }
+  cp_async_wait_all();  // no copy outlives the block
+  __syncthreads();      // every warp is done with the ring
+
+  // the second half's state folds into the first's, thread by thread (the
+  // two hold the same fragment positions), through the ring
+  float* state = ring + (slice * 32 + lane) * C::kState;
+  if (half == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      state[r] = m[r];
+      state[2 + r] = l[r];
+    }
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) state[4 + 4 * n + e] = acc[n][e];
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = state[r];
+    const float mt = fmaxf(m[r], m1);
+    const float a0 = exp2f(m[r] - mt), a1 = exp2f(m1 - mt);
+    l[r] = l[r] * a0 + state[2 + r] * a1;
+    m[r] = mt;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) acc[n][e] = acc[n][e] * a0 + state[4 + 4 * n + e] * a1;
+  }
+
+  // each row's result: the output itself with one split (a visible key
+  // makes l >= 1), else the partial
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int c = r0 + g + 8 * r;
+    if (c >= rows_c) continue;
+    if (splits == 1) {
+      const float inv = sum > 0.f ? 1.f / sum : 0.f;
+      float* orow = out + (bh * rows_c + c) * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        *reinterpret_cast<float2*>(orow + n * 8) =
+            make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    } else {
+      const long long part = (bh * splits + split) * rows_c + c;
+      if (sum > 0.f) {  // an empty partial writes no acc; the merge skips it
+        float* prow = part_acc + part * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < DT; ++n)
+          *reinterpret_cast<float2*>(prow + n * 8) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+      }
+      if (t == 0) {
+        part_ml[2 * part] = sum > 0.f ? m[r] : kNegInf;
+        part_ml[2 * part + 1] = sum;
       }
     }
   }
 }
 
 // out[bh, c] <- the lse merge of the row's `splits` partials, in split
-// order; D / 4 lanes a row
+// order (m in log2 units); D / 4 lanes a row
 template <int D>
 __global__ void __launch_bounds__(kMergeThreads)
 span_chunk_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
@@ -263,13 +500,16 @@ span_chunk_merge_kernel(const float* __restrict__ part_acc, const float* __restr
     const long long part = (bh * splits + s) * rows_c + c;
     const float ls = part_ml[2 * part + 1];
     if (ls > 0.f) {  // an empty split wrote no acc
-      const float e = expf(part_ml[2 * part] - mx);
+      const float e = exp2f(part_ml[2 * part] - mx);
+      const float4 a = reinterpret_cast<const float4*>(part_acc + part * D)[piece];
       l = fmaf(ls, e, l);
-      acc = fma4(reinterpret_cast<const float4*>(part_acc + part * D)[piece], e, acc);
+      acc = make_float4(fmaf(a.x, e, acc.x), fmaf(a.y, e, acc.y), fmaf(a.z, e, acc.z),
+                        fmaf(a.w, e, acc.w));
     }
   }
+  const float inv = l > 0.f ? 1.f / l : 0.f;
   reinterpret_cast<float4*>(out + row * D)[piece] =
-      l > 0.f ? scale4(acc, 1.f / l) : make_float4(0.f, 0.f, 0.f, 0.f);
+      make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
 }
 
 template <int D>
@@ -279,24 +519,27 @@ cudaError_t launch(const float* q, const float* k, const float* v, const int* po
                    long long k_slot, long long k_pos, long long k_head, long long v_slot,
                    long long v_pos, long long v_head, float scale, cudaStream_t stream) {
   const long long rows = static_cast<long long>(batch) * heads * rows_c;
+  const int groups = (rows_c + kGroup - 1) / kGroup;
   // the workspace: acc [B·H, splits, C, D], then (m, l) [B·H, splits, C, 2]
   float* part_acc = workspace;
   float* part_ml = workspace == nullptr ? nullptr : workspace + rows * splits * D;
-  constexpr size_t kSmem = Smem<D>::kBytes;
-  static bool attribute_set = false;
-  if (!attribute_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        span_chunk_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmem));
+  // the shared-memory limit is a property of the kernel on each device
+  static unsigned attribute_set = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 32 || !(attribute_set >> device & 1u)) {
+    err = cudaFuncSetAttribute(span_chunk_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::kBytes);
     if (err != cudaSuccess) return err;
-    attribute_set = true;
+    if (device < 32) attribute_set |= 1u << device;
   }
-  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(heads),
-                  static_cast<unsigned>(batch));
-  span_chunk_kernel<D><<<grid, kWarps * 32, kSmem, stream>>>(
-      q, k, v, pos, slot_map, out, part_acc, part_ml, rows_c, span, chunk, num_slots, k_slot,
-      k_pos, k_head, v_slot, v_pos, v_head, scale);
-  cudaError_t err = cudaGetLastError();
+  const dim3 grid(static_cast<unsigned>(static_cast<long long>(batch) * groups),
+                  static_cast<unsigned>(heads), static_cast<unsigned>(splits));
+  span_chunk_kernel<D><<<grid, kWarps * 32, Cfg<D>::kBytes, stream>>>(
+      q, k, v, pos, slot_map, out, part_acc, part_ml, rows_c, groups, span, chunk, num_slots,
+      k_slot, k_pos, k_head, v_slot, v_pos, v_head, scale * kLog2e);
+  err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   constexpr int kRowsPerBlock = kMergeThreads / (D / 4);
   const unsigned blocks = static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
@@ -313,9 +556,11 @@ cudaError_t launch(const float* q, const float* k, const float* v, const int* po
 // 4 and every base pointer 16-byte aligned; pos: [batch, rows_c] int32 on
 // the device; slot_map: [batch] int64 arena slots of q's rows, or null for
 // row b = slot b (then batch <= num_slots). splits blocks of chunk key
-// positions each cover the span (splits * chunk >= span); with splits > 1,
-// workspace holds batch * heads * splits * rows_c * (head_dim + 2) floats,
-// 16-byte aligned, else it may be null.
+// positions each cover the span (splits * chunk >= span), chunk a multiple
+// of 64 (whole tiles); with splits > 1, workspace holds batch * heads *
+// splits * rows_c * (head_dim + 2) floats, 16-byte aligned, else it may be
+// null. Launches on `stream` without synchronising and returns
+// cudaGetLastError().
 extern "C" int elephas_span_chunk(const void* q, const void* k, const void* v, const void* pos,
                                   const void* slot_map, void* out, void* workspace, int batch,
                                   int heads, int rows_c, int head_dim, int span, int splits,
@@ -323,7 +568,7 @@ extern "C" int elephas_span_chunk(const void* q, const void* k, const void* v, c
                                   long long k_head, long long v_slot, long long v_pos,
                                   long long v_head, float scale, void* stream) {
   if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || rows_c < 1 || span < 1 ||
-      splits < 1 || chunk < 1 || num_slots < 1 ||
+      splits < 1 || splits > 65535 || chunk < 1 || chunk % kTile != 0 || num_slots < 1 ||
       static_cast<long long>(splits) * chunk < span ||
       (slot_map == nullptr && batch > num_slots) || (splits > 1 && workspace == nullptr))
     return cudaErrorInvalidValue;

@@ -10,11 +10,13 @@ reference, not Pallas), with the same public functions:
 - :func:`flash_span_chunk` — attention of chunk queries over a resident
   K/V span (chunked prefill, the suffix after a prefix-cache hit, the
   speculative verify pass). A CUDA tensor goes through the kernel in
-  ``csrc/span_chunk.cu`` (a K/V tile staged in shared memory serves all
-  the slot's chunk rows; the positions stay on the device; the span is
-  split over :func:`span_splits` blocks whose partials merge by lse), a
-  CPU tensor through :func:`span_chunk_reference`, the reference's tile
-  loop. Anything the kernel does not take raises;
+  ``csrc/span_chunk.cu`` (3xTF32 tensor-core products; 64-key K/V tiles
+  staged in shared memory serve a group of 64 chunk rows; the positions
+  stay on the device; the span is split over :func:`span_chunk_splits`
+  blocks whose partials merge by lse), a CPU tensor through
+  :func:`span_chunk_reference`, the reference's tile loop. Anything the
+  kernel does not take raises. :func:`span_chunk_split_reference` repeats
+  the kernel's split-then-merge arithmetic in plain PyTorch for the tests;
 - :func:`flash_span_decode` — one query row per slot over the span. A
   CUDA tensor goes through the kernel in ``csrc/span_decode.cu`` (the
   slots' positions stay on the device; the arena views are read through
@@ -53,11 +55,19 @@ ALIGN_BYTES = 16
 SPLIT_BLOCKS_PER_SM = 2
 SPLIT_MIN_KEYS = 16
 SPLIT_MAX = 64
+# the span-chunk kernel: keys a staged tile (a split is whole tiles), query
+# rows a block, and the blocks an SM holds at once (141 KB of shared memory
+# and 195 registers a thread at head_dim 128, 165 at 64: one)
+CHUNK_TILE = 64
+CHUNK_GROUP = 64
+CHUNK_BLOCKS_PER_SM = 1
+LOG2E = 1.4426950408889634
 
 # kernel launches since the last reset, span decode and span chunk
 # (chip_smoke.py reads them)
 launches = 0
 chunk_launches = 0
+_CHUNK_LIB = None  # the span-chunk library, its argument types set (_chunk_kernel)
 
 
 def span_buckets(maxlen: int, floor: int = SPAN_FLOOR) -> tuple[int, ...]:
@@ -182,6 +192,119 @@ def span_decode_split_reference(q, gk, gv, positions, splits: int, chunk: int, s
     return torch.where(l[..., None] > 0, acc / torch.where(l > 0, l, 1.0)[..., None], 0.0)
 
 
+def span_chunk_splits(span: int, rows: int, c: int, head_dim: int,
+                      sm_count: int) -> tuple[int, int]:
+    """How the span-chunk kernel splits a span of ``span`` key positions
+    for ``rows`` (batch × heads) slots' chunks of ``c`` query rows of
+    ``head_dim`` on a card of ``sm_count`` SMs: returns ``(splits,
+    chunk)``, split ``i`` covering positions ``[i·chunk, (i+1)·chunk)``,
+    ``chunk`` a whole number of CHUNK_TILE-key tiles.
+
+    Unsplit, the grid holds ``blocks = rows · groups`` blocks (``groups`` =
+    ceil(c / CHUNK_GROUP) row groups a slot). The span is split only as far
+    as the card needs more blocks: while the grid stays within one wave of
+    CHUNK_BLOCKS_PER_SM blocks an SM (past that the blocks queue, and a
+    split's partials and merge cost more than the wave gains: measured on
+    an H100, PERF.md §6), and at most into its tiles. And only while the
+    partials a block writes (``CHUNK_GROUP · (head_dim + 2)`` floats a
+    split, read back by the merge) stay below the K and V floats its row
+    group reads of the span that the split spreads (``2 · span ·
+    head_dim``). One split writes the output directly: no workspace, no
+    merge. Host values only: never the positions, so a call's split (and
+    its bits) do not depend on where the cursors stand."""
+    if min(span, rows, c, head_dim, sm_count) < 1:
+        raise ValueError(
+            f"span_chunk_splits takes positive sizes, got {span}, {rows}, {c}, "
+            f"{head_dim}, {sm_count}"
+        )
+    tiles = -(-span // CHUNK_TILE)
+    blocks = rows * -(-c // CHUNK_GROUP)
+    want = CHUNK_BLOCKS_PER_SM * sm_count // blocks
+    # the most splits whose partials stay below the K/V floats: n·P < K
+    cap = (2 * span * head_dim - 1) // (CHUNK_GROUP * (head_dim + 2))
+    n = max(1, min(want, tiles, cap))
+    chunk = CHUNK_TILE * -(-tiles // n)
+    return -(-span // chunk), chunk
+
+
+def _fold(state, s, vt):
+    """One step of the exp2 online softmax: the masked scores ``s`` (``[B,
+    H, C, k]``, NEG_INF where invisible, already in log2 units) and their
+    values ``vt`` (``[B, k, H, D]``) fold into ``state = (m, l, acc)``."""
+    m, l, acc = state
+    m_new = torch.maximum(m, s.amax(-1))
+    dead = m_new <= NEG_INF * 0.5
+    p = torch.where(dead[..., None], 0.0, torch.exp2(s - m_new[..., None]))
+    alpha = torch.exp2(m - m_new)
+    return (m_new, l * alpha + p.sum(-1),
+            acc * alpha[..., None] + torch.einsum("bhck,bkhd->bhcd", p, vt))
+
+
+def _normalise(l, acc):
+    return acc * torch.where(l > 0, 1.0 / torch.where(l > 0, l, 1.0), 0.0)[..., None]
+
+
+def span_chunk_split_reference(q, gk, gv, pos_mat, splits: int, chunk: int, scale=None,
+                               slots=None):
+    """The span-chunk kernel's arithmetic in plain PyTorch, in its order
+    (for the tests; the card's reference stays :func:`span_chunk_reference`):
+    q scaled by ``scale · log2(e)`` (the kernel's softmax is in exp2); in
+    split ``i`` (positions ``[i·chunk, (i+1)·chunk)``) two online-softmax
+    states, one folding the first CHUNK_TILE / 2 keys of every tile and one
+    the last (keys past a row's visible count masked), the second folded
+    into the first at the end; the split's partial ``(m, l, acc)`` is the
+    empty state ``(NEG_INF, 0, 0)`` when it sees no key. One split gives
+    ``acc · (1 / l)``; more merge in split order by lse. Shapes as
+    :func:`flash_span_chunk`, ``slots`` too."""
+    b, h, c, d = q.shape
+    if slots is not None:
+        gk, gv = gk[slots], gv[slots]
+    s_len = int(gk.shape[1])
+    if splits * chunk < s_len or chunk % CHUNK_TILE:
+        raise ValueError(f"{splits} splits of {chunk} do not cover a span of {s_len} "
+                         f"in whole {CHUNK_TILE}-key tiles")
+    if scale is None:
+        scale = d ** -0.5
+    qs = q.float() * (scale * LOG2E)
+    n = torch.clamp(pos_mat.long() + 1, min=0, max=s_len)  # visible keys a row, [B, C]
+    step = CHUNK_TILE // 2
+
+    def empty():
+        return (torch.full((b, h, c), NEG_INF, dtype=torch.float32, device=q.device),
+                torch.zeros(b, h, c, dtype=torch.float32, device=q.device),
+                torch.zeros(b, h, c, d, dtype=torch.float32, device=q.device))
+
+    parts = []
+    for i in range(splits):
+        halves = [empty(), empty()]
+        for j0 in range(i * chunk, min(s_len, (i + 1) * chunk), step):
+            j1 = min(s_len, j0 + step)
+            kt, vt = gk[:, j0:j1].float(), gv[:, j0:j1].float()  # [B, k, H, D]
+            s = torch.einsum("bhcd,bkhd->bhck", qs, kt)
+            vis = torch.arange(j0, j1, device=q.device)[None, None, None, :] \
+                < n[:, None, :, None]
+            half = (j0 // step) % 2
+            halves[half] = _fold(halves[half], torch.where(vis, s, NEG_INF), vt)
+        (m0, l0, a0), (m1, l1, a1) = halves
+        mt = torch.maximum(m0, m1)
+        e0, e1 = torch.exp2(m0 - mt), torch.exp2(m1 - mt)
+        l = l0 * e0 + l1 * e1
+        parts.append((torch.where(l > 0, mt, NEG_INF), l,
+                      a0 * e0[..., None] + a1 * e1[..., None]))
+    if splits == 1:
+        return _normalise(parts[0][1], parts[0][2])
+    mx = torch.full((b, h, c), NEG_INF, dtype=torch.float32, device=q.device)
+    for m, ls, _ in parts:
+        mx = torch.where(ls > 0, torch.maximum(mx, m), mx)
+    l = torch.zeros(b, h, c, dtype=torch.float32, device=q.device)
+    acc = torch.zeros(b, h, c, d, dtype=torch.float32, device=q.device)
+    for m, ls, a in parts:
+        e = torch.where(ls > 0, torch.exp2(m - mx), 0.0)
+        l = l + ls * e
+        acc = acc + a * e[..., None]
+    return _normalise(l, acc)
+
+
 def _kernel():
     lib = _native.library("span_decode")
     fn = lib.elephas_span_decode
@@ -296,6 +419,7 @@ def _forward(q, gk, gv, positions, scale: float, block_k: int):
 
 
 def _chunk_kernel():
+    global _CHUNK_LIB
     lib = _native.library("span_chunk")
     fn = lib.elephas_span_chunk
     if fn.argtypes is None:
@@ -305,6 +429,7 @@ def _chunk_kernel():
         fn.restype = ctypes.c_int
         lib.elephas_cuda_error_string.argtypes = [ctypes.c_int]
         lib.elephas_cuda_error_string.restype = ctypes.c_char_p
+    _CHUNK_LIB = lib
     return lib
 
 
@@ -361,25 +486,30 @@ def _check_chunk_operands(q, gk, gv, pos_mat, slots):
 
 def _launch_chunk(q, gk, gv, pos_mat, slots, scale: float):
     """One call of the span-chunk kernel on checked CUDA operands (with more
-    than one split, the split kernel and then the merge kernel); returns
-    ``[B, H, C, D]`` float32."""
+    than one split, the split kernel and then the merge kernel) on q's
+    device and its current stream; returns ``[B, H, C, D]`` float32. The
+    stream is taken as a raw handle, the device guard only off the current
+    device, and the workspace only with more than one split."""
     global chunk_launches
     b, h, c, d = q.shape
     span = gk.shape[1]
-    splits, chunk = span_splits(span, b * h, _sm_count(q.device.index))
+    index = q.device.index
+    splits, chunk = span_chunk_splits(span, b * h, c, d, _sm_count(index))
     out = torch.empty_like(q)
     # partials: acc [B·H, splits, C, D] and (m, l) [B·H, splits, C, 2]
     work = torch.empty(b * h * splits * c * (d + 2), dtype=torch.float32, device=q.device) \
         if splits > 1 else None
-    lib = _chunk_kernel()
-    with torch.cuda.device(q.device):
-        err = lib.elephas_span_chunk(
-            q.data_ptr(), gk.data_ptr(), gv.data_ptr(), pos_mat.data_ptr(),
+    lib = _CHUNK_LIB or _chunk_kernel()
+    args = (q.data_ptr(), gk.data_ptr(), gv.data_ptr(), pos_mat.data_ptr(),
             None if slots is None else slots.data_ptr(), out.data_ptr(),
             None if work is None else work.data_ptr(), b, h, c, d, span, splits, chunk,
-            gk.shape[0], *gk.stride()[:3], *gv.stride()[:3], float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+            gk.shape[0], *gk.stride()[:3], *gv.stride()[:3], scale,
+            torch._C._cuda_getCurrentRawStream(index))
+    if index == torch._C._cuda_getDevice():
+        err = lib.elephas_span_chunk(*args)
+    else:
+        with torch.cuda.device(index):
+            err = lib.elephas_span_chunk(*args)
     if err:
         raise RuntimeError(
             "span_chunk launch failed: " + lib.elephas_cuda_error_string(err).decode()

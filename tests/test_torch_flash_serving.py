@@ -2,9 +2,10 @@
 against the JAX package's, on the CPU: the span ladder, one-row decode
 over an arena span, chunk attention and causal prefill, for ragged
 positions, a span below ``maxlen`` and head dims 16 and 64; the span
-kernel's split-then-merge arithmetic at every split count the host can
-pick, and the split choice itself; and the span kernel's operand checks,
-which run on CPU tensors.
+kernels' split-then-merge arithmetic (decode and chunk) at every split
+count the host can pick, and the split choices themselves; the span
+kernel's operand checks, which run on CPU tensors; and the arguments the
+span-chunk wrapper would launch with, recorded on CPU tensors.
 
 Inputs are numpy arrays made from a seed. Outputs agree within 1e-5: the
 same online softmax, in another association order.
@@ -229,3 +230,165 @@ def test_kernel_operand_check_takes_the_arena_views():
 def test_kernel_operand_check_refuses(change, match):
     with pytest.raises(ValueError, match=match):
         fs._check_cuda_operands(*change(_operands()))
+
+
+# (slots x heads, chunk rows, SMs) for the span-chunk split rule: the
+# engine's launch, 16 slots, verify rows, a 512-row suffix, ragged widths,
+# small and large cards
+CHUNK_SPLIT_SHAPES = [(rows, c, sms)
+                      for rows, c in ((4, 64), (64, 64), (64, 1), (4, 512), (6, 100), (512, 64))
+                      for sms in (8, 132)]
+
+
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("span", [1, 64, 70, 100, 512, 4096])
+def test_span_chunk_splits_cover_cap_and_fill_the_card(span, d):
+    """Every split is a whole number of CHUNK_TILE-key tiles and the splits
+    cover the span, none wholly past it; more than one split only while a
+    block's partials (splits · CHUNK_GROUP · (D + 2) floats) stay below the
+    2 · span · D floats of K and V its row group reads, and only as far as
+    the card needs blocks: the split grid within one wave of
+    CHUNK_BLOCKS_PER_SM blocks an SM, one split when the row groups alone
+    fill half of that."""
+    for rows, c, sms in CHUNK_SPLIT_SHAPES:
+        splits, chunk = fs.span_chunk_splits(span, rows, c, d, sms)
+        assert chunk % fs.CHUNK_TILE == 0 and chunk >= fs.CHUNK_TILE
+        assert splits * chunk >= span > (splits - 1) * chunk
+        blocks = rows * -(-c // fs.CHUNK_GROUP)
+        if splits > 1:
+            assert splits * fs.CHUNK_GROUP * (d + 2) < 2 * span * d
+            assert blocks * splits <= fs.CHUNK_BLOCKS_PER_SM * sms
+        if 2 * blocks > fs.CHUNK_BLOCKS_PER_SM * sms:
+            assert splits == 1
+
+
+def test_span_chunk_splits_cap_binds_on_a_ragged_last_tile():
+    """A span a few keys into its second tile at head_dim 16: two splits'
+    partials (2 · 64 · 18 floats) would outweigh the 2 · 70 · 16 floats of
+    K and V, so the span stays whole though the card has room; at head_dim
+    128 they do not (2 · 64 · 130 against 2 · 70 · 128)."""
+    assert fs.span_chunk_splits(70, 1, 64, 16, 132) == (1, 128)
+    assert fs.span_chunk_splits(70, 1, 64, 128, 132) == (2, 64)
+
+
+def test_span_chunk_splits_at_the_engine_shapes():
+    """On an H100's 132 SMs: the engine's launch (one slot, 4 heads of 128,
+    64 rows) splits each span into its 64-key tiles; 16 slots (64 blocks)
+    take two splits; a 512-row chunk of one slot (32 blocks) four; a span
+    of one tile is not split."""
+    assert [fs.span_chunk_splits(s, 4, 64, 128, 132) for s in (64, 128, 256, 512)] == \
+        [(1, 64), (2, 64), (4, 64), (8, 64)]
+    assert fs.span_chunk_splits(512, 64, 64, 128, 132) == (2, 256)
+    assert fs.span_chunk_splits(512, 4, 512, 128, 132) == (4, 128)
+    with pytest.raises(ValueError, match="positive"):
+        fs.span_chunk_splits(64, 4, 0, 128, 132)
+
+
+def _chunk_operands(b=3, h=2, d=32, c=64, span=128, slots=None, seed=0):
+    """numpy chunk queries, an arena of ``slots`` (default ``b``) slots cut
+    to ``span`` and int32 positions: row 0 from 0, row 1 running past the
+    span, row 2 at a ragged offset with its first row at -1 (no key)."""
+    rng = np.random.default_rng(seed)
+    n = b if slots is None else slots
+    q = _randn(rng, b, h, c, d)
+    k, v = _randn(rng, n, span + 8, h, d)[:, :span], _randn(rng, n, span + 8, h, d)[:, :span]
+    offs = rng.integers(0, max(1, span - c), b)
+    offs[:2] = [0, span - c // 2][:b]
+    pos = (offs[:, None] + np.arange(c)[None, :]).astype(np.int32)
+    pos[2:, 0] = -1
+    return q, np.ascontiguousarray(k), np.ascontiguousarray(v), pos
+
+
+def _chunk_picks(span, rows, c, d):
+    """Every (splits, chunk) the rule picks for this shape over a few SM
+    counts, beside one split and the most (one a tile)."""
+    tiles = -(-span // fs.CHUNK_TILE)
+    return sorted({fs.span_chunk_splits(span, rows, c, d, sms) for sms in (1, 8, 78, 132, 4096)}
+                  | {(1, tiles * fs.CHUNK_TILE), (tiles, fs.CHUNK_TILE)})
+
+
+@pytest.mark.parametrize("mapped", [False, True])
+@pytest.mark.parametrize("c", [1, 7, 64, 100, 512])
+def test_span_chunk_split_reference_matches_jax(c, mapped):
+    """The kernel's split-then-merge arithmetic, in its order (two tile
+    halves a split, exp2), at every split the rule can pick and at one and
+    the most splits, against the JAX flash_span_chunk and the port's plain
+    version within 1e-5 of max(1, |out|); through a slot map into a larger
+    arena too; a row with no visible key outputs zeros."""
+    b, h, d = 3, 2, 32
+    span = 512 if c == 512 else 160
+    slot_ids = np.array([4, 0, 2]) if mapped else None
+    q, k, v, pos = _chunk_operands(b, h, d, c, span, 5 if mapped else None, seed=c)
+    kj, vj = (k, v) if slot_ids is None else (k[slot_ids], v[slot_ids])
+    want = np.asarray(jfs.flash_span_chunk(q, kj, vj, pos, block_k=span))
+    tq, tk, tv, tp = (torch.from_numpy(a) for a in (q, k, v, pos))
+    slots = None if slot_ids is None else torch.from_numpy(slot_ids)
+    plain = fs.flash_span_chunk(tq, tk, tv, tp, slots=slots)
+    np.testing.assert_allclose(plain.numpy(), want, atol=TOL, rtol=0)
+    bound = np.maximum(1.0, np.abs(want))
+    for splits, chunk in _chunk_picks(span, b * h, c, d):
+        got = fs.span_chunk_split_reference(tq, tk, tv, tp, splits, chunk, slots=slots)
+        assert (np.abs(got.numpy() - want) / bound).max() <= TOL, (splits, chunk)
+        assert not got[2, :, 0].any()
+
+
+def test_span_chunk_split_reference_refuses_partial_tiles():
+    q, k, v, pos = (torch.from_numpy(a) for a in _chunk_operands())
+    with pytest.raises(ValueError, match="whole 64-key tiles"):
+        fs.span_chunk_split_reference(q, k, v, pos, 4, 32)
+    with pytest.raises(ValueError, match="do not cover"):
+        fs.span_chunk_split_reference(q, k, v, pos, 1, 64)
+
+
+def _record_chunk_launches(monkeypatch):
+    """Replace the span-chunk library, the SM count, the stream and the
+    device query, so _launch_chunk runs on CPU tensors and records the
+    arguments it would launch with."""
+    calls = []
+
+    class Lib:
+        def elephas_span_chunk(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(fs, "_CHUNK_LIB", Lib())
+    monkeypatch.setattr(fs, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: None, raising=False)
+    return calls
+
+
+def test_span_chunk_split_never_depends_on_the_positions(monkeypatch):
+    """The wrapper picks the chunk's splits and sizes its workspace from
+    host values only: the same operands with other positions launch with
+    the same arguments but the positions pointer, on the raw stream handle
+    (the launch is recorded, not run)."""
+    import inspect
+
+    assert list(inspect.signature(fs.span_chunk_splits).parameters) == \
+        ["span", "rows", "c", "head_dim", "sm_count"]
+    calls = _record_chunk_launches(monkeypatch)
+    q, k, v, _ = (torch.from_numpy(a) for a in _chunk_operands(1, 4, 64, 64, 512, 16))
+    slots = torch.tensor([9])
+    before = fs.chunk_launches
+    for pos in ([0] * 64, list(range(448, 512)), list(range(-1, 63)), [900] * 64):
+        fs._launch_chunk(q, k, v, torch.tensor([pos], dtype=torch.int32), slots, 0.125)
+    assert fs.chunk_launches == before + 4
+    # (q, k, v, pos, slot map, out, workspace) pointers, then sizes, strides,
+    # scale and stream
+    assert len({args[7:] for args in calls}) == 1
+    args = calls[0]
+    assert args[7:15] == (1, 4, 64, 64, 512, *fs.span_chunk_splits(512, 4, 64, 64, 132), 16)
+    assert args[12] > 1 and all(a[6] for a in calls)  # split: a workspace for the partials
+    assert args[4] == slots.data_ptr() and args[-1] == 7
+
+
+def test_span_chunk_one_split_takes_no_workspace(monkeypatch):
+    """A span of one tile, and 512-row chunks of 16 slots (which fill the
+    card without a split), run as one split: the launch gets no workspace
+    (and the kernel then launches no merge)."""
+    calls = _record_chunk_launches(monkeypatch)
+    for b, d, c, span in ((1, 128, 64, 64), (16, 16, 512, 512)):
+        q, k, v, pos = (torch.from_numpy(a) for a in _chunk_operands(b, 4, d, c, span))
+        fs._launch_chunk(q, k, v, pos, None, 0.1)
+        assert calls[-1][12] == 1 and calls[-1][6] is None

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (flash forward, LayerNorm forward and
-backward, span decode) against their plain versions, one SparkModel fit
+backward, span decode, span chunk) against their plain versions, one SparkModel fit
 and the serving engine, on the card.
 
 Every test here needs an NVIDIA GPU with nvcc and skips elsewhere. The
@@ -460,14 +460,19 @@ def _chunk_case(gen, d, span, c, b=16, h=4, maxlen=512, slots=None):
 CHUNK_SHAPES = [(16, 4, 128), (16, 4, 64), (16, 4, 16), (4, 2, 32), (64, 8, 64)]
 
 
-@pytest.mark.parametrize("c", [1, 7, 64])
+# chunk widths: verify's 1, a width off the 16-row fragments, one row
+# group, a ragged two groups, and a suffix bucket of config A's maxlen
+CHUNK_WIDTHS = [1, 7, 64, 100, 512]
+
+
+@pytest.mark.parametrize("c", CHUNK_WIDTHS)
 @pytest.mark.parametrize("span", SPANS)
 @pytest.mark.parametrize("b,h,d", CHUNK_SHAPES)
 def test_span_chunk_matches_plain(cuda, b, h, d, span, c):
-    """Every shape over the span ladder at chunk widths 1, 7 and 64,
-    against the plain version on the same operands, within 1e-5 of
-    max(1, |out|); one launch counted a call, whatever the split; bit for
-    bit on a repeat."""
+    """Every shape over the span ladder at chunk widths 1 to 512, against
+    the plain version on the same operands, within 1e-5 of max(1, |out|);
+    one launch counted a call, whatever the split; bit for bit on a
+    repeat."""
     gen = torch.Generator(device=cuda).manual_seed(d * 1000 + span + b + c)
     q, k, v, pos = _chunk_case(gen, d, span, c, b, h)
     before = fs.chunk_launches
@@ -480,18 +485,45 @@ def test_span_chunk_matches_plain(cuda, b, h, d, span, c):
     assert torch.equal(fs.flash_span_chunk(q, k, v, pos), out)
 
 
-@pytest.mark.parametrize("span", [128, 512])
-def test_span_chunk_with_a_slot_map(cuda, span):
-    """Rows of some arena slots (the engine's chunk of a few slots): row b
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("b", [1, 3])
+def test_span_chunk_with_a_slot_map(cuda, b, span):
+    """Rows of some arena slots (the engine's chunk of a few slots; one
+    prefilling slot is the engine's launch at the default budget): row b
     reads slot slots[b] of the whole arena's span view, as the plain
     version reads the gathered slots."""
-    gen = torch.Generator(device=cuda).manual_seed(span)
-    q, k, v, pos = _chunk_case(gen, 128, span, 64, b=3, h=4, slots=16)
-    slots = torch.tensor([5, 0, 15], dtype=torch.long, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(span + b)
+    q, k, v, pos = _chunk_case(gen, 128, span, 64, b=b, h=4, slots=16)
+    slots = torch.tensor([5, 0, 15][:b], dtype=torch.long, device=cuda)
     out = fs.flash_span_chunk(q, k, v, pos, slots=slots)
     ref = fs.span_chunk_reference(q, k[slots], v[slots], pos)
     torch.cuda.synchronize()
     assert ((out - ref).abs() / ref.abs().clamp_min(1)).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("span,c", [(128, 64), (512, 64), (512, 512), (256, 1)])
+def test_span_chunk_replays_in_a_cuda_graph(cuda, span, c):
+    """A chunk call captured in a CUDA graph (one slot through the slot
+    map, as the engine launches it) and replayed gives the eager result bit
+    for bit, twice: the workspace comes from the capturing stream and the
+    merge holds nothing over from one call to the next."""
+    gen = torch.Generator(device=cuda).manual_seed(20 + span + c)
+    q, k, v, pos = _chunk_case(gen, 128, span, c, b=1, h=4, slots=16)
+    slots = torch.tensor([7], dtype=torch.long, device=cuda)
+    want = fs.flash_span_chunk(q, k, v, pos, slots=slots)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fs.flash_span_chunk(q, k, v, pos, slots=slots)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fs.flash_span_chunk(q, k, v, pos, slots=slots)
+    for _ in range(2):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_span_chunk_rows_without_keys_are_zero(cuda):
