@@ -33,7 +33,15 @@ Phases, each printing one JSON line and raising on failure:
             past the span, at the engine's launch (one slot of its 16-slot
             arena through the slot map, 64 rows, every span bucket) and at a
             prefix-hit pass (4 slots through the slot map, 32 rows),
-            repeating bit for bit eagerly and from a CUDA-graph replay;
+            repeating bit for bit eagerly and from a CUDA-graph replay; and
+            the paged span decode and span chunk in fp, int8 and int4 at
+            E's decode shape (16 slots, 4 heads of 128, blocks of 16) over
+            tables of 8-32 blocks with shuffled ids, sentinel padding and
+            stale cursors, at 16 slots of 64 rows, at the paged engine's
+            one-row launch and at a 512-row chunk from 0: within 1e-5 of
+            max(1, |out|) of their plain versions, bit-equal to the arena
+            kernels over the gathered, dequantized span, on a second call
+            and from a CUDA-graph replay;
 4. serve  — the serving path: generate() on transformer_lm at full width
             (config A with and without rope, config B), and one
             transformer_classifier forward, with launch counts of the
@@ -119,6 +127,23 @@ Phases, each printing one JSON line and raising on failure:
             and to the plain path's (check (a)), prefix hits, the span
             chunk, span decode and LayerNorm launches; TTFT, ITL and
             tokens/s of both;
+6d. engine_paged — E's engine on the paged arena (blocks of 16, the
+            fixed arena's 512 blocks) in turns with the fixed engine: tokens
+            equal (margin rule) and check (a), tokens/s, TTFT and ITL, the
+            paged kernels and K3 launched and no flash forward; E-chunked's
+            prefix workload with paged=True (hits, shared blocks, tokens as
+            without options); one profiled decode window; a preemption at
+            config A (both requests as their runs alone, the pool whole
+            after); bench.py:643-700's equal-bytes concurrency >= 1.5x;
+6e. engine_quant — int8 and int4 engines on config A: flash tokens as
+            naive's (margin rule on the quantized oracle), one profiled int8
+            decode window, one prompt's
+            layer-0 codes and scales bit-equal to quantize_rows_np of the
+            fp engine's rows, the int8 preemption identical to the runs
+            alone, equal-bytes concurrency >= 2x for int8
+            (bench.py:825-900), and score() agreement of int8 with the fp
+            engine >= 0.95 on a d128L4 stand-in trained through the port's
+            SparkModel on the bench's periodic data (int4 reported);
 7. profile — one more training step (fp32, then bf16, then ResNet-50),
             generate() at config A batch 1
             with rope off and on, and one engine decode window, under
@@ -149,6 +174,9 @@ Phases, each printing one JSON line and raising on failure:
             torch.nn.functional.layer_norm, both under inference_mode, at
             the engine's, generate's and the training rows; and a sweep of
             the forward's rows per block (printed on a line of its own);
+            the paged kernels in every stored type at their gated shapes
+            beside their plain versions, masked SDPA over the span gathered
+            beforehand and the gather-and-dequantize time;
 8b. ln_host_breakdown — where a LayerNorm call's host time goes (the
             entry, the autograd Function, checks, allocations, device
             guard, stream query, ctypes marshalling, the launch) beside
@@ -156,16 +184,19 @@ Phases, each printing one JSON line and raising on failure:
 
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
 summed over the serve, train, train_bf16, train_workers, train_stream,
-engine and engine_chunked paths,
+engine, engine_chunked, engine_paged and engine_quant paths,
 times at config A's
 attention shape, at the training rows, at the engine's decode shape and
-its chunk launch at span 256, fp32), and last {"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
+its chunk launch at span 256, fp32; the paged decode at span 128 and the
+paged chunk's one-row launch at span 256, fp), and last {"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
 not available or the package is not beside this script.
 
 ``--times-only`` runs the card, serve, engine, engine_long, engine_chunked,
+engine_paged,
 the engine and generate profiles, the flash, span-decode, span-chunk and
-LayerNorm times phases and the LayerNorm host breakdown alone (the
-span-chunk phases where the package has that kernel), for the elephas_tpu_torch package in
+LayerNorm times phases (and the paged ones) and the LayerNorm host
+breakdown alone (the span-chunk and paged phases where the package has
+those kernels), for the elephas_tpu_torch package in
 DIR (default: beside this script), building its kernels as that package
 builds them: run it for two checkouts in turns on one card to compare
 them.
@@ -342,6 +373,37 @@ CHUNKED = dict(prefill_chunk=64, prefix_cache=True)
 CHUNKED_PREFIX_LENS = (64, 128, 192, 256)
 CHUNKED_PER_PREFIX = 4
 
+# the paged kernels vs their plain versions and the arena kernels, every
+# stored type: the engine's decode shape (slots, heads, head dim, block) over
+# tables of 8, 16 and 32 blocks (shuffled ids, sentinel padding, stale
+# cursors), its chunk launches (rows, C: 16 slots of 64 rows, the paged
+# engine's one-row chunk pass) and a 512-row chunk from position 0
+PAGED_CASE = (16, 4, 128, 16)
+PAGED_SPANS = (128, 256, 512)
+PAGED_DTYPES = ("fp", "int8", "int4")
+PAGED_CHUNKS = ((16, 64), (1, 64))
+PAGED_C512 = (1, 512)
+# engine_paged: E's engine on the paged arena, its pool the fixed arena's
+# rows (16 slots x 32 blocks of 16, as bench.py:2775-2780 sizes fleet
+# engines); fixed and paged passes in turns, PAGED_ROUNDS each
+ENGINE_PAGED = dict(paged=True, block_size=16, num_blocks=512)
+PAGED_ROUNDS = 3
+# a preemption at config A: a low-priority request of PREEMPT_LOW prompt
+# tokens decoding when one of PREEMPT_HIGH arrives at priority 1, in a pool
+# of PREEMPT_BLOCKS blocks that cannot hold both
+PREEMPT_ENGINE = dict(num_slots=4, steps_per_sync=4, paged=True, block_size=16,
+                      num_blocks=20, preemption=True)
+PREEMPT_LOW, PREEMPT_HIGH, PREEMPT_BUDGET = 200, 120, 48
+# engine_quant: the agreement stand-in (bench.py:825-900): d128L4, trained on
+# the periodic data of bench.py:868-880 through the port's SparkModel on
+# QUANT_WORKERS worker slots; QUANT_PROMPTS prompts of QUANT_P_LEN tokens,
+# QUANT_COMPLETION tokens scored
+QUANT_MODEL = dict(vocab_size=512, maxlen=128, d_model=128, num_heads=4, num_layers=4,
+                   dropout=0.0, lr=1e-2, seed=0)
+QUANT_WORKERS, QUANT_EPOCHS, QUANT_BATCH = 4, 4, 32
+QUANT_PROMPTS, QUANT_P_LEN, QUANT_COMPLETION = 6, 16, 48
+QUANT_AGREEMENT = 0.95
+
 TIMING = "CUDA events, mean of 50 launches after 5 warm-up, median of 3 rounds in turns"
 GRAPH_TIMING = ("*device_ms: CUDA events around the replay of a CUDA graph of 50 calls "
                 "(captured after 3 warm-up calls), median of 3 rounds in turns; the rest: "
@@ -375,11 +437,12 @@ def _instantiation(mangled):
     -> 'flash_fwd_kernel<float32, 128>', '..ln_fwd_kernelIfLi4EE..' ->
     'ln_fwd_kernel<float32, 4>', '..span_decode_kernelILi64EE..' ->
     'span_decode_kernel<64>', '..span_decode_merge_kernelILi64EE..' ->
-    'span_decode_merge_kernel<64>'."""
-    m = re.search(r"\d((?:flash|ln|span)_\w*?kernel)I(f|13__nv_bfloat16)?((?:Li\d+E)*)",
-                  mangled)
+    'span_decode_merge_kernel<64>', '..paged_span_chunk_kernelILi64ELi1EE..' ->
+    'paged_span_chunk_kernel<64, 1>'."""
+    m = re.search(r"\d((?:flash|ln|span|paged_span)_\w*?kernel)I(f|13__nv_bfloat16)?"
+                  r"((?:Li\d+E)*)", mangled)
     if not m:
-        m = re.search(r"\d((?:flash|ln|span)_\w*?kernel)", mangled)
+        m = re.search(r"\d((?:flash|ln|span|paged_span)_\w*?kernel)", mangled)
         return m.group(1) if m else mangled
     dtype = [] if m.group(2) is None else ["float32" if m.group(2) == "f" else "bfloat16"]
     ints = re.findall(r"Li(\d+)E", m.group(3))
@@ -461,10 +524,13 @@ def phase_build():
     span = sorted(_sass_counts(targets["span_decode"], "span_decode"))
     chunk_sass = _sass_counts(targets["span_chunk"], "span_chunk")
     chunk = sorted(chunk_sass)
+    paged_decode = sorted(_sass_counts(targets["span_decode"], "paged_span_decode"))
+    paged_sass = _sass_counts(targets["span_chunk"], "paged_span_chunk")
     ln_sass = _sass_counts(targets["layer_norm"], "ln_fwd", LN_SASS_OPS)
     emit({"phase": "build", "seconds": seconds, "sources": sorted(_native.SOURCES),
           "ptxas": ptxas, "flash_sass": sass, "span_decode_instantiations": span,
-          "span_chunk_sass": chunk_sass, "layer_norm_fwd_sass": ln_sass})
+          "span_chunk_sass": chunk_sass, "paged_span_decode_instantiations": paged_decode,
+          "paged_span_chunk_sass": paged_sass, "layer_norm_fwd_sass": ln_sass})
     spills = [f"{name}: {r}" for log in ptxas.values() for name, r in log.items()
               if r.get("spill_stores") or r.get("spill_loads")]
     missing = [name for name, c in sass.items() if not (c["HMMA"] and c["LDGSTS"])]
@@ -472,13 +538,20 @@ def phase_build():
     # from a cp.async ring
     missing += [name for name, c in chunk_sass.items()
                 if name.startswith("span_chunk_kernel") and not (c["HMMA"] and c["LDGSTS"])]
+    # the paged chunk's run on the tensor cores too; its fp instantiations
+    # (kv_dtype code 0) fill the ring by cp.async
+    missing += [name for name, c in paged_sass.items()
+                if not c["HMMA"] or (name.endswith(", 0>") and not c["LDGSTS"])]
     ln_faults = _ln_sass_faults(ln_sass)
-    if spills or missing or len(sass) != 8 or len(span) != 8 or len(chunk) != 8 or ln_faults:
+    if spills or missing or len(sass) != 8 or len(span) != 8 or len(chunk) != 8 or ln_faults \
+            or len(paged_decode) != 12 or len(paged_sass) != 12:
         raise AssertionError(f"build: spills {spills}; flash or span chunk kernels without "
                              f"HMMA or LDGSTS {missing}; {len(sass)} flash instantiations, "
                              f"want 8; span decode instantiations {span} and span chunk "
                              f"instantiations {chunk}, want 8 each (split and merge "
-                             f"kernels at 4 head dims); LayerNorm forward {ln_faults}")
+                             f"kernels at 4 head dims); paged decode {paged_decode} and "
+                             f"chunk {sorted(paged_sass)}, want 12 each (4 head dims x 3 "
+                             f"stored types); LayerNorm forward {ln_faults}")
 
 
 def _synthetic_tokens(n, maxlen, vocab, classes, seed=0):
@@ -752,6 +825,7 @@ def phase_kernel(dev):
     ln_rows, ln_failures = _kernel_layer_norm(dev)
     span_rows, span_failures = _kernel_span_decode(dev)
     chunk_rows, chunk_failures = _kernel_span_chunk(dev)
+    paged_rows, paged_failures = _kernel_paged(dev)
     emit({"phase": "kernel",
           "tol": {"flash_out": {"float32": TOL_OUT[torch.float32],
                                 "bfloat16": TOL_OUT[torch.bfloat16]},
@@ -763,10 +837,12 @@ def phase_kernel(dev):
                             "bfloat16_of_max_1_abs_dx": TOL_LN_DX[torch.bfloat16]},
                   "ln_dgamma_dbeta_relative": TOL_LN_DPARAM,
                   "span_decode_of_max_1_abs_out": TOL_SPAN,
-                  "span_chunk_of_max_1_abs_out": TOL_SPAN},
+                  "span_chunk_of_max_1_abs_out": TOL_SPAN,
+                  "paged_of_max_1_abs_out": TOL_SPAN,
+                  "paged_against_arena_kernel": "bit-equal"},
           "flash": flash, "layer_norm": ln_rows, "span_decode": span_rows,
-          "span_chunk": chunk_rows})
-    failures = flash_failures + ln_failures + span_failures + chunk_failures
+          "span_chunk": chunk_rows, "paged": paged_rows})
+    failures = flash_failures + ln_failures + span_failures + chunk_failures + paged_failures
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: {failures}")
     f32 = [r for r in ln_rows if r["dtype"] == "float32"]
@@ -776,6 +852,10 @@ def phase_kernel(dev):
         "layer_norm_bwd": max(r["err_dx"] for r in f32),
         "span_decode": max(r["abs_err"] for r in span_rows),
         "span_chunk": max(r["abs_err"] for r in chunk_rows),
+        "paged_span_decode": max(r["abs_err"] for r in paged_rows
+                                 if r["kernel"] == "paged_span_decode"),
+        "paged_span_chunk": max(r["abs_err"] for r in paged_rows
+                                if r["kernel"] == "paged_span_chunk"),
     }
 
 
@@ -792,6 +872,8 @@ def _launches():
     return {"flash_fwd": fa.launches, "layer_norm_fwd": ln.fwd_launches,
             "layer_norm_bwd": ln.bwd_launches, "span_decode": fs.launches,
             "span_chunk": getattr(fs, "chunk_launches", 0),
+            "paged_span_decode": getattr(fs, "paged_launches", 0),
+            "paged_span_chunk": getattr(fs, "paged_chunk_launches", 0),
             "flash_fwd_bf16": fa.bf16_launches, "layer_norm_fwd_bf16": ln.fwd_bf16_launches,
             "layer_norm_bwd_bf16": ln.bwd_bf16_launches}
 
@@ -802,6 +884,7 @@ def _reset_launches():
     from elephas_tpu_torch.ops import layer_norm as ln
 
     fa.launches = ln.fwd_launches = ln.bwd_launches = fs.launches = fs.chunk_launches = 0
+    fs.paged_launches = fs.paged_chunk_launches = 0
     fa.bf16_launches = ln.fwd_bf16_launches = ln.bwd_bf16_launches = 0
 
 
@@ -1021,6 +1104,7 @@ def phase_train(dev, dtype_policy=None, fp32=None):
     bf16_norms = norms - 1 if mixed else 0
     want = {"flash_fwd": layers * steps, "layer_norm_fwd": norms * steps,
             "layer_norm_bwd": 2 * norms * steps, "span_decode": 0, "span_chunk": 0,
+            "paged_span_decode": 0, "paged_span_chunk": 0,
             "flash_fwd_bf16": layers * steps if mixed else 0,
             "layer_norm_fwd_bf16": bf16_norms * steps,
             "layer_norm_bwd_bf16": 2 * bf16_norms * steps}
@@ -1357,7 +1441,7 @@ def phase_train_workers(dev):
         worker_steps = WORKERS * global_steps
         want = {"flash_fwd": layers * worker_steps, "layer_norm_fwd": norms * worker_steps,
                 "layer_norm_bwd": 2 * norms * worker_steps, "span_decode": 0,
-                "span_chunk": 0,
+                "span_chunk": 0, "paged_span_decode": 0, "paged_span_chunk": 0,
                 "flash_fwd_bf16": 0, "layer_norm_fwd_bf16": 0, "layer_norm_bwd_bf16": 0}
         if launches != want:
             failures.append(f"launches {launches}, expected {want}")
@@ -1837,6 +1921,8 @@ def _profile_chunked_step(dev, model, long_prompt):
 # kernel name fragment → class, first match wins
 KERNEL_CLASSES = (
     ("flash_fwd_kernel", "flash_fwd"),
+    ("paged_span_decode_kernel", "paged_span_decode"),
+    ("paged_span_chunk_kernel", "paged_span_chunk"),
     ("span_decode_merge_kernel", "span_decode_merge"),
     ("span_decode_kernel", "span_decode"),
     ("span_chunk_merge_kernel", "span_chunk_merge"),
@@ -3084,6 +3170,635 @@ def phase_hyperparam(dev):
         raise AssertionError(f"hyperparam check failed: {failures}")
 
 
+# -- the paged arena ------------------------------------------------------------------
+
+def _paged_pool(b, h, d, bs, t, kv_dtype, dev, seed):
+    """A pool of ``b·t + 7`` blocks and the sink, its rows random (their
+    codes and scales when quantized), and ``[b, t]`` tables of shuffled
+    block ids, the last two rows' second halves sentinel-padded. Returns
+    ``(pool_k, pool_v, kv_scales, tables)``."""
+    from elephas_tpu_torch.serving.kv_quant import quantize_rows
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = b * t + 7
+    ids = torch.randperm(n, generator=torch.Generator().manual_seed(seed))[: b * t]
+    tables = ids.view(b, t).to(torch.int32)
+    tables[-2:, t // 2:] = n
+    rows = torch.randn(2, n + 1, bs, h, d, generator=g, device=dev)
+    if kv_dtype == "fp":
+        return rows[0].contiguous(), rows[1].contiguous(), None, tables.to(dev)
+    (kq, ks), (vq, vs) = (quantize_rows(r, kv_dtype) for r in rows)
+    return kq, vq, (ks, vs), tables.to(dev)
+
+
+def _paged_decode_inputs(kv_dtype, span, dev, seed):
+    """The engine's decode shape over a paged pool: q, the pool, tables of
+    span / block blocks, and int32 positions: 0 on lane 0, the span's last
+    row on lane 1, stale cursors past the span (inactive lanes) on lanes 2
+    and 3, the rest ragged."""
+    b, h, d, bs = PAGED_CASE
+    pk, pv, scales, tables = _paged_pool(b, h, d, bs, span // bs, kv_dtype, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    q = torch.randn(b, h, d, generator=g, device=dev)
+    pos = torch.randint(0, span, (b,), generator=g, device=dev, dtype=torch.int32)
+    pos[:4] = torch.tensor([0, span - 1, span + 7, 3 * span], dtype=torch.int32)
+    return q, pk, pv, scales, tables, pos
+
+
+def _paged_chunk_inputs(kv_dtype, rows, c, span, dev, seed, offset=None):
+    """Chunk queries ``[rows, H, c, D]`` over a paged pool with tables of
+    span / block blocks at int32 positions ``offset + 0..c-1`` (every row),
+    or ragged: 0 on row 0, ending on the span's last row on row 1, rows past
+    the span on row 2."""
+    _, h, d, bs = PAGED_CASE
+    pk, pv, scales, tables = _paged_pool(rows, h, d, bs, span // bs, kv_dtype, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    q = torch.randn(rows, h, c, d, generator=g, device=dev)
+    offs = torch.randint(0, max(1, span - c), (rows,), generator=g, device=dev)
+    if offset is None:
+        special = torch.tensor([0, max(0, span - c), span - c // 2])[:rows]
+        offs[:len(special)] = special
+    else:
+        offs[:] = offset
+    pos = (offs[:, None] + torch.arange(c, device=dev)[None, :]).to(torch.int32).contiguous()
+    return q, pk, pv, scales, tables, pos
+
+
+def _paged_cases():
+    """(kernel, case name, inputs function) of every gated paged shape."""
+    cases = []
+    for dt in PAGED_DTYPES:
+        for span in PAGED_SPANS:
+            cases.append(("paged_span_decode", f"{dt}_span{span}", dt,
+                          lambda dev, dt=dt, span=span: _paged_decode_inputs(dt, span, dev, span)))
+            for rows, c in PAGED_CHUNKS:
+                off = span - c if rows == 1 else None
+                cases.append(("paged_span_chunk", f"{dt}_B{rows}_C{c}_span{span}", dt,
+                              lambda dev, dt=dt, rows=rows, c=c, span=span, off=off:
+                              _paged_chunk_inputs(dt, rows, c, span, dev, span + c, off)))
+        rows, c = PAGED_C512
+        cases.append(("paged_span_chunk", f"{dt}_C{c}_offset0", dt,
+                      lambda dev, dt=dt, rows=rows, c=c:
+                      _paged_chunk_inputs(dt, rows, c, SPAN_MAXLEN, dev, 5, 0)))
+    return cases
+
+
+def _kernel_paged(dev):
+    """Each paged kernel, every stored type, at every _paged_cases shape:
+    within TOL_SPAN of max(1, |out|) of its plain version; bit-equal to the
+    arena kernel over the gathered, dequantized span (the same split and
+    order: only the addressing differs); bit-equal on a second call and on
+    a CUDA-graph replay."""
+    from elephas_tpu_torch.ops import flash_serving as fs
+
+    results, failures = [], []
+    for kernel, name, dt, inputs in _paged_cases():
+        q, pk, pv, scales, tables, pos = inputs(dev)
+        decode = kernel == "paged_span_decode"
+        fn = fs.flash_paged_span_decode if decode else fs.flash_paged_span_chunk
+        plain = fs.paged_span_decode_reference if decode else fs.paged_span_chunk_reference
+        arena_fn = fs.flash_span_decode if decode else fs.flash_span_chunk
+        kw = dict(kv_dtype=dt, kv_scales=scales)
+        out = fn(q, pk, pv, tables, pos, **kw)
+        again = fn(q, pk, pv, tables, pos, **kw)
+        replayed = _graph_replay(lambda: fn(q, pk, pv, tables, pos, **kw))  # noqa: B023
+        ref = plain(q, pk, pv, tables, pos, **kw)
+        gk, gv = fs.paged_dense_span(pk, pv, tables, dt, scales, q.shape[-1])
+        arena = arena_fn(q, gk.contiguous(), gv.contiguous(), pos)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        err = (diff / ref.abs().clamp_min(1.0)).max().item()
+        row = {"kernel": kernel, "case": name, "shape": list(q.shape), "span": gk.shape[1],
+               "rel_err": err, "abs_err": diff.max().item(),
+               "arena_kernel_bit_equal": torch.equal(out, arena),
+               "repeats_bit_for_bit": torch.equal(out, again) and torch.equal(out, replayed)}
+        row["ok"] = err <= TOL_SPAN and row["arena_kernel_bit_equal"] \
+            and row["repeats_bit_for_bit"] and bool(torch.isfinite(out).all())
+        results.append(row)
+        if not row["ok"]:
+            failures.append(row)
+        del q, pk, pv, scales, tables, pos, gk, gv
+    return results, failures
+
+
+def _quant_logits(model, seq, kv_dtype, dev):
+    """Teacher-forced logits of ``seq`` on a scratch paged pool of
+    ``kv_dtype`` through the naive attention (written first, then attended:
+    position i sees the quantized rows 0..i, as decode does): the oracle a
+    quantized engine's near ties are read against. ``[len(seq), vocab]``."""
+    from elephas_tpu_torch.models.transformer import validate_token_decode_model
+    from elephas_tpu_torch.serving.paged_kv import PagedKVPool, blocks_for, paged_chunk_forward
+
+    bs = ENGINE_PAGED["block_size"]
+    n = len(seq)
+    nb = blocks_for(n, bs)
+    pool = PagedKVPool(validate_token_decode_model(model), nb, bs, dev, kv_dtype)
+    table = torch.arange(nb, dtype=torch.int32, device=dev)[None]
+    with torch.inference_mode():
+        return paged_chunk_forward(
+            model, torch.tensor([list(seq)], device=dev), pool, table,
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.full((1,), n, dtype=torch.int32, device=dev), attention="naive")[0]
+
+
+def _tokens_agree(reqs, want_reqs, logits_of_seq):
+    """Indices of requests whose tokens differ from ``want_reqs``' where the
+    oracle's top-2 margin (``logits_of_seq(prefix)[-1]``) is >= MARGIN, and
+    of those that differ at all."""
+    faults, differ = [], []
+    for i, (r, w) in enumerate(zip(reqs, want_reqs)):
+        if r.tokens == w.tokens:
+            continue
+        differ.append(i)
+        bad = _first_divergence(
+            r.tokens, w.tokens,
+            lambda j, w=w: logits_of_seq(list(w.prompt) + w.tokens[:j])[-1])
+        if bad:
+            faults.append(f"request {i}: {bad}")
+    return faults, differ
+
+
+def _paged_launch_faults(what, launches, layers):
+    """The paged path's launches: both paged kernels, LayerNorm (2·layers+1)
+    a forward (a forward = layers paged launches), and no arena kernel or
+    flash forward."""
+    faults = []
+    idle = [k for k in ("paged_span_decode", "paged_span_chunk", "layer_norm_fwd")
+            if not launches[k] > 0]
+    if idle:
+        faults.append(f"{what} never launched {idle}")
+    forwards = (launches["paged_span_decode"] + launches["paged_span_chunk"]) / layers
+    if launches["layer_norm_fwd"] != (2 * layers + 1) * forwards or any(
+            launches[k] for k in ("flash_fwd", "span_decode", "span_chunk", "layer_norm_bwd")):
+        faults.append(f"{what}: launches {launches} are not the paged path's over "
+                      f"{layers} layers")
+    return faults
+
+
+def _median_row(rows):
+    """Medians over rounds of _serve_pass rows."""
+    out = {"rounds": rows}
+    for key in ("seconds", "tokens_s"):
+        out[key] = float(np.median([r[key] for r in rows]))
+    for key in ("ttft_s", "inter_token_s"):
+        out[key] = {q: float(np.median([r[key][q] for r in rows])) for q in ("p50", "p99")}
+    return out
+
+
+def _peak_concurrency(engine, workload):
+    """Peak requests in flight over a drive of ``workload`` (the reference
+    bench's admitted-concurrency measure), and the requests."""
+    reqs = [engine.submit(p, mn) for p, mn in workload]
+    peak = 0
+    while engine.scheduler.has_work:
+        engine.step()
+        peak = max(peak, len(engine.scheduler.active))
+    return peak, reqs
+
+
+def _longctx(model):
+    """bench.py:643-700's equal-bytes construction: 4 fixed slots against a
+    paged pool of the same 4 · maxlen rows in blocks of 16 over 16 lanes, on
+    its mixed workload (32 prompts of maxlen / 5 tokens and 2 of 0.6 ·
+    maxlen, 6 new tokens each). Peak admitted concurrency of both."""
+    from elephas_tpu_torch import InferenceEngine
+
+    maxlen, vocab, fixed_slots, bs = model.maxlen, model.vocab_size, 4, 16
+    rng = np.random.default_rng(17)
+    pool_rows = fixed_slots * maxlen
+    lanes = fixed_slots * 4
+    short_p, long_p = max(4, maxlen // 5), min(int(maxlen * 0.6), maxlen - 6)
+    mixed = [(rng.integers(1, vocab, size=short_p).astype(np.int32), 6)
+             for _ in range(lanes * 2)] + \
+        [(rng.integers(1, vocab, size=long_p).astype(np.int32), 6) for _ in range(2)]
+    engines = {"fixed": InferenceEngine(model, num_slots=fixed_slots),
+               "paged": InferenceEngine(model, num_slots=lanes, paged=True, block_size=bs,
+                                        num_blocks=pool_rows // bs)}
+    peaks = {name: _peak_concurrency(e, mixed)[0] for name, e in engines.items()}
+    return {"kv_rows_fixed": pool_rows, "kv_rows_paged": engines["paged"].num_blocks * bs,
+            "arena_bytes_fixed": engines["fixed"].arena.nbytes(),
+            "pool_bytes_paged": engines["paged"].arena.nbytes(), "lanes": lanes,
+            "mixed_requests": len(mixed), "short_prompt": short_p, "long_prompt": long_p,
+            "admitted_concurrency_fixed": peaks["fixed"],
+            "admitted_concurrency_paged": peaks["paged"],
+            "concurrency_ratio": peaks["paged"] / max(1, peaks["fixed"])}
+
+
+def _preemption(model, dev, kv_dtype="fp"):
+    """PREEMPT_ENGINE at config A: the low-priority request decodes three
+    steps, the priority-1 arrival cannot fit beside it and preempts it; both
+    requests' tokens against their runs alone in a fresh engine of the same
+    options (no preemption there), and the pool whole at the end."""
+    from elephas_tpu_torch import InferenceEngine
+
+    rng = np.random.default_rng(5)
+    vocab = model.vocab_size
+    low_p = rng.integers(1, vocab, size=PREEMPT_LOW).astype(np.int32)
+    high_p = rng.integers(1, vocab, size=PREEMPT_HIGH).astype(np.int32)
+    opts = dict(PREEMPT_ENGINE, kv_dtype=kv_dtype)
+    alone = []
+    for prompt in (low_p, high_p):
+        solo = InferenceEngine(model, **opts)
+        alone.append(solo.submit(prompt, PREEMPT_BUDGET))
+        solo.run()
+    engine = InferenceEngine(model, **opts)
+    low = engine.submit(low_p, PREEMPT_BUDGET)
+    for _ in range(3):
+        engine.step()
+    high = engine.submit(high_p, PREEMPT_BUDGET, priority=1)
+    while engine.scheduler.has_work:
+        engine.step()
+    st = engine.stats()
+    out = {"kv_dtype": kv_dtype, "options": opts, "prompts": [PREEMPT_LOW, PREEMPT_HIGH],
+           "budget": PREEMPT_BUDGET, "preemptions": st["preemptions"], "resumes": st["resumes"],
+           "offloaded_blocks": st["offloaded_blocks"],
+           "kv_quant_offload_bytes": st["kv_quant_offload_bytes"],
+           "blocks_free": st["blocks_free"], "blocks_total": st["blocks_total"],
+           "victim_identical": low.tokens == alone[0].tokens,
+           "preemptor_identical": high.tokens == alone[1].tokens}
+    faults = []
+    if not (st["preemptions"] >= 1 and st["resumes"] == st["preemptions"]
+            and st["blocks_free"] == st["blocks_total"]):
+        faults.append(f"preemption ({kv_dtype}): {out}")
+    return out, faults, ([low, high], alone)
+
+
+def _profile_paged_window(dev, model, kv_dtype):
+    """One decode window of the paged engine (E's options on ENGINE_PAGED's
+    pool, ``kv_dtype``; 16 busy slots on E's first prompts) under
+    torch.profiler after a warm-up window, per step: device time by kernel
+    class, with the paged span decode's share and the top kernels, where
+    the pool writes (``index_put``, the quantizer's elementwise passes)
+    show."""
+    from elephas_tpu_torch import InferenceEngine
+
+    steps = ENGINE["steps_per_sync"]
+    engine = InferenceEngine(model, **ENGINE, **ENGINE_PAGED, kv_dtype=kv_dtype)
+    for prompt, _ in _engine_workload(model.vocab_size, ENGINE["num_slots"]):
+        engine.submit(prompt, 4 * steps)  # busy through the windows below
+    engine.step()  # prefill and the warm-up window
+    out = _profile(dev, engine.step, f"paged engine decode window at config A, kv_dtype "
+                   f"{kv_dtype}, {ENGINE['num_slots']} slots (E's prompts), per step of {steps}",
+                   per=steps)
+    by_class = out.get("by_class_ms", {})
+    if out["device_ms"] > 0:
+        emit({"phase": "profile", "what": f"paged span decode share ({kv_dtype})",
+              "paged_span_decode_share_of_device":
+                  (by_class.get("paged_span_decode", 0.0)
+                   + by_class.get("span_decode_merge", 0.0)) / out["device_ms"]})
+        if not by_class.get("paged_span_decode", 0.0) > 0:
+            raise AssertionError("the paged engine profile shows no paged_span_decode_kernel")
+    if len(engine.scheduler.active) != ENGINE["num_slots"]:
+        raise AssertionError("a request of the profiled paged window finished early")
+    return out
+
+
+def phase_engine_paged(dev, model):
+    """E's engine on the paged arena (ENGINE_PAGED) beside the fixed arena,
+    PAGED_ROUNDS passes of E's workload each, in turns (fixed, paged, ...),
+    after a warm-up pass each: tokens/s, TTFT and ITL, the paged pass's
+    launches (the paged span chunk for every prefill, the paged span decode
+    for every decode step, K3 at every norm; no flash forward, no arena
+    kernel). Gates: every paged request's tokens equal the fixed engine's
+    and the plain argmax wherever the plain top-2 margin is >= MARGIN
+    (check (a)). Then E-chunked's prefix workload on paged=True with
+    CHUNKED's options (shared blocks and hits, tokens as the fixed engine
+    without options), a preemption scenario at config A (_preemption), and
+    bench.py:643-700's equal-bytes concurrency (>= 1.5x). Returns the
+    launches of the paged passes."""
+    from elephas_tpu_torch import InferenceEngine
+
+    layers = CONFIGS["A"]["num_layers"]
+    workload = _engine_workload(model.vocab_size, ENGINE_REQUESTS)
+    engines = {"fixed": InferenceEngine(model, **ENGINE),
+               "paged": InferenceEngine(model, **ENGINE, **ENGINE_PAGED)}
+    for e in engines.values():
+        e.run(workload[: ENGINE["num_slots"]])
+    rows, reqs = {name: [] for name in engines}, {}
+    launches = dict.fromkeys(_launches(), 0)
+    for _ in range(PAGED_ROUNDS):
+        for name, e in engines.items():
+            before = _launches()
+            rq, row = _serve_pass(e, workload, dev)
+            if name == "paged":
+                now = _launches()
+                launches = {k: launches[k] + now[k] - before[k] for k in launches}
+            rows[name].append(row)
+            reqs.setdefault(name, rq)
+    failures = _paged_launch_faults("the paged engine path", launches, layers)
+    mismatches, close, check_failures, plain = _check_emitted(model, reqs["paged"], dev)
+    failures += check_failures
+    differ = []
+    for i, (r, f) in enumerate(zip(reqs["paged"], reqs["fixed"])):
+        p = len(r.prompt)
+        bad = _first_divergence(r.tokens, f.tokens, lambda j, i=i, p=p: plain[i, p - 1 + j])
+        if r.tokens != f.tokens:
+            differ.append(i)
+        if bad:
+            failures.append(f"request {i} against the fixed engine: {bad}")
+    summary = {name: _median_row(r) for name, r in rows.items()}
+
+    # E-chunked's prefix workload on the paged arena, against the fixed
+    # engine without the options
+    warm, chunked_load = _chunked_workload(model.vocab_size)
+    plain_engine = InferenceEngine(model, **ENGINE)
+    chunked = InferenceEngine(model, **ENGINE, **ENGINE_PAGED, **CHUNKED)
+    for requests in warm:
+        plain_engine.run(requests)
+        chunked.run(requests)
+    plain_reqs, plain_row = _serve_pass(plain_engine, chunked_load, dev)
+    before = _launches()
+    st0 = chunked.stats()
+    c_reqs, c_row = _serve_pass(chunked, chunked_load, dev)
+    now = _launches()
+    c_launches = {k: now[k] - before[k] for k in now}
+    launches = {k: launches[k] + c_launches[k] for k in launches}
+    st = chunked.stats()
+    hits = st["prefix_cache"]["hits"] - st0["prefix_cache"]["hits"]
+    shared = st["prefix_blocks_shared"] - st0["prefix_blocks_shared"]
+    if not (hits > 0 and shared > 0):
+        failures.append(f"paged prefix workload: {hits} hits, {shared} shared blocks")
+    failures += _paged_launch_faults("the paged prefix path", c_launches, layers)
+    c_mis, c_close, c_fail, c_plain = _check_emitted(model, c_reqs, dev)
+    failures += c_fail
+    c_differ = []
+    for i, (r, pr) in enumerate(zip(c_reqs, plain_reqs)):
+        p = len(r.prompt)
+        bad = _first_divergence(r.tokens, pr.tokens, lambda j, i=i, p=p: c_plain[i, p - 1 + j])
+        if r.tokens != pr.tokens:
+            c_differ.append(i)
+        if bad:
+            failures.append(f"prefix request {i} against the engine without options: {bad}")
+    del c_plain
+
+    before = _launches()
+    preempt, faults, (got, alone) = _preemption(model, dev)
+    now = _launches()
+    launches = {k: launches[k] + now[k] - before[k] for k in launches}
+    failures += faults
+    logits = {}
+
+    def plain_logits(seq):
+        key = tuple(seq)
+        if key not in logits:
+            with torch.inference_mode():
+                logits[key] = model(torch.tensor([list(seq)], device=dev), plain=True)[0]
+        return logits[key]
+
+    p_faults, p_differ = _tokens_agree(got, alone, plain_logits)
+    failures += [f"preemption: {f}" for f in p_faults]
+    _profile_paged_window(dev, model, "fp")
+    longctx = _longctx(model)
+    if not longctx["concurrency_ratio"] >= 1.5:
+        failures.append(f"equal-bytes concurrency {longctx}")
+    emit({"phase": "engine_paged", "config": CONFIGS["A"], "options": {**ENGINE, **ENGINE_PAGED},
+          "requests": len(workload), "rounds_in_turns": PAGED_ROUNDS,
+          "fixed": summary["fixed"], "paged": summary["paged"],
+          "paged_over_fixed_tokens_s": summary["paged"]["tokens_s"]
+          / summary["fixed"]["tokens_s"],
+          "pool_bytes": engines["paged"].arena.nbytes(),
+          "arena_bytes": engines["fixed"].arena.nbytes(),
+          "launches": launches, "a_token_mismatches": mismatches, "a_within_margin": close,
+          "requests_differing_from_fixed": differ,
+          "prefix_workload": {"options": {**ENGINE, **ENGINE_PAGED, **CHUNKED},
+                              "paged": c_row, "fixed_without_options": plain_row,
+                              "prefix_hits": hits, "prefix_blocks_shared": shared,
+                              "launches": c_launches, "a_token_mismatches": c_mis,
+                              "a_within_margin": c_close, "requests_differing": c_differ},
+          "preemption": {**preempt, "requests_differing_from_alone": p_differ},
+          "longctx": longctx, "nvidia_smi": nvidia_smi(), "failures": failures})
+    if failures:
+        raise AssertionError(f"paged engine check failed: {failures}")
+    return launches
+
+
+def _train_quant_standin(dev):
+    """The reference bench's agreement stand-in (bench.py:860-880): d128L4
+    trained 4 epochs at batch 32 on 256 periodic sequences (rng 19), here
+    through the port's SparkModel on QUANT_WORKERS worker slots of the
+    card. Returns the model and the final loss."""
+    from elephas_tpu_torch import SparkModel, transformer_lm
+    from elephas_tpu_torch.device import force_devices
+
+    maxlen = QUANT_MODEL["maxlen"]
+    model = transformer_lm(**QUANT_MODEL, device=dev)
+    rng = np.random.default_rng(19)
+    starts = rng.integers(2, 6, size=256)
+    seq = (starts[:, None] + np.arange(maxlen + 1)) % 4 + 2
+    x, y = seq[:, :-1].astype(np.int32), seq[:, 1:].astype(np.int32)
+    prev = force_devices(QUANT_WORKERS)
+    try:
+        hist = SparkModel(model, num_workers=QUANT_WORKERS, device=dev).fit(
+            (x, y), epochs=QUANT_EPOCHS, batch_size=QUANT_BATCH)
+    finally:
+        force_devices(prev)
+    return model, rng, float(hist["loss"][-1])
+
+
+def phase_engine_quant(dev, model):
+    """int8 and int4 engines on config A (E's options on ENGINE_PAGED's
+    pool): E's workload through the flash and the naive attention of each
+    (tokens equal wherever the quantized oracle's top-2 margin is >=
+    MARGIN, _quant_logits), with tokens/s; one prompt's stored layer-0 codes
+    and scales, read back from the card, bit-equal to quantize_rows_np of
+    the fp engine's rows (layer 0 only: deeper layers' inputs already carry
+    the quantized attention); the int8 preemption scenario (_preemption)
+    identical to the runs alone; peak admitted concurrency at equal pool
+    bytes (bench.py:825-900's construction: 32 lanes, the fp pool 16
+    blocks, the quantized pools its bytes rounded down) >= 2x for int8; and
+    score()-based token agreement against the fp engine's greedy
+    completions on the trained stand-in (_train_quant_standin) >= 0.95 for
+    int8, int4 reported. Returns the launches of the quantized passes."""
+    from elephas_tpu_torch import InferenceEngine
+    from elephas_tpu_torch.serving.kv_quant import pool_bytes_per_pos, quantize_rows_np
+
+    layers = CONFIGS["A"]["num_layers"]
+    workload = _engine_workload(model.vocab_size, ENGINE_REQUESTS)
+    failures, passes = [], {}
+    launches = dict.fromkeys(_launches(), 0)
+    for dt in ("int8", "int4"):
+        got = {}
+        for attention in ("flash", "naive"):
+            engine = InferenceEngine(model, **ENGINE, **ENGINE_PAGED, kv_dtype=dt,
+                                     attention=attention)
+            engine.run(workload[: ENGINE["num_slots"]])
+            before = _launches()
+            got[attention], row = _serve_pass(engine, workload, dev)
+            now = _launches()
+            if attention == "flash":
+                delta = {k: now[k] - before[k] for k in now}
+                failures += _paged_launch_faults(f"the {dt} engine path", delta, layers)
+                launches = {k: launches[k] + delta[k] for k in launches}
+            passes[f"{dt}_{attention}"] = row
+        cache = {}
+
+        def oracle(seq, dt=dt, cache=cache):
+            key = tuple(seq)
+            if key not in cache:
+                cache[key] = _quant_logits(model, seq, dt, dev)
+            return cache[key]
+
+        faults, differ = _tokens_agree(got["flash"], got["naive"], oracle)
+        failures += [f"{dt} flash vs naive: {f}" for f in faults]
+        passes[f"{dt}_requests_differing_flash_naive"] = differ
+
+    _profile_paged_window(dev, model, "int8")
+
+    # stored codes against the codec of the fp engine's rows (layer 0)
+    prompt = workload[4][0]  # 40 tokens
+    name = None
+    rows = {}
+    for dt in ("fp", "int8", "int4"):
+        engine = InferenceEngine(model, **ENGINE, **ENGINE_PAGED, kv_dtype=dt)
+        req = engine.submit(prompt, 64)
+        engine.step()
+        table = engine.scheduler.tables[req.slot]
+        name = engine.arena.specs[0][0]
+        pos = np.arange(len(prompt))
+        blk = np.asarray(table)[pos // ENGINE_PAGED["block_size"]]
+        off = pos % ENGINE_PAGED["block_size"]
+        rows[dt] = [z.cpu().numpy()[blk, off] for z in engine.arena.caches[name]]
+    codes = {}
+    for dt in ("int8", "int4"):
+        ok = True
+        for i in range(2):
+            q, sc = quantize_rows_np(rows["fp"][i], dt)
+            ok = ok and np.array_equal(q, rows[dt][i]) and np.array_equal(sc, rows[dt][2 + i])
+        codes[dt] = ok
+        if not ok:
+            failures.append(f"{dt}: layer {name}'s stored codes or scales differ from "
+                            f"quantize_rows_np of the fp rows")
+
+    before = _launches()
+    preempt, faults, (got, alone) = _preemption(model, dev, "int8")
+    now = _launches()
+    launches = {k: launches[k] + now[k] - before[k] for k in launches}
+    failures += faults
+    if not (preempt["victim_identical"] and preempt["preemptor_identical"]):
+        failures.append(f"int8 preemption stream differs from the runs alone: {preempt}")
+
+    # admitted concurrency at equal pool bytes (bench.py:825-900, gate 1)
+    bs, lanes, nb_fp = 16, 32, 16
+    specs = InferenceEngine(model, num_slots=1, paged=True, block_size=bs,
+                            num_blocks=1).arena.specs
+    fp_bytes = nb_fp * bs * pool_bytes_per_pos(specs, "fp")
+    rng = np.random.default_rng(19)
+    mixed = [(((int(rng.integers(2, 6)) + np.arange(QUANT_P_LEN)) % 4 + 2).astype(np.int32), 16)
+             for _ in range(lanes)]
+    conc = {}
+    for dt in ("fp", "int8", "int4"):
+        nb = nb_fp if dt == "fp" else max(nb_fp, fp_bytes // (bs * pool_bytes_per_pos(specs, dt)))
+        engine = InferenceEngine(model, num_slots=lanes, paged=True, block_size=bs,
+                                 num_blocks=nb, kv_dtype=dt)
+        if engine.arena.nbytes() > fp_bytes:
+            failures.append(f"{dt} pool {engine.arena.nbytes()} B over the fp budget {fp_bytes}")
+        conc[dt] = {"num_blocks": nb, "pool_bytes": engine.arena.nbytes(),
+                    "peak": _peak_concurrency(engine, mixed)[0]}
+    ratio = {dt: conc[dt]["peak"] / max(1, conc["fp"]["peak"]) for dt in ("int8", "int4")}
+    if not ratio["int8"] >= 2.0:
+        failures.append(f"int8 admitted concurrency {ratio['int8']}x fp at equal bytes")
+
+    # score agreement on the trained stand-in
+    t0 = time.perf_counter()
+    standin, rng, loss = _train_quant_standin(dev)
+    train_s = time.perf_counter() - t0
+    engines = {dt: InferenceEngine(standin, num_slots=32, paged=True, block_size=bs,
+                                   num_blocks=64, kv_dtype=dt) for dt in ("fp", "int8", "int4")}
+    prompts = [[int(t) for t in (int(rng.integers(2, 6)) + np.arange(QUANT_P_LEN)) % 4 + 2]
+               for _ in range(QUANT_PROMPTS)]
+    subs = [engines["fp"].submit(p, QUANT_COMPLETION) for p in prompts]
+    engines["fp"].run()
+    oracle_tokens = [[int(t) for t in r.tokens] for r in subs]
+    agreement = {dt: float(np.mean([engines[dt].score(p, c)["agreement"]
+                                    for p, c in zip(prompts, oracle_tokens)]))
+                 for dt in ("int8", "int4")}
+    if not agreement["int8"] >= QUANT_AGREEMENT:
+        failures.append(f"int8 token agreement {agreement['int8']} under {QUANT_AGREEMENT}")
+    emit({"phase": "engine_quant", "config": CONFIGS["A"], "options": {**ENGINE, **ENGINE_PAGED},
+          "passes": passes, "launches": launches,
+          "stored_codes_bit_equal_layer0": codes, "layer": name,
+          "preemption_int8": preempt,
+          "equal_bytes_concurrency": {"lanes": lanes, "fp_pool_bytes": fp_bytes, **conc,
+                                      "ratio": ratio},
+          "agreement": {"model": QUANT_MODEL, "workers": QUANT_WORKERS,
+                        "final_loss": loss, "train_s": train_s,
+                        "prompts": QUANT_PROMPTS, "completion": QUANT_COMPLETION,
+                        **agreement, "gate_int8": QUANT_AGREEMENT},
+          "nvidia_smi": nvidia_smi(), "failures": failures})
+    if failures:
+        raise AssertionError(f"quantized engine check failed: {failures}")
+    return launches
+
+
+def _paged_row(fs, decode, q, pk, pv, scales, tables, pos, dt):
+    """One paged kernel, its plain version and SDPA with a boolean mask over
+    the span gathered and dequantized beforehand (the library yardstick:
+    no one PyTorch call reads through a table), eager and from CUDA graphs,
+    beside the gather-and-dequantize time (``gather_ms``, ``gather_device_ms``)
+    and the bound: bytes of the visible keys' codes (or fp rows) and scales
+    read once (each table row up to its deepest position), the tables, q,
+    out and the positions; operations, 4 per visible key and dim of every
+    row (the decode at fp32 FMA's rate, the chunk at 3xTF32's)."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    fn = fs.flash_paged_span_decode if decode else fs.flash_paged_span_chunk
+    plain = fs.paged_span_decode_reference if decode else fs.paged_span_chunk_reference
+    kw = dict(kv_dtype=dt, kv_scales=scales)
+    d = q.shape[-1]
+    b, h = q.shape[:2]
+    c = 1 if decode else q.shape[2]
+    gk, gv = fs.paged_dense_span(pk, pv, tables, dt, scales, d)
+    span = gk.shape[1]
+    q4 = q[:, :, None] if decode else q
+    pm = pos[:, None] if decode else pos
+    k4, v4 = gk.transpose(1, 2), gv.transpose(1, 2)
+    mask = (torch.arange(span, device=q.device)[None, None, :] <= pm[:, :, None])[:, None] \
+        .expand(b, h, c, span)
+    fns = {
+        "ms": lambda: fn(q, pk, pv, tables, pos, **kw),
+        "plain_ms": lambda: plain(q, pk, pv, tables, pos, **kw),
+        "library_ms": lambda: scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
+        "gather_ms": lambda: fs.paged_dense_span(pk, pv, tables, dt, scales, d),
+    }
+    samples = _time_in_turns(fns)
+    graphs = _time_in_turns({k: fns[k] for k in ("ms", "library_ms", "gather_ms")}, graphs=True)
+    samples.update({key[:-2] + "device_ms": t for key, t in graphs.items()})
+    visible = torch.clamp(pm.long() + 1, min=0, max=span)  # [B, C]
+    keys_read = int(visible.amax(dim=1).sum())
+    stored = pk.shape[-1] * pk.element_size()  # bytes of a stored head row
+    per_key = 2 * h * (stored + (0 if scales is None else 4))
+    nbytes = keys_read * per_key + tables.numel() * 4 + 2 * b * h * c * d * 4 + pm.numel() * 4
+    flops = 4 * int(visible.sum()) * h * d
+    peak = PEAK_FLOPS_S[torch.float32] if decode else PEAK_3XTF32_S
+    return {**_summary(samples, nbytes, flops, torch.float32, peak),
+            "shape": {"B": b, "H": h, "D": d, "C": c, "span": span,
+                      "block": pk.shape[1], "kv_dtype": dt},
+            "keys_read": keys_read,
+            "splits_chunk": (fs.span_splits(span, b * h, fs._sm_count(q.device.index))
+                             if decode else fs.span_chunk_splits(
+                                 span, b * h, c, d, fs._sm_count(q.device.index)))}
+
+
+def phase_times_paged(dev):
+    """Each paged kernel and stored type at the shapes of _paged_cases
+    (_paged_row): the decode at the engine's shape over spans 128-512, the
+    chunk at the paged engine's one-row launch (64 rows ending on the span's
+    last row) over spans 128-512 and at a 512-row chunk from position 0."""
+    from elephas_tpu_torch.ops import flash_serving as fs
+
+    rows = {}
+    for kernel, name, dt, inputs in _paged_cases():
+        if kernel == "paged_span_chunk" and name.startswith(f"{dt}_B16"):
+            continue  # the 16-slot chunk is gated, not timed
+        q, pk, pv, scales, tables, pos = inputs(dev)
+        rows[f"{kernel}_{name}"] = _paged_row(fs, kernel == "paged_span_decode", q, pk, pv,
+                                              scales, tables, pos, dt)
+        del q, pk, pv, scales, tables, pos
+    emit({"phase": "times", "kernel": "paged_span_decode, paged_span_chunk",
+          "timing": GRAPH_TIMING, **rows})
+    return rows
+
+
 def _kernel_entry(name, source, replaces, launches, err, times):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3115,6 +3830,9 @@ def times_only(dev):
     chunking = hasattr(fs, "chunk_launches")
     if chunking:
         phase_engine_chunked(dev, lm)
+    paging = hasattr(fs, "paged_launches")
+    if paging:
+        phase_engine_paged(dev, lm)
     phase_profile_engine(dev, lm)
     del lm
     phase_profile_generate(dev)
@@ -3122,6 +3840,8 @@ def times_only(dev):
     phase_times_span_decode(dev)
     if chunking:
         phase_times_span_chunk(dev)
+    if paging:
+        phase_times_paged(dev)
     phase_times_layer_norm(dev)
     phase_ln_host_breakdown(dev)
 
@@ -3175,6 +3895,8 @@ def main(argv=None) -> int:
     engine, lm = phase_engine(dev)
     phase_engine_long(dev, lm)
     chunked = phase_engine_chunked(dev, lm)
+    paged = phase_engine_paged(dev, lm)
+    quant = phase_engine_quant(dev, lm)
     for path, launches, kernels in (
         ("serve", serve, ("flash_fwd", "layer_norm_fwd")),
         ("train", train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
@@ -3185,6 +3907,8 @@ def main(argv=None) -> int:
                                         "layer_norm_bwd_bf16")),
         ("engine", engine, ("span_decode", "flash_fwd", "layer_norm_fwd")),
         ("engine_chunked", chunked, ("span_chunk", "span_decode", "layer_norm_fwd")),
+        ("engine_paged", paged, ("paged_span_chunk", "paged_span_decode", "layer_norm_fwd")),
+        ("engine_quant", quant, ("paged_span_chunk", "paged_span_decode", "layer_norm_fwd")),
     ):
         idle = [k for k in kernels if launches[k] == 0]
         if idle:
@@ -3204,10 +3928,11 @@ def main(argv=None) -> int:
     phase_times_train(dev)
     span_times = phase_times_span_decode(dev)
     chunk_times = phase_times_span_chunk(dev)
+    paged_times = phase_times_paged(dev)
 
     print(nvidia_smi(), flush=True)
     total = {k: serve[k] + train[k] + train_bf16[k] + train_workers[k] + train_stream[k]
-             + engine[k] + chunked[k] for k in serve}
+             + engine[k] + chunked[k] + paged[k] + quant[k] for k in serve}
     emit({"kernels": [
         _kernel_entry(
             "flash_fwd", "elephas_tpu_torch/csrc/flash_fwd.cu",
@@ -3237,6 +3962,22 @@ def main(argv=None) -> int:
             "chunked_prefill_forward and verify_forward, elephas_tpu/serving/kv_cache.py:476, "
             ":603; plain XLA in the reference, not a Pallas kernel)",
             total["span_chunk"], errs["span_chunk"], chunk_times["engine_span256"]),
+        _kernel_entry(
+            "paged_span_decode", "elephas_tpu_torch/csrc/span_decode.cu",
+            "elephas_tpu/serving/paged_kv.py:246 (paged_token_decode_step: the table gather "
+            "and flash_span_decode with kv_dtype / kv_scales, "
+            "elephas_tpu/ops/flash_serving.py:153-167; plain XLA in the reference, not a "
+            "Pallas kernel)",
+            total["paged_span_decode"], errs["paged_span_decode"],
+            paged_times["paged_span_decode_fp_span128"]),
+        _kernel_entry(
+            "paged_span_chunk", "elephas_tpu_torch/csrc/span_chunk.cu",
+            "elephas_tpu/serving/paged_kv.py:479 (paged_chunk_forward: the table gather and "
+            "flash_span_chunk with kv_dtype / kv_scales, dequantizing in the tile loop at "
+            "elephas_tpu/ops/flash_serving.py:132-141; plain XLA in the reference, not a "
+            "Pallas kernel)",
+            total["paged_span_chunk"], errs["paged_span_chunk"],
+            paged_times["paged_span_chunk_fp_B1_C64_span256"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -75,11 +75,34 @@
 //   second kernel merges a row's partials in split order by lse; with one,
 //   the block writes the output and nothing else runs. Every order is
 //   fixed: a call repeats bit for bit, and a CUDA graph replays it as it is.
+//
+// Paged variant (elephas_paged_span_chunk). Replaces paged_chunk_forward's
+// gather and attention (elephas_tpu/serving/paged_kv.py:479; its attention
+// flash_span_chunk with kv_dtype and kv_scales, dequantizing in the tile
+// loop at elephas_tpu/ops/flash_serving.py:132-141): plain XLA in the
+// reference. Row b of q reads the keys of table row b: key j in block
+// tables[b, j / block_size] of the pool [num_blocks + 1, block_size, H, Ds],
+// row j % block_size; a sentinel id (num_blocks) reads the sink block, which
+// no request leases, and feeds only masked rows. Only the tile loader
+// changes (ArenaTiles / PagedTiles below): block_size (16 in the engine) is
+// smaller than a 64-key tile, so each row's address comes from the table. fp
+// rows land by the same 16-byte cp.async. int8 and int4 codes are loaded 4
+// values a thread (4 bytes, or 2 bytes of nibbles unpacked by shifts), times
+// the (position, head) scale, one code * scale product a value as the
+// reference's dequantize_rows, and stored as fp32 into the stage: an fp row
+// exists only in the tile. Those loads are synchronous (the next tile's,
+// issued after the barrier as the fp route issues its copies), so the
+// quantized route does not overlap its loads with the products. The hi/lo
+// split of 3xTF32 is taken from the dequantized fp32 value, as on the fp
+// route. With the same split and tile order the output is bit-equal to the
+// arena kernel over the gathered (dequantized) span. Bound: the visible
+// codes and scales read once, or the products at the 3xTF32 rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <climits>
+#include <type_traits>
 
 namespace {
 
@@ -174,6 +197,100 @@ __device__ __forceinline__ void load_tile(float* stage, const float* kb, long lo
   }
 }
 
+// the keys of one (slot, head) of the fixed arena; `ok` false for a slot
+// map entry outside the arena (its rows see no key)
+struct ArenaTiles {
+  const float* kb;
+  const float* vb;
+  long long k_pos, v_pos;
+  bool ok;
+  template <int D>
+  __device__ __forceinline__ void load(float* stage, int k0, int end) const {
+    load_tile<D>(stage, kb, k_pos, vb, v_pos, k0, end);
+  }
+};
+
+// the stored type of a paged pool
+enum KvDtype { kFp = 0, kInt8 = 1, kInt4 = 2 };
+
+__device__ __forceinline__ float4 dequant4(int c0, int c1, int c2, int c3, float s) {
+  return make_float4(static_cast<float>(c0) * s, static_cast<float>(c1) * s,
+                     static_cast<float>(c2) * s, static_cast<float>(c3) * s);
+}
+
+// stored values a row of head dim D
+template <int D, int Q>
+constexpr int kStoredOf = Q == kInt4 ? D / 2 : D;
+
+// the keys of one (table row, head) of a paged pool [num_blocks + 1,
+// block_size, heads, stored]: key j in block table[j / block_size] (the sink
+// for the sentinel), row j % block_size. fp rows land by cp.async as the
+// arena's; int8 and int4 codes are dequantized into the stage.
+template <int Q>
+struct PagedTiles {
+  using Elem = typename std::conditional<Q == kFp, float, int8_t>::type;
+  const Elem* kp;  // the pool's element (row 0, head h, value 0)
+  const Elem* vp;
+  const float* ks;  // the scale planes at (row 0, head h)
+  const float* vs;
+  const int* table;
+  int block_size, num_blocks, heads;
+  bool ok;
+
+  __device__ __forceinline__ long long row_of(int j) const {
+    const int id = min(max(__ldg(table + j / block_size), 0), num_blocks);
+    return static_cast<long long>(id) * block_size + j % block_size;
+  }
+
+  template <int D>
+  __device__ __forceinline__ void load(float* stage, int k0, int end) const {
+    using C = Cfg<D>;
+    constexpr int kStored = kStoredOf<D, Q>;
+    constexpr int kPieces = D / 4;  // 4 values a thread and step
+    float* kd = stage;
+    float* vd = stage + kTile * C::kKStride;
+    for (int e = threadIdx.x; e < kTile * kPieces; e += kWarps * 32) {
+      const int r = e / kPieces, piece = e % kPieces, col = piece * 4;
+      const int j = k0 + r;
+      const bool in = j < end;
+      const long long row = in ? row_of(j) : 0;
+      const long long at = row * heads * kStored;
+      if constexpr (Q == kFp) {
+        cp_async16(kd + r * C::kKStride + col, kp + at + col, in ? 16 : 0);
+        cp_async16(vd + r * C::kVStride + col, vp + at + col, in ? 16 : 0);
+      } else {
+        float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+        if (in) {
+          const float k_sc = __ldg(ks + row * heads), v_sc = __ldg(vs + row * heads);
+          if constexpr (Q == kInt8) {
+            const uint32_t kw = __ldg(reinterpret_cast<const uint32_t*>(kp + at) + piece);
+            const uint32_t vw = __ldg(reinterpret_cast<const uint32_t*>(vp + at) + piece);
+            kx = dequant4(static_cast<int8_t>(kw), static_cast<int8_t>(kw >> 8),
+                          static_cast<int8_t>(kw >> 16), static_cast<int8_t>(kw >> 24), k_sc);
+            vx = dequant4(static_cast<int8_t>(vw), static_cast<int8_t>(vw >> 8),
+                          static_cast<int8_t>(vw >> 16), static_cast<int8_t>(vw >> 24), v_sc);
+          } else {
+            const uint32_t kw = __ldg(reinterpret_cast<const uint16_t*>(kp + at) + piece);
+            const uint32_t vw = __ldg(reinterpret_cast<const uint16_t*>(vp + at) + piece);
+            kx = unpack4(kw, k_sc);
+            vx = unpack4(vw, v_sc);
+          }
+        }
+        *reinterpret_cast<float4*>(kd + r * C::kKStride + col) = kx;
+        *reinterpret_cast<float4*>(vd + r * C::kVStride + col) = vx;
+      }
+    }
+  }
+
+  // two bytes of int4 nibbles (low nibble the even index), sign-extended by
+  // shifts, times the scale
+  __device__ __forceinline__ static float4 unpack4(uint32_t w, float s) {
+    const int b0 = static_cast<int8_t>(w), b1 = static_cast<int8_t>(w >> 8);
+    return dequant4(static_cast<int>(static_cast<uint32_t>(b0) << 28) >> 28, b0 >> 4,
+                    static_cast<int>(static_cast<uint32_t>(b1) << 28) >> 28, b1 >> 4, s);
+  }
+};
+
 // The warp's q fragments: qf[kc][r] holds columns kc*16 + 4t..+3 of row
 // g + 8r in registers; with Cfg<D>::kQShared they are read from the warp's
 // rows of the shared Q tile (Qw) instead, and qf is empty.
@@ -250,15 +367,16 @@ __device__ __forceinline__ void pv(float (&acc)[D / 8][4], const float (&p)[NS][
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32, 1)
-span_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const int* __restrict__ pos,
-                  const long long* __restrict__ slot_map, float* __restrict__ out,
-                  float* __restrict__ part_acc, float* __restrict__ part_ml, int rows_c,
-                  int groups, int span, int chunk, int num_slots, long long k_slot,
-                  long long k_pos, long long k_head, long long v_slot, long long v_pos,
-                  long long v_head, float q_scale) {
+// One split kernel's block, (slot x group, head, split) = blockIdx, over the
+// keys `src` loads (ArenaTiles or PagedTiles, bound to the block's slot and
+// head)
+template <int D, class Src>
+__device__ __forceinline__ void chunk_block(const float* __restrict__ q, const Src& src,
+                                            const int* __restrict__ pos,
+                                            float* __restrict__ out,
+                                            float* __restrict__ part_acc,
+                                            float* __restrict__ part_ml, int rows_c,
+                                            int groups, int span, int chunk, float q_scale) {
   using C = Cfg<D>;
   constexpr int NS = kStep / 8;  // score n-tiles of a step
   constexpr int DT = D / 8;      // output n-tiles
@@ -278,11 +396,6 @@ span_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // 2t + 1 of every n-tile
   const int g = lane >> 2, t = lane & 3;
   const long long bh = static_cast<long long>(b) * heads + h;
-  long long slot = slot_map == nullptr ? b : slot_map[b];
-  const bool slot_ok = slot >= 0 && slot < num_slots;
-  if (!slot_ok) slot = 0;
-  const float* kb = k + slot * k_slot + h * k_head;
-  const float* vb = v + slot * v_slot + h * v_head;
 
   // each row's visible keys (0 for none, clamped to the span); over the
   // warp's live rows the deepest and the shallowest
@@ -293,7 +406,7 @@ span_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int c = r0 + g + 8 * r;
     int n = 0;
     if (c < rows_c) {
-      const int p = slot_ok ? pos[static_cast<long long>(b) * rows_c + c] : -1;
+      const int p = src.ok ? pos[static_cast<long long>(b) * rows_c + c] : -1;
       n = p < 0 ? 0 : min(p, span - 1) + 1;
       shallow = min(shallow, n);
     }
@@ -339,7 +452,7 @@ span_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int end = min(begin + chunk, group_deep);  // the block reads keys [begin, end)
   const int n_tiles = end > begin ? (end - begin + kTile - 1) / kTile : 0;
 
-  if (n_tiles > 0) load_tile<D>(ring, kb, k_pos, vb, v_pos, begin, end);
+  if (n_tiles > 0) src.template load<D>(ring, begin, end);
   cp_async_commit();
 
   float acc[DT][4];
@@ -353,8 +466,8 @@ span_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait_all();  // tile i landed ...
     __syncthreads();      // ... for every thread; tile i - 1's stage is free
     if (i + 1 < n_tiles)
-      load_tile<D>(ring + ((i + 1) % kStages) * C::kStage, kb, k_pos, vb, v_pos,
-                   begin + (i + 1) * kTile, end);
+      src.template load<D>(ring + ((i + 1) % kStages) * C::kStage, begin + (i + 1) * kTile,
+                           end);
     cp_async_commit();
 
     const int k0 = begin + i * kTile + half * kStep;
@@ -476,6 +589,50 @@ span_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+span_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const int* __restrict__ pos,
+                  const long long* __restrict__ slot_map, float* __restrict__ out,
+                  float* __restrict__ part_acc, float* __restrict__ part_ml, int rows_c,
+                  int groups, int span, int chunk, int num_slots, long long k_slot,
+                  long long k_pos, long long k_head, long long v_slot, long long v_pos,
+                  long long v_head, float q_scale) {
+  const int b = blockIdx.x / groups, h = blockIdx.y;
+  long long slot = slot_map == nullptr ? b : slot_map[b];
+  const bool slot_ok = slot >= 0 && slot < num_slots;
+  if (!slot_ok) slot = 0;
+  const ArenaTiles src{k + slot * k_slot + h * k_head, v + slot * v_slot + h * v_head, k_pos,
+                       v_pos, slot_ok};
+  chunk_block<D>(q, src, pos, out, part_acc, part_ml, rows_c, groups, span, chunk, q_scale);
+}
+
+// the paged pool [num_blocks + 1, block_size, heads, stored] (fp32, or int8
+// codes), the scale planes [num_blocks + 1, block_size, heads] (quantized
+// only), tables [batch, table_len]: row b of q reads table row b
+template <int D, int Q>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+paged_span_chunk_kernel(const float* __restrict__ q, const void* __restrict__ k,
+                        const void* __restrict__ v, const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale, const int* __restrict__ tables,
+                        const int* __restrict__ pos, float* __restrict__ out,
+                        float* __restrict__ part_acc, float* __restrict__ part_ml, int rows_c,
+                        int groups, int table_len, int block_size, int num_blocks, int chunk,
+                        float q_scale) {
+  using Src = PagedTiles<Q>;
+  using Elem = typename Src::Elem;
+  constexpr int kStored = kStoredOf<D, Q>;
+  const int b = blockIdx.x / groups, h = blockIdx.y, heads = gridDim.y;
+  const Src src{static_cast<const Elem*>(k) + h * kStored,
+                static_cast<const Elem*>(v) + h * kStored,
+                k_scale == nullptr ? nullptr : k_scale + h,
+                v_scale == nullptr ? nullptr : v_scale + h,
+                tables + static_cast<long long>(b) * table_len,
+                block_size, num_blocks, heads, true};
+  chunk_block<D>(q, src, pos, out, part_acc, part_ml, rows_c, groups, table_len * block_size,
+                 chunk, q_scale);
+}
+
 // out[bh, c] <- the lse merge of the row's `splits` partials, in split
 // order (m in log2 units); D / 4 lanes a row
 template <int D>
@@ -548,6 +705,65 @@ cudaError_t launch(const float* q, const float* k, const float* v, const int* po
   return cudaGetLastError();
 }
 
+template <int D, int Q>
+cudaError_t launch_paged(const float* q, const void* k, const void* v, const float* k_scale,
+                         const float* v_scale, const int* tables, const int* pos, float* out,
+                         float* workspace, int batch, int heads, int rows_c, int table_len,
+                         int block_size, int num_blocks, int splits, int chunk, float scale,
+                         cudaStream_t stream) {
+  const long long rows = static_cast<long long>(batch) * heads * rows_c;
+  const int groups = (rows_c + kGroup - 1) / kGroup;
+  float* part_acc = workspace;
+  float* part_ml = workspace == nullptr ? nullptr : workspace + rows * splits * D;
+  static unsigned attribute_set = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 32 || !(attribute_set >> device & 1u)) {
+    err = cudaFuncSetAttribute(paged_span_chunk_kernel<D, Q>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::kBytes);
+    if (err != cudaSuccess) return err;
+    if (device < 32) attribute_set |= 1u << device;
+  }
+  const dim3 grid(static_cast<unsigned>(static_cast<long long>(batch) * groups),
+                  static_cast<unsigned>(heads), static_cast<unsigned>(splits));
+  paged_span_chunk_kernel<D, Q><<<grid, kWarps * 32, Cfg<D>::kBytes, stream>>>(
+      q, k, v, k_scale, v_scale, tables, pos, out, part_acc, part_ml, rows_c, groups, table_len,
+      block_size, num_blocks, chunk, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  constexpr int kRowsPerBlock = kMergeThreads / (D / 4);
+  const unsigned blocks = static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+  span_chunk_merge_kernel<D><<<blocks, kMergeThreads, 0, stream>>>(part_acc, part_ml, out,
+                                                                   rows, rows_c, splits);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_paged_dtype(int kv_dtype, const float* q, const void* k, const void* v,
+                               const float* k_scale, const float* v_scale, const int* tables,
+                               const int* pos, float* out, float* workspace, int batch,
+                               int heads, int rows_c, int table_len, int block_size,
+                               int num_blocks, int splits, int chunk, float scale,
+                               cudaStream_t stream) {
+  switch (kv_dtype) {
+    case kFp:
+      return launch_paged<D, kFp>(q, k, v, k_scale, v_scale, tables, pos, out, workspace,
+                                  batch, heads, rows_c, table_len, block_size, num_blocks,
+                                  splits, chunk, scale, stream);
+    case kInt8:
+      return launch_paged<D, kInt8>(q, k, v, k_scale, v_scale, tables, pos, out, workspace,
+                                    batch, heads, rows_c, table_len, block_size, num_blocks,
+                                    splits, chunk, scale, stream);
+    case kInt4:
+      return launch_paged<D, kInt4>(q, k, v, k_scale, v_scale, tables, pos, out, workspace,
+                                    batch, heads, rows_c, table_len, block_size, num_blocks,
+                                    splits, chunk, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q, out: [batch, heads, rows_c, head_dim] float32, contiguous; k, v:
@@ -593,6 +809,60 @@ extern "C" int elephas_span_chunk(const void* q, const void* k, const void* v, c
     case 128:
       return launch<128>(qf, kf, vf, pf, sm, of, ws, batch, heads, rows_c, span, splits, chunk,
                          num_slots, k_slot, k_pos, k_head, v_slot, v_pos, v_head, scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// q, out: [batch, heads, rows_c, head_dim] float32, contiguous; k, v: the
+// paged pool [num_blocks + 1, block_size, heads, stored] contiguous, float32
+// for kv_dtype 0 (fp), int8 codes for 1 (int8, stored = head_dim) and 2
+// (int4 packed two a byte, stored = head_dim / 2), 16-byte aligned; k_scale,
+// v_scale: [num_blocks + 1, block_size, heads] float32 contiguous (null for
+// fp); tables: [batch, table_len] int32 contiguous, ids in [0, num_blocks]
+// (num_blocks the sentinel, read as the sink block); pos: [batch, rows_c]
+// int32. The span is table_len * block_size; splits, chunk and the workspace
+// as for elephas_span_chunk.
+extern "C" int elephas_paged_span_chunk(const void* q, const void* k, const void* v,
+                                        const void* k_scale, const void* v_scale,
+                                        const void* tables, const void* pos, void* out,
+                                        void* workspace, int batch, int heads, int rows_c,
+                                        int head_dim, int kv_dtype, int block_size,
+                                        int table_len, int num_blocks, int splits, int chunk,
+                                        float scale, void* stream) {
+  const long long span = static_cast<long long>(table_len) * block_size;
+  if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || rows_c < 1 ||
+      block_size < 1 || table_len < 1 || span > INT_MAX || num_blocks < 1 || splits < 1 ||
+      splits > 65535 || chunk < 1 || chunk % kTile != 0 ||
+      static_cast<long long>(splits) * chunk < span || (splits > 1 && workspace == nullptr) ||
+      kv_dtype < kFp || kv_dtype > kInt4 ||
+      (kv_dtype != kFp && (k_scale == nullptr || v_scale == nullptr)))
+    return cudaErrorInvalidValue;
+  const auto* qf = static_cast<const float*>(q);
+  const auto* ksc = static_cast<const float*>(k_scale);
+  const auto* vsc = static_cast<const float*>(v_scale);
+  const auto* tab = static_cast<const int*>(tables);
+  const auto* pf = static_cast<const int*>(pos);
+  auto* of = static_cast<float*>(out);
+  auto* ws = static_cast<float*>(workspace);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      return launch_paged_dtype<16>(kv_dtype, qf, k, v, ksc, vsc, tab, pf, of, ws, batch, heads,
+                                    rows_c, table_len, block_size, num_blocks, splits, chunk,
+                                    scale, st);
+    case 32:
+      return launch_paged_dtype<32>(kv_dtype, qf, k, v, ksc, vsc, tab, pf, of, ws, batch, heads,
+                                    rows_c, table_len, block_size, num_blocks, splits, chunk,
+                                    scale, st);
+    case 64:
+      return launch_paged_dtype<64>(kv_dtype, qf, k, v, ksc, vsc, tab, pf, of, ws, batch, heads,
+                                    rows_c, table_len, block_size, num_blocks, splits, chunk,
+                                    scale, st);
+    case 128:
+      return launch_paged_dtype<128>(kv_dtype, qf, k, v, ksc, vsc, tab, pf, of, ws, batch,
+                                     heads, rows_c, table_len, block_size, num_blocks, splits,
+                                     chunk, scale, st);
     default:
       return cudaErrorInvalidValue;
   }

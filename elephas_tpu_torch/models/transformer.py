@@ -53,8 +53,11 @@ from elephas_tpu_torch.ops.flash_attention import (
 )
 from elephas_tpu_torch.ops.flash_serving import (
     flash_causal_prefill,
+    flash_paged_span_chunk,
+    flash_paged_span_decode,
     flash_span_chunk,
     flash_span_decode,
+    paged_dense_span,
     span_bucket_for,
     span_buckets,
 )
@@ -107,6 +110,24 @@ def _apply_rope(x, cos, sin):
     return x * cos + rot * sin
 
 
+def _dense_span_attention(q, gk, gv, pos):
+    """The naive serving attention, the parity oracle: the dense masked
+    softmax of ``q`` (``[B, H, D]`` at positions ``pos`` ``[B]``, or ``[B, H,
+    C, D]`` at ``[B, C]``) over the span ``gk`` / ``gv`` (``[B, S, H, D]``),
+    key ``j`` visible iff ``j <= pos``."""
+    cols = torch.arange(gk.shape[1], device=q.device)
+    scale = q.shape[-1] ** -0.5
+    if q.ndim == 3:
+        att = torch.einsum("bhd,bshd->bhs", q, gk) * scale
+        visible = cols[None, None, :] <= pos.long()[:, None, None]
+        att = torch.softmax(att.masked_fill(~visible, -torch.inf), dim=-1)
+        return torch.einsum("bhs,bshd->bhd", att, gv)
+    att = torch.einsum("bhcd,bshd->bhcs", q, gk) * scale
+    visible = cols[None, None, None, :] <= pos.long()[:, None, :, None]
+    att = torch.softmax(att.masked_fill(~visible, -torch.inf), dim=-1)
+    return torch.einsum("bhcs,bshd->bhcd", att, gv)
+
+
 class FlashMHA(nn.Module):
     """Multi-head self-attention over the flash kernel: a fused ``qkv``
     projection without bias, per-head scaled dot-product attention, and
@@ -119,7 +140,9 @@ class FlashMHA(nn.Module):
     against. :meth:`prefill` and :meth:`decode` are the serving
     counterparts of ``elephas_tpu/serving/kv_cache.py``'s attention
     handlers, as is :meth:`chunk`: they write K/V into a slot arena in
-    place."""
+    place. :meth:`paged_decode` and :meth:`paged_chunk` are those of
+    ``elephas_tpu/serving/paged_kv.py``: they write into a paged block pool
+    in place (quantizing on write) and attend through block tables."""
 
     def __init__(self, d_model: int, num_heads: int, head_dim: int,
                  causal: bool = False, rope: bool = False,
@@ -209,10 +232,7 @@ class FlashMHA(nn.Module):
         if attention == "flash":
             out = flash_span_decode(q.contiguous(), ck, cv, positions, scale=d ** -0.5)
         else:
-            att = torch.einsum("bhd,bshd->bhs", q, ck) * d ** -0.5
-            visible = torch.arange(span, device=x.device)[None, None, :] <= idx[:, None, None]
-            att = torch.softmax(att.masked_fill(~visible, -torch.inf), dim=-1)
-            out = torch.einsum("bhs,bshd->bhd", att, cv)
+            out = _dense_span_attention(q, ck, cv, idx)
         return self.proj(out.reshape(b, h * d))
 
     def chunk(self, x, pos_mat, valid, cache_k, cache_v, slots=None,
@@ -250,12 +270,76 @@ class FlashMHA(nn.Module):
             out = flash_span_chunk(q, cache_k[:, :span], cache_v[:, :span], pos_mat,
                                    scale=d ** -0.5, slots=slots)
         else:
-            ck, cv = cache_k[rows, :span], cache_v[rows, :span]
-            att = torch.einsum("bhcd,bshd->bhcs", q, ck) * d ** -0.5
-            visible = (torch.arange(span, device=x.device)[None, None, None, :]
-                       <= pos_mat[:, None, :, None])
-            att = torch.softmax(att.masked_fill(~visible, -torch.inf), dim=-1)
-            out = torch.einsum("bhcs,bshd->bhcd", att, cv)
+            out = _dense_span_attention(q, cache_k[rows, :span], cache_v[rows, :span], pos_mat)
+        return self.proj(out.transpose(1, 2).reshape(n, c, h * d))
+
+
+    def _write_pool(self, entry, blk, off, k, v, kv_dtype):
+        """This call's K/V rows into pool rows ``(blk, off)`` in place: fp
+        rows, or codes and scales from
+        :func:`~elephas_tpu_torch.serving.kv_quant.quantize_rows`. Lanes
+        that must not write carry the sink block's id."""
+        if kv_dtype == "fp":
+            entry[0][blk, off] = k
+            entry[1][blk, off] = v
+            return
+        from elephas_tpu_torch.serving.kv_quant import quantize_rows
+
+        for i, rows in enumerate((k, v)):
+            codes, scales = quantize_rows(rows, kv_dtype)
+            entry[i][blk, off] = codes
+            entry[2 + i][blk, off] = scales
+
+    def _pool_attend(self, q, entry, tables, pos, attention, kv_dtype):
+        """Attention of ``q`` (``[B, H, D]`` one row, or ``[B, H, C, D]``) at
+        ``pos`` over each row's table span of the pool: the paged kernels,
+        or the dense masked softmax over the gathered, dequantized span."""
+        d = self.head_dim
+        scales = None if kv_dtype == "fp" else entry[2:]
+        if attention == "flash":
+            fn = flash_paged_span_decode if q.ndim == 3 else flash_paged_span_chunk
+            return fn(q.contiguous(), entry[0], entry[1], tables, pos, scale=d ** -0.5,
+                      kv_dtype=kv_dtype, kv_scales=scales)
+        gk, gv = paged_dense_span(entry[0], entry[1], tables, kv_dtype, scales, d)
+        return _dense_span_attention(q, gk, gv, pos)
+
+    def paged_decode(self, x, positions, entry, tables, blk, off, attention: str = "flash",
+                     kv_dtype: str = "fp"):
+        """One token a slot over the paged pool: ``x`` ``[B, d_model]`` at
+        ``positions`` (``[B]`` int32). Writes each slot's K/V into pool row
+        ``(blk[b], off[b])`` of ``entry`` (the layer's pool leaves; ``blk``
+        the sink for a lane that must not write) in place, then attends over
+        the keys at positions ``<= positions[b]`` of table row ``tables[b]``
+        (``[B, T]`` int32). Returns ``[B, d_model]``."""
+        b = x.shape[0]
+        h, d = self.num_heads, self.head_dim
+        q, k, v = self.qkv(x).view(b, 3, h, d).unbind(1)  # [B, H, D]
+        if self.rope:
+            idx = positions.long()
+            cos, sin = self.rope_cos[idx][:, None], self.rope_sin[idx][:, None]
+            q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
+        self._write_pool(entry, blk, off, k, v, kv_dtype)
+        out = self._pool_attend(q, entry, tables, positions, attention, kv_dtype)
+        return self.proj(out.reshape(b, h * d))
+
+    def paged_chunk(self, x, pos_mat, entry, tables, blk, off, attention: str = "flash",
+                    kv_dtype: str = "fp"):
+        """``C`` tokens a row over the paged pool: ``x`` ``[n, C, d_model]`` at
+        ``pos_mat`` (``[n, C]`` int32). Writes the K/V of each token into
+        pool row ``(blk, off)`` (``[n, C]``; the sink for padded and inactive
+        tokens) FIRST, then attends over table row ``tables[b]``'s keys at
+        positions ``<= pos_mat[b, c]``. Returns ``[n, C, d_model]``."""
+        n, c, _ = x.shape
+        h, d = self.num_heads, self.head_dim
+        q, k, v = self.qkv(x).view(n, c, 3, h, d).unbind(2)  # [n, C, H, D]
+        if self.rope:
+            # a padded tail may run past the tables: its rows are never read
+            tbl = pos_mat.clamp(max=self.rope_cos.shape[0] - 1).long()
+            cos, sin = self.rope_cos[tbl][:, :, None], self.rope_sin[tbl][:, :, None]
+            q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
+        self._write_pool(entry, blk, off, k, v, kv_dtype)
+        out = self._pool_attend(q.transpose(1, 2), entry, tables, pos_mat, attention,
+                                kv_dtype)
         return self.proj(out.transpose(1, 2).reshape(n, c, h * d))
 
 

@@ -28,7 +28,17 @@ reference, not Pallas), with the same public functions:
 - :func:`flash_causal_prefill` — causal attention of a prompt bucket from
   position 0: on CUDA the port's flash forward kernel
   (:func:`elephas_tpu_torch.ops.flash_attention.flash_attention`, the
-  same function), on the CPU the reference's tile loop.
+  same function), on the CPU the reference's tile loop;
+- :func:`flash_paged_span_decode` / :func:`flash_paged_span_chunk` — the
+  same two attentions over the paged KV pool: key ``j`` of row ``b`` lives
+  in pool block ``tables[b, j // block_size]``, row ``j % block_size``, and
+  the pool holds float32 rows (``kv_dtype="fp"``) or int8 / packed int4
+  codes with per-(position, head) scales, dequantized as a tile lands. A
+  CUDA tensor launches the block-table variants of the two kernels (the
+  same split rules over the table span ``T · block_size``), a CPU tensor
+  their plain versions :func:`paged_span_decode_reference` /
+  :func:`paged_span_chunk_reference`: gather through the table, dequantize,
+  then the tile loop above.
 
 Numerics: the online softmax evaluates the same softmax as a dense one in
 another association order, so outputs agree to float tolerance. Rows that
@@ -63,10 +73,14 @@ CHUNK_GROUP = 64
 CHUNK_BLOCKS_PER_SM = 1
 LOG2E = 1.4426950408889634
 
-# kernel launches since the last reset, span decode and span chunk
-# (chip_smoke.py reads them)
+# kernel launches since the last reset: span decode, span chunk and their
+# paged variants (chip_smoke.py reads them)
 launches = 0
 chunk_launches = 0
+paged_launches = 0
+paged_chunk_launches = 0
+# kv_dtype -> the C entries' code; the stored type of each pool
+KV_CODES = {"fp": 0, "int8": 1, "int4": 2}
 _CHUNK_LIB = None  # the span-chunk library, its argument types set (_chunk_kernel)
 
 
@@ -583,3 +597,210 @@ def flash_causal_prefill(q, k, v, scale=None, block_q: int = DEFAULT_BLOCK,
             m, l, acc = _online_update(m, l, acc, s, vt)
         out.append(acc / torch.where(l == 0.0, 1.0, l)[..., None])
     return torch.cat(out, dim=2)
+
+
+# -- the paged pool ------------------------------------------------------------
+
+def paged_dense_span(pool_k, pool_v, tables, kv_dtype: str = "fp", kv_scales=None,
+                     head_dim=None):
+    """The keys and values of each table row as a dense float32 span: ``[B,
+    T · block_size, H, D]`` each, gathered through ``tables`` (``[B, T]``
+    block ids; the sentinel id reads the pool's sink block) and, for a
+    quantized pool, dequantized with its scales (``kv_scales = (k_scale,
+    v_scale)``, ``[N + 1, block_size, H]``; ``head_dim`` the unpacked
+    width)."""
+    from elephas_tpu_torch.serving.kv_quant import dequantize_rows
+
+    b, t = tables.shape
+    idx = tables.long()
+    bs = pool_k.shape[1]
+
+    def span(z):
+        return z[idx].reshape(b, t * bs, *z.shape[2:])
+
+    gk, gv = span(pool_k), span(pool_v)
+    if kv_dtype == "fp":
+        return gk.float(), gv.float()
+    ks, vs = kv_scales
+    d = head_dim if head_dim is not None else pool_k.shape[-1]
+    return (dequantize_rows(gk, span(ks), kv_dtype, d),
+            dequantize_rows(gv, span(vs), kv_dtype, d))
+
+
+def paged_span_decode_reference(q, pool_k, pool_v, tables, positions, scale=None,
+                                kv_dtype: str = "fp", kv_scales=None,
+                                block_k: int = DEFAULT_BLOCK):
+    """The plain version of :func:`flash_paged_span_decode`: the table span
+    gathered and dequantized (:func:`paged_dense_span`), then
+    :func:`span_chunk_reference` with one query row. Returns ``[B, H, D]``
+    float32."""
+    gk, gv = paged_dense_span(pool_k, pool_v, tables, kv_dtype, kv_scales, q.shape[-1])
+    return span_chunk_reference(q[:, :, None], gk, gv, positions[:, None], scale,
+                                block_k)[:, :, 0]
+
+
+def paged_span_chunk_reference(q, pool_k, pool_v, tables, pos_mat, scale=None,
+                               kv_dtype: str = "fp", kv_scales=None,
+                               block_k: int = DEFAULT_BLOCK):
+    """The plain version of :func:`flash_paged_span_chunk`: the table span
+    gathered and dequantized, then :func:`span_chunk_reference`. Returns
+    ``[B, H, C, D]`` float32."""
+    gk, gv = paged_dense_span(pool_k, pool_v, tables, kv_dtype, kv_scales, q.shape[-1])
+    return span_chunk_reference(q, gk, gv, pos_mat, scale, block_k)
+
+
+def _paged_kernel(name):
+    lib = _native.library(name)
+    fn = getattr(lib, f"elephas_paged_{name}")
+    if fn.argtypes is None:
+        ints = 9 if name == "span_decode" else 10
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * ints \
+            + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.elephas_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.elephas_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_paged_operands(what, q, rows, pool_k, pool_v, tables, pos, kv_dtype, kv_scales):
+    """Raise on what the paged kernels do not take: q float32 contiguous
+    ``[B, H, D]`` (decode) or ``[B, H, C, D]`` (chunk) with D in HEAD_DIMS;
+    the pool contiguous ``[N + 1, block_size, H, Ds]``, float32 for ``"fp"``
+    and int8 codes otherwise (``Ds`` = D, or D / 2 for int4), 16-byte
+    aligned; scales float32 contiguous ``[N + 1, block_size, H]`` when
+    quantized; ``tables`` contiguous int32 ``[B, T]``; ``pos`` contiguous
+    int32 ``[B]`` or ``[B, C]``; all on one device."""
+    if kv_dtype not in KV_CODES:
+        raise ValueError(f"{what} takes kv_dtype in {tuple(KV_CODES)}, got {kv_dtype!r}")
+    if q.ndim != (3 if rows is None else 4):
+        raise ValueError(f"{what} takes q {'[B, H, D]' if rows is None else '[B, H, C, D]'}, "
+                         f"got {tuple(q.shape)}")
+    b, h, d = q.shape[0], q.shape[1], q.shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what} takes head_dim in {HEAD_DIMS}, got {d}")
+    if q.dtype != torch.float32 or not q.is_contiguous() or q.data_ptr() % ALIGN_BYTES:
+        raise ValueError(f"{what} takes a contiguous, 16-byte-aligned float32 q")
+    stored = d // 2 if kv_dtype == "int4" else d
+    want = torch.float32 if kv_dtype == "fp" else torch.int8
+    leaves = [("k", pool_k), ("v", pool_v)]
+    if kv_dtype != "fp":
+        if kv_scales is None:
+            raise ValueError(f"{what} with kv_dtype={kv_dtype!r} needs kv_scales")
+        leaves += [("k_scale", kv_scales[0]), ("v_scale", kv_scales[1])]
+    n1, bs = pool_k.shape[:2]
+    for name, t in leaves:
+        dtype, shape = (want, (n1, bs, h, stored)) if name in "kv" \
+            else (torch.float32, (n1, bs, h))
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous() \
+                or t.device != q.device or t.data_ptr() % ALIGN_BYTES:
+            raise ValueError(
+                f"{what}: {name} must be a contiguous, 16-byte-aligned {dtype} {shape} "
+                f"on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if n1 < 2:
+        raise ValueError(f"{what}: the pool needs a block and the sink, got {n1} blocks")
+    if tables.dtype != torch.int32 or tables.ndim != 2 or tables.shape[0] != b \
+            or not tables.is_contiguous() or tables.device != q.device:
+        raise ValueError(f"{what}: tables must be contiguous int32 [{b}, T] on {q.device}, "
+                         f"got {tables.dtype} {tuple(tables.shape)} on {tables.device}")
+    want_pos = (b,) if rows is None else (b, rows)
+    if pos.dtype != torch.int32 or tuple(pos.shape) != want_pos or not pos.is_contiguous() \
+            or pos.device != q.device:
+        raise ValueError(f"{what}: positions must be contiguous int32 {want_pos} on "
+                         f"{q.device}, got {pos.dtype} {tuple(pos.shape)} on {pos.device}")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"{what} takes at most 65535 rows and heads, got {b} and {h}")
+
+
+def _launch_paged(q, pool_k, pool_v, tables, pos, scale, kv_dtype, kv_scales):
+    """One call of a paged kernel on checked CUDA operands (the decode for a
+    ``[B, H, D]`` q, the chunk for ``[B, H, C, D]``), on q's current stream,
+    with the split of the arena kernel over the table span."""
+    global paged_launches, paged_chunk_launches
+    decode = q.ndim == 3
+    b, h, d = q.shape[0], q.shape[1], q.shape[-1]
+    c = 1 if decode else q.shape[2]
+    n1, bs = pool_k.shape[:2]
+    t = tables.shape[1]
+    span = t * bs
+    index = q.device.index
+    sms = _sm_count(index)
+    if decode:
+        splits, chunk = span_splits(span, b * h, sms)
+    else:
+        splits, chunk = span_chunk_splits(span, b * h, c, d, sms)
+    out = torch.empty_like(q)
+    work = torch.empty(b * h * splits * c * (d + 2), dtype=torch.float32, device=q.device) \
+        if splits > 1 else None
+    ks, vs = (None, None) if kv_scales is None else (kv_scales[0].data_ptr(),
+                                                     kv_scales[1].data_ptr())
+    name = "span_decode" if decode else "span_chunk"
+    lib = _paged_kernel(name)
+    shape = (b, h, d) if decode else (b, h, c, d)
+    args = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), ks, vs, tables.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(),
+            *shape, KV_CODES[kv_dtype], bs, t, n1 - 1, splits, chunk, float(scale),
+            torch._C._cuda_getCurrentRawStream(index))
+    fn = getattr(lib, f"elephas_paged_{name}")
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
+    if err:
+        raise RuntimeError(f"paged {name} launch failed: "
+                           + lib.elephas_cuda_error_string(err).decode())
+    if decode:
+        paged_launches += 1
+    else:
+        paged_chunk_launches += 1
+    return out
+
+
+def flash_paged_span_decode(q, pool_k, pool_v, tables, positions, scale=None,
+                            kv_dtype: str = "fp", kv_scales=None,
+                            block_k: int = DEFAULT_BLOCK):
+    """One-row decode attention over each slot's table span of the paged
+    pool: ``q`` ``[B, H, Dh]`` at ``positions`` ``[B]``, ``pool_k`` /
+    ``pool_v`` ``[N + 1, block_size, H, Ds]`` (block ``N`` the sink, which
+    the sentinel id ``N`` reads), ``tables`` ``[B, T]`` block ids. Keys at
+    positions ``<= positions[b]`` of the span ``T · block_size`` are
+    visible. ``kv_dtype`` ``"int8"`` / ``"int4"`` takes int8 code pools and
+    ``kv_scales = (k_scale, v_scale)`` ``[N + 1, block_size, H]``. Returns
+    ``[B, H, Dh]`` float32.
+
+    A CUDA tensor launches the paged span-decode kernel (int32 tables and
+    positions on the device), a CPU tensor runs
+    :func:`paged_span_decode_reference`."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return paged_span_decode_reference(q, pool_k, pool_v, tables, positions, scale,
+                                           kv_dtype, kv_scales, block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged span_decode runs on cuda or cpu, not {q.device}")
+    _check_paged_operands("paged span_decode", q, None, pool_k, pool_v, tables, positions,
+                          kv_dtype, kv_scales)
+    return _launch_paged(q, pool_k, pool_v, tables, positions, scale, kv_dtype, kv_scales)
+
+
+def flash_paged_span_chunk(q, pool_k, pool_v, tables, pos_mat, scale=None,
+                           kv_dtype: str = "fp", kv_scales=None,
+                           block_k: int = DEFAULT_BLOCK):
+    """Attention of chunk queries over each row's table span of the paged
+    pool: ``q`` ``[B, H, C, Dh]`` at ``pos_mat`` ``[B, C]``, the pool and
+    ``tables`` as in :func:`flash_paged_span_decode` (row ``b`` of q reads
+    table row ``b``). Returns ``[B, H, C, Dh]`` float32; a row that sees no
+    key outputs zeros.
+
+    A CUDA tensor launches the paged span-chunk kernel, a CPU tensor runs
+    :func:`paged_span_chunk_reference`."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return paged_span_chunk_reference(q, pool_k, pool_v, tables, pos_mat, scale,
+                                          kv_dtype, kv_scales, block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged span_chunk runs on cuda or cpu, not {q.device}")
+    _check_paged_operands("paged span_chunk", q, q.shape[2], pool_k, pool_v, tables, pos_mat,
+                          kv_dtype, kv_scales)
+    return _launch_paged(q, pool_k, pool_v, tables, pos_mat, scale, kv_dtype, kv_scales)

@@ -1,10 +1,12 @@
 """InferenceEngine — the continuous-batching serving loop.
 
-Counterpart of ``elephas_tpu/serving/engine.py`` on the fixed slot arena,
-single device: whole-prompt or chunked prefill, the prefix cache,
-``attention="flash"`` (or ``"naive"``, the parity oracle). One engine
-wraps one causal :func:`~elephas_tpu_torch.transformer_lm` and serves any
-number of generation requests through these kinds of device work:
+Counterpart of ``elephas_tpu/serving/engine.py``, single device: the fixed
+slot arena or the paged block pool (``paged=True``, with preemption and
+int8 / int4 KV), whole-prompt or chunked prefill, the prefix cache,
+``attention="flash"`` (or ``"naive"``, the parity oracle), and
+:meth:`InferenceEngine.score`. One engine wraps one causal
+:func:`~elephas_tpu_torch.transformer_lm` and serves any number of
+generation requests through these kinds of device work:
 
 - **prefill**, one forward per prompt-length bucket of an admission wave
   (:func:`~elephas_tpu_torch.serving.kv_cache.prefill_forward`; the flash
@@ -23,16 +25,26 @@ chunked_prefill_forward`; the span-chunk kernel on the card): with
   device: a step's input is the previous step's sampled tensor, and the
   host reads the window once.
 
+The paged arena (:mod:`~elephas_tpu_torch.serving.paged_kv`) replaces the
+slot rows by block tables into one pool: every prefill is a chunk pass
+(:func:`~elephas_tpu_torch.serving.paged_kv.paged_chunk_forward`; the paged
+span-chunk kernel on the card) from the prompt's start or from the end of
+its copy-free prefix splice, every decode step a paged step
+(:func:`~elephas_tpu_torch.serving.paged_kv.paged_token_decode_step`; the
+paged span-decode kernel). With ``preemption=True`` a higher-priority
+arrival swaps lower-priority requests' blocks out to pinned host memory
+and they resume bit for bit.
+
 Each :meth:`InferenceEngine.step`: admit waiting requests into free slots
-(copies and prefill), spend the step's chunk budget, run one decode window
-over the slots whose prefill is complete, reclaim slots that hit EOS or
-their token budget. Requests may be submitted at any time and join the
-next step's admission wave.
+(offloads of preempted requests first, then resumes, copies and prefill),
+spend the step's chunk budget, run one decode window over the slots whose
+prefill is complete, reclaim slots that hit EOS or their token budget.
+Requests may be submitted at any time and join the next step's admission
+wave.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: the paged arena, preemption and quantized KV, speculative
-decoding, SLO policies, sequence-parallel prefill, meshes, the gateway and
-telemetry.
+ROADMAP.md item: speculative decoding, SLO policies, the flight recorder,
+sequence-parallel prefill, meshes, the gateway, migration and telemetry.
 """
 
 from __future__ import annotations
@@ -50,12 +62,24 @@ from elephas_tpu_torch.models.transformer import (
     validate_token_decode_model,
 )
 from elephas_tpu_torch.ops.flash_serving import span_bucket_for, span_buckets
+from elephas_tpu_torch.serving.blocks import BlockAllocator
 from elephas_tpu_torch.serving.kv_cache import (
     SlotKVCache,
     chunked_prefill_forward,
     prefill_forward,
     prefix_copy,
     token_decode_step,
+)
+from elephas_tpu_torch.serving.kv_quant import check_kv_dtype
+from elephas_tpu_torch.serving.paged_kv import (
+    PagedKVPool,
+    blocks_for,
+    gather_blocks,
+    paged_chunk_forward,
+    paged_token_decode_step,
+    scatter_blocks,
+    table_bucket_for,
+    table_buckets,
 )
 from elephas_tpu_torch.serving.scheduler import Request, Scheduler, default_buckets
 
@@ -68,6 +92,24 @@ class RequestCancelled(RuntimeError):
     """Set as ``req.error`` when :meth:`InferenceEngine.cancel` reclaims
     an in-flight request: the request is ``done`` without completing, its
     tokens-so-far kept for the caller."""
+
+
+class _OffloadRecord:
+    """A preempted request's K/V on the host: ``rows`` is ``{layer: leaves}``
+    at the pool's stored dtype (fp ``(k, v)`` or ``(kq, vq, k_scale,
+    v_scale)``), each ``[n_blocks, block_size, ...]`` (pinned memory when the
+    pool is on a card), with the cursor of a bit-exact resume."""
+
+    __slots__ = ("rows", "n_blocks", "cur_len")
+
+    def __init__(self, rows, n_blocks, cur_len):
+        self.rows = rows
+        self.n_blocks = int(n_blocks)
+        self.cur_len = int(cur_len)
+
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size() for leaves in self.rows.values()
+                   for a in leaves)
 
 
 def _sample_dynamic(logits, generator, temps, top_k, top_p):
@@ -109,6 +151,16 @@ class InferenceEngine:
     token. Both compose; temperature-0 tokens are those of the engine
     without them.
 
+    ``paged=True`` serves from a pool of ``num_blocks`` blocks of
+    ``block_size`` positions (default 16, and enough blocks for every slot
+    to hold ``maxlen``): a request reserves the blocks of its prompt and
+    budget, prefix hits share full blocks by refcount, and a request that
+    can never fit is rejected at :meth:`submit`. ``preemption=True`` lets an
+    arrival of higher ``priority`` swap lower ones out to the host.
+    ``kv_dtype`` ``"int8"`` / ``"int4"`` stores the pool quantized with
+    per-(position, head) scales (``"fp"``, the default, is the parity
+    oracle). The five keywords take the reference's validation.
+
     Every other keyword of the reference is accepted: at the value that
     leaves the behaviour unchanged (the reference's default, and
     ``flight_recorder=None`` or ``0``: the port records nothing yet), any
@@ -144,9 +196,7 @@ class InferenceEngine:
         )
         # (name, value, the value that leaves the behaviour unchanged, item)
         unported = (
-            ("paged", paged, False, 3), ("block_size", block_size, None, 3),
-            ("num_blocks", num_blocks, None, 3), ("preemption", preemption, False, 3),
-            ("kv_dtype", kv_dtype, "fp", 3), ("speculative", speculative, False, 3),
+            ("speculative", speculative, False, 3),
             ("spec_k", spec_k, None, 3), ("spec_drafter", spec_drafter, None, 3),
             ("policy", policy, None, 3), ("flight_recorder", flight_recorder or None, None, 3),
             ("mesh", mesh, None, 5), ("batch_axes", batch_axes, ("data",), 5),
@@ -200,6 +250,49 @@ class InferenceEngine:
         self._prefill_budget = (
             int(prefill_budget) if prefill_budget is not None else (prefill_chunk or 0)
         )
+        # the paged arena's knobs, validated as the reference does
+        self.paged = bool(paged)
+        if not self.paged:
+            if block_size is not None or num_blocks is not None:
+                raise ValueError(
+                    "block_size/num_blocks require paged=True — the "
+                    "fixed arena has no blocks, silently ignoring the "
+                    "knobs would misreport capacity"
+                )
+            if preemption:
+                raise ValueError(
+                    "preemption requires paged=True — the fixed arena "
+                    "has no block pool to swap out of"
+                )
+            self.block_size = None
+            self.num_blocks = None
+        else:
+            bs = 16 if block_size is None else int(block_size)
+            if not 0 < bs <= self.maxlen:
+                raise ValueError(
+                    f"block_size={bs} outside (0, maxlen={self.maxlen}]"
+                )
+            self.block_size = bs
+            # blocks one request may need (a whole maxlen context); the
+            # default pool lets every slot hold one
+            self.max_blocks_per_slot = blocks_for(self.maxlen, bs)
+            nb = (
+                int(num_blocks) if num_blocks is not None
+                else self.num_slots * self.max_blocks_per_slot
+            )
+            if nb < 1:
+                raise ValueError(f"num_blocks={nb} < 1")
+            self.num_blocks = nb
+            self._tbuckets = table_buckets(self.max_blocks_per_slot)
+        self.preemption = bool(preemption)
+        check_kv_dtype(kv_dtype)
+        if kv_dtype != "fp" and not self.paged:
+            raise ValueError(
+                "kv_dtype requires paged=True — the fixed slot arena "
+                "has no quantized storage path; silently serving fp "
+                "would misreport the KV byte budget"
+            )
+        self.kv_dtype = kv_dtype
         if attention not in ("flash", "naive"):
             raise ValueError(
                 f"attention must be 'flash' or 'naive', got "
@@ -218,10 +311,22 @@ class InferenceEngine:
         self._sbuckets = span_buckets(self.maxlen)
         self.steps_per_sync = max(1, int(steps_per_sync))
 
-        self.arena = SlotKVCache(layers, self.num_slots, self.maxlen, self.device)
+        self._layers = layers
+        allocator = None
+        if self.paged:
+            self.arena = PagedKVPool(layers, self.num_blocks, self.block_size, self.device,
+                                     self.kv_dtype)
+            allocator = BlockAllocator(self.num_blocks, self.block_size)
+        else:
+            self.arena = SlotKVCache(layers, self.num_slots, self.maxlen, self.device)
         self.scheduler = Scheduler(self.num_slots, buckets or default_buckets(self.maxlen),
                                    prefix_cache=prefix_cache,
-                                   prefix_min_reuse=prefix_min_reuse)
+                                   prefix_min_reuse=prefix_min_reuse,
+                                   allocator=allocator, preemption=preemption)
+        # paged: the device block tables, restaged only when the scheduler's
+        # tables or their bucket change; preempted requests' K/V on the host
+        self._tables_cache: tuple | None = None
+        self._offloaded: dict[int, _OffloadRecord] = {}
         # slots mid-chunked-prefill: slot -> [Admission, progress], progress
         # the prompt tokens already resident (a copied prefix included); the
         # slot decodes once progress == len(prompt)
@@ -247,6 +352,12 @@ class InferenceEngine:
         self.finished_count = 0
         self.finished_evicted = 0
         self.cancelled = 0
+        self.preemptions = 0
+        self.resumes = 0
+        self.offloaded_blocks = 0
+        self.rejected = 0
+        self.kv_quant_offload_bytes = 0
+        self.score_requests = 0
 
     # -- lifecycle ------------------------------------------------------
 
@@ -275,7 +386,12 @@ class InferenceEngine:
         land; a raising callback fails only ITS request (``req.error`` set,
         KV slot reclaimed) and the engine keeps serving. ``priority``,
         ``tenant`` and ``ttft_deadline_ms`` are validated as the reference
-        validates them on an engine without preemption or a policy."""
+        validates them on an engine without a policy; ``priority`` matters
+        only with ``preemption=True``.
+
+        Paged: a request whose prompt and budget can never fit the block
+        pool comes back ``done`` with ``req.error`` a ``RuntimeError``, never
+        queued."""
         prompt = np.asarray(prompt).reshape(-1)
         p = len(prompt)
         if p < 1:
@@ -294,7 +410,7 @@ class InferenceEngine:
         # to no prompt bucket)
         if not self.prefill_chunk:
             self.scheduler.bucket_for(p)
-        if priority:
+        if priority and not self.preemption:
             logger.warning(
                 "submit(priority=%d) on an engine without "
                 "preemption=True — priority is recorded but IGNORED "
@@ -325,6 +441,23 @@ class InferenceEngine:
             on_token=on_token, priority=priority,
         )
         req.submit_time = time.perf_counter()
+        if self.paged:
+            need = blocks_for(p + max_new_tokens, self.block_size)
+            if need > self.num_blocks:
+                # it would wait at the queue head forever: reject it now
+                req.error = RuntimeError(
+                    f"request {req.rid} needs {need} KV blocks "
+                    f"(prompt {p} + max_new_tokens {max_new_tokens} "
+                    f"at block_size {self.block_size}) but the pool "
+                    f"only has {self.num_blocks} — it can never be "
+                    f"admitted; rejected at submit"
+                )
+                req.done = True
+                self.rejected += 1
+                logger.warning("%s", req.error)
+                self.finished[req.rid] = req
+                self._evict_finished()
+                return req
         return self.scheduler.submit(req)
 
     # -- token bookkeeping ----------------------------------------------
@@ -475,12 +608,20 @@ class InferenceEngine:
             offs[i], clens[i] = progress, take
         slots = torch.tensor([a.slot for a, _p, _t in items], dtype=torch.long, device=dev)
         offs_d = torch.from_numpy(offs).to(dev)
-        # the attended row need only cover this call's deepest written
-        # position: queries see the copied prefix and earlier chunks below it
-        span = self._fixed_span(int((offs + clens).max()))
-        logits = chunked_prefill_forward(self.model, torch.from_numpy(rows).to(dev), self.arena,
-                                         offs_d, torch.from_numpy(clens).to(dev),
-                                         attention=self.attention, span=span, slots=slots)
+        if self.paged:
+            # the block tables carry the mapping, spliced prefix blocks too
+            logits = paged_chunk_forward(self.model, torch.from_numpy(rows).to(dev), self.arena,
+                                         self._staged_tables()[slots].contiguous(), offs_d,
+                                         torch.from_numpy(clens).to(dev),
+                                         attention=self.attention)
+        else:
+            # the attended row need only cover this call's deepest written
+            # position: queries see the copied prefix and earlier chunks
+            span = self._fixed_span(int((offs + clens).max()))
+            logits = chunked_prefill_forward(self.model, torch.from_numpy(rows).to(dev),
+                                             self.arena, offs_d,
+                                             torch.from_numpy(clens).to(dev),
+                                             attention=self.attention, span=span, slots=slots)
         fin = [i for i, (a, p, t) in enumerate(items) if p + t == len(a.req.prompt)]
         if not fin:
             return []
@@ -536,6 +677,104 @@ class InferenceEngine:
                                            copies=[a for a, _p, _t in by_width[width]]))
         return emitted
 
+    # -- the paged arena ------------------------------------------------
+
+    def _staged_tables(self):
+        """The scheduler's block tables on the device, ``[num_slots, T]``
+        int32 for the table bucket ``T`` covering the longest live table,
+        padded with the sentinel id (idle slots all sentinel); rebuilt only
+        when the tables or the bucket change."""
+        sched = self.scheduler
+        need = max((len(t) for t in sched.tables.values()), default=1)
+        t = table_bucket_for(need, self._tbuckets)
+        key = (sched.tables_version, t)
+        if self._tables_cache is None or self._tables_cache[0] != key:
+            arr = np.full((self.num_slots, t), self.num_blocks, np.int32)
+            for slot, table in sched.tables.items():
+                arr[slot, : len(table)] = table
+            self._tables_cache = (key, torch.from_numpy(arr).to(self.device))
+        return self._tables_cache[1]
+
+    def _host_copy(self, z):
+        """``z`` into host memory: pinned, copied without a sync, when it is
+        on a card (a later copy back on the same stream is ordered after
+        it)."""
+        if z.device.type == "cpu":
+            return z
+        out = torch.empty(z.shape, dtype=z.dtype, pin_memory=True)
+        out.copy_(z, non_blocking=True)
+        return out
+
+    @torch.inference_mode()
+    def _offload(self, pre) -> None:
+        """Swap a preemption victim's blocks to host memory. Runs before any
+        pool write of the step: the scheduler has already re-leased the
+        blocks on paper, and the gather is enqueued on the stream ahead of
+        every later write."""
+        req = pre.req
+        n = len(pre.blocks)
+        ids = torch.tensor(pre.blocks, dtype=torch.long, device=self.device)
+        rows = gather_blocks(self.arena, ids)
+        store = _OffloadRecord(
+            rows={name: tuple(self._host_copy(z) for z in leaves)
+                  for name, leaves in rows.items()},
+            n_blocks=n, cur_len=pre.cur_len,
+        )
+        self._offloaded[req.rid] = store
+        self._set_active(pre.slot, False)
+        self.preemptions += 1
+        self.offloaded_blocks += n
+        if self.kv_dtype != "fp":
+            self.kv_quant_offload_bytes += store.nbytes()
+        logger.info(
+            "preempted request %d (priority %d): %d blocks offloaded "
+            "to host, slot %d freed", req.rid, req.priority, n, pre.slot,
+        )
+
+    @torch.inference_mode()
+    def _resume(self, adm) -> None:
+        """Restore an offloaded request into its new table's leading blocks
+        and re-arm its slot's cursor, last token and temperature: the rows
+        are bitwise the offloaded ones."""
+        req = adm.req
+        store = self._offloaded.pop(req.rid)
+        n = store.n_blocks
+        ids = torch.tensor(adm.blocks[:n], dtype=torch.long, device=self.device)
+        scatter_blocks(self.arena, ids, store.rows)
+        self._lengths[adm.slot] = store.cur_len
+        self._last[adm.slot] = req.tokens[-1]
+        self._temps[adm.slot] = req.temperature
+        self._set_active(adm.slot, True)
+        self.resumes += 1
+        logger.info(
+            "resumed request %d into slot %d (%d blocks restored, "
+            "cursor %d)", req.rid, adm.slot, n, store.cur_len,
+        )
+
+    def _admit_wave_paged(self, plan) -> list[tuple[Request, int, bool]]:
+        """Execute one paged admission wave: resumes restore their offloaded
+        state, fresh admissions prefill their unshared suffix through the
+        paged chunk pass: the whole suffix in one pass per prompt bucket, or
+        budgeted chunks under ``prefill_chunk``. A prefix hit needs no copy:
+        its shared blocks already sit in its table."""
+        emitted: list[tuple[Request, int, bool]] = []
+        for a in plan:
+            if a.resume is not None:
+                self._resume(a)
+        fresh = [a for a in plan if a.resume is None]
+        if self.prefill_chunk:
+            for a in fresh:
+                self._prefilling[a.slot] = [a, a.shared_len]
+            return emitted
+        by_width: dict[int, list] = {}
+        for a in fresh:
+            suffix = len(a.req.prompt) - a.shared_len
+            by_width.setdefault(self.scheduler.bucket_for(suffix), []).append(
+                (a, a.shared_len, suffix))
+        for width in sorted(by_width):
+            emitted.extend(self._run_chunk(by_width[width], width))
+        return emitted
+
     def _prefill_progress(self):
         """Spend this step's prefill token budget on chunk passes: each
         mid-prefill slot advances by up to ``prefill_chunk`` tokens a pass,
@@ -567,9 +806,18 @@ class InferenceEngine:
         done)`` triples in generation order; ``done`` is per TOKEN, True
         only on a request's final token."""
         emitted: list[tuple[Request, int, bool]] = []
-        plan = self.scheduler.admit()
-        if plan:
-            emitted.extend(self._admit_wave(plan))
+        if self.paged:
+            plan, preempts = self.scheduler.admit_paged(prefilling=frozenset(self._prefilling))
+            # offloads first: the victims' rows are read before any resume
+            # or prefill of this step writes the pool
+            for pre in preempts:
+                self._offload(pre)
+            if plan:
+                emitted.extend(self._admit_wave_paged(plan))
+        else:
+            plan = self.scheduler.admit()
+            if plan:
+                emitted.extend(self._admit_wave(plan))
         emitted.extend(self._prefill_progress())
         if any(slot not in self._prefilling for slot in self.scheduler.active):
             emitted.extend(self._decode_window())
@@ -578,8 +826,10 @@ class InferenceEngine:
     @torch.inference_mode()
     def _decode_window(self):
         """One arena-wide decode window of ``steps_per_sync`` steps; the
-        host reads its tokens once, at the end."""
-        span = self._decode_span()
+        host reads its tokens once, at the end. Paged, every step attends
+        through the staged block tables."""
+        tables = self._staged_tables() if self.paged else None
+        span = None if self.paged else self._decode_span()
         active = self._sync_active()
         maxlen = self.maxlen
         lengths, last = self._lengths, self._last
@@ -587,8 +837,12 @@ class InferenceEngine:
                              device=self.device)
         for i in range(self.steps_per_sync):
             positions = torch.clamp(lengths, max=maxlen - 1)
-            logits = token_decode_step(self.model, last, positions, self.arena, active,
-                                       self.attention, span)
+            if self.paged:
+                logits = paged_token_decode_step(self.model, last, positions, self.arena,
+                                                 tables, active, self.attention)
+            else:
+                logits = token_decode_step(self.model, last, positions, self.arena, active,
+                                           self.attention, span)
             sampled = _sample_dynamic(logits, self._generator, self._temps, self.top_k,
                                       self.top_p)
             lengths = torch.where(active, torch.clamp(lengths + 1, max=maxlen), lengths)
@@ -646,15 +900,17 @@ class InferenceEngine:
 
     def cancel(self, rid: int) -> bool:
         """Abort one request and reclaim its slot now: a waiting request
-        leaves the queue, an active one frees its slot (host bookkeeping
-        only). Returns True when the rid was live (``req.done`` flips True
+        leaves the queue (a preempted one drops its host offload), an active
+        one frees its slot and, paged, its blocks (host bookkeeping only). Returns True when the rid was live (``req.done`` flips True
         with ``req.error`` a :class:`RequestCancelled`; tokens so far are
         kept, and a live ``on_token`` gets ``(None, True)``), False when it
         was unknown or already finished."""
         rid = int(rid)
         sched = self.scheduler
         req = sched.remove_waiting(rid)
-        if req is None:
+        if req is not None:
+            self._offloaded.pop(rid, None)
+        else:
             slot = next((s for s, r in sched.active.items() if r.rid == rid), None)
             if slot is None:
                 return False
@@ -680,10 +936,79 @@ class InferenceEngine:
         serve without recompute (0 without a prefix cache). Pure: no hit,
         recency or pin moves, and equal to the reuse admission would then
         commit."""
-        cache = self.scheduler.prefix_cache
+        cache = self.scheduler.prefix_index or self.scheduler.prefix_cache
         if cache is None:
             return 0
         return cache.match_len(np.asarray(prompt).reshape(-1))
+
+    @torch.inference_mode()
+    def score(self, prompt, completion) -> dict:
+        """Log-probabilities of ``completion`` given ``prompt`` in one
+        teacher-forced forward: ``prompt + completion[:-1]`` goes through the
+        arena's chunk pass on one row, whose logits row ``j`` scores the
+        token at position ``j + 1``. The pass writes into scratch storage of
+        its own (a pool of the scored positions' blocks, or a one-slot
+        arena), so serving state is untouched: no block, cursor or generator
+        moves. The row sees only its own positions, as the reference's
+        scoring lane does over its discarded copy of the arena.
+
+        Returns ``{"logprobs", "total_logprob", "greedy_tokens",
+        "agreement"}`` (``agreement``: the fraction of completion tokens
+        equal to the argmax). ``prompt`` and ``completion`` must be non-empty
+        and fit ``maxlen`` together."""
+        prompt = [int(t) for t in prompt]
+        completion = [int(t) for t in completion]
+        if not prompt:
+            raise ValueError("score() needs a non-empty prompt")
+        if not completion:
+            raise ValueError("score() needs a non-empty completion")
+        total = len(prompt) + len(completion)
+        if total > self.maxlen:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + completion "
+                f"({len(completion)}) exceeds maxlen ({self.maxlen})"
+            )
+        seq = prompt + completion
+        n = total - 1  # fed positions; row j scores seq[j + 1]
+        width = self.scheduler.bucket_for(n)
+        dev = self.device
+        tokens = torch.zeros(1, width, dtype=torch.long, device=dev)
+        tokens[0, :n] = torch.tensor(seq[:n], device=dev)
+        offs = torch.zeros(1, dtype=torch.int32, device=dev)
+        clens = torch.full((1,), n, dtype=torch.int32, device=dev)
+        if self.paged:
+            nb = blocks_for(n, self.block_size)
+            if nb > self.num_blocks:
+                raise ValueError(
+                    f"scoring {n} positions needs {nb} blocks — more "
+                    f"than the pool's {self.num_blocks}"
+                )
+            tb = table_bucket_for(nb, self._tbuckets)
+            scratch = PagedKVPool(self._layers, nb, self.block_size, dev, self.kv_dtype)
+            table = torch.full((1, tb), nb, dtype=torch.int32)
+            table[0, :nb] = torch.arange(nb, dtype=torch.int32)
+            logits = paged_chunk_forward(self.model, tokens, scratch, table.to(dev), offs,
+                                         clens, attention=self.attention)
+        else:
+            span = span_bucket_for(n, self._sbuckets) if self.attention == "flash" else None
+            scratch = SlotKVCache(self._layers, 1, self.maxlen, dev)
+            logits = chunked_prefill_forward(self.model, tokens, scratch, offs, clens,
+                                             attention=self.attention, span=span)
+        row = logits[0, :n]
+        targets = torch.tensor(seq[1:], device=dev)
+        tlp = torch.log_softmax(row, dim=-1).gather(1, targets[:, None])[:, 0].cpu().numpy()
+        greedy = row.argmax(dim=-1).cpu().numpy()
+        p = len(prompt)
+        lps = [float(x) for x in tlp[p - 1:n]]
+        g = [int(t) for t in greedy[p - 1:n]]
+        agreed = sum(1 for a, b in zip(g, completion) if a == b)
+        self.score_requests += 1
+        return {
+            "logprobs": lps,
+            "total_logprob": float(sum(lps)),
+            "greedy_tokens": g,
+            "agreement": agreed / len(completion),
+        }
 
     @staticmethod
     def _percentiles(xs) -> dict:
@@ -700,8 +1025,11 @@ class InferenceEngine:
         """Serving counters: generated tokens, decode steps, mean slot
         occupancy, per-request latencies, TTFT (submit → first token) and
         inter-token percentiles of the finished requests, decode-only
-        tokens/s (each request's first-to-last token window), and the
-        prefix cache's hit and eviction counters when it is on."""
+        tokens/s (each request's first-to-last token window), the paged
+        arena's counters (preemptions, resumes, rejections, offloaded blocks
+        and, quantized, their bytes; blocks free, leased and shared), the
+        stored ``kv_dtype``, :meth:`score` calls, and the prefix cache's hit
+        and eviction counters when it is on."""
         finished = list(self.finished.values())
         lat = [
             r.finish_time - r.submit_time
@@ -728,7 +1056,23 @@ class InferenceEngine:
             "queue_depth": len(self.scheduler.waiting),
             "decode_tok_s": (d_toks / d_secs) if d_secs > 0 else None,
             "cancelled": self.cancelled,
+            "preemptions": self.preemptions,
+            "resumes": self.resumes,
+            "rejected": self.rejected,
+            "kv_dtype": self.kv_dtype,
+            "kv_quant_offload_bytes": self.kv_quant_offload_bytes,
+            "score_requests": self.score_requests,
         }
+        if self.paged:
+            alloc = self.scheduler.allocator
+            idx = self.scheduler.prefix_index
+            out["blocks_total"] = self.num_blocks
+            out["blocks_free"] = alloc.free_count
+            out["blocks_leased"] = alloc.leased_count
+            out["offloaded_blocks"] = self.offloaded_blocks
+            out["prefix_blocks_shared"] = idx.shared_blocks if idx is not None else 0
+            if idx is not None:
+                out["prefix_cache"] = idx.stats()
         if self.scheduler.prefix_cache is not None:
             out["prefix_cache"] = self.scheduler.prefix_cache.stats()
         return out

@@ -22,12 +22,15 @@ the rows instead of recomputing them. This module finds such donors.
 
 The counters are plain integers (the reference keeps them in its telemetry
 registry, which the port does not have yet: ROADMAP.md, Queue A item 3).
-The paged index (``BlockEntry``, ``PagedPrefixIndex``) comes with the paged
-arena (item 3).
+
+The paged arena's index (:class:`PagedPrefixIndex`, entries
+:class:`BlockEntry`) holds block ids instead of slots: a hit splices the
+entry's full blocks into the new request's table by refcount, with no copy.
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 
 
@@ -205,4 +208,183 @@ class PrefixCache:
             "misses": self.misses,
             "reused_tokens": self.reused_tokens,
             "evictions": self.evictions,
+        }
+
+
+@dataclass
+class BlockEntry:
+    """One indexed full-block prompt prefix (paged arena): ``blocks[i]``
+    holds the K/V of ``tokens[i·bs : (i+1)·bs]``. The entry owns one
+    allocator reference per block, independent of the request that
+    prefilled them."""
+
+    eid: int
+    tokens: tuple
+    blocks: tuple
+    last_use: int
+
+
+class PagedPrefixIndex:
+    """Radix index over FULL-BLOCK prompt prefixes for the paged arena
+    (copy of the reference's ``PagedPrefixIndex``):
+
+    - a hit splices the shared blocks into the new table with one more
+      reference each: no device copy, and the donor holds no slot;
+    - sharing is at full-block granularity (a partial block also holds the
+      writer's later tokens): the trailing ``len(prompt) % block_size``
+      tokens of a hit prefill with the suffix;
+    - eviction under pool pressure (:meth:`evict_for`) drops least recently
+      used entries whose blocks would actually free (refcount 1); an entry
+      shared with live tables frees nothing and is skipped.
+
+    Logical-clock recency, entry-id tie-breaks, a pure :meth:`match` (the
+    hit commits only when the admission lands), as :class:`PrefixCache`."""
+
+    def __init__(self, allocator):
+        self._alloc = allocator
+        self._root = _Node()  # node.slots holds entry ids here
+        self._entries: dict[int, BlockEntry] = {}
+        self._by_tokens: dict[tuple, BlockEntry] = {}
+        self._clock = 0
+        self._ids = itertools.count()
+        self.hits = 0
+        self.misses = 0
+        self.reused_tokens = 0
+        self.evictions = 0
+        self.shared_blocks = 0
+
+    # -- registration ---------------------------------------------------
+
+    def insert(self, tokens, blocks) -> None:
+        """Index the full-block prefix of ``tokens`` whose K/V lives in
+        ``blocks`` (the owner's leading table blocks), taking one reference
+        per indexed block. An exact duplicate bumps recency instead."""
+        bs = self._alloc.block_size
+        n_full = len(tokens) // bs
+        if n_full < 1:
+            return
+        key = tuple(int(t) for t in tokens[: n_full * bs])
+        self._clock += 1
+        prev = self._by_tokens.get(key)
+        if prev is not None:
+            prev.last_use = self._clock
+            return
+        held = tuple(int(b) for b in blocks[:n_full])
+        if len(held) != n_full:
+            raise ValueError(
+                f"insert(): {n_full} full prompt blocks indexed but "
+                f"only {len(held)} block ids supplied"
+            )
+        self._alloc.ref(held)
+        entry = BlockEntry(eid=next(self._ids), tokens=key, blocks=held,
+                           last_use=self._clock)
+        self._entries[entry.eid] = entry
+        self._by_tokens[key] = entry
+        node = self._root
+        for t in key:
+            node = node.children.setdefault(t, _Node())
+            node.slots.add(entry.eid)
+
+    def _remove(self, entry: BlockEntry) -> list[int]:
+        """Drop the entry, prune its trie path, release its block references.
+        Returns the block ids that freed."""
+        del self._entries[entry.eid]
+        del self._by_tokens[entry.tokens]
+        node, path = self._root, []
+        for t in entry.tokens:
+            child = node.children.get(t)
+            if child is None:
+                break
+            path.append((node, t, child))
+            child.slots.discard(entry.eid)
+            node = child
+        for parent, t, child in reversed(path):
+            if not child.slots and not child.children:
+                del parent.children[t]
+        return self._alloc.deref(entry.blocks)
+
+    # -- lookup / splice ------------------------------------------------
+
+    def match(self, prompt):
+        """Longest indexed FULL-BLOCK prefix of ``prompt`` strictly shorter
+        than it (one suffix token must remain to prefill). Pure. Returns
+        ``(eid, reuse_tokens)`` (a multiple of the block size) or ``(None,
+        0)``."""
+        bs = self._alloc.block_size
+        cap = len(prompt) - 1
+        node, depth = self._root, 0
+        best_node, best_depth = None, 0
+        for t in prompt:
+            if depth >= cap:
+                break
+            node = node.children.get(int(t))
+            if node is None or not node.slots:
+                break
+            depth += 1
+            if depth % bs == 0:
+                best_node, best_depth = node, depth
+        if best_node is None:
+            return None, 0
+        eid = max(best_node.slots, key=lambda e: (self._entries[e].last_use, -e))
+        return eid, best_depth
+
+    def match_len(self, prompt) -> int:
+        """Reusable full-block prefix length for ``prompt``: ``match(prompt)[1]``."""
+        return self.match(prompt)[1]
+
+    def commit_hit(self, eid: int, reuse_len: int) -> list[int]:
+        """The admission lands: reference the entry's first ``reuse_len / bs``
+        blocks for the new table and return their ids in prompt order."""
+        entry = self._entries[eid]
+        self._clock += 1
+        entry.last_use = self._clock
+        n = int(reuse_len) // self._alloc.block_size
+        shared = list(entry.blocks[:n])
+        self._alloc.ref(shared)
+        self.hits += 1
+        self.reused_tokens += int(reuse_len)
+        self.shared_blocks += n
+        return shared
+
+    def record_miss(self) -> None:
+        self.misses += 1
+
+    # -- eviction / flush -----------------------------------------------
+
+    def evict_for(self, n_blocks: int) -> int:
+        """Release least recently used entries until at least ``n_blocks``
+        blocks freed or nothing more can free; entries none of whose blocks
+        would free are skipped. Returns the blocks freed."""
+        freed = 0
+        while freed < n_blocks:
+            victims = sorted(self._entries.values(), key=lambda e: (e.last_use, e.eid))
+            pick = next((e for e in victims
+                         if any(self._alloc.ref_count(b) == 1 for b in e.blocks)), None)
+            if pick is None:
+                break
+            freed += len(self._remove(pick))
+            self.evictions += 1
+        return freed
+
+    def flush(self) -> None:
+        """Drop every entry and release its block references."""
+        for eid in list(self._entries):
+            entry = self._entries.get(eid)
+            if entry is not None:
+                self._remove(entry)
+
+    # -- introspection --------------------------------------------------
+
+    def entry(self, eid: int) -> BlockEntry | None:
+        return self._entries.get(eid)
+
+    def stats(self) -> dict:
+        return {
+            "entries": len(self._entries),
+            "indexed_blocks": sum(len(e.blocks) for e in self._entries.values()),
+            "hits": self.hits,
+            "misses": self.misses,
+            "reused_tokens": self.reused_tokens,
+            "evictions": self.evictions,
+            "shared_blocks": self.shared_blocks,
         }

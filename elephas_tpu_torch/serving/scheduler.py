@@ -17,9 +17,17 @@ donor slots under a :class:`~elephas_tpu_torch.serving.prefix_cache.\
 PrefixCache`: admission matches each request against them, and evicts the
 least recently used donor when no slot is free.
 
+With an ``allocator`` (the paged arena) a request needs a free slot AND its
+whole block reservation (:meth:`Scheduler.admit_paged`); the prefix cache
+becomes a :class:`~elephas_tpu_torch.serving.prefix_cache.PagedPrefixIndex`
+whose hits splice blocks into the new table; with ``preemption=True`` an
+arrival may swap out active requests of strictly lower priority
+(:class:`Preemption`), which re-queue at the front and resume bit for bit.
+The order of every decision is the reference's.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: paged admission with preemption, SLO policies, wave-aware
-slot placement and the telemetry counters.
+ROADMAP.md item: SLO policies, wave-aware slot placement and the telemetry
+counters.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ import itertools
 from collections import deque
 from dataclasses import dataclass, field
 
-from elephas_tpu_torch.serving.prefix_cache import PrefixCache
+from elephas_tpu_torch.serving.paged_kv import blocks_for
+from elephas_tpu_torch.serving.prefix_cache import PagedPrefixIndex, PrefixCache
 
 _TODO = "Scheduler({}) is not ported yet (ROADMAP.md, Queue A item {})"
 
@@ -114,25 +123,47 @@ class Request:
 class Admission:
     """One admission decision: ``req`` leases ``slot``; when the prefix
     cache found a donor, ``donor_slot``'s first ``reuse_len`` arena rows
-    are copied before the (suffix-only) prefill."""
+    are copied before the (suffix-only) prefill.
+
+    Paged admissions fill the second group instead: ``blocks`` is the slot's
+    new block table (shared splice + own allocation), ``shared_len`` the
+    prefix tokens already resident in the spliced blocks (prefill starts
+    there), and ``resume`` the preemption record when this admission brings
+    an offloaded request back (the engine restores its K/V and cursor
+    instead of prefilling)."""
 
     req: Request
     slot: int
     donor_slot: int | None = None
     reuse_len: int = 0
+    blocks: list | None = None
+    shared_len: int = 0
+    resume: "Preemption | None" = None
+
+
+@dataclass
+class Preemption:
+    """One preemption decision (paged arena): ``req`` lost ``slot``; its
+    first ``len(blocks)`` table blocks hold the K/V of positions
+    ``0..cur_len-1`` and must be offloaded to the host before any pool write
+    (the engine orders it so). The request re-queues at the front and
+    resumes bit for bit."""
+
+    req: Request
+    slot: int
+    blocks: tuple
+    cur_len: int
 
 
 class Scheduler:
-    """FIFO queue + slot lease tracking for the fixed arena of
+    """FIFO queue + slot (and, paged, block) lease tracking for
     :class:`~elephas_tpu_torch.serving.engine.InferenceEngine`."""
 
     def __init__(self, num_slots: int, buckets, prefix_cache: bool = False,
                  prefix_min_reuse: int = 1, allocator=None,
                  preemption: bool = False, policy=None,
                  wave_slots: int | None = None):
-        for name, value, item in (("allocator", allocator, 3),
-                                  ("preemption", preemption, 3),
-                                  ("policy", policy, 3),
+        for name, value, item in (("policy", policy, 3),
                                   ("wave_slots", wave_slots, 5)):
             if value:
                 raise NotImplementedError(_TODO.format(f"{name}={value!r}", item))
@@ -143,7 +174,23 @@ class Scheduler:
         self._free: list[int] = list(range(self.num_slots))
         self.rid_base = next(_rid_bases) * RID_STRIDE
         self._ids = itertools.count(self.rid_base)
-        self.prefix_cache = PrefixCache() if prefix_cache else None
+        # paged arena: an allocator switches admission to slot + block
+        # leasing, and the prefix cache to the block-refcount index
+        self.allocator = allocator
+        self.preemption = bool(preemption)
+        if preemption and allocator is None:
+            raise ValueError(
+                "preemption requires the paged allocator — the fixed "
+                "arena has no blocks to swap out"
+            )
+        self.tables: dict[int, list[int]] = {}
+        # bumped on any table change: the engine restages its device tables
+        self.tables_version = 0
+        self._preempted: dict[int, Preemption] = {}
+        self.prefix_index = (
+            PagedPrefixIndex(allocator) if prefix_cache and allocator is not None else None
+        )
+        self.prefix_cache = PrefixCache() if prefix_cache and allocator is None else None
         # matches shallower than this admit cold: a 1-2 token coincidental
         # prefix is not worth a copy
         self.prefix_min_reuse = max(1, int(prefix_min_reuse))
@@ -176,6 +223,7 @@ class Scheduler:
         req = next((r for r in self.waiting if r.rid == rid), None)
         if req is not None:
             self.waiting.remove(req)
+            self._preempted.pop(rid, None)
         return req
 
     def _pop_free_slot(self) -> int:
@@ -241,15 +289,150 @@ class Scheduler:
                 cache.unpin(slot)
         return admitted
 
+    # -- paged admission ------------------------------------------------
+
+    def blocks_needed(self, req: Request) -> int:
+        """Full reservation of ``req``: blocks covering its prompt and whole
+        token budget, reserved up front, so an admitted request never meets
+        an exhausted pool mid-flight."""
+        return blocks_for(len(req.prompt) + req.max_new_tokens, self.allocator.block_size)
+
+    def admit_paged(self, prefilling=frozenset()):
+        """Paged admission wave: FIFO head-blocking like :meth:`admit`, but a
+        request needs a free slot AND its full block reservation. Shortfalls
+        resolve in the reference's order: evict least recently used prefix
+        entries first, then, with ``preemption`` and a head that outranks an
+        active request, preempt victims (lowest priority first, youngest
+        first within one) until the head fits, or none at all if even that
+        would not admit it. ``prefilling`` slots are never victims.
+
+        Returns ``(admissions, preemptions)``; the engine offloads every
+        preemption's blocks before any pool write, then runs the
+        admissions."""
+        if self.allocator is None:
+            raise RuntimeError("admit_paged() on a non-paged scheduler")
+        admitted: list[Admission] = []
+        preempts: list[Preemption] = []
+        # rids admitted by this wave are never its preemption victims
+        wave_rids: set[int] = set()
+        alloc, idx = self.allocator, self.prefix_index
+        while self.waiting:
+            req = self.waiting[0]
+            need_total = self.blocks_needed(req)
+            record = self._preempted.get(req.rid)
+            eid, reuse = None, 0
+            if record is None and idx is not None:
+                # pure probe; the hit commits only when the admission lands
+                eid, reuse = idx.match(req.prompt)
+                if eid is not None and reuse < self.prefix_min_reuse:
+                    eid, reuse = None, 0
+            own_need = need_total - reuse // alloc.block_size
+            short = own_need - alloc.free_count
+            if short > 0 and idx is not None:
+                idx.evict_for(short)
+                short = own_need - alloc.free_count
+            plan = []
+            if short > 0 or not self._free:
+                if self.preemption:
+                    plan = self._plan_preemption(req, short, bool(self._free), prefilling,
+                                                 wave_rids)
+                if not plan:
+                    break  # the head keeps waiting; nothing may jump it
+            # the head will admit: off the queue before the preemptions, so
+            # the victims re-queue ahead of the REST of the queue
+            self._dequeue_head()
+            for victim in plan:
+                preempts.append(self._preempt(victim))
+            shared: list[int] = []
+            if eid is not None:
+                shared = idx.commit_hit(eid, reuse)
+            elif idx is not None and record is None:
+                idx.record_miss()
+            own = alloc.alloc(own_need)
+            assert own is not None  # guaranteed by the short check
+            slot = self._pop_free_slot()
+            self.tables[slot] = shared + own
+            self.tables_version += 1
+            req.slot = slot
+            self.active[slot] = req
+            wave_rids.add(req.rid)
+            if record is not None:
+                self._preempted.pop(req.rid)
+                admitted.append(Admission(req=req, slot=slot, blocks=self.tables[slot],
+                                          resume=record))
+            else:
+                req.reused_tokens = reuse
+                admitted.append(Admission(req=req, slot=slot, blocks=self.tables[slot],
+                                          shared_len=reuse))
+        return admitted, preempts
+
+    def _plan_preemption(self, req: Request, short: int, have_slot: bool, prefilling,
+                         wave_rids):
+        """Victims that would admit ``req``, or none at all. Eligible: active,
+        of strictly lower priority, not mid-prefill, not admitted by this
+        wave, holding a generated token. Order: lowest priority first, then
+        youngest (largest rid). Only blocks whose last reference is the
+        victim's table count as freed."""
+        head_prio = req.priority
+        cands = [
+            r for slot, r in self.active.items()
+            if r.priority < head_prio and slot not in prefilling
+            and r.tokens and r.rid not in wave_rids
+        ]
+        cands.sort(key=lambda r: (r.priority, -r.rid))
+        chosen, freed, slots_freed = [], 0, 0
+        for r in cands:
+            if freed >= short and (have_slot or slots_freed > 0):
+                break
+            freed += sum(1 for b in self.tables[r.slot] if self.allocator.ref_count(b) == 1)
+            slots_freed += 1
+            chosen.append(r)
+        if freed < short or not (have_slot or slots_freed > 0):
+            return []
+        return chosen
+
+    def _preempt(self, req: Request) -> Preemption:
+        """Bookkeeping half of a preemption: snapshot the offloadable blocks,
+        free the slot and the block references, re-queue the victim at the
+        front. The device rows stay intact until the next pool write."""
+        slot = req.slot
+        table = self.tables.pop(slot)
+        self.tables_version += 1
+        # resident K/V: the prompt and every generated token but the last
+        # sampled one (its K/V lands on the next decode step)
+        cur_len = len(req.prompt) + len(req.tokens) - 1
+        rec = Preemption(req=req, slot=slot,
+                         blocks=tuple(table[: blocks_for(cur_len, self.allocator.block_size)]),
+                         cur_len=cur_len)
+        self.active.pop(slot)
+        req.slot = None
+        self._free.append(slot)
+        self._free.sort()
+        self.allocator.deref(table)
+        self._preempted[req.rid] = rec
+        self.waiting.appendleft(req)
+        return rec
+
     def on_prefill_complete(self, req: Request) -> None:
         """Register the request's prompt rows as a reusable prefix (its
-        slot's first ``len(prompt)`` rows now hold that K/V)."""
-        if req.slot is not None and self.prefix_cache is not None:
+        slot's first ``len(prompt)`` rows now hold that K/V); paged, its
+        prompt's full blocks by refcount."""
+        if req.slot is None:
+            return
+        if self.prefix_index is not None:
+            n_full = len(req.prompt) // self.allocator.block_size
+            if n_full:
+                self.prefix_index.insert(req.prompt, self.tables[req.slot][:n_full])
+        elif self.prefix_cache is not None:
             self.prefix_cache.insert(req.slot, req.prompt)
 
     def flush_prefix_cache(self) -> None:
         """Invalidate every cached prefix and return the donor slots to the
-        free list (their rows are stale after a weight refresh)."""
+        free list (their rows are stale after a weight refresh); paged, the
+        index's block references drop."""
+        if self.prefix_index is not None:
+            self.prefix_index.flush()
+            return
         if self.prefix_cache is None:
             return
         self._free.extend(self.prefix_cache.flush())
@@ -275,7 +458,14 @@ class Scheduler:
         donor instead (evicted LRU under pressure)."""
         req = self.active.pop(slot)
         req.slot = None
-        if self.prefix_cache is not None and self.prefix_cache.release(slot):
+        if self.allocator is not None:
+            # paged: the slot always frees; the table's references drop, and
+            # blocks the prefix index holds survive on its own references
+            table = self.tables.pop(slot, None)
+            if table is not None:
+                self.allocator.deref(table)
+                self.tables_version += 1
+        elif self.prefix_cache is not None and self.prefix_cache.release(slot):
             return req  # resident donor: off the free list
         self._free.append(slot)
         self._free.sort()

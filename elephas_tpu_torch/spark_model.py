@@ -29,8 +29,8 @@ Every keyword of the reference is accepted. At the value that leaves the
 behaviour unchanged (the reference's default) it passes; any other value
 raises ``NotImplementedError`` naming its ROADMAP.md item: the parameter
 server and fault tolerance (item 4), model, pipeline and sequence
-parallelism (item 5), and the serving engine's options beyond the fixed
-arena (:meth:`SparkModel.serve`, item 3). A ``mixed_bfloat16`` language
+parallelism (item 5), and the serving engine's options beyond the fixed and
+paged arenas (:meth:`SparkModel.serve`, item 3). A ``mixed_bfloat16`` language
 model is refused by :meth:`SparkModel.serve` and
 ``generate(kv_cache=True)``, as in the reference.
 """
@@ -443,9 +443,10 @@ serialization.save_model`: its builder and arguments, compile spec,
         """A continuous-batching :class:`~elephas_tpu_torch.serving.\
 InferenceEngine` over the wrapped model, on this wrapper's device.
         ``engine_options`` go to the engine (``top_k``, ``top_p``,
-        ``seed``, ``buckets``, ``steps_per_sync``, ``attention`` and the
-        reference's other engine keywords, ``flight_recorder`` among them,
-        whose unported values raise there). ``tenants``, ``gateway_port`` and a
+        ``seed``, ``buckets``, ``steps_per_sync``, ``attention``, the paged
+        arena's ``paged``, ``block_size``, ``num_blocks``, ``preemption`` and
+        ``kv_dtype``, and the reference's other engine keywords,
+        ``flight_recorder`` among them, whose unported values raise there). ``tenants``, ``gateway_port`` and a
         ``gateway_host`` other than the reference's default raise. Submit
         with ``engine.submit(prompt, max_new_tokens, temperature=,
         eos_id=)``, drive with ``engine.step()`` / ``stream()`` /

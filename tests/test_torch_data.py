@@ -37,10 +37,7 @@ def test_broadcast_and_stop():
 # (package, exported name): the reference's exports for modules still to
 # port, with the ROADMAP.md Queue A item that brings them
 WAITING = {
-    ("serving", "BlockAllocator"): 3, ("serving", "PPEngine"): 5,
-    ("serving", "PagedPrefixIndex"): 3, ("serving", "Preemption"): 3,
-    ("serving", "PagedKVPool"): 3, ("serving", "blocks_for"): 3,
-    ("serving", "table_buckets"): 3, ("serving", "AcceptanceThrottle"): 3,
+    ("serving", "PPEngine"): 5, ("serving", "AcceptanceThrottle"): 3,
     ("serving", "DraftModelDrafter"): 3, ("serving", "Drafter"): 3,
     ("serving", "NgramDrafter"): 3, ("serving", "Gateway"): 3,
     ("serving", "DEFAULT_TENANT"): 3, ("serving", "AdmissionRejected"): 3,

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (flash forward, LayerNorm forward and
-backward, span decode, span chunk) against their plain versions, one SparkModel fit
-and the serving engine, on the card.
+backward, span decode, span chunk, and the paged span decode and span
+chunk) against their plain versions, one SparkModel fit and the serving
+engine (fixed and paged), on the card.
 
 Every test here needs an NVIDIA GPU with nvcc and skips elsewhere. The
 file imports torch and the port only, so it also runs where JAX is not
@@ -819,3 +820,182 @@ def test_streamed_fit_raises_on_a_failed_copy_or_pin(cuda, monkeypatch):
         with pytest.raises(RuntimeError, match="injected: cudaHostAlloc"):
             et.SparkModel(model, device=cuda).fit((x, y), epochs=1, batch_size=8,
                                                   stream_block_steps=1)
+
+
+# -- the paged span kernels --------------------------------------------------
+
+PAGED_DTYPES = ["fp", "int8", "int4"]
+PAGED_DIMS = [16, 32, 64, 128]
+TOL_PAGED = 1e-5  # of max(1, |out|), as the arena kernels
+
+
+def _paged_pool(cuda, d, kv_dtype, b=16, h=4, bs=16, t=8, seed=0):
+    """A pool of ``b · t + 5`` blocks and the sink, its rows random (codes
+    and scales of them when quantized), and ``[b, t]`` tables of shuffled
+    block ids, the last row's second half sentinel-padded. Returns ``(pool_k,
+    pool_v, kv_scales, tables)``."""
+    from elephas_tpu_torch.serving.kv_quant import quantize_rows
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n = b * t + 5
+    ids = torch.randperm(n, generator=torch.Generator().manual_seed(seed))[: b * t]
+    tables = ids.view(b, t).to(torch.int32)
+    tables[-1, t // 2:] = n
+    rows = _randn(gen, 2, n + 1, bs, h, d)
+    if kv_dtype == "fp":
+        return rows[0].contiguous(), rows[1].contiguous(), None, tables.to(cuda)
+    (kq, ks), (vq, vs) = (quantize_rows(r, kv_dtype) for r in rows)
+    return kq, vq, (ks, vs), tables.to(cuda)
+
+
+def _rel_err(out, ref):
+    return ((out - ref).abs() / ref.abs().clamp_min(1.0)).max().item()
+
+
+@pytest.mark.parametrize("t", [8, 32])
+@pytest.mark.parametrize("d", PAGED_DIMS)
+@pytest.mark.parametrize("kv_dtype", PAGED_DTYPES)
+def test_paged_span_decode_matches_plain_and_the_arena_kernel(cuda, kv_dtype, d, t):
+    """The paged decode over shuffled, sentinel-padded tables (spans 128 and
+    512 at block 16), with a position 0, the span's last row and a stale
+    cursor past the span: within 1e-5 of max(1, |out|) of the plain version,
+    and bit-equal to the arena kernel over the gathered, dequantized span
+    (the same split, the same order: only the addressing differs)."""
+    b, h, bs = 16, 4, 16
+    pk, pv, scales, tables = _paged_pool(cuda, d, kv_dtype, b, h, bs, t, seed=d + t)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = _randn(gen, b, h, d)
+    pos = torch.randint(0, t * bs, (b,), generator=gen, device=cuda, dtype=torch.int32)
+    pos[:3] = torch.tensor([0, t * bs - 1, t * bs + 7], dtype=torch.int32)
+    before = fs.paged_launches
+    out = fs.flash_paged_span_decode(q, pk, pv, tables, pos, kv_dtype=kv_dtype, kv_scales=scales)
+    assert fs.paged_launches == before + 1
+    ref = fs.paged_span_decode_reference(q, pk, pv, tables, pos, kv_dtype=kv_dtype,
+                                         kv_scales=scales)
+    gk, gv = fs.paged_dense_span(pk, pv, tables, kv_dtype, scales, d)
+    arena = fs.flash_span_decode(q, gk.contiguous(), gv.contiguous(), pos)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= TOL_PAGED
+    assert torch.equal(out, arena)
+
+
+@pytest.mark.parametrize("c", [1, 64, 100])
+@pytest.mark.parametrize("d", PAGED_DIMS)
+@pytest.mark.parametrize("kv_dtype", PAGED_DTYPES)
+def test_paged_span_chunk_matches_plain_and_the_arena_kernel(cuda, kv_dtype, d, c):
+    """The paged chunk over shuffled, sentinel-padded tables (span 256),
+    with ragged offsets (0, the chunk ending on the span's last row, rows
+    past the span): within 1e-5 of max(1, |out|) of the plain version, and
+    bit-equal to the arena kernel over the gathered, dequantized span."""
+    b, h, bs, t = 16, 4, 16, 16
+    pk, pv, scales, tables = _paged_pool(cuda, d, kv_dtype, b, h, bs, t, seed=d + c)
+    span = t * bs
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = _randn(gen, b, h, c, d)
+    offs = torch.randint(0, max(1, span - c), (b,), generator=gen, device=cuda)
+    offs[:3] = torch.tensor([0, max(0, span - c), span - c // 2])
+    pos = (offs[:, None] + torch.arange(c, device=cuda)[None, :]).to(torch.int32).contiguous()
+    before = fs.paged_chunk_launches
+    out = fs.flash_paged_span_chunk(q, pk, pv, tables, pos, kv_dtype=kv_dtype, kv_scales=scales)
+    assert fs.paged_chunk_launches == before + 1
+    ref = fs.paged_span_chunk_reference(q, pk, pv, tables, pos, kv_dtype=kv_dtype,
+                                        kv_scales=scales)
+    gk, gv = fs.paged_dense_span(pk, pv, tables, kv_dtype, scales, d)
+    arena = fs.flash_span_chunk(q, gk.contiguous(), gv.contiguous(), pos)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= TOL_PAGED
+    assert torch.equal(out, arena)
+
+
+@pytest.mark.parametrize("kv_dtype", PAGED_DTYPES)
+@pytest.mark.parametrize("decode", [True, False])
+def test_paged_kernels_repeat_and_replay_bit_for_bit(cuda, kv_dtype, decode):
+    """A second call and a CUDA-graph replay give the first call's bits
+    (D 128, span 512, C 64 for the chunk)."""
+    b, h, d, bs, t = 16, 4, 128, 16, 32
+    pk, pv, scales, tables = _paged_pool(cuda, d, kv_dtype, b, h, bs, t)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    if decode:
+        q = _randn(gen, b, h, d)
+        pos = torch.randint(0, t * bs, (b,), generator=gen, device=cuda, dtype=torch.int32)
+        fn = fs.flash_paged_span_decode
+    else:
+        q = _randn(gen, b, h, 64, d)
+        offs = torch.randint(0, t * bs - 64, (b, 1), generator=gen, device=cuda)
+        pos = (offs + torch.arange(64, device=cuda)).to(torch.int32).contiguous()
+        fn = fs.flash_paged_span_chunk
+
+    def call():
+        return fn(q, pk, pv, tables, pos, kv_dtype=kv_dtype, kv_scales=scales)
+
+    out, again = call(), call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out, replayed)
+
+
+def test_paged_kernels_refuse_what_they_do_not_take(cuda):
+    pk, pv, scales, tables = _paged_pool(cuda, 64, "int8")
+    q = torch.zeros(16, 4, 64, device=cuda)
+    pos = torch.zeros(16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="kv_scales"):
+        fs.flash_paged_span_decode(q, pk, pv, tables, pos, kv_dtype="int8")
+    with pytest.raises(ValueError, match="int8"):
+        fs.flash_paged_span_decode(q, pk.float(), pv.float(), tables, pos, kv_dtype="int8",
+                                   kv_scales=scales)
+    with pytest.raises(ValueError, match="tables"):
+        fs.flash_paged_span_decode(q, pk, pv, tables.long(), pos, kv_dtype="int8",
+                                   kv_scales=scales)
+    with pytest.raises(ValueError, match="positions"):
+        fs.flash_paged_span_chunk(q[:, :, None], pk, pv, tables, pos, kv_dtype="int8",
+                                  kv_scales=scales)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        fs.flash_paged_span_decode(q, pk, pv, tables, pos, kv_dtype="fp8", kv_scales=scales)
+
+
+@pytest.mark.parametrize("kv_dtype", PAGED_DTYPES)
+def test_paged_engine_on_cuda_matches_cpu(cuda, kv_dtype):
+    """The paged engine on the card (paged span chunk and span decode,
+    LayerNorm), with preemption and a prefix hit, emits the CPU engine's
+    tokens from the same random weights wherever the plain path's top-2
+    margin is at least 1e-3, and launches no flash forward."""
+    cfg = dict(vocab_size=64, maxlen=64, d_model=64, num_heads=2, num_layers=2, seed=3)
+    cpu = et.transformer_lm(**cfg, device="cpu")
+    card = et.transformer_lm(**cfg, device=cuda)
+    et.load_keras_weights(card, et.keras_weights(cpu))
+    rng = np.random.default_rng(0)
+    shared = list(rng.integers(1, 64, 16))
+    prompts = [shared + list(rng.integers(1, 64, n)) for n in (3, 9, 17, 5)]
+    outs = {}
+    counts = (fs.paged_launches, fs.paged_chunk_launches, fa.launches)
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        engine = et.InferenceEngine(model, num_slots=4, steps_per_sync=4, paged=True,
+                                    block_size=8, num_blocks=20, preemption=True,
+                                    prefix_cache=True, kv_dtype=kv_dtype)
+        first = engine.submit(prompts[0], 12)
+        engine.run()
+        reqs = [first] + [engine.submit(p, 12, priority=i % 2) for i, p in
+                          enumerate(prompts[1:])]
+        engine.run()
+        outs[name] = [r.tokens for r in reqs]
+        held = {b for e in engine.scheduler.prefix_index._entries.values() for b in e.blocks}
+        assert engine.stats()["prefix_cache"]["hits"] > 0
+        assert engine.stats()["blocks_free"] == engine.num_blocks - len(held)
+    after = (fs.paged_launches, fs.paged_chunk_launches, fa.launches)
+    assert after[0] > counts[0] and after[1] > counts[1] and after[2] == counts[2]
+    for prompt, got, want in zip(prompts, outs["cuda"], outs["cpu"]):
+        if got == want:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        seq = torch.tensor([list(prompt) + want[:i]])
+        with torch.inference_mode():
+            top2 = cpu(seq, plain=True)[0, -1].topk(2).values
+        assert (top2[0] - top2[1]).item() < 1e-3, (prompt, got, want)

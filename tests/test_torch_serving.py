@@ -387,9 +387,9 @@ def test_submit_errors_match_jax(engine_pair, args, kwargs):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(block_size=16), dict(spec_k=3), dict(paged=True), dict(preemption=True),
-    dict(kv_dtype="int8"), dict(speculative=True), dict(policy="fair"),
-    dict(sp_prefill="seq"), dict(mesh="mesh"),
+    dict(spec_drafter="lookup"), dict(spec_k=3), dict(flight_recorder=256),
+    dict(sp_threshold=16), dict(model_axis="model"), dict(speculative=True),
+    dict(policy="fair"), dict(sp_prefill="seq"), dict(mesh="mesh"),
 ])
 def test_unported_engine_options_raise(lm, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item"):
@@ -416,11 +416,11 @@ REFERENCE_KEYWORDS = [
     ("engine", "prefix_min_reuse", 1, 8, 1),
     ("engine", "prefill_chunk", None, 4, 1),
     ("engine", "prefill_budget", None, 64, 1),
-    ("engine", "paged", False, True, 3),
-    ("engine", "block_size", None, 16, 3),
-    ("engine", "num_blocks", None, 64, 3),
-    ("engine", "preemption", False, True, 3),
-    ("engine", "kv_dtype", "fp", "int8", 3),
+    ("engine", "paged", False, True, "3a"),
+    ("engine", "block_size", None, 16, "3a"),
+    ("engine", "num_blocks", None, 64, "3a"),
+    ("engine", "preemption", False, True, "3a"),
+    ("engine", "kv_dtype", "fp", "int8", "3a"),
     ("engine", "speculative", False, True, 3),
     ("engine", "spec_k", None, 3, 3),
     ("engine", "spec_drafter", None, "lookup", 3),
@@ -439,7 +439,7 @@ REFERENCE_KEYWORDS = [
     ("serve", "gateway_host", "127.0.0.1", "0.0.0.0", 3),
     ("serve", "flight_recorder", None, 256, 3),
     ("serve", "prefill_budget", None, 64, 1),
-    ("serve", "block_size", None, 16, 3),
+    ("serve", "block_size", None, 16, "3a"),
 ]
 
 
@@ -457,9 +457,14 @@ def _call(where, model, **kwargs):
     return et.SparkModel(model, device="cpu").serve(**kwargs)
 
 
-# Queue A items ported since: their keywords take the other value too
-# (a budget with the chunk it needs)
-PORTED_ITEMS = {1}
+# Queue A items ported since: their keywords take the other value too (a
+# budget with the chunk it needs, the paged arena's knobs with paged=True).
+# "3a" is the storage half of item 3: the paged arena, preemption, int8 /
+# int4 KV
+PORTED_ITEMS = {1, "3a"}
+NEEDS = {"prefill_budget": {"prefill_chunk": 4},
+         **{name: {"paged": True} for name in ("block_size", "num_blocks", "preemption",
+                                               "kv_dtype")}}
 
 
 @pytest.mark.parametrize("where,name,neutral,other,item", REFERENCE_KEYWORDS)
@@ -467,8 +472,7 @@ def test_reference_keywords_pass_or_name_their_item(small_lm, where, name, neutr
                                                     item):
     _call(where, small_lm, **{name: neutral})
     if item in PORTED_ITEMS:
-        extra = {"prefill_chunk": 4} if name == "prefill_budget" else {}
-        _call(where, small_lm, **{name: other}, **extra)
+        _call(where, small_lm, **{name: other}, **NEEDS.get(name, {}))
         return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md, Queue A item {item}\b"):
         _call(where, small_lm, **{name: other})
@@ -510,5 +514,9 @@ def test_serve_passes_engine_keywords_through(small_lm):
     engine = sm.serve(num_slots=2, prefix_cache=True, prefix_min_reuse=4, prefill_chunk=4,
                       prefill_budget=8)
     assert engine.scheduler.prefix_min_reuse == 4 and engine.prefill_chunk == 4
+    engine = sm.serve(num_slots=2, paged=True, block_size=8, num_blocks=12, preemption=True,
+                      kv_dtype="int8")
+    assert (engine.paged, engine.block_size, engine.num_blocks, engine.preemption,
+            engine.kv_dtype) == (True, 8, 12, True, "int8")
     with pytest.raises(NotImplementedError, match=r"Queue A item 3\b"):
-        sm.serve(paged=True)
+        sm.serve(speculative=True)

@@ -148,7 +148,7 @@ def test_generate_argument_errors_match_jax(lm_pair, prompt_len, kwargs):
 def test_unported_options_raise(lm_pair):
     _, port = lm_pair
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        et.InferenceEngine(port, paged=True)
+        et.InferenceEngine(port, speculative=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         et.transformer_lm(vocab_size=8, maxlen=16, d_model=32, num_heads=2,
                           num_layers=1, dtype_policy="mixed_float16", device="cpu")
@@ -211,5 +211,6 @@ def test_import_check_walks_every_module():
                  "ops.flash_serving", "serving.kv_cache", "serving.scheduler",
                  "serving.engine", "data.streaming", "data.dataframe", "data.linalg",
                  "mllib.adapter", "ml.params", "ml.adapter", "ml.pipeline", "ml_model",
-                 "models.keras_config", "hyperparam", "serving.prefix_cache"):
+                 "models.keras_config", "hyperparam", "serving.prefix_cache",
+                 "serving.blocks", "serving.kv_quant", "serving.paged_kv"):
         assert f"elephas_tpu_torch.{name}" in found
