@@ -14,7 +14,8 @@ Phases, each printing one JSON line and raising on failure:
             cuobjdump --dump-sass, and the span chunk's; each LayerNorm
             forward instantiation's 16-byte loads and stores and block
             barriers; fails on a spill, a flash or span-chunk kernel
-            without HMMA or LDGSTS, a one-warp-a-row
+            without HMMA or LDGSTS, a paged span-decode kernel without
+            LDGSTS (its cp.async ring), a one-warp-a-row
             LayerNorm forward with a block barrier or a vector one without
             16-byte loads and stores;
 3. kernel — each kernel against its plain PyTorch version on the card,
@@ -35,7 +36,8 @@ Phases, each printing one JSON line and raising on failure:
             prefix-hit pass (4 slots through the slot map, 32 rows),
             repeating bit for bit eagerly and from a CUDA-graph replay; and
             the paged span decode and span chunk in fp, int8 and int4 at
-            E's decode shape (16 slots, 4 heads of 128, blocks of 16) over
+            E's decode shape (16 slots, 4 heads of 128, blocks of 16, and
+            the decode also at blocks of 1) over
             tables of 8-32 blocks with shuffled ids, sentinel padding and
             stale cursors, at 16 slots of 64 rows, at the paged engine's
             one-row launch and at a 512-row chunk from 0: within 1e-5 of
@@ -189,7 +191,10 @@ times at config A's
 attention shape, at the training rows, at the engine's decode shape and
 its chunk launch at span 256, fp32; the paged decode at span 128 and the
 paged chunk's one-row launch at span 256, fp), and last {"ok": true, "device": {...}}. Exits non-zero with no result when CUDA is
-not available or the package is not beside this script.
+not available or the package is not beside this script (the reason on
+standard error); its first line, printed before torch is imported, names
+the interpreter and the script, and an uncaught exception prints its
+traceback and exits 1.
 
 ``--times-only`` runs the card, serve, engine, engine_long, engine_chunked,
 engine_paged,
@@ -213,8 +218,13 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+if __name__ == "__main__":
+    # before torch loads: a run that dies importing it still says where it ran
+    print(f"chip_smoke: python {sys.version.split()[0]}, {os.path.abspath(__file__)}",
+          flush=True)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -380,6 +390,9 @@ CHUNKED_PER_PREFIX = 4
 # engine's one-row chunk pass) and a 512-row chunk from position 0
 PAGED_CASE = (16, 4, 128, 16)
 PAGED_SPANS = (128, 256, 512)
+# the decode also at a block of one position, where every key has its own
+# table entry
+PAGED_DECODE_BLOCKS = (16, 1)
 PAGED_DTYPES = ("fp", "int8", "int4")
 PAGED_CHUNKS = ((16, 64), (1, 64))
 PAGED_C512 = (1, 512)
@@ -435,8 +448,8 @@ def phase_card():
 def _instantiation(mangled):
     """A kernel's mangled name, shortened: '..flash_fwd_kernelIfLi128EE..'
     -> 'flash_fwd_kernel<float32, 128>', '..ln_fwd_kernelIfLi4EE..' ->
-    'ln_fwd_kernel<float32, 4>', '..span_decode_kernelILi64EE..' ->
-    'span_decode_kernel<64>', '..span_decode_merge_kernelILi64EE..' ->
+    'ln_fwd_kernel<float32, 4>', '..span_decode_kernelILi64ELi8EE..' ->
+    'span_decode_kernel<64, 8>', '..span_decode_merge_kernelILi64EE..' ->
     'span_decode_merge_kernel<64>', '..paged_span_chunk_kernelILi64ELi1EE..' ->
     'paged_span_chunk_kernel<64, 1>'."""
     m = re.search(r"\d((?:flash|ln|span|paged_span)_\w*?kernel)I(f|13__nv_bfloat16)?"
@@ -524,12 +537,13 @@ def phase_build():
     span = sorted(_sass_counts(targets["span_decode"], "span_decode"))
     chunk_sass = _sass_counts(targets["span_chunk"], "span_chunk")
     chunk = sorted(chunk_sass)
-    paged_decode = sorted(_sass_counts(targets["span_decode"], "paged_span_decode"))
+    paged_decode_sass = _sass_counts(targets["span_decode"], "paged_span_decode")
+    paged_decode = sorted(paged_decode_sass)
     paged_sass = _sass_counts(targets["span_chunk"], "paged_span_chunk")
     ln_sass = _sass_counts(targets["layer_norm"], "ln_fwd", LN_SASS_OPS)
     emit({"phase": "build", "seconds": seconds, "sources": sorted(_native.SOURCES),
           "ptxas": ptxas, "flash_sass": sass, "span_decode_instantiations": span,
-          "span_chunk_sass": chunk_sass, "paged_span_decode_instantiations": paged_decode,
+          "span_chunk_sass": chunk_sass, "paged_span_decode_sass": paged_decode_sass,
           "paged_span_chunk_sass": paged_sass, "layer_norm_fwd_sass": ln_sass})
     spills = [f"{name}: {r}" for log in ptxas.values() for name, r in log.items()
               if r.get("spill_stores") or r.get("spill_loads")]
@@ -542,15 +556,23 @@ def phase_build():
     # (kv_dtype code 0) fill the ring by cp.async
     missing += [name for name, c in paged_sass.items()
                 if not c["HMMA"] or (name.endswith(", 0>") and not c["LDGSTS"])]
+    # the paged decode fills its ring by cp.async in every stored type
+    missing += [name for name, c in paged_decode_sass.items()
+                if name.startswith("paged_span_decode_kernel") and not c["LDGSTS"]]
     ln_faults = _ln_sass_faults(ln_sass)
-    if spills or missing or len(sass) != 8 or len(span) != 8 or len(chunk) != 8 or ln_faults \
-            or len(paged_decode) != 12 or len(paged_sass) != 12:
+    # the span decodes' split kernels come in blocks of 4 and of 8 warps
+    if spills or missing or len(sass) != 8 or len(span) != 12 or len(chunk) != 8 or ln_faults \
+            or len(paged_decode) != 24 or len(paged_sass) != 12:
         raise AssertionError(f"build: spills {spills}; flash or span chunk kernels without "
-                             f"HMMA or LDGSTS {missing}; {len(sass)} flash instantiations, "
-                             f"want 8; span decode instantiations {span} and span chunk "
-                             f"instantiations {chunk}, want 8 each (split and merge "
-                             f"kernels at 4 head dims); paged decode {paged_decode} and "
-                             f"chunk {sorted(paged_sass)}, want 12 each (4 head dims x 3 "
+                             f"HMMA or LDGSTS, or paged decode kernels without LDGSTS "
+                             f"{missing}; {len(sass)} flash instantiations, "
+                             f"want 8; span decode instantiations {span}, want 12 (split "
+                             f"kernels at 4 head dims x 4 or 8 warps, merge kernels at 4 "
+                             f"head dims), and span chunk "
+                             f"instantiations {chunk}, want 8 (split and merge "
+                             f"kernels at 4 head dims); paged decode {paged_decode}, want 24 "
+                             f"(4 head dims x 3 stored types x 4 or 8 warps), and "
+                             f"chunk {sorted(paged_sass)}, want 12 (4 head dims x 3 "
                              f"stored types); LayerNorm forward {ln_faults}")
 
 
@@ -3191,12 +3213,12 @@ def _paged_pool(b, h, d, bs, t, kv_dtype, dev, seed):
     return kq, vq, (ks, vs), tables.to(dev)
 
 
-def _paged_decode_inputs(kv_dtype, span, dev, seed):
-    """The engine's decode shape over a paged pool: q, the pool, tables of
-    span / block blocks, and int32 positions: 0 on lane 0, the span's last
-    row on lane 1, stale cursors past the span (inactive lanes) on lanes 2
-    and 3, the rest ragged."""
-    b, h, d, bs = PAGED_CASE
+def _paged_decode_inputs(kv_dtype, span, dev, seed, bs=PAGED_CASE[3]):
+    """The engine's decode shape over a paged pool of blocks of ``bs``: q,
+    the pool, tables of span / bs blocks, and int32 positions: 0 on lane 0,
+    the span's last row on lane 1, stale cursors past the span (inactive
+    lanes) on lanes 2 and 3, the rest ragged."""
+    b, h, d, _ = PAGED_CASE
     pk, pv, scales, tables = _paged_pool(b, h, d, bs, span // bs, kv_dtype, dev, seed)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     q = torch.randn(b, h, d, generator=g, device=dev)
@@ -3229,8 +3251,11 @@ def _paged_cases():
     cases = []
     for dt in PAGED_DTYPES:
         for span in PAGED_SPANS:
-            cases.append(("paged_span_decode", f"{dt}_span{span}", dt,
-                          lambda dev, dt=dt, span=span: _paged_decode_inputs(dt, span, dev, span)))
+            for bs in PAGED_DECODE_BLOCKS:
+                block = "" if bs == PAGED_CASE[3] else f"block{bs}_"
+                cases.append(("paged_span_decode", f"{dt}_{block}span{span}", dt,
+                              lambda dev, dt=dt, span=span, bs=bs:
+                              _paged_decode_inputs(dt, span, dev, span, bs)))
             for rows, c in PAGED_CHUNKS:
                 off = span - c if rows == 1 else None
                 cases.append(("paged_span_chunk", f"{dt}_B{rows}_C{c}_span{span}", dt,

@@ -81,7 +81,12 @@ paged_launches = 0
 paged_chunk_launches = 0
 # kv_dtype -> the C entries' code; the stored type of each pool
 KV_CODES = {"fp": 0, "int8": 1, "int4": 2}
+# kv_dtype -> (the pool's dtype, values a stored element)
+_STORED = {"fp": (torch.float32, 1), "int8": (torch.int8, 1), "int4": (torch.int8, 2)}
+_F32, _I32 = torch.float32, torch.int32
 _CHUNK_LIB = None  # the span-chunk library, its argument types set (_chunk_kernel)
+_PAGED_DECODE = {}  # device index -> the paged decode's C function, ready there
+_SMS = {}  # device index -> SM count
 
 
 def span_buckets(maxlen: int, floor: int = SPAN_FLOOR) -> tuple[int, ...]:
@@ -170,8 +175,9 @@ def span_splits(span: int, rows: int, sm_count: int) -> tuple[int, int]:
 
 def span_decode_split_reference(q, gk, gv, positions, splits: int, chunk: int, scale=None):
     """The kernel's split-then-merge arithmetic in plain PyTorch (for the
-    tests; the card's reference stays :func:`span_chunk_reference`): split
-    ``i`` attends over the visible keys of positions ``[i·chunk,
+    tests; the card's reference stays :func:`span_chunk_reference`): scores
+    in log2 units (scaled by ``scale · log2(e)``, the softmax in exp2);
+    split ``i`` attends over the visible keys of positions ``[i·chunk,
     (i+1)·chunk)`` into an unnormalised partial ``(m, l, acc)``, the empty
     state ``(NEG_INF, 0, 0)`` when it sees none; the partials merge in
     split order by lse. Shapes as :func:`flash_span_decode`."""
@@ -187,11 +193,11 @@ def span_decode_split_reference(q, gk, gv, positions, splits: int, chunk: int, s
     for i in range(splits):
         j0, j1 = i * chunk, min(s_len, (i + 1) * chunk)
         kt, vt = gk[:, j0:j1].float(), gv[:, j0:j1].float()  # [B, c, H, D]
-        s = torch.einsum("bhd,bkhd->bhk", q, kt) * scale
+        s = torch.einsum("bhd,bkhd->bhk", q, kt) * (scale * LOG2E)
         vis = torch.arange(j0, j1, device=q.device)[None, None, :] < n[:, None, None]
         s = torch.where(vis, s, NEG_INF)
         m = torch.where(vis.any(-1), s.amax(-1), NEG_INF)
-        p = torch.where(vis, torch.exp(s - m[..., None]), 0.0)
+        p = torch.where(vis, torch.exp2(s - m[..., None]), 0.0)
         parts.append((m, p.sum(-1), torch.einsum("bhk,bkhd->bhd", p, vt)))
     live = [pt[1] > 0 for pt in parts]
     mx = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
@@ -200,7 +206,7 @@ def span_decode_split_reference(q, gk, gv, positions, splits: int, chunk: int, s
     l = torch.zeros(b, h, dtype=torch.float32, device=q.device)
     acc = torch.zeros(b, h, d, dtype=torch.float32, device=q.device)
     for (m, ls, a), ok in zip(parts, live):
-        e = torch.where(ok, torch.exp(m - mx), 0.0)
+        e = torch.where(ok, torch.exp2(m - mx), 0.0)
         l = l + ls * e
         acc = acc + a * e[..., None]
     return torch.where(l[..., None] > 0, acc / torch.where(l > 0, l, 1.0)[..., None], 0.0)
@@ -662,6 +668,21 @@ def _paged_kernel(name):
     return lib
 
 
+def _paged_decode_fn(index: int):
+    """The paged decode's C function on device ``index``, cached: the first
+    call a device lets the kernel's instantiations take their shared-memory
+    rings there (``elephas_paged_span_decode_init``, a runtime setting made
+    once, outside any graph capture that later calls make)."""
+    lib = _paged_kernel("span_decode")
+    with torch.cuda.device(index):
+        err = lib.elephas_paged_span_decode_init()
+    if err:
+        raise RuntimeError("paged span_decode set-up failed: "
+                           + lib.elephas_cuda_error_string(err).decode())
+    _PAGED_DECODE[index] = lib.elephas_paged_span_decode
+    return lib.elephas_paged_span_decode
+
+
 def _check_paged_operands(what, q, rows, pool_k, pool_v, tables, pos, kv_dtype, kv_scales):
     """Raise on what the paged kernels do not take: q float32 contiguous
     ``[B, H, D]`` (decode) or ``[B, H, C, D]`` (chunk) with D in HEAD_DIMS;
@@ -680,8 +701,8 @@ def _check_paged_operands(what, q, rows, pool_k, pool_v, tables, pos, kv_dtype, 
         raise ValueError(f"{what} takes head_dim in {HEAD_DIMS}, got {d}")
     if q.dtype != torch.float32 or not q.is_contiguous() or q.data_ptr() % ALIGN_BYTES:
         raise ValueError(f"{what} takes a contiguous, 16-byte-aligned float32 q")
-    stored = d // 2 if kv_dtype == "int4" else d
-    want = torch.float32 if kv_dtype == "fp" else torch.int8
+    want, per = _STORED[kv_dtype]
+    stored = d // per
     leaves = [("k", pool_k), ("v", pool_v)]
     if kv_dtype != "fp":
         if kv_scales is None:
@@ -711,48 +732,108 @@ def _check_paged_operands(what, q, rows, pool_k, pool_v, tables, pos, kv_dtype, 
         raise ValueError(f"{what} takes at most 65535 rows and heads, got {b} and {h}")
 
 
-def _launch_paged(q, pool_k, pool_v, tables, pos, scale, kv_dtype, kv_scales):
-    """One call of a paged kernel on checked CUDA operands (the decode for a
-    ``[B, H, D]`` q, the chunk for ``[B, H, C, D]``), on q's current stream,
-    with the split of the arena kernel over the table span."""
-    global paged_launches, paged_chunk_launches
-    decode = q.ndim == 3
-    b, h, d = q.shape[0], q.shape[1], q.shape[-1]
-    c = 1 if decode else q.shape[2]
+def _paged_decode_ready(q, pool_k, pool_v, tables, pos, kv_dtype, kv_scales) -> bool:
+    """The paged decode's usual operands, in one predicate: everything
+    :func:`_check_paged_operands` asks of a decode call holds (it runs, with
+    its messages, only when this is False)."""
+    stored = _STORED.get(kv_dtype)
+    if stored is None or q.dtype is not _F32 or q.dim() != 3 or not q.is_contiguous():
+        return False
+    b, h, d = q.shape
+    shape, index = pool_k.shape, q.get_device()
+    if not (d in HEAD_DIMS and len(shape) == 4 and shape[0] >= 2 and shape[2] == h
+            and shape[3] * stored[1] == d and pool_k.dtype is stored[0]
+            and pool_v.dtype is stored[0] and pool_v.shape == shape
+            and pool_k.is_contiguous() and pool_v.is_contiguous()
+            and pool_k.get_device() == index and pool_v.get_device() == index
+            and tables.dtype is _I32 and tables.dim() == 2 and tables.shape[0] == b
+            and tables.is_contiguous() and tables.get_device() == index
+            and pos.dtype is _I32 and pos.shape == (b,) and pos.is_contiguous()
+            and pos.get_device() == index and b <= 65535 and h <= 65535
+            and (q.data_ptr() | pool_k.data_ptr() | pool_v.data_ptr()) % ALIGN_BYTES == 0):
+        return False
+    if kv_dtype == "fp":
+        return True
+    if kv_scales is None or len(kv_scales) != 2:
+        return False
+    ks, vs = kv_scales
+    return (ks.dtype is _F32 and vs.dtype is _F32 and ks.shape == shape[:3]
+            and vs.shape == shape[:3] and ks.is_contiguous() and vs.is_contiguous()
+            and ks.get_device() == index and vs.get_device() == index
+            and (ks.data_ptr() | vs.data_ptr()) % ALIGN_BYTES == 0)
+
+
+def _launch_paged_decode(q, pool_k, pool_v, tables, pos, scale: float, kv_dtype, kv_scales):
+    """One call of the paged decode kernel on checked CUDA operands (with
+    more than one split, the split kernel and then the merge kernel), on
+    q's device and its current stream, with the arena kernel's split over
+    the table span. ``out`` and the partials share one allocation; the SM
+    count and the C function are cached; the stream is taken as a raw
+    handle and the device guard only off the current device."""
+    global paged_launches
+    b, h, d = q.shape
     n1, bs = pool_k.shape[:2]
     t = tables.shape[1]
-    span = t * bs
-    index = q.device.index
-    sms = _sm_count(index)
-    if decode:
-        splits, chunk = span_splits(span, b * h, sms)
+    index = q.get_device()
+    splits, chunk = span_splits(t * bs, b * h, _SMS.get(index) or _sm_count_of(index))
+    if splits > 1:
+        # out [B, H, D], then the partials: acc [B·H, splits, D] and (m, l)
+        # [B·H, splits, 2]
+        buf = q.new_empty(b * h * (d + splits * (d + 2)))
+        out, work = buf.as_strided((b, h, d), (h * d, d, 1)), buf.data_ptr() + b * h * d * 4
     else:
-        splits, chunk = span_chunk_splits(span, b * h, c, d, sms)
-    out = torch.empty_like(q)
-    work = torch.empty(b * h * splits * c * (d + 2), dtype=torch.float32, device=q.device) \
-        if splits > 1 else None
-    ks, vs = (None, None) if kv_scales is None else (kv_scales[0].data_ptr(),
-                                                     kv_scales[1].data_ptr())
-    name = "span_decode" if decode else "span_chunk"
-    lib = _paged_kernel(name)
-    shape = (b, h, d) if decode else (b, h, c, d)
+        out, work = torch.empty_like(q), None
+    ks, vs = (None, None) if kv_dtype == "fp" else (kv_scales[0].data_ptr(),
+                                                    kv_scales[1].data_ptr())
     args = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), ks, vs, tables.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(),
-            *shape, KV_CODES[kv_dtype], bs, t, n1 - 1, splits, chunk, float(scale),
-            torch._C._cuda_getCurrentRawStream(index))
-    fn = getattr(lib, f"elephas_paged_{name}")
+            pos.data_ptr(), out.data_ptr(), work, b, h, d, KV_CODES[kv_dtype], bs, t, n1 - 1,
+            splits, chunk, scale, torch._C._cuda_getCurrentRawStream(index))
+    fn = _PAGED_DECODE.get(index) or _paged_decode_fn(index)
     if index == torch._C._cuda_getDevice():
         err = fn(*args)
     else:
         with torch.cuda.device(index):
             err = fn(*args)
     if err:
-        raise RuntimeError(f"paged {name} launch failed: "
-                           + lib.elephas_cuda_error_string(err).decode())
-    if decode:
-        paged_launches += 1
+        raise RuntimeError("paged span_decode launch failed: "
+                           + _paged_kernel("span_decode").elephas_cuda_error_string(err).decode())
+    paged_launches += 1
+    return out
+
+
+def _sm_count_of(index: int) -> int:
+    sms = _SMS[index] = _sm_count(index)
+    return sms
+
+
+def _launch_paged_chunk(q, pool_k, pool_v, tables, pos, scale, kv_dtype, kv_scales):
+    """One call of the paged chunk kernel on checked CUDA operands, on q's
+    current stream, with the arena kernel's split over the table span."""
+    global paged_chunk_launches
+    b, h, c, d = q.shape
+    n1, bs = pool_k.shape[:2]
+    t = tables.shape[1]
+    index = q.device.index
+    splits, chunk = span_chunk_splits(t * bs, b * h, c, d, _sm_count(index))
+    out = torch.empty_like(q)
+    work = torch.empty(b * h * splits * c * (d + 2), dtype=torch.float32, device=q.device) \
+        if splits > 1 else None
+    ks, vs = (None, None) if kv_scales is None else (kv_scales[0].data_ptr(),
+                                                     kv_scales[1].data_ptr())
+    lib = _paged_kernel("span_chunk")
+    args = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), ks, vs, tables.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(),
+            b, h, c, d, KV_CODES[kv_dtype], bs, t, n1 - 1, splits, chunk, float(scale),
+            torch._C._cuda_getCurrentRawStream(index))
+    if index == torch._C._cuda_getDevice():
+        err = lib.elephas_paged_span_chunk(*args)
     else:
-        paged_chunk_launches += 1
+        with torch.cuda.device(index):
+            err = lib.elephas_paged_span_chunk(*args)
+    if err:
+        raise RuntimeError("paged span_chunk launch failed: "
+                           + lib.elephas_cuda_error_string(err).decode())
+    paged_chunk_launches += 1
     return out
 
 
@@ -769,10 +850,16 @@ def flash_paged_span_decode(q, pool_k, pool_v, tables, positions, scale=None,
     ``[B, H, Dh]`` float32.
 
     A CUDA tensor launches the paged span-decode kernel (int32 tables and
-    positions on the device), a CPU tensor runs
+    positions on the device): the usual operands are accepted by one
+    predicate (:func:`_paged_decode_ready`), any other call takes the full
+    checks, which raise what the kernel does not take. A CPU tensor runs
     :func:`paged_span_decode_reference`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if q.is_cuda and _paged_decode_ready(q, pool_k, pool_v, tables, positions, kv_dtype,
+                                         kv_scales):
+        return _launch_paged_decode(q, pool_k, pool_v, tables, positions, float(scale),
+                                    kv_dtype, kv_scales)
     if q.device.type == "cpu":
         return paged_span_decode_reference(q, pool_k, pool_v, tables, positions, scale,
                                            kv_dtype, kv_scales, block_k)
@@ -780,7 +867,8 @@ def flash_paged_span_decode(q, pool_k, pool_v, tables, positions, scale=None,
         raise ValueError(f"paged span_decode runs on cuda or cpu, not {q.device}")
     _check_paged_operands("paged span_decode", q, None, pool_k, pool_v, tables, positions,
                           kv_dtype, kv_scales)
-    return _launch_paged(q, pool_k, pool_v, tables, positions, scale, kv_dtype, kv_scales)
+    return _launch_paged_decode(q, pool_k, pool_v, tables, positions, float(scale), kv_dtype,
+                                kv_scales)
 
 
 def flash_paged_span_chunk(q, pool_k, pool_v, tables, pos_mat, scale=None,
@@ -803,4 +891,4 @@ def flash_paged_span_chunk(q, pool_k, pool_v, tables, pos_mat, scale=None,
         raise ValueError(f"paged span_chunk runs on cuda or cpu, not {q.device}")
     _check_paged_operands("paged span_chunk", q, q.shape[2], pool_k, pool_v, tables, pos_mat,
                           kv_dtype, kv_scales)
-    return _launch_paged(q, pool_k, pool_v, tables, pos_mat, scale, kv_dtype, kv_scales)
+    return _launch_paged_chunk(q, pool_k, pool_v, tables, pos_mat, scale, kv_dtype, kv_scales)

@@ -4,8 +4,9 @@ over an arena span, chunk attention and causal prefill, for ragged
 positions, a span below ``maxlen`` and head dims 16 and 64; the span
 kernels' split-then-merge arithmetic (decode and chunk) at every split
 count the host can pick, and the split choices themselves; the span
-kernel's operand checks, which run on CPU tensors; and the arguments the
-span-chunk wrapper would launch with, recorded on CPU tensors.
+kernel's operand checks, which run on CPU tensors; the arguments the
+span-chunk wrapper would launch with, recorded on CPU tensors; and the
+paged decode's one-predicate fast path against its full checks.
 
 Inputs are numpy arrays made from a seed. Outputs agree within 1e-5: the
 same online softmax, in another association order.
@@ -392,3 +393,94 @@ def test_span_chunk_one_split_takes_no_workspace(monkeypatch):
         q, k, v, pos = (torch.from_numpy(a) for a in _chunk_operands(b, 4, d, c, span))
         fs._launch_chunk(q, k, v, pos, None, 0.1)
         assert calls[-1][12] == 1 and calls[-1][6] is None
+
+
+def _paged_decode_operands(kv_dtype, b=2, h=2, d=16, bs=4, t=12):
+    """CPU operands of a paged decode: a pool of ``b·t`` blocks and the sink
+    (codes and scales when quantized), tables, positions."""
+    from elephas_tpu_torch.serving.kv_quant import quantize_rows
+
+    rng = np.random.default_rng(0)
+    n1 = b * t + 1
+    rows = torch.from_numpy(_randn(rng, 2, n1, bs, h, d))
+    q = torch.from_numpy(_randn(rng, b, h, d))
+    tables = torch.arange(b * t, dtype=torch.int32).view(b, t)
+    pos = torch.tensor([0, t * bs - 1], dtype=torch.int32)
+    if kv_dtype == "fp":
+        return q, rows[0].contiguous(), rows[1].contiguous(), tables, pos, None
+    (kq, ks), (vq, vs) = (quantize_rows(r, kv_dtype) for r in rows)
+    return q, kq, vq, tables, pos, (ks, vs)
+
+
+def _misaligned(t):
+    """``t``'s values in a view 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype)
+    i = next(i for i in range(16) if (flat.data_ptr() + i * t.element_size()) % 16 == 4)
+    view = flat[i:i + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# what the paged decode does not take: (kv_dtype, change to (q, pk, pv,
+# tables, pos, scales), the full check's message)
+PAGED_REFUSALS = [
+    ("fp", lambda o: o, None),
+    ("int8", lambda o: o, None),
+    ("int4", lambda o: o, None),
+    ("fp8", lambda o: o, "kv_dtype"),
+    ("fp", lambda o: (o[0].double(), *o[1:]), "float32 q"),
+    ("fp", lambda o: (o[0].transpose(0, 1), *o[1:]), "contiguous"),
+    ("fp", lambda o: (o[0][:, :, None], *o[1:]), r"\[B, H, D\]"),
+    ("fp", lambda o: (o[0][..., :8].contiguous(), o[1][..., :8].contiguous(),
+                      o[2][..., :8].contiguous(), *o[3:]), "head_dim"),
+    ("fp", lambda o: (o[0], o[1].to(torch.int8), *o[2:]), "k must be"),
+    ("fp", lambda o: (o[0], o[1], o[2][:, :2].contiguous(), *o[3:]), "v must be"),
+    ("fp", lambda o: (o[0], o[1][:1], o[2][:1], *o[3:]), "the sink"),
+    ("fp", lambda o: (o[0], _misaligned(o[1]), *o[2:]), "16-byte"),
+    ("fp", lambda o: (*o[:3], o[3].long(), *o[4:]), "tables"),
+    ("fp", lambda o: (*o[:3], o[3][:1].contiguous(), *o[4:]), "tables"),
+    ("fp", lambda o: (*o[:4], o[4].long(), o[5]), "positions"),
+    ("fp", lambda o: (*o[:4], o[4][:, None], o[5]), "positions"),
+    ("int8", lambda o: (*o[:5], None), "kv_scales"),
+    ("int8", lambda o: (*o[:5], (o[5][0].double(), o[5][1])), "k_scale"),
+    ("int4", lambda o: (*o[:5], (o[5][0], o[5][1][:, :1].contiguous())), "v_scale"),
+    ("int4", lambda o: (o[0], o[1], o[2].view(torch.uint8), *o[3:]), "v must be"),
+]
+
+
+@pytest.mark.parametrize("kv_dtype,change,match", PAGED_REFUSALS)
+def test_paged_decode_fast_path_takes_only_what_the_checks_pass(monkeypatch, kv_dtype, change,
+                                                                match):
+    """The paged decode's one predicate accepts the usual operands and
+    nothing the full checks refuse (those raise their own messages); the
+    launch it leads to puts ``out`` and the partials in one allocation (the
+    launch is recorded on CPU tensors, not run)."""
+    base = kv_dtype if kv_dtype in fs.KV_CODES else "fp"
+    q, pk, pv, tables, pos, scales = change(_paged_decode_operands(base))
+    ready = fs._paged_decode_ready(q, pk, pv, tables, pos, kv_dtype, scales)
+    if match is not None:
+        assert not ready
+        with pytest.raises(ValueError, match=match):
+            fs._check_paged_operands("paged span_decode", q, None, pk, pv, tables, pos,
+                                     kv_dtype, scales)
+        return
+    assert ready
+    fs._check_paged_operands("paged span_decode", q, None, pk, pv, tables, pos, kv_dtype, scales)
+    calls = []
+    monkeypatch.setitem(fs._PAGED_DECODE, -1, lambda *args: calls.append(args) or 0)
+    monkeypatch.setitem(fs._SMS, -1, 132)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: -1, raising=False)
+    before = fs.paged_launches
+    out = fs._launch_paged_decode(q, pk, pv, tables, pos, 0.25, kv_dtype, scales)
+    assert fs.paged_launches == before + 1 and out.shape == q.shape and out.is_contiguous()
+    args = calls[-1]
+    b, h, d = q.shape
+    splits, chunk = fs.span_splits(48, b * h, 132)
+    assert args[9:19] == (b, h, d, fs.KV_CODES[kv_dtype], 4, 12, 24, splits, chunk, 0.25)
+    assert splits > 1 and args[7] == out.data_ptr() and args[8] == out.data_ptr() + b * h * d * 4
+    assert (args[3] is None) == (kv_dtype == "fp") and args[-1] == 7
+    # a span of 3 blocks is one split: no partials
+    out = fs._launch_paged_decode(q, pk, pv, tables[:, :3].contiguous(), pos, 0.25, kv_dtype,
+                                  scales)
+    assert calls[-1][16] == 1 and calls[-1][8] is None and calls[-1][7] == out.data_ptr()

@@ -852,24 +852,54 @@ def _rel_err(out, ref):
     return ((out - ref).abs() / ref.abs().clamp_min(1.0)).max().item()
 
 
-@pytest.mark.parametrize("t", [8, 32])
+def _graph_replay(call):
+    """``call()``'s output from the replay of a CUDA graph captured after a
+    warm-up call on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    graph.replay()
+    return replayed
+
+
+# (slots, heads, block_size, table length) of the paged decode cases: the
+# engine's block of 16 over spans 128 and 512 (splits of 103 keys start
+# mid-page), blocks of 1, 7 (splits of 58 keys start mid-page, every stage
+# spans pages) and 64 (splits of 77 keys); and 512 rows at block 1 over a
+# span of 600, one split, whose table outgrows one staged window
+PAGED_DECODE_TABLES = [(16, 4, 16, 8), (16, 4, 16, 32), (16, 4, 1, 300), (16, 4, 7, 41),
+                       (16, 4, 64, 6), (64, 8, 1, 600)]
+
+
+@pytest.mark.parametrize("b,h,bs,t", PAGED_DECODE_TABLES)
 @pytest.mark.parametrize("d", PAGED_DIMS)
 @pytest.mark.parametrize("kv_dtype", PAGED_DTYPES)
-def test_paged_span_decode_matches_plain_and_the_arena_kernel(cuda, kv_dtype, d, t):
-    """The paged decode over shuffled, sentinel-padded tables (spans 128 and
-    512 at block 16), with a position 0, the span's last row and a stale
+def test_paged_span_decode_matches_plain_and_the_arena_kernel(cuda, kv_dtype, d, b, h, bs, t):
+    """The paged decode over shuffled tables, the last row's tail
+    sentinel-padded, with a position 0, the span's last row and a stale
     cursor past the span: within 1e-5 of max(1, |out|) of the plain version,
-    and bit-equal to the arena kernel over the gathered, dequantized span
-    (the same split, the same order: only the addressing differs)."""
-    b, h, bs = 16, 4, 16
-    pk, pv, scales, tables = _paged_pool(cuda, d, kv_dtype, b, h, bs, t, seed=d + t)
+    bit-equal to the arena kernel over the gathered, dequantized span (the
+    same split, the same order: only the addressing differs), and bit-equal
+    on a second call and from a CUDA-graph replay."""
+    pk, pv, scales, tables = _paged_pool(cuda, d, kv_dtype, b, h, bs, t, seed=d + t + bs)
     gen = torch.Generator(device=cuda).manual_seed(1)
     q = _randn(gen, b, h, d)
     pos = torch.randint(0, t * bs, (b,), generator=gen, device=cuda, dtype=torch.int32)
     pos[:3] = torch.tensor([0, t * bs - 1, t * bs + 7], dtype=torch.int32)
+
+    def call():
+        return fs.flash_paged_span_decode(q, pk, pv, tables, pos, kv_dtype=kv_dtype,
+                                          kv_scales=scales)
+
     before = fs.paged_launches
-    out = fs.flash_paged_span_decode(q, pk, pv, tables, pos, kv_dtype=kv_dtype, kv_scales=scales)
+    out = call()
     assert fs.paged_launches == before + 1
+    again, replayed = call(), _graph_replay(call)
     ref = fs.paged_span_decode_reference(q, pk, pv, tables, pos, kv_dtype=kv_dtype,
                                          kv_scales=scales)
     gk, gv = fs.paged_dense_span(pk, pv, tables, kv_dtype, scales, d)
@@ -877,6 +907,7 @@ def test_paged_span_decode_matches_plain_and_the_arena_kernel(cuda, kv_dtype, d,
     torch.cuda.synchronize()
     assert _rel_err(out, ref) <= TOL_PAGED
     assert torch.equal(out, arena)
+    assert torch.equal(out, again) and torch.equal(out, replayed)
 
 
 @pytest.mark.parametrize("c", [1, 64, 100])
@@ -929,15 +960,7 @@ def test_paged_kernels_repeat_and_replay_bit_for_bit(cuda, kv_dtype, decode):
         return fn(q, pk, pv, tables, pos, kv_dtype=kv_dtype, kv_scales=scales)
 
     out, again = call(), call()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        call()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        replayed = call()
-    graph.replay()
+    replayed = _graph_replay(call)
     torch.cuda.synchronize()
     assert torch.equal(out, again) and torch.equal(out, replayed)
 
