@@ -13,8 +13,9 @@ Phases, each printing one JSON line and raising on failure:
             (LDGSTS) and ldmatrix (LDSM) instruction counts from
             cuobjdump --dump-sass, and the span chunk's; each LayerNorm
             forward instantiation's 16-byte loads and stores and block
-            barriers; fails on a spill, a flash or span-chunk kernel
-            without HMMA or LDGSTS, a paged span-decode kernel without
+            barriers; fails on a spill, a flash, span-chunk or paged
+            span-chunk kernel (every stored type) without HMMA or LDGSTS,
+            a paged span-decode kernel without
             LDGSTS (its cp.async ring), a one-warp-a-row
             LayerNorm forward with a block barrier or a vector one without
             16-byte loads and stores;
@@ -37,13 +38,15 @@ Phases, each printing one JSON line and raising on failure:
             repeating bit for bit eagerly and from a CUDA-graph replay; and
             the paged span decode and span chunk in fp, int8 and int4 at
             E's decode shape (16 slots, 4 heads of 128, blocks of 16, and
-            the decode also at blocks of 1) over
+            both also at blocks of 1) over
             tables of 8-32 blocks with shuffled ids, sentinel padding and
             stale cursors, at 16 slots of 64 rows, at the paged engine's
-            one-row launch and at a 512-row chunk from 0: within 1e-5 of
+            one-row launch, at one row over 1,024 keys (16 splits: the
+            merge kernel) and at a 512-row chunk from 0: within 1e-5 of
             max(1, |out|) of their plain versions, bit-equal to the arena
             kernels over the gathered, dequantized span, on a second call
-            and from a CUDA-graph replay;
+            and from a CUDA-graph replay, the paged chunk launching its
+            merge kernel only past 8 splits;
 4. serve  — the serving path: generate() on transformer_lm at full width
             (config A with and without rope, config B), and one
             transformer_classifier forward, with launch counts of the
@@ -146,6 +149,10 @@ Phases, each printing one JSON line and raising on failure:
             (bench.py:825-900), and score() agreement of int8 with the fp
             engine >= 0.95 on a d128L4 stand-in trained through the port's
             SparkModel on the bench's periodic data (int4 reported);
+6f. engine_chunk_shapes — the (B, C, table span) shapes the paged chunk
+            was launched at in engine_paged and engine_quant, with counts;
+            fails on a merge-kernel launch there (at config A's spans the
+            splits merge in a thread-block cluster);
 7. profile — one more training step (fp32, then bf16, then ResNet-50),
             generate() at config A batch 1
             with rope off and on, and one engine decode window, under
@@ -177,7 +184,9 @@ Phases, each printing one JSON line and raising on failure:
             the engine's, generate's and the training rows; and a sweep of
             the forward's rows per block (printed on a line of its own);
             the paged kernels in every stored type at their gated shapes
-            beside their plain versions, masked SDPA over the span gathered
+            (the paged chunk also at the engine's most frequent launch
+            shape, with the positions the engine gave it) beside their
+            plain versions, masked SDPA over the span gathered
             beforehand and the gather-and-dequantize time;
 8b. ln_host_breakdown — where a LayerNorm call's host time goes (the
             entry, the autograd Function, checks, allocations, device
@@ -210,6 +219,7 @@ them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -217,6 +227,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 
 if __name__ == "__main__":
     # before torch loads: a run that dies importing it still says where it ran
@@ -396,6 +407,11 @@ PAGED_DECODE_BLOCKS = (16, 1)
 PAGED_DTYPES = ("fp", "int8", "int4")
 PAGED_CHUNKS = ((16, 64), (1, 64))
 PAGED_C512 = (1, 512)
+# the paged chunk also at blocks of one position over spans 128-512, and at
+# one row of 64 over a table span of PAGED_OVER_CLUSTER keys (16 splits: past
+# the 8 a cluster merges, so the workspace and the merge kernel)
+PAGED_CHUNK_BLOCK1 = (1, 64, 1)
+PAGED_OVER_CLUSTER = 1024
 # engine_paged: E's engine on the paged arena, its pool the fixed arena's
 # rows (16 slots x 32 blocks of 16, as bench.py:2775-2780 sizes fleet
 # engines); fixed and paged passes in turns, PAGED_ROUNDS each
@@ -552,10 +568,9 @@ def phase_build():
     # from a cp.async ring
     missing += [name for name, c in chunk_sass.items()
                 if name.startswith("span_chunk_kernel") and not (c["HMMA"] and c["LDGSTS"])]
-    # the paged chunk's run on the tensor cores too; its fp instantiations
-    # (kv_dtype code 0) fill the ring by cp.async
-    missing += [name for name, c in paged_sass.items()
-                if not c["HMMA"] or (name.endswith(", 0>") and not c["LDGSTS"])]
+    # the paged chunk's run on the tensor cores too, and fill their stages
+    # by cp.async in every stored type (fp rows, int8 / int4 codes and scales)
+    missing += [name for name, c in paged_sass.items() if not (c["HMMA"] and c["LDGSTS"])]
     # the paged decode fills its ring by cp.async in every stored type
     missing += [name for name, c in paged_decode_sass.items()
                 if name.startswith("paged_span_decode_kernel") and not c["LDGSTS"]]
@@ -563,8 +578,9 @@ def phase_build():
     # the span decodes' split kernels come in blocks of 4 and of 8 warps
     if spills or missing or len(sass) != 8 or len(span) != 12 or len(chunk) != 8 or ln_faults \
             or len(paged_decode) != 24 or len(paged_sass) != 12:
-        raise AssertionError(f"build: spills {spills}; flash or span chunk kernels without "
-                             f"HMMA or LDGSTS, or paged decode kernels without LDGSTS "
+        raise AssertionError(f"build: spills {spills}; flash, span chunk or paged chunk "
+                             f"kernels without HMMA or LDGSTS, or paged decode kernels "
+                             f"without LDGSTS "
                              f"{missing}; {len(sass)} flash instantiations, "
                              f"want 8; span decode instantiations {span}, want 12 (split "
                              f"kernels at 4 head dims x 4 or 8 warps, merge kernels at 4 "
@@ -3227,12 +3243,12 @@ def _paged_decode_inputs(kv_dtype, span, dev, seed, bs=PAGED_CASE[3]):
     return q, pk, pv, scales, tables, pos
 
 
-def _paged_chunk_inputs(kv_dtype, rows, c, span, dev, seed, offset=None):
-    """Chunk queries ``[rows, H, c, D]`` over a paged pool with tables of
-    span / block blocks at int32 positions ``offset + 0..c-1`` (every row),
-    or ragged: 0 on row 0, ending on the span's last row on row 1, rows past
-    the span on row 2."""
-    _, h, d, bs = PAGED_CASE
+def _paged_chunk_inputs(kv_dtype, rows, c, span, dev, seed, offset=None, bs=PAGED_CASE[3]):
+    """Chunk queries ``[rows, H, c, D]`` over a paged pool of blocks of
+    ``bs`` with tables of span / bs blocks at int32 positions ``offset +
+    0..c-1`` (every row), or ragged: 0 on row 0, ending on the span's last
+    row on row 1, rows past the span on row 2."""
+    _, h, d, _ = PAGED_CASE
     pk, pv, scales, tables = _paged_pool(rows, h, d, bs, span // bs, kv_dtype, dev, seed)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     q = torch.randn(rows, h, c, d, generator=g, device=dev)
@@ -3261,6 +3277,14 @@ def _paged_cases():
                 cases.append(("paged_span_chunk", f"{dt}_B{rows}_C{c}_span{span}", dt,
                               lambda dev, dt=dt, rows=rows, c=c, span=span, off=off:
                               _paged_chunk_inputs(dt, rows, c, span, dev, span + c, off)))
+            rows, c, bs = PAGED_CHUNK_BLOCK1
+            cases.append(("paged_span_chunk", f"{dt}_block{bs}_B{rows}_C{c}_span{span}", dt,
+                          lambda dev, dt=dt, rows=rows, c=c, span=span, bs=bs:
+                          _paged_chunk_inputs(dt, rows, c, span, dev, span + bs, span - c, bs)))
+        span = PAGED_OVER_CLUSTER
+        cases.append(("paged_span_chunk", f"{dt}_B1_C64_span{span}", dt,
+                      lambda dev, dt=dt, span=span:
+                      _paged_chunk_inputs(dt, 1, 64, span, dev, 9, span - 64)))
         rows, c = PAGED_C512
         cases.append(("paged_span_chunk", f"{dt}_C{c}_offset0", dt,
                       lambda dev, dt=dt, rows=rows, c=c:
@@ -3273,7 +3297,9 @@ def _kernel_paged(dev):
     within TOL_SPAN of max(1, |out|) of its plain version; bit-equal to the
     arena kernel over the gathered, dequantized span (the same split and
     order: only the addressing differs); bit-equal on a second call and on
-    a CUDA-graph replay."""
+    a CUDA-graph replay; the paged chunk launching its merge kernel only
+    past fs.CHUNK_CLUSTER_MAX splits (up to it, the splits merge in a
+    thread-block cluster)."""
     from elephas_tpu_torch.ops import flash_serving as fs
 
     results, failures = [], []
@@ -3284,7 +3310,9 @@ def _kernel_paged(dev):
         plain = fs.paged_span_decode_reference if decode else fs.paged_span_chunk_reference
         arena_fn = fs.flash_span_decode if decode else fs.flash_span_chunk
         kw = dict(kv_dtype=dt, kv_scales=scales)
+        merges = fs.paged_chunk_merge_launches()
         out = fn(q, pk, pv, tables, pos, **kw)
+        merges = fs.paged_chunk_merge_launches() - merges
         again = fn(q, pk, pv, tables, pos, **kw)
         replayed = _graph_replay(lambda: fn(q, pk, pv, tables, pos, **kw))  # noqa: B023
         ref = plain(q, pk, pv, tables, pos, **kw)
@@ -3293,11 +3321,18 @@ def _kernel_paged(dev):
         torch.cuda.synchronize()
         diff = (out - ref).abs()
         err = (diff / ref.abs().clamp_min(1.0)).max().item()
-        row = {"kernel": kernel, "case": name, "shape": list(q.shape), "span": gk.shape[1],
+        span = gk.shape[1]
+        row = {"kernel": kernel, "case": name, "shape": list(q.shape), "span": span,
                "rel_err": err, "abs_err": diff.max().item(),
                "arena_kernel_bit_equal": torch.equal(out, arena),
                "repeats_bit_for_bit": torch.equal(out, again) and torch.equal(out, replayed)}
-        row["ok"] = err <= TOL_SPAN and row["arena_kernel_bit_equal"] \
+        merges_ok = True
+        if not decode:
+            b, h, c, d = q.shape
+            splits = fs.span_chunk_splits(span, b * h, c, d, fs._sm_count(q.device.index))[0]
+            row.update(splits=splits, merge_launches=merges)
+            merges_ok = merges == int(splits > fs.CHUNK_CLUSTER_MAX)
+        row["ok"] = err <= TOL_SPAN and row["arena_kernel_bit_equal"] and merges_ok \
             and row["repeats_bit_for_bit"] and bool(torch.isfinite(out).all())
         results.append(row)
         if not row["ok"]:
@@ -3476,6 +3511,59 @@ def _profile_paged_window(dev, model, kv_dtype):
     if len(engine.scheduler.active) != ENGINE["num_slots"]:
         raise AssertionError("a request of the profiled paged window finished early")
     return out
+
+
+# the paged chunk's launches in engine_paged and engine_quant by (B, C,
+# table span), and a device copy of the positions of each shape's first
+ENGINE_CHUNK_SHAPES = Counter()
+ENGINE_CHUNK_POSITIONS = {}
+
+
+@contextlib.contextmanager
+def _recording_chunk_shapes():
+    """While the block runs, count the model's paged chunk launches by (B,
+    C, table span) into ENGINE_CHUNK_SHAPES (models.transformer calls
+    flash_paged_span_chunk by its module name)."""
+    from elephas_tpu_torch.models import transformer
+
+    fn = transformer.flash_paged_span_chunk
+
+    def recorded(q, pool_k, pool_v, tables, pos, *args, **kwargs):
+        key = (q.shape[0], q.shape[2], tables.shape[1] * pool_k.shape[1])
+        ENGINE_CHUNK_SHAPES[key] += 1
+        ENGINE_CHUNK_POSITIONS.setdefault(key, pos.clone())
+        return fn(q, pool_k, pool_v, tables, pos, *args, **kwargs)
+
+    transformer.flash_paged_span_chunk = recorded
+    try:
+        yield
+    finally:
+        transformer.flash_paged_span_chunk = fn
+
+
+def phase_engine_chunk_shapes(merges_before):
+    """The shapes the paged engines launched the paged chunk at, most
+    frequent first, and the merge-kernel launches since ``merges_before``
+    (none where the package merges up to 8 splits in a cluster: every span
+    of config A)."""
+    from elephas_tpu_torch.ops import flash_serving as fs
+
+    counter = getattr(fs, "paged_chunk_merge_launches", None)
+    merges = None if counter is None else counter() - merges_before
+    emit({"phase": "engine_chunk_shapes",
+          "shapes": [{"B": b, "C": c, "span": span, "launches": n}
+                     for (b, c, span), n in ENGINE_CHUNK_SHAPES.most_common()],
+          "merge_launches": merges})
+    if merges:
+        raise AssertionError(f"the paged engines launched the chunk's merge kernel {merges} "
+                             f"times at config A's spans")
+
+
+def _engine_merges():
+    from elephas_tpu_torch.ops import flash_serving as fs
+
+    counter = getattr(fs, "paged_chunk_merge_launches", None)
+    return 0 if counter is None else counter()
 
 
 def phase_engine_paged(dev, model):
@@ -3808,17 +3896,37 @@ def phase_times_paged(dev):
     """Each paged kernel and stored type at the shapes of _paged_cases
     (_paged_row): the decode at the engine's shape over spans 128-512, the
     chunk at the paged engine's one-row launch (64 rows ending on the span's
-    last row) over spans 128-512 and at a 512-row chunk from position 0."""
+    last row) over spans 128-512, at a 512-row chunk from position 0 and,
+    once engine_paged has run, at the engines' most frequent launch shape
+    (ENGINE_CHUNK_SHAPES) with the positions they gave it."""
     from elephas_tpu_torch.ops import flash_serving as fs
 
     rows = {}
     for kernel, name, dt, inputs in _paged_cases():
-        if kernel == "paged_span_chunk" and name.startswith(f"{dt}_B16"):
-            continue  # the 16-slot chunk is gated, not timed
+        # the chunk's 16-slot, block-1 and 16-split cases are gated, not timed
+        timed = kernel == "paged_span_decode" or name.endswith("offset0") or (
+            name.startswith(f"{dt}_B1_C64_span")
+            and not name.endswith(f"span{PAGED_OVER_CLUSTER}"))
+        if not timed:
+            continue
         q, pk, pv, scales, tables, pos = inputs(dev)
         rows[f"{kernel}_{name}"] = _paged_row(fs, kernel == "paged_span_decode", q, pk, pv,
                                               scales, tables, pos, dt)
         del q, pk, pv, scales, tables, pos
+    if ENGINE_CHUNK_SHAPES:
+        # the engines' most frequent chunk launch, at the positions it was
+        # first given, over a pool of random rows
+        (b, c, span), n = ENGINE_CHUNK_SHAPES.most_common(1)[0]
+        _, h, d, bs = PAGED_CASE
+        for dt in PAGED_DTYPES:
+            pk, pv, scales, tables = _paged_pool(b, h, d, bs, span // bs, dt, dev, span + c)
+            g = torch.Generator(device=dev).manual_seed(c)
+            q = torch.randn(b, h, c, d, generator=g, device=dev)
+            pos = ENGINE_CHUNK_POSITIONS[(b, c, span)].to(dev)
+            row = _paged_row(fs, False, q, pk, pv, scales, tables, pos, dt)
+            rows[f"paged_span_chunk_{dt}_engine_B{b}_C{c}_span{span}"] = {
+                **row, "engine_launches": n, "positions": [int(pos.min()), int(pos.max())]}
+            del q, pk, pv, scales, tables, pos
     emit({"phase": "times", "kernel": "paged_span_decode, paged_span_chunk",
           "timing": GRAPH_TIMING, **rows})
     return rows
@@ -3857,7 +3965,10 @@ def times_only(dev):
         phase_engine_chunked(dev, lm)
     paging = hasattr(fs, "paged_launches")
     if paging:
-        phase_engine_paged(dev, lm)
+        merges = _engine_merges()
+        with _recording_chunk_shapes():
+            phase_engine_paged(dev, lm)
+        phase_engine_chunk_shapes(merges)
     phase_profile_engine(dev, lm)
     del lm
     phase_profile_generate(dev)
@@ -3920,8 +4031,11 @@ def main(argv=None) -> int:
     engine, lm = phase_engine(dev)
     phase_engine_long(dev, lm)
     chunked = phase_engine_chunked(dev, lm)
-    paged = phase_engine_paged(dev, lm)
-    quant = phase_engine_quant(dev, lm)
+    merges = _engine_merges()
+    with _recording_chunk_shapes():
+        paged = phase_engine_paged(dev, lm)
+        quant = phase_engine_quant(dev, lm)
+    phase_engine_chunk_shapes(merges)
     for path, launches, kernels in (
         ("serve", serve, ("flash_fwd", "layer_norm_fwd")),
         ("train", train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),

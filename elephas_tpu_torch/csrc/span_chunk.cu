@@ -65,8 +65,10 @@
 //   are never loaded.
 // - Grid: (slot x group of 64 rows, head, split); the deeper groups of a
 //   slot start first. Each block stops at its own group's deepest visible
-//   key, so the early groups of a wide chunk (a prefix hit's suffix of up
-//   to maxlen rows) read fewer tiles. C is any count from 1 (verify) up.
+//   key, which every warp finds by itself (the group's positions one a
+//   lane, a shuffle reduction: no barrier before the first copies), so the
+//   early groups of a wide chunk (a prefix hit's suffix of up to maxlen
+//   rows) read fewer tiles. C is any count from 1 (verify) up.
 // - Splits: the host picks them from the span, the rows and groups, the
 //   head dim and the SM count (ops/flash_serving.py::span_chunk_splits),
 //   never from the positions; every split is whole 64-key tiles. With more
@@ -79,32 +81,63 @@
 // Paged variant (elephas_paged_span_chunk). Replaces paged_chunk_forward's
 // gather and attention (elephas_tpu/serving/paged_kv.py:479; its attention
 // flash_span_chunk with kv_dtype and kv_scales, dequantizing in the tile
-// loop at elephas_tpu/ops/flash_serving.py:132-141): plain XLA in the
+// loop at elephas_tpu/ops/flash_serving.py:130-141): plain XLA in the
 // reference. Row b of q reads the keys of table row b: key j in block
 // tables[b, j / block_size] of the pool [num_blocks + 1, block_size, H, Ds],
 // row j % block_size; a sentinel id (num_blocks) reads the sink block, which
 // no request leases, and feeds only masked rows. Only the tile loader
-// changes (ArenaTiles / PagedTiles below): block_size (16 in the engine) is
-// smaller than a 64-key tile, so each row's address comes from the table. fp
-// rows land by the same 16-byte cp.async. int8 and int4 codes are loaded 4
-// values a thread (4 bytes, or 2 bytes of nibbles unpacked by shifts), times
-// the (position, head) scale, one code * scale product a value as the
-// reference's dequantize_rows, and stored as fp32 into the stage: an fp row
-// exists only in the tile. Those loads are synchronous (the next tile's,
-// issued after the barrier as the fp route issues its copies), so the
-// quantized route does not overlap its loads with the products. The hi/lo
-// split of 3xTF32 is taken from the dequantized fp32 value, as on the fp
-// route. With the same split and tile order the output is bit-equal to the
-// arena kernel over the gathered (dequantized) span. Bound: the visible
-// codes and scales read once, or the products at the 3xTF32 rate.
+// changes (ArenaTiles / PagedTiles below) and, with 2 to 8 splits, where the
+// partials merge; the products, the split rule, the tile order and the merge
+// arithmetic are the arena kernel's, and the hi/lo split of 3xTF32 is taken
+// from the dequantized fp32 value, so the output is bit-equal to the arena
+// kernel over the gathered, dequantized span. Bound: the visible codes and
+// scales read once, or the products at the 3xTF32 rate.
+//
+// At the paged engine's launch (one table row of 64 rows, 4 heads, spans of
+// 128-512 split into 2-8 splits of one 64-key tile) a block holds one tile,
+// so its time is a serial chain, not work. What the paged design does:
+// - Before any barrier, every warp reads its rows' positions and, one
+//   position a lane, the group's deepest visible key (a shuffle reduction:
+//   no shared memory, no barrier); the first tile's table entries are read
+//   in the same breath, and its row copies go out after Q's fetch (issued
+//   ahead of it they measured slower). Keys past the group's deepest visible
+//   one are never copied (zero-filled, or zeros in the dequantized stage):
+//   a non-finite value in a stale or unleased pool row cannot reach p . v.
+// - Later tiles read their block ids from a window of kTable table entries
+//   staged in shared memory once a block (refilled only when a range with
+//   block_size 1 outgrows it), and walk the pages key-major: one division a
+//   tile, not one a 16-byte piece.
+// - fp rows go by 16-byte cp.async straight into a ring of two K/V stages;
+//   int8 and int4 codes (a D-128 row: 8 or 4 pieces of 16 bytes) and their
+//   (position, head) scales go by cp.async into a ring of code stages, and
+//   are dequantized into one K/V stage once a tile (one code * scale product
+//   a value, as the reference's dequantize_rows) while the next tile's codes
+//   are in flight, between two barriers.
+// - With 2 to 8 splits the grid is launched in thread-block clusters of the
+//   splits of one (row group, head) (cudaLaunchKernelEx), and the partials
+//   merge in the cluster, with no workspace and no second launch. The splits
+//   that see no key of the group leave at once, before any cluster barrier
+//   (which waits only for threads that have not exited), so their SMs take
+//   the next clusters; one live split (a chunk early in a long table span)
+//   writes the output itself, as an unsplit block does. Two or more own the
+//   group's rows in equal runs: each stores its partial (m, l, acc) of
+//   every row into the inbox of the row's owner through distributed shared
+//   memory, one release / acquire cluster barrier follows, and each block
+//   merges its own rows from its inbox with the merge kernel's arithmetic,
+//   in split order (each row's weights and 1 / l once, then its pieces).
+//   Only stores cross blocks: reading the partials remotely, and a second
+//   barrier to keep them alive, measured slower than the merge kernel. Past
+//   8 splits (spans over 512 keys) the workspace and the merge kernel stay.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <climits>
-#include <type_traits>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -115,6 +148,15 @@ constexpr int kTile = 64;              // keys a staged tile; a split is whole t
 constexpr int kStep = kTile / 2;       // keys a warp takes of each tile
 constexpr int kStages = 2;
 constexpr int kMergeThreads = 128;
+// the most splits the paged kernel merges in a thread-block cluster (the
+// portable cluster size); past it, the workspace and the merge kernel
+constexpr int kClusterMax = 8;
+// table entries a paged block stages in shared memory at once
+constexpr int kTable = 1024;
+// floats a cluster-merge inbox entry takes: acc [D], m, l, padded to whole
+// float4s
+template <int D>
+constexpr int kEntry = D + 4;
 
 template <int D>
 struct Cfg {
@@ -129,10 +171,10 @@ struct Cfg {
   static constexpr bool kQShared = D == 128;
   static constexpr int kQ = kQShared ? kGroup * kKStride : 0;  // floats
   static constexpr int kBytes = (kStages * kStage + kQ) * static_cast<int>(sizeof(float));
-  // after the loop the ring holds the second halves' states for the first
-  // halves to fold in: (m, l) of two rows and acc, a thread
+  // after the loop the ring's first stage holds the second halves' states
+  // for the first halves to fold in: (m, l) of two rows and acc, a thread
   static constexpr int kState = 4 + D / 2;
-  static_assert(kRowWarps * 32 * kState <= kStages * kStage, "the combine fits the ring");
+  static_assert(kRowWarps * 32 * kState <= kStage, "the combine fits a stage");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -143,6 +185,16 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes));
+}
+// N bytes global -> shared (16: cached in L2 only)
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+                 "n"(N));
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -198,16 +250,24 @@ __device__ __forceinline__ void load_tile(float* stage, const float* kb, long lo
 }
 
 // the keys of one (slot, head) of the fixed arena; `ok` false for a slot
-// map entry outside the arena (its rows see no key)
+// map entry outside the arena (its rows see no key). Tile t lands in stage
+// t % kStages of the ring.
 struct ArenaTiles {
   const float* kb;
   const float* vb;
   long long k_pos, v_pos;
   bool ok;
-  template <int D>
-  __device__ __forceinline__ void load(float* stage, int k0, int end) const {
-    load_tile<D>(stage, kb, k_pos, vb, v_pos, k0, end);
+  static constexpr bool kDequant = false;
+  static constexpr int kFpStages = kStages;  // K/V stages of the ring
+  static constexpr int kInbox = 0;           // no cluster merge
+  __device__ __forceinline__ void lookahead(int, int) {}
+  template <int D, bool kFirst>
+  __device__ __forceinline__ void load(float* ring, int tile, int k0, int end) {
+    load_tile<D>(ring + (tile % kStages) * Cfg<D>::kStage, kb, k_pos, vb, v_pos, k0, end);
   }
+  __device__ __forceinline__ void stage(int, int, int) {}
+  template <int D>
+  __device__ __forceinline__ void dequant(float*, int, int, int) const {}
 };
 
 // the stored type of a paged pool
@@ -218,70 +278,175 @@ __device__ __forceinline__ float4 dequant4(int c0, int c1, int c2, int c3, float
                      static_cast<float>(c2) * s, static_cast<float>(c3) * s);
 }
 
-// stored values a row of head dim D
-template <int D, int Q>
-constexpr int kStoredOf = Q == kInt4 ? D / 2 : D;
-
-// the keys of one (table row, head) of a paged pool [num_blocks + 1,
+// The keys of one (table row, head) of a paged pool [num_blocks + 1,
 // block_size, heads, stored]: key j in block table[j / block_size] (the sink
-// for the sentinel), row j % block_size. fp rows land by cp.async as the
-// arena's; int8 and int4 codes are dequantized into the stage.
-template <int Q>
+// for the sentinel), row j % block_size. Copies run key-major: a thread
+// copies piece threadIdx % kCopiesPerRow of the K and V rows of every
+// kPerPass-th key of the tile, walking the pages without a division. fp rows
+// land in the K/V stage; codes and scales in a code stage (a ring of
+// kStages after the K/V ring and Q), dequantized into the K/V stage by
+// dequant().
+template <int D, int Q>
 struct PagedTiles {
-  using Elem = typename std::conditional<Q == kFp, float, int8_t>::type;
-  const Elem* kp;  // the pool's element (row 0, head h, value 0)
-  const Elem* vp;
+  using C = Cfg<D>;
+  static constexpr bool kDequant = Q != kFp;
+  static constexpr int kRowBytes = Q == kFp ? D * 4 : Q == kInt8 ? D : D / 2;  // a head row
+  static constexpr int kCopy = kRowBytes < 16 ? kRowBytes : 16;  // bytes a cp.async
+  static constexpr int kCopiesPerRow = kRowBytes / kCopy;
+  static constexpr int kPerPass = kWarps * 32 / kCopiesPerRow;  // keys a pass of the block
+  static constexpr int kPasses = kPerPass < kTile ? kTile / kPerPass : 1;
+  // a code stage: K codes, V codes, then K and V scales of kTile keys
+  static constexpr int kCodeStage = 2 * kTile * kRowBytes + 2 * kTile * 4;
+  // K/V stages: fp rows land in them by cp.async, two for the overlap; codes
+  // are dequantized into one, between two barriers a tile
+  static constexpr int kFpStages = kDequant ? 1 : kStages;
+  // bytes: the K/V stages and Q, the code stages, then the inbox of a merge
+  // in the cluster: an entry (acc [D], m, l) per split and owned row, at
+  // most owned_rows(splits) * splits <= kGroup + kClusterMax of them
+  static constexpr int kCodes = (kFpStages * C::kStage + C::kQ) * 4;
+  static constexpr int kInbox = kCodes + (kDequant ? kStages * kCodeStage : 0);
+  static constexpr int kBytes = kInbox + (kGroup + kClusterMax) * kEntry<D> * 4;
+  static_assert(kPasses * kPerPass >= kTile, "a tile is whole passes");
+
+  const unsigned char* kp;  // the pool's (row 0, head h) row
+  const unsigned char* vp;
   const float* ks;  // the scale planes at (row 0, head h)
   const float* vs;
-  const int* table;
+  const int* table;  // the row's table
+  int* s_table;      // its staged window: entries [win0, win0 + kTable)
   int block_size, num_blocks, heads;
+  int step_pages, step_rows;  // kPerPass keys in whole pages and rows
+  int win0;
+  int ids[kPasses];  // the first tile's block ids, read ahead of the positions
   bool ok;
 
-  __device__ __forceinline__ long long row_of(int j) const {
-    const int id = min(max(__ldg(table + j / block_size), 0), num_blocks);
-    return static_cast<long long>(id) * block_size + j % block_size;
+  // the thread's first key of the tile at k0: its table entry and row
+  __device__ __forceinline__ void place(int k0, int& key, int& e, int& in_page) const {
+    key = threadIdx.x / kCopiesPerRow;
+    e = (k0 + key) / block_size;
+    in_page = k0 + key - e * block_size;
   }
-
-  template <int D>
-  __device__ __forceinline__ void load(float* stage, int k0, int end) const {
-    using C = Cfg<D>;
-    constexpr int kStored = kStoredOf<D, Q>;
-    constexpr int kPieces = D / 4;  // 4 values a thread and step
-    float* kd = stage;
-    float* vd = stage + kTile * C::kKStride;
-    for (int e = threadIdx.x; e < kTile * kPieces; e += kWarps * 32) {
-      const int r = e / kPieces, piece = e % kPieces, col = piece * 4;
-      const int j = k0 + r;
-      const bool in = j < end;
-      const long long row = in ? row_of(j) : 0;
-      const long long at = row * heads * kStored;
-      if constexpr (Q == kFp) {
-        cp_async16(kd + r * C::kKStride + col, kp + at + col, in ? 16 : 0);
-        cp_async16(vd + r * C::kVStride + col, vp + at + col, in ? 16 : 0);
-      } else {
-        float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-        if (in) {
-          const float k_sc = __ldg(ks + row * heads), v_sc = __ldg(vs + row * heads);
-          if constexpr (Q == kInt8) {
-            const uint32_t kw = __ldg(reinterpret_cast<const uint32_t*>(kp + at) + piece);
-            const uint32_t vw = __ldg(reinterpret_cast<const uint32_t*>(vp + at) + piece);
-            kx = dequant4(static_cast<int8_t>(kw), static_cast<int8_t>(kw >> 8),
-                          static_cast<int8_t>(kw >> 16), static_cast<int8_t>(kw >> 24), k_sc);
-            vx = dequant4(static_cast<int8_t>(vw), static_cast<int8_t>(vw >> 8),
-                          static_cast<int8_t>(vw >> 16), static_cast<int8_t>(vw >> 24), v_sc);
-          } else {
-            const uint32_t kw = __ldg(reinterpret_cast<const uint16_t*>(kp + at) + piece);
-            const uint32_t vw = __ldg(reinterpret_cast<const uint16_t*>(vp + at) + piece);
-            kx = unpack4(kw, k_sc);
-            vx = unpack4(vw, v_sc);
-          }
-        }
-        *reinterpret_cast<float4*>(kd + r * C::kKStride + col) = kx;
-        *reinterpret_cast<float4*>(vd + r * C::kVStride + col) = vx;
-      }
+  __device__ __forceinline__ void advance(int& key, int& e, int& in_page) const {
+    key += kPerPass;
+    e += step_pages;
+    in_page += step_rows;
+    if (in_page >= block_size) {
+      ++e;
+      in_page -= block_size;
     }
   }
 
+  // the block ids of the first tile's keys [k0, lim), before anything is
+  // known of the positions (`lim`: the split's range within the span)
+  __device__ __forceinline__ void lookahead(int k0, int lim) {
+    step_pages = kPerPass / block_size;
+    step_rows = kPerPass - step_pages * block_size;
+    int key, e, in_page;
+    place(k0, key, e, in_page);
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      ids[p] = key < kTile && k0 + key < lim ? __ldg(table + e) : 0;
+      advance(key, e, in_page);
+    }
+  }
+
+  // entries [e0, e0 + kTable) of the block's range [.., end) into the window
+  // (plain loads; a barrier publishes them)
+  __device__ __forceinline__ void stage_table(int e0, int end) {
+    const int last = (end - 1) / block_size;
+    for (int i = threadIdx.x; i < kTable && e0 + i <= last; i += kWarps * 32)
+      s_table[i] = __ldg(table + e0 + i);
+    win0 = e0;
+  }
+  // the window of tiles 1.. (the loop's first barrier publishes it)
+  __device__ __forceinline__ void stage(int begin, int end, int n_tiles) {
+    if (n_tiles > 1) stage_table((begin + kTile) / block_size, end);
+  }
+
+  // tile `tile` (keys [k0, k0 + kTile), those at or past `end` not copied)
+  // into its stages by cp.async, not committed; the first tile takes its ids
+  // from lookahead, the others from the window, restaged (uniform over the
+  // block) when the tile's last entry is past it
+  template <int, bool kFirst>
+  __device__ __forceinline__ void load(float* ring, int tile, int k0, int end) {
+    if constexpr (!kFirst) {
+      if ((min(k0 + kTile, end) - 1) / block_size >= win0 + kTable) {
+        stage_table(k0 / block_size, end);
+        __syncthreads();
+      }
+    }
+    float* kd = ring + (tile % kFpStages) * C::kStage;
+    float* vd = kd + kTile * C::kKStride;
+    unsigned char* cs = reinterpret_cast<unsigned char*>(ring) + kCodes +
+                        (tile % kStages) * kCodeStage;
+    float* sc = reinterpret_cast<float*>(cs + 2 * kTile * kRowBytes);
+    const int piece = threadIdx.x % kCopiesPerRow;
+    int key, e, in_page;
+    place(k0, key, e, in_page);
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      if (key < kTile) {
+        const bool in = k0 + key < end;
+        long long row = 0;
+        if (in) {
+          int id;
+          if constexpr (kFirst) {
+            id = ids[p];
+          } else {
+            id = s_table[e - win0];
+          }
+          row = static_cast<long long>(min(max(id, 0), num_blocks)) * block_size + in_page;
+        }
+        const long long at = row * heads * kRowBytes + piece * kCopy;
+        if constexpr (Q == kFp) {
+          cp_async16(kd + key * C::kKStride + piece * 4, kp + at, in ? 16 : 0);
+          cp_async16(vd + key * C::kVStride + piece * 4, vp + at, in ? 16 : 0);
+        } else if (in) {
+          cp_async<kCopy>(cs + key * kRowBytes + piece * kCopy, kp + at);
+          cp_async<kCopy>(cs + (kTile + key) * kRowBytes + piece * kCopy, vp + at);
+          if (piece == 0) {
+            cp_async<4>(sc + key, ks + row * heads);
+            cp_async<4>(sc + kTile + key, vs + row * heads);
+          }
+        }
+      }
+      advance(key, e, in_page);
+    }
+  }
+  // the codes of tile `tile` (landed) times their scales into its K/V stage,
+  // zeros at or past `end`
+  template <int>
+  __device__ __forceinline__ void dequant(float* ring, int tile, int k0, int end) const {
+    constexpr int kPieces = D / 4;  // 4 values a thread and step
+    float* kd = ring + (tile % kFpStages) * C::kStage;
+    float* vd = kd + kTile * C::kKStride;
+    const unsigned char* cs = reinterpret_cast<const unsigned char*>(ring) + kCodes +
+                              (tile % kStages) * kCodeStage;
+    const float* sc = reinterpret_cast<const float*>(cs + 2 * kTile * kRowBytes);
+    for (int i = threadIdx.x; i < kTile * kPieces; i += kWarps * 32) {
+      const int r = i / kPieces, piece = i % kPieces;
+      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+      if (k0 + r < end) {
+        const unsigned char* kr = cs + r * kRowBytes;
+        const unsigned char* vr = cs + (kTile + r) * kRowBytes;
+        if constexpr (Q == kInt8) {
+          kx = unpack8(reinterpret_cast<const uint32_t*>(kr)[piece], sc[r]);
+          vx = unpack8(reinterpret_cast<const uint32_t*>(vr)[piece], sc[kTile + r]);
+        } else {
+          kx = unpack4(reinterpret_cast<const uint16_t*>(kr)[piece], sc[r]);
+          vx = unpack4(reinterpret_cast<const uint16_t*>(vr)[piece], sc[kTile + r]);
+        }
+      }
+      *reinterpret_cast<float4*>(kd + r * C::kKStride + piece * 4) = kx;
+      *reinterpret_cast<float4*>(vd + r * C::kVStride + piece * 4) = vx;
+    }
+  }
+
+  // four int8 codes (byte i value i) times the scale
+  __device__ __forceinline__ static float4 unpack8(uint32_t w, float s) {
+    return dequant4(static_cast<int8_t>(w), static_cast<int8_t>(w >> 8),
+                    static_cast<int8_t>(w >> 16), static_cast<int8_t>(w >> 24), s);
+  }
   // two bytes of int4 nibbles (low nibble the even index), sign-extended by
   // shifts, times the scale
   __device__ __forceinline__ static float4 unpack4(uint32_t w, float s) {
@@ -367,11 +532,107 @@ __device__ __forceinline__ void pv(float (&acc)[D / 8][4], const float (&p)[NS][
   }
 }
 
+// the blocks of this block's cluster (1 without a cluster launch)
+__device__ __forceinline__ unsigned cluster_blocks() {
+  unsigned n;
+  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+// the cluster barrier in two halves: arrive (relaxed: orders nothing, or
+// release: this thread's writes, the remote ones too, before the others
+// pass) and wait (acquire); every thread of the cluster takes part
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// rows of a group each block of a cluster of `splits` merges
+__device__ __forceinline__ int owned_rows(int splits) { return (kGroup + splits - 1) / splits; }
+
+// The rows this block owns, merged from the partials the `splits` live
+// splits of the cluster stored into its inbox (entry (split, owned row): acc
+// [D], m, l, kEntry<D> floats apart) with span_chunk_merge_kernel's
+// arithmetic, in split order (a split that saw no key would add nothing):
+// first one thread a row computes the row's weights exp2(m_s - max) (-1 for
+// a split that saw none of the row's keys and stored no acc) and 1 / l into
+// `weights`, then each piece of a row takes them from there.
+template <int D>
+__device__ __forceinline__ void merge_inbox(const float* inbox, float* weights,
+                                            float* __restrict__ out, long long bh, int rows_c,
+                                            int grp, int splits, int rank) {
+  constexpr int kPieces = D / 4;
+  constexpr int kW = kClusterMax + 1;  // a row's weights, then 1 / l
+  const int own = owned_rows(splits);
+  const int first = grp * kGroup + rank * own;  // the block's first owned row (chunk index)
+  const int rows = min(own, min(kGroup, rows_c - grp * kGroup) - rank * own);
+  // (the split loops unroll to kClusterMax, so each pass's loads go out
+  // together)
+  for (int r = threadIdx.x; r < rows; r += kWarps * 32) {
+    float ms[kClusterMax], ls[kClusterMax];
+#pragma unroll
+    for (int s = 0; s < kClusterMax; ++s) {
+      if (s < splits) {
+        const float* e = inbox + (s * own + r) * kEntry<D>;
+        ms[s] = e[D];
+        ls[s] = e[D + 1];
+      }
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int s = 0; s < kClusterMax; ++s)
+      if (s < splits && ls[s] > 0.f) mx = fmaxf(mx, ms[s]);
+    float l = 0.f;
+#pragma unroll
+    for (int s = 0; s < kClusterMax; ++s) {
+      if (s < splits) {
+        float w = -1.f;
+        if (ls[s] > 0.f) {
+          w = exp2f(ms[s] - mx);
+          l = fmaf(ls[s], w, l);
+        }
+        weights[r * kW + s] = w;
+      }
+    }
+    weights[r * kW + kClusterMax] = l > 0.f ? 1.f / l : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * kPieces; i += kWarps * 32) {
+    const int r = i / kPieces, piece = i % kPieces;
+    float ws[kClusterMax];
+    float4 as[kClusterMax];
+#pragma unroll
+    for (int s = 0; s < kClusterMax; ++s) {
+      if (s < splits) {
+        ws[s] = weights[r * kW + s];
+        as[s] = reinterpret_cast<const float4*>(inbox + (s * own + r) * kEntry<D>)[piece];
+      }
+    }
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < kClusterMax; ++s) {
+      if (s < splits && ws[s] >= 0.f) {  // as[s] is unused where the split stored no acc
+        const float w = ws[s];
+        const float4 a = as[s];
+        acc = make_float4(fmaf(a.x, w, acc.x), fmaf(a.y, w, acc.y), fmaf(a.z, w, acc.z),
+                          fmaf(a.w, w, acc.w));
+      }
+    }
+    const float inv = weights[r * kW + kClusterMax];
+    reinterpret_cast<float4*>(out + (bh * rows_c + first + r) * D)[piece] =
+        make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  }
+}
+
 // One split kernel's block, (slot x group, head, split) = blockIdx, over the
 // keys `src` loads (ArenaTiles or PagedTiles, bound to the block's slot and
 // head)
 template <int D, class Src>
-__device__ __forceinline__ void chunk_block(const float* __restrict__ q, const Src& src,
+__device__ __forceinline__ void chunk_block(const float* __restrict__ q, Src& src,
                                             const int* __restrict__ pos,
                                             float* __restrict__ out,
                                             float* __restrict__ part_acc,
@@ -382,7 +643,6 @@ __device__ __forceinline__ void chunk_block(const float* __restrict__ q, const S
   constexpr int DT = D / 8;      // output n-tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ring = reinterpret_cast<float*>(smem_raw);
-  __shared__ int s_deep[kWarps];
 
   const int b = blockIdx.x / groups;
   const int grp = groups - 1 - static_cast<int>(blockIdx.x % groups);  // deeper groups first
@@ -396,35 +656,66 @@ __device__ __forceinline__ void chunk_block(const float* __restrict__ q, const S
   // 2t + 1 of every n-tile
   const int g = lane >> 2, t = lane & 3;
   const long long bh = static_cast<long long>(b) * heads + h;
+  const int begin = split * chunk;
+  // with 2 to kClusterMax splits launched as one cluster a (group, head),
+  // the partials merge in the cluster
+  const bool in_cluster = splits > 1 && cluster_blocks() == static_cast<unsigned>(splits);
 
   // each row's visible keys (0 for none, clamped to the span); over the
-  // warp's live rows the deepest and the shallowest
+  // warp's live rows the deepest and the shallowest; and, one row a lane,
+  // the deepest over the group's rows, in every warp (no barrier). The
+  // first tile's block ids are read alongside.
+  const int* prow = pos + static_cast<long long>(b) * rows_c;
+  const auto visible = [&](int c) {
+    const int p = src.ok ? prow[c] : -1;
+    return p < 0 ? 0 : min(p, span - 1) + 1;
+  };
   const int r0 = grp * kGroup + slice * 16;
-  int n_vis[2], deep = 0, shallow = INT_MAX;
+  int n_vis[2], deep = 0, shallow = INT_MAX, group_deep = 0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int c = r0 + g + 8 * r;
     int n = 0;
     if (c < rows_c) {
-      const int p = src.ok ? pos[static_cast<long long>(b) * rows_c + c] : -1;
-      n = p < 0 ? 0 : min(p, span - 1) + 1;
+      n = visible(c);
       shallow = min(shallow, n);
     }
     n_vis[r] = n;
     deep = max(deep, n);
+    const int cg_row = grp * kGroup + lane + 32 * r;
+    if (cg_row < rows_c) group_deep = max(group_deep, visible(cg_row));
   }
+  src.lookahead(begin, min(begin + chunk, span));
 #pragma unroll
   for (int o = 4; o < 32; o <<= 1) {  // lanes of one t hold the warp's 16 rows
     deep = max(deep, __shfl_xor_sync(0xffffffffu, deep, o));
     shallow = min(shallow, __shfl_xor_sync(0xffffffffu, shallow, o));
   }
-  if (lane == 0) s_deep[warp] = deep;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1)
+    group_deep = max(group_deep, __shfl_xor_sync(0xffffffffu, group_deep, o));
+  const int end = min(begin + chunk, group_deep);  // the block reads keys [begin, end)
+  const int n_tiles = end > begin ? (end - begin + kTile - 1) / kTile : 0;
+  // In a cluster, the splits that see a key of the group (at least split
+  // 0) are live; the others leave now, before their first cluster barrier,
+  // which waits only for the threads that have not exited: their SMs take
+  // the next clusters, and they own no rows. One live split writes the
+  // output itself (the merge of one partial is exact: exp2(0) = 1, + 0);
+  // with more, a live split arrives now and waits before its first store
+  // into another block, so that every live block has started.
+  int live = splits;
+  if (in_cluster) {
+    live = max(1, min(splits, (group_deep + chunk - 1) / chunk));
+    if (split >= live) return;
+  }
+  const bool merge_in_cluster = in_cluster && live > 1;
+  if (merge_in_cluster) cluster_arrive_relaxed();
 
   // q fragments, scaled for the exp2 softmax; rows past C are zeros. In
   // shared memory the first half's warp writes its slice's rows, and the
-  // barrier below publishes them to the second's.
+  // loop's first barrier publishes them to the second's.
   QFrag<D> qf;
-  float* Qw = ring + kStages * C::kStage + slice * 16 * C::kKStride;
+  float* Qw = ring + Src::kFpStages * C::kStage + slice * 16 * C::kKStride;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int c = r0 + g + 8 * r;
@@ -444,15 +735,9 @@ __device__ __forceinline__ void chunk_block(const float* __restrict__ q, const S
       }
     }
   }
-  __syncthreads();
-  int group_deep = s_deep[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) group_deep = max(group_deep, s_deep[w]);
-  const int begin = split * chunk;
-  const int end = min(begin + chunk, group_deep);  // the block reads keys [begin, end)
-  const int n_tiles = end > begin ? (end - begin + kTile - 1) / kTile : 0;
-
-  if (n_tiles > 0) src.template load<D>(ring, begin, end);
+  src.stage(begin, end, n_tiles);
+  // the first tile's copies (issuing them ahead of Q's fetch was slower)
+  if (n_tiles > 0) src.template load<D, true>(ring, 0, begin, end);
   cp_async_commit();
 
   float acc[DT][4];
@@ -464,16 +749,18 @@ __device__ __forceinline__ void chunk_block(const float* __restrict__ q, const S
 
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait_all();  // tile i landed ...
-    __syncthreads();      // ... for every thread; tile i - 1's stage is free
-    if (i + 1 < n_tiles)
-      src.template load<D>(ring + ((i + 1) % kStages) * C::kStage, begin + (i + 1) * kTile,
-                           end);
+    __syncthreads();      // ... for every thread; tile i - 1's stages are free
+    if (i + 1 < n_tiles) src.template load<D, false>(ring, i + 1, begin + (i + 1) * kTile, end);
     cp_async_commit();
+    if constexpr (Src::kDequant) {
+      src.template dequant<D>(ring, i, begin + i * kTile, end);  // under tile i + 1's copies
+      __syncthreads();
+    }
 
     const int k0 = begin + i * kTile + half * kStep;
     if (k0 >= deep) continue;  // no row of the warp sees these keys (warp-uniform)
-    const float* Ks = ring + (i % kStages) * C::kStage + half * kStep * C::kKStride;
-    const float* Vs = ring + (i % kStages) * C::kStage + kTile * C::kKStride +
+    const float* Ks = ring + (i % Src::kFpStages) * C::kStage + half * kStep * C::kKStride;
+    const float* Vs = ring + (i % Src::kFpStages) * C::kStage + kTile * C::kKStride +
                       half * kStep * C::kVStride;
     float s[NS][4];
 #pragma unroll
@@ -543,49 +830,72 @@ __device__ __forceinline__ void chunk_block(const float* __restrict__ q, const S
       for (int e = 0; e < 4; ++e) state[4 + 4 * n + e] = acc[n][e];
   }
   __syncthreads();
-  if (half == 1) return;
+  if (merge_in_cluster) cluster_wait();
+  if (half == 0) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float m1 = state[r];
-    const float mt = fmaxf(m[r], m1);
-    const float a0 = exp2f(m[r] - mt), a1 = exp2f(m1 - mt);
-    l[r] = l[r] * a0 + state[2 + r] * a1;
-    m[r] = mt;
-#pragma unroll
-    for (int n = 0; n < DT; ++n)
-#pragma unroll
-      for (int e = 2 * r; e < 2 * r + 2; ++e) acc[n][e] = acc[n][e] * a0 + state[4 + 4 * n + e] * a1;
-  }
-
-  // each row's result: the output itself with one split (a visible key
-  // makes l >= 1), else the partial
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float sum = l[r];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const int c = r0 + g + 8 * r;
-    if (c >= rows_c) continue;
-    if (splits == 1) {
-      const float inv = sum > 0.f ? 1.f / sum : 0.f;
-      float* orow = out + (bh * rows_c + c) * D + 2 * t;
+    for (int r = 0; r < 2; ++r) {
+      const float m1 = state[r];
+      const float mt = fmaxf(m[r], m1);
+      const float a0 = exp2f(m[r] - mt), a1 = exp2f(m1 - mt);
+      l[r] = l[r] * a0 + state[2 + r] * a1;
+      m[r] = mt;
 #pragma unroll
       for (int n = 0; n < DT; ++n)
-        *reinterpret_cast<float2*>(orow + n * 8) =
-            make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    } else {
-      const long long part = (bh * splits + split) * rows_c + c;
-      if (sum > 0.f) {  // an empty partial writes no acc; the merge skips it
-        float* prow = part_acc + part * D + 2 * t;
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e)
+          acc[n][e] = acc[n][e] * a0 + state[4 + 4 * n + e] * a1;
+    }
+
+    // each row's result: the output itself with one split (a visible key
+    // makes l >= 1), else the partial: stored into the inbox of the
+    // cluster's block that owns the row, or into the workspace for the
+    // merge kernel
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const int c = r0 + g + 8 * r;
+      if (c >= rows_c) continue;
+      float* prow_acc;
+      float* prow_ml;
+      if (live == 1) {  // one split, or one live split of a cluster
+        const float inv = sum > 0.f ? 1.f / sum : 0.f;
+        float* orow = out + (bh * rows_c + c) * D + 2 * t;
 #pragma unroll
         for (int n = 0; n < DT; ++n)
-          *reinterpret_cast<float2*>(prow + n * 8) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+          *reinterpret_cast<float2*>(orow + n * 8) =
+              make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+        continue;
+      } else if (merge_in_cluster) {
+        const int row = slice * 16 + g + 8 * r, own = owned_rows(live);  // in the group
+        float* inbox = reinterpret_cast<float*>(smem_raw + Src::kInbox);
+        prow_acc = cg::this_cluster().map_shared_rank(inbox, row / own) +
+                   (split * own + row % own) * kEntry<D>;
+        prow_ml = prow_acc + D;
+      } else {
+        const long long part = (bh * splits + split) * rows_c + c;
+        prow_acc = part_acc + part * D;
+        prow_ml = part_ml + 2 * part;
+      }
+      if (sum > 0.f) {  // an empty partial stores no acc; the merge skips it
+#pragma unroll
+        for (int n = 0; n < DT; ++n)
+          *reinterpret_cast<float2*>(prow_acc + n * 8 + 2 * t) =
+              make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
       }
       if (t == 0) {
-        part_ml[2 * part] = sum > 0.f ? m[r] : kNegInf;
-        part_ml[2 * part + 1] = sum;
+        prow_ml[0] = sum > 0.f ? m[r] : kNegInf;
+        prow_ml[1] = sum;
       }
     }
+  }
+  if (merge_in_cluster) {
+    cluster_arrive();  // every partial stored, in every block's inbox ...
+    cluster_wait();    // ... before any block merges its rows
+    // the ring is free: its start takes the rows' weights
+    merge_inbox<D>(reinterpret_cast<const float*>(smem_raw + Src::kInbox), ring, out, bh, rows_c,
+                   grp, live, split);
   }
 }
 
@@ -602,14 +912,15 @@ span_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   long long slot = slot_map == nullptr ? b : slot_map[b];
   const bool slot_ok = slot >= 0 && slot < num_slots;
   if (!slot_ok) slot = 0;
-  const ArenaTiles src{k + slot * k_slot + h * k_head, v + slot * v_slot + h * v_head, k_pos,
-                       v_pos, slot_ok};
+  ArenaTiles src{k + slot * k_slot + h * k_head, v + slot * v_slot + h * v_head, k_pos, v_pos,
+                 slot_ok};
   chunk_block<D>(q, src, pos, out, part_acc, part_ml, rows_c, groups, span, chunk, q_scale);
 }
 
 // the paged pool [num_blocks + 1, block_size, heads, stored] (fp32, or int8
 // codes), the scale planes [num_blocks + 1, block_size, heads] (quantized
-// only), tables [batch, table_len]: row b of q reads table row b
+// only), tables [batch, table_len]: row b of q reads table row b; dynamic
+// shared memory PagedTiles<D, Q>::kBytes
 template <int D, int Q>
 __global__ void __launch_bounds__(kWarps * 32, 1)
 paged_span_chunk_kernel(const float* __restrict__ q, const void* __restrict__ k,
@@ -619,16 +930,21 @@ paged_span_chunk_kernel(const float* __restrict__ q, const void* __restrict__ k,
                         float* __restrict__ part_acc, float* __restrict__ part_ml, int rows_c,
                         int groups, int table_len, int block_size, int num_blocks, int chunk,
                         float q_scale) {
-  using Src = PagedTiles<Q>;
-  using Elem = typename Src::Elem;
-  constexpr int kStored = kStoredOf<D, Q>;
+  using Src = PagedTiles<D, Q>;
+  __shared__ int s_table[kTable];
   const int b = blockIdx.x / groups, h = blockIdx.y, heads = gridDim.y;
-  const Src src{static_cast<const Elem*>(k) + h * kStored,
-                static_cast<const Elem*>(v) + h * kStored,
-                k_scale == nullptr ? nullptr : k_scale + h,
-                v_scale == nullptr ? nullptr : v_scale + h,
-                tables + static_cast<long long>(b) * table_len,
-                block_size, num_blocks, heads, true};
+  Src src;
+  src.kp = static_cast<const unsigned char*>(k) + h * Src::kRowBytes;
+  src.vp = static_cast<const unsigned char*>(v) + h * Src::kRowBytes;
+  src.ks = k_scale == nullptr ? nullptr : k_scale + h;
+  src.vs = v_scale == nullptr ? nullptr : v_scale + h;
+  src.table = tables + static_cast<long long>(b) * table_len;
+  src.s_table = s_table;
+  src.block_size = block_size;
+  src.num_blocks = num_blocks;
+  src.heads = heads;
+  src.win0 = 0;
+  src.ok = true;
   chunk_block<D>(q, src, pos, out, part_acc, part_ml, rows_c, groups, table_len * block_size,
                  chunk, q_scale);
 }
@@ -705,37 +1021,55 @@ cudaError_t launch(const float* q, const float* k, const float* v, const int* po
   return cudaGetLastError();
 }
 
+// merge-kernel launches of the paged chunk since the library loaded (past
+// kClusterMax splits only)
+unsigned long long paged_merges = 0;
+
 template <int D, int Q>
 cudaError_t launch_paged(const float* q, const void* k, const void* v, const float* k_scale,
                          const float* v_scale, const int* tables, const int* pos, float* out,
                          float* workspace, int batch, int heads, int rows_c, int table_len,
                          int block_size, int num_blocks, int splits, int chunk, float scale,
                          cudaStream_t stream) {
+  constexpr int kBytes = PagedTiles<D, Q>::kBytes;
   const long long rows = static_cast<long long>(batch) * heads * rows_c;
   const int groups = (rows_c + kGroup - 1) / kGroup;
   float* part_acc = workspace;
   float* part_ml = workspace == nullptr ? nullptr : workspace + rows * splits * D;
-  static unsigned attribute_set = 0;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device >= 32 || !(attribute_set >> device & 1u)) {
-    err = cudaFuncSetAttribute(paged_span_chunk_kernel<D, Q>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::kBytes);
-    if (err != cudaSuccess) return err;
-    if (device < 32) attribute_set |= 1u << device;
-  }
   const dim3 grid(static_cast<unsigned>(static_cast<long long>(batch) * groups),
                   static_cast<unsigned>(heads), static_cast<unsigned>(splits));
-  paged_span_chunk_kernel<D, Q><<<grid, kWarps * 32, Cfg<D>::kBytes, stream>>>(
+  const float q_scale = scale * kLog2e;
+  if (splits > 1 && splits <= kClusterMax) {
+    // the splits of one (group, head) in a cluster, which merges them
+    cudaLaunchConfig_t config = {};
+    config.gridDim = grid;
+    config.blockDim = dim3(kWarps * 32);
+    config.dynamicSmemBytes = kBytes;
+    config.stream = stream;
+    cudaLaunchAttribute attribute;
+    attribute.id = cudaLaunchAttributeClusterDimension;
+    attribute.val.clusterDim.x = 1;
+    attribute.val.clusterDim.y = 1;
+    attribute.val.clusterDim.z = static_cast<unsigned>(splits);
+    config.attrs = &attribute;
+    config.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(
+        &config, paged_span_chunk_kernel<D, Q>, q, k, v, k_scale, v_scale, tables, pos, out,
+        static_cast<float*>(nullptr), static_cast<float*>(nullptr), rows_c, groups, table_len,
+        block_size, num_blocks, chunk, q_scale);
+    const cudaError_t last = cudaGetLastError();
+    return err != cudaSuccess ? err : last;
+  }
+  paged_span_chunk_kernel<D, Q><<<grid, kWarps * 32, kBytes, stream>>>(
       q, k, v, k_scale, v_scale, tables, pos, out, part_acc, part_ml, rows_c, groups, table_len,
-      block_size, num_blocks, chunk, scale * kLog2e);
-  err = cudaGetLastError();
+      block_size, num_blocks, chunk, q_scale);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   constexpr int kRowsPerBlock = kMergeThreads / (D / 4);
   const unsigned blocks = static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
   span_chunk_merge_kernel<D><<<blocks, kMergeThreads, 0, stream>>>(part_acc, part_ml, out,
                                                                    rows, rows_c, splits);
+  ++paged_merges;
   return cudaGetLastError();
 }
 
@@ -762,6 +1096,23 @@ cudaError_t launch_paged_dtype(int kv_dtype, const float* q, const void* k, cons
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// every stored type's paged kernel at head dim D may take its stages'
+// dynamic shared memory (over the default 48 KB) on the current device
+template <int D, int Q>
+cudaError_t allow_paged_stages() {
+  return cudaFuncSetAttribute(paged_span_chunk_kernel<D, Q>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              PagedTiles<D, Q>::kBytes);
+}
+
+template <int D>
+cudaError_t allow_paged_stages_all() {
+  cudaError_t err = allow_paged_stages<D, kFp>();
+  if (err == cudaSuccess) err = allow_paged_stages<D, kInt8>();
+  if (err == cudaSuccess) err = allow_paged_stages<D, kInt4>();
+  return err;
 }
 
 }  // namespace
@@ -821,8 +1172,11 @@ extern "C" int elephas_span_chunk(const void* q, const void* k, const void* v, c
 // v_scale: [num_blocks + 1, block_size, heads] float32 contiguous (null for
 // fp); tables: [batch, table_len] int32 contiguous, ids in [0, num_blocks]
 // (num_blocks the sentinel, read as the sink block); pos: [batch, rows_c]
-// int32. The span is table_len * block_size; splits, chunk and the workspace
-// as for elephas_span_chunk.
+// int32. The span is table_len * block_size; splits and chunk as for
+// elephas_span_chunk. Splits 2 to 8 are merged in a thread-block cluster and
+// take no workspace (it may be null); past 8, workspace holds batch * heads *
+// splits * rows_c * (head_dim + 2) floats, 16-byte aligned, and a merge
+// kernel follows. elephas_paged_span_chunk_init must have run on the device.
 extern "C" int elephas_paged_span_chunk(const void* q, const void* k, const void* v,
                                         const void* k_scale, const void* v_scale,
                                         const void* tables, const void* pos, void* out,
@@ -834,8 +1188,8 @@ extern "C" int elephas_paged_span_chunk(const void* q, const void* k, const void
   if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || rows_c < 1 ||
       block_size < 1 || table_len < 1 || span > INT_MAX || num_blocks < 1 || splits < 1 ||
       splits > 65535 || chunk < 1 || chunk % kTile != 0 ||
-      static_cast<long long>(splits) * chunk < span || (splits > 1 && workspace == nullptr) ||
-      kv_dtype < kFp || kv_dtype > kInt4 ||
+      static_cast<long long>(splits) * chunk < span ||
+      (splits > kClusterMax && workspace == nullptr) || kv_dtype < kFp || kv_dtype > kInt4 ||
       (kv_dtype != kFp && (k_scale == nullptr || v_scale == nullptr)))
     return cudaErrorInvalidValue;
   const auto* qf = static_cast<const float*>(q);
@@ -867,6 +1221,22 @@ extern "C" int elephas_paged_span_chunk(const void* q, const void* k, const void
       return cudaErrorInvalidValue;
   }
 }
+
+// Lets every paged chunk instantiation take its stages' shared memory on the
+// current device. Call once a device before the first
+// elephas_paged_span_chunk there, outside any CUDA-graph capture; a launch
+// without it fails.
+extern "C" int elephas_paged_span_chunk_init() {
+  cudaError_t err = allow_paged_stages_all<16>();
+  if (err == cudaSuccess) err = allow_paged_stages_all<32>();
+  if (err == cudaSuccess) err = allow_paged_stages_all<64>();
+  if (err == cudaSuccess) err = allow_paged_stages_all<128>();
+  return err;
+}
+
+// merge-kernel launches elephas_paged_span_chunk has made (only past 8
+// splits)
+extern "C" unsigned long long elephas_paged_span_chunk_merge_launches() { return paged_merges; }
 
 extern "C" const char* elephas_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

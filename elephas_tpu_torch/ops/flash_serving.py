@@ -38,7 +38,9 @@ reference, not Pallas), with the same public functions:
   same split rules over the table span ``T · block_size``), a CPU tensor
   their plain versions :func:`paged_span_decode_reference` /
   :func:`paged_span_chunk_reference`: gather through the table, dequantize,
-  then the tile loop above.
+  then the tile loop above. The paged chunk merges up to
+  CHUNK_CLUSTER_MAX splits inside a thread-block cluster, with no
+  workspace and no second launch.
 
 Numerics: the online softmax evaluates the same softmax as a dense one in
 another association order, so outputs agree to float tolerance. Rows that
@@ -71,6 +73,9 @@ SPLIT_MAX = 64
 CHUNK_TILE = 64
 CHUNK_GROUP = 64
 CHUNK_BLOCKS_PER_SM = 1
+# the paged span chunk merges 2 to CHUNK_CLUSTER_MAX splits in a thread-block
+# cluster (no workspace); more take a workspace and a merge kernel
+CHUNK_CLUSTER_MAX = 8
 LOG2E = 1.4426950408889634
 
 # kernel launches since the last reset: span decode, span chunk and their
@@ -86,6 +91,7 @@ _STORED = {"fp": (torch.float32, 1), "int8": (torch.int8, 1), "int4": (torch.int
 _F32, _I32 = torch.float32, torch.int32
 _CHUNK_LIB = None  # the span-chunk library, its argument types set (_chunk_kernel)
 _PAGED_DECODE = {}  # device index -> the paged decode's C function, ready there
+_PAGED_CHUNK = {}  # device index -> the paged chunk's C function, ready there
 _SMS = {}  # device index -> SM count
 
 
@@ -668,19 +674,30 @@ def _paged_kernel(name):
     return lib
 
 
-def _paged_decode_fn(index: int):
-    """The paged decode's C function on device ``index``, cached: the first
-    call a device lets the kernel's instantiations take their shared-memory
-    rings there (``elephas_paged_span_decode_init``, a runtime setting made
-    once, outside any graph capture that later calls make)."""
-    lib = _paged_kernel("span_decode")
+def _paged_fn(name: str, index: int, cache: dict):
+    """The paged kernel ``name``'s C function on device ``index``, cached in
+    ``cache``: the first call a device lets the kernel's instantiations take
+    their shared memory there (``elephas_paged_<name>_init``, a runtime
+    setting made once, outside any graph capture that later calls make)."""
+    lib = _paged_kernel(name)
     with torch.cuda.device(index):
-        err = lib.elephas_paged_span_decode_init()
+        err = getattr(lib, f"elephas_paged_{name}_init")()
     if err:
-        raise RuntimeError("paged span_decode set-up failed: "
+        raise RuntimeError(f"paged {name} set-up failed: "
                            + lib.elephas_cuda_error_string(err).decode())
-    _PAGED_DECODE[index] = lib.elephas_paged_span_decode
-    return lib.elephas_paged_span_decode
+    fn = cache[index] = getattr(lib, f"elephas_paged_{name}")
+    return fn
+
+
+def paged_chunk_merge_launches() -> int:
+    """Merge-kernel launches the paged span chunk has made in this process
+    (only calls of more than CHUNK_CLUSTER_MAX splits make one); 0 before
+    its library is loaded."""
+    if "span_chunk" not in _native._libs:
+        return 0
+    fn = _native._libs["span_chunk"].elephas_paged_span_chunk_merge_launches
+    fn.restype = ctypes.c_ulonglong
+    return int(fn())
 
 
 def _check_paged_operands(what, q, rows, pool_k, pool_v, tables, pos, kv_dtype, kv_scales):
@@ -736,10 +753,23 @@ def _paged_decode_ready(q, pool_k, pool_v, tables, pos, kv_dtype, kv_scales) -> 
     """The paged decode's usual operands, in one predicate: everything
     :func:`_check_paged_operands` asks of a decode call holds (it runs, with
     its messages, only when this is False)."""
+    return q.dim() == 3 and _paged_ready(q, pool_k, pool_v, tables, pos, kv_dtype, kv_scales,
+                                         q.shape[:1])
+
+
+def _paged_chunk_ready(q, pool_k, pool_v, tables, pos, kv_dtype, kv_scales) -> bool:
+    """The paged chunk's usual operands, in one predicate: everything
+    :func:`_check_paged_operands` asks of a chunk call holds (it runs, with
+    its messages, only when this is False)."""
+    return q.dim() == 4 and _paged_ready(q, pool_k, pool_v, tables, pos, kv_dtype, kv_scales,
+                                         (q.shape[0], q.shape[2]))
+
+
+def _paged_ready(q, pool_k, pool_v, tables, pos, kv_dtype, kv_scales, pos_shape) -> bool:
     stored = _STORED.get(kv_dtype)
-    if stored is None or q.dtype is not _F32 or q.dim() != 3 or not q.is_contiguous():
+    if stored is None or q.dtype is not _F32 or not q.is_contiguous():
         return False
-    b, h, d = q.shape
+    b, h, d = q.shape[0], q.shape[1], q.shape[-1]
     shape, index = pool_k.shape, q.get_device()
     if not (d in HEAD_DIMS and len(shape) == 4 and shape[0] >= 2 and shape[2] == h
             and shape[3] * stored[1] == d and pool_k.dtype is stored[0]
@@ -748,7 +778,7 @@ def _paged_decode_ready(q, pool_k, pool_v, tables, pos, kv_dtype, kv_scales) -> 
             and pool_k.get_device() == index and pool_v.get_device() == index
             and tables.dtype is _I32 and tables.dim() == 2 and tables.shape[0] == b
             and tables.is_contiguous() and tables.get_device() == index
-            and pos.dtype is _I32 and pos.shape == (b,) and pos.is_contiguous()
+            and pos.dtype is _I32 and pos.shape == pos_shape and pos.is_contiguous()
             and pos.get_device() == index and b <= 65535 and h <= 65535
             and (q.data_ptr() | pool_k.data_ptr() | pool_v.data_ptr()) % ALIGN_BYTES == 0):
         return False
@@ -788,7 +818,7 @@ def _launch_paged_decode(q, pool_k, pool_v, tables, pos, scale: float, kv_dtype,
     args = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), ks, vs, tables.data_ptr(),
             pos.data_ptr(), out.data_ptr(), work, b, h, d, KV_CODES[kv_dtype], bs, t, n1 - 1,
             splits, chunk, scale, torch._C._cuda_getCurrentRawStream(index))
-    fn = _PAGED_DECODE.get(index) or _paged_decode_fn(index)
+    fn = _PAGED_DECODE.get(index) or _paged_fn("span_decode", index, _PAGED_DECODE)
     if index == torch._C._cuda_getDevice():
         err = fn(*args)
     else:
@@ -806,33 +836,43 @@ def _sm_count_of(index: int) -> int:
     return sms
 
 
-def _launch_paged_chunk(q, pool_k, pool_v, tables, pos, scale, kv_dtype, kv_scales):
+def _launch_paged_chunk(q, pool_k, pool_v, tables, pos, scale: float, kv_dtype, kv_scales):
     """One call of the paged chunk kernel on checked CUDA operands, on q's
-    current stream, with the arena kernel's split over the table span."""
+    device and its current stream, with the arena kernel's split over the
+    table span: up to CHUNK_CLUSTER_MAX splits merge in the kernel's
+    clusters, more in a merge kernel from partials that share ``out``'s
+    allocation. One allocation; the SM count and the C function are cached;
+    the stream is taken as a raw handle and the device guard only off the
+    current device."""
     global paged_chunk_launches
     b, h, c, d = q.shape
     n1, bs = pool_k.shape[:2]
     t = tables.shape[1]
-    index = q.device.index
-    splits, chunk = span_chunk_splits(t * bs, b * h, c, d, _sm_count(index))
-    out = torch.empty_like(q)
-    work = torch.empty(b * h * splits * c * (d + 2), dtype=torch.float32, device=q.device) \
-        if splits > 1 else None
-    ks, vs = (None, None) if kv_scales is None else (kv_scales[0].data_ptr(),
-                                                     kv_scales[1].data_ptr())
-    lib = _paged_kernel("span_chunk")
+    index = q.get_device()
+    sms = _SMS.get(index) or _sm_count_of(index)
+    splits, chunk = span_chunk_splits(t * bs, b * h, c, d, sms)
+    if splits > CHUNK_CLUSTER_MAX:
+        # out [B, H, C, D], then the partials: acc [B·H, splits, C, D] and
+        # (m, l) [B·H, splits, C, 2]
+        buf = q.new_empty(b * h * c * (d + splits * (d + 2)))
+        out = buf.as_strided((b, h, c, d), (h * c * d, c * d, d, 1))
+        work = buf.data_ptr() + b * h * c * d * 4
+    else:
+        out, work = torch.empty_like(q), None
+    ks, vs = (None, None) if kv_dtype == "fp" else (kv_scales[0].data_ptr(),
+                                                    kv_scales[1].data_ptr())
     args = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), ks, vs, tables.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(),
-            b, h, c, d, KV_CODES[kv_dtype], bs, t, n1 - 1, splits, chunk, float(scale),
-            torch._C._cuda_getCurrentRawStream(index))
+            pos.data_ptr(), out.data_ptr(), work, b, h, c, d, KV_CODES[kv_dtype], bs, t, n1 - 1,
+            splits, chunk, scale, torch._C._cuda_getCurrentRawStream(index))
+    fn = _PAGED_CHUNK.get(index) or _paged_fn("span_chunk", index, _PAGED_CHUNK)
     if index == torch._C._cuda_getDevice():
-        err = lib.elephas_paged_span_chunk(*args)
+        err = fn(*args)
     else:
         with torch.cuda.device(index):
-            err = lib.elephas_paged_span_chunk(*args)
+            err = fn(*args)
     if err:
         raise RuntimeError("paged span_chunk launch failed: "
-                           + lib.elephas_cuda_error_string(err).decode())
+                           + _paged_kernel("span_chunk").elephas_cuda_error_string(err).decode())
     paged_chunk_launches += 1
     return out
 
@@ -880,10 +920,16 @@ def flash_paged_span_chunk(q, pool_k, pool_v, tables, pos_mat, scale=None,
     table row ``b``). Returns ``[B, H, C, Dh]`` float32; a row that sees no
     key outputs zeros.
 
-    A CUDA tensor launches the paged span-chunk kernel, a CPU tensor runs
-    :func:`paged_span_chunk_reference`."""
+    A CUDA tensor launches the paged span-chunk kernel: the usual operands
+    are accepted by one predicate (:func:`_paged_chunk_ready`), any other
+    call takes the full checks, which raise what the kernel does not take.
+    A CPU tensor runs :func:`paged_span_chunk_reference`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if q.is_cuda and _paged_chunk_ready(q, pool_k, pool_v, tables, pos_mat, kv_dtype,
+                                        kv_scales):
+        return _launch_paged_chunk(q, pool_k, pool_v, tables, pos_mat, float(scale), kv_dtype,
+                                   kv_scales)
     if q.device.type == "cpu":
         return paged_span_chunk_reference(q, pool_k, pool_v, tables, pos_mat, scale,
                                           kv_dtype, kv_scales, block_k)
@@ -891,4 +937,5 @@ def flash_paged_span_chunk(q, pool_k, pool_v, tables, pos_mat, scale=None,
         raise ValueError(f"paged span_chunk runs on cuda or cpu, not {q.device}")
     _check_paged_operands("paged span_chunk", q, q.shape[2], pool_k, pool_v, tables, pos_mat,
                           kv_dtype, kv_scales)
-    return _launch_paged_chunk(q, pool_k, pool_v, tables, pos_mat, scale, kv_dtype, kv_scales)
+    return _launch_paged_chunk(q, pool_k, pool_v, tables, pos_mat, float(scale), kv_dtype,
+                               kv_scales)

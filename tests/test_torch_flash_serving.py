@@ -12,6 +12,8 @@ Inputs are numpy arrays made from a seed. Outputs agree within 1e-5: the
 same online softmax, in another association order.
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -395,17 +397,20 @@ def test_span_chunk_one_split_takes_no_workspace(monkeypatch):
         assert calls[-1][12] == 1 and calls[-1][6] is None
 
 
-def _paged_decode_operands(kv_dtype, b=2, h=2, d=16, bs=4, t=12):
-    """CPU operands of a paged decode: a pool of ``b·t`` blocks and the sink
-    (codes and scales when quantized), tables, positions."""
+def _paged_decode_operands(kv_dtype, b=2, h=2, d=16, bs=4, t=12, c=None):
+    """CPU operands of a paged decode (or, with ``c`` rows, a paged chunk):
+    a pool of ``b·t`` blocks and the sink (codes and scales when quantized),
+    tables, positions."""
     from elephas_tpu_torch.serving.kv_quant import quantize_rows
 
     rng = np.random.default_rng(0)
     n1 = b * t + 1
     rows = torch.from_numpy(_randn(rng, 2, n1, bs, h, d))
-    q = torch.from_numpy(_randn(rng, b, h, d))
+    q = torch.from_numpy(_randn(rng, b, h, d) if c is None else _randn(rng, b, h, c, d))
     tables = torch.arange(b * t, dtype=torch.int32).view(b, t)
     pos = torch.tensor([0, t * bs - 1], dtype=torch.int32)
+    if c is not None:
+        pos = (pos[:, None] + torch.arange(c, dtype=torch.int32)).contiguous()
     if kv_dtype == "fp":
         return q, rows[0].contiguous(), rows[1].contiguous(), tables, pos, None
     (kq, ks), (vq, vs) = (quantize_rows(r, kv_dtype) for r in rows)
@@ -421,7 +426,7 @@ def _misaligned(t):
     return view
 
 
-# what the paged decode does not take: (kv_dtype, change to (q, pk, pv,
+# what the paged kernels do not take: (kv_dtype, change to (q, pk, pv,
 # tables, pos, scales), the full check's message)
 PAGED_REFUSALS = [
     ("fp", lambda o: o, None),
@@ -448,29 +453,79 @@ PAGED_REFUSALS = [
 ]
 
 
-@pytest.mark.parametrize("kv_dtype,change,match", PAGED_REFUSALS)
+def _paged_chunk_fast_path(monkeypatch, q, pk, pv, tables, pos, kv_dtype, scales):
+    """The paged chunk's launch, recorded: more than CHUNK_CLUSTER_MAX
+    splits (a 576-key span) put the partials behind ``out`` in one
+    allocation; 4 splits merge in the cluster and 1 writes ``out``, neither
+    with a workspace."""
+    calls = []
+    monkeypatch.setitem(fs._PAGED_CHUNK, -1, lambda *args: calls.append(args) or 0)
+    before = fs.paged_chunk_launches
+    b, h, c, d = q.shape
+    for t, want in ((144, 9), (64, 4), (3, 1)):
+        tab = tables[:, :t].contiguous()
+        out = fs._launch_paged_chunk(q, pk, pv, tab, pos, 0.25, kv_dtype, scales)
+        assert out.shape == q.shape and out.is_contiguous()
+        args = calls[-1]
+        splits, chunk = fs.span_chunk_splits(4 * t, b * h, c, d, 132)
+        assert splits == want
+        assert args[9:20] == (b, h, c, d, fs.KV_CODES[kv_dtype], 4, t, 288, splits, chunk, 0.25)
+        assert args[7] == out.data_ptr() and (args[3] is None) == (kv_dtype == "fp")
+        assert args[-1] == 7
+        if splits > fs.CHUNK_CLUSTER_MAX:
+            assert args[8] == out.data_ptr() + b * h * c * d * 4
+            assert out.untyped_storage().nbytes() == 4 * b * h * c * (d + splits * (d + 2))
+        else:
+            assert args[8] is None
+    assert fs.paged_chunk_launches == before + 3
+
+
+def _paged_fast_path_cases():
+    """PAGED_REFUSALS for the decode, under pytest's own ids, then for the
+    chunk (its q is [B, H, C, D]), the same ids ending in "-chunk"."""
+    names = [f"{kv}-<lambda>-{match}" for kv, _, match in PAGED_REFUSALS]
+    count, seen, ids = Counter(names), Counter(), []
+    for n in names:
+        ids.append(f"{n}{seen[n]}" if count[n] > 1 else n)
+        seen[n] += 1
+    chunk = [(kv, change, match.replace("H, D", "H, C, D") if match else match)
+             for kv, change, match in PAGED_REFUSALS]
+    return ([pytest.param(*case, "decode", id=i) for case, i in zip(PAGED_REFUSALS, ids)]
+            + [pytest.param(*case, "chunk", id=f"{i}-chunk") for case, i in zip(chunk, ids)])
+
+
+@pytest.mark.parametrize("kv_dtype,change,match,kernel", _paged_fast_path_cases())
 def test_paged_decode_fast_path_takes_only_what_the_checks_pass(monkeypatch, kv_dtype, change,
-                                                                match):
-    """The paged decode's one predicate accepts the usual operands and
+                                                                match, kernel):
+    """Each paged kernel's one predicate accepts the usual operands and
     nothing the full checks refuse (those raise their own messages); the
-    launch it leads to puts ``out`` and the partials in one allocation (the
-    launch is recorded on CPU tensors, not run)."""
+    launch it leads to makes one allocation (the decode's ``out`` and
+    partials; the chunk's ``out``, with the partials behind it only past
+    CHUNK_CLUSTER_MAX splits) and passes its arguments in the C entry's
+    order (the launch is recorded on CPU tensors, not run)."""
     base = kv_dtype if kv_dtype in fs.KV_CODES else "fp"
-    q, pk, pv, tables, pos, scales = change(_paged_decode_operands(base))
-    ready = fs._paged_decode_ready(q, pk, pv, tables, pos, kv_dtype, scales)
+    chunk = kernel == "chunk"
+    operands = _paged_decode_operands(base, t=144, c=3) if chunk \
+        else _paged_decode_operands(base)
+    q, pk, pv, tables, pos, scales = change(operands)
+    ready_fn = fs._paged_chunk_ready if chunk else fs._paged_decode_ready
+    what, rows = ("paged span_chunk", 3) if chunk else ("paged span_decode", None)
+    ready = ready_fn(q, pk, pv, tables, pos, kv_dtype, scales)
     if match is not None:
         assert not ready
         with pytest.raises(ValueError, match=match):
-            fs._check_paged_operands("paged span_decode", q, None, pk, pv, tables, pos,
-                                     kv_dtype, scales)
+            fs._check_paged_operands(what, q, rows, pk, pv, tables, pos, kv_dtype, scales)
         return
     assert ready
-    fs._check_paged_operands("paged span_decode", q, None, pk, pv, tables, pos, kv_dtype, scales)
-    calls = []
-    monkeypatch.setitem(fs._PAGED_DECODE, -1, lambda *args: calls.append(args) or 0)
+    fs._check_paged_operands(what, q, rows, pk, pv, tables, pos, kv_dtype, scales)
     monkeypatch.setitem(fs._SMS, -1, 132)
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7, raising=False)
     monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: -1, raising=False)
+    if chunk:
+        _paged_chunk_fast_path(monkeypatch, q, pk, pv, tables, pos, kv_dtype, scales)
+        return
+    calls = []
+    monkeypatch.setitem(fs._PAGED_DECODE, -1, lambda *args: calls.append(args) or 0)
     before = fs.paged_launches
     out = fs._launch_paged_decode(q, pk, pv, tables, pos, 0.25, kv_dtype, scales)
     assert fs.paged_launches == before + 1 and out.shape == q.shape and out.is_contiguous()

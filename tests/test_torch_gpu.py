@@ -910,25 +910,45 @@ def test_paged_span_decode_matches_plain_and_the_arena_kernel(cuda, kv_dtype, d,
     assert torch.equal(out, again) and torch.equal(out, replayed)
 
 
+# (rows, block_size, table length) of the paged chunk cases: 16 rows of
+# blocks of 16 over a span of 256 (2 splits, merged in a cluster), one row
+# over 1,024 keys (16 splits: the workspace and the merge kernel), and
+# blocks of 1 (a table entry a key) over 256 keys
+PAGED_CHUNK_TABLES = [pytest.param(16, 16, 16, id="B16_block16_span256"),
+                      pytest.param(1, 16, 64, id="B1_block16_span1024"),
+                      pytest.param(16, 1, 256, id="B16_block1_span256")]
+
+
+def _chunk_positions(gen, b, c, span):
+    """int32 [b, c] positions offset + 0..c-1: ragged offsets, the first rows
+    at 0, ending on the span's last row, and past the span."""
+    offs = torch.randint(0, max(1, span - c), (b,), generator=gen, device=gen.device)
+    offs[:3] = torch.tensor([0, max(0, span - c), span - c // 2])[:b]
+    return (offs[:, None] + torch.arange(c, device=gen.device)[None, :]).to(torch.int32) \
+        .contiguous()
+
+
+@pytest.mark.parametrize("b,bs,t", PAGED_CHUNK_TABLES)
 @pytest.mark.parametrize("c", [1, 64, 100])
 @pytest.mark.parametrize("d", PAGED_DIMS)
 @pytest.mark.parametrize("kv_dtype", PAGED_DTYPES)
-def test_paged_span_chunk_matches_plain_and_the_arena_kernel(cuda, kv_dtype, d, c):
-    """The paged chunk over shuffled, sentinel-padded tables (span 256),
-    with ragged offsets (0, the chunk ending on the span's last row, rows
-    past the span): within 1e-5 of max(1, |out|) of the plain version, and
-    bit-equal to the arena kernel over the gathered, dequantized span."""
-    b, h, bs, t = 16, 4, 16, 16
-    pk, pv, scales, tables = _paged_pool(cuda, d, kv_dtype, b, h, bs, t, seed=d + c)
+def test_paged_span_chunk_matches_plain_and_the_arena_kernel(cuda, kv_dtype, d, c, b, bs, t):
+    """The paged chunk over shuffled, sentinel-padded tables, with ragged
+    offsets (0, the chunk ending on the span's last row, rows past the
+    span): within 1e-5 of max(1, |out|) of the plain version, bit-equal to
+    the arena kernel over the gathered, dequantized span, and a merge kernel
+    launched only past CHUNK_CLUSTER_MAX splits."""
+    h = 4
+    pk, pv, scales, tables = _paged_pool(cuda, d, kv_dtype, b, h, bs, t, seed=d + c + bs)
     span = t * bs
     gen = torch.Generator(device=cuda).manual_seed(2)
     q = _randn(gen, b, h, c, d)
-    offs = torch.randint(0, max(1, span - c), (b,), generator=gen, device=cuda)
-    offs[:3] = torch.tensor([0, max(0, span - c), span - c // 2])
-    pos = (offs[:, None] + torch.arange(c, device=cuda)[None, :]).to(torch.int32).contiguous()
-    before = fs.paged_chunk_launches
+    pos = _chunk_positions(gen, b, c, span)
+    before, merges = fs.paged_chunk_launches, fs.paged_chunk_merge_launches()
     out = fs.flash_paged_span_chunk(q, pk, pv, tables, pos, kv_dtype=kv_dtype, kv_scales=scales)
     assert fs.paged_chunk_launches == before + 1
+    splits, _ = fs.span_chunk_splits(span, b * h, c, d, fs._sm_count(0))
+    assert fs.paged_chunk_merge_launches() - merges == int(splits > fs.CHUNK_CLUSTER_MAX)
     ref = fs.paged_span_chunk_reference(q, pk, pv, tables, pos, kv_dtype=kv_dtype,
                                         kv_scales=scales)
     gk, gv = fs.paged_dense_span(pk, pv, tables, kv_dtype, scales, d)
@@ -938,12 +958,16 @@ def test_paged_span_chunk_matches_plain_and_the_arena_kernel(cuda, kv_dtype, d, 
     assert torch.equal(out, arena)
 
 
+@pytest.mark.parametrize("b,t", [pytest.param(16, 32, id="B16_span512"),
+                                 pytest.param(1, 64, id="B1_span1024")])
 @pytest.mark.parametrize("kv_dtype", PAGED_DTYPES)
 @pytest.mark.parametrize("decode", [True, False])
-def test_paged_kernels_repeat_and_replay_bit_for_bit(cuda, kv_dtype, decode):
-    """A second call and a CUDA-graph replay give the first call's bits
-    (D 128, span 512, C 64 for the chunk)."""
-    b, h, d, bs, t = 16, 4, 128, 16, 32
+def test_paged_kernels_repeat_and_replay_bit_for_bit(cuda, kv_dtype, decode, b, t):
+    """A second call and a CUDA-graph replay give the first call's bits (D
+    128, blocks of 16, C 64 for the chunk: 2 splits merged in a cluster at
+    16 rows over 512 keys, 16 splits and the merge kernel at one row over
+    1,024)."""
+    h, d, bs = 4, 128, 16
     pk, pv, scales, tables = _paged_pool(cuda, d, kv_dtype, b, h, bs, t)
     gen = torch.Generator(device=cuda).manual_seed(3)
     if decode:
@@ -963,6 +987,52 @@ def test_paged_kernels_repeat_and_replay_bit_for_bit(cuda, kv_dtype, decode):
     replayed = _graph_replay(call)
     torch.cuda.synchronize()
     assert torch.equal(out, again) and torch.equal(out, replayed)
+
+
+@pytest.mark.parametrize("b,bs,t,c", [pytest.param(1, 16, 32, 64, id="B1_C64_span512"),
+                                      pytest.param(1, 16, 64, 64, id="B1_C64_span1024"),
+                                      pytest.param(4, 1, 300, 100, id="B4_C100_block1")])
+@pytest.mark.parametrize("kv_dtype", PAGED_DTYPES)
+def test_paged_span_chunk_reads_no_row_past_the_visible_keys(cuda, kv_dtype, b, bs, t, c):
+    """A pool in which every row that no visible key maps to (past each
+    table row's deepest position, in unleased blocks, in the sink) holds
+    NaN (fp rows, or the scales of codes): the paged chunk's output is
+    finite and bit-equal to its output over the same pool with those rows
+    finite, which the plain version matches. A non-finite stale row never
+    reaches p . v."""
+    h, d = 4, 128
+    pk, pv, scales, tables = _paged_pool(cuda, d, kv_dtype, b, h, bs, t, seed=c + bs)
+    span = t * bs
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = _randn(gen, b, h, c, d)
+    offs = torch.randint(0, span - c, (b, 1), generator=gen, device=cuda)
+    pos = (offs + torch.arange(c, device=cuda)).to(torch.int32).contiguous()
+    # a pool row is read (visible) iff it holds key j <= its table row's
+    # deepest position
+    n1 = pk.shape[0]
+    read = torch.zeros(n1, bs, dtype=torch.bool, device=cuda)
+    keys = torch.arange(span, device=cuda)
+    for i in range(b):
+        seen = keys <= pos[i].max()
+        read[tables[i, keys[seen] // bs].long(), keys[seen] % bs] = True
+    leaves = [pk, pv] if kv_dtype == "fp" else list(scales)
+    poisoned = [x.clone() for x in leaves]
+    for x in poisoned:
+        x[~read] = float("nan")
+    nan_pool = (poisoned[0], poisoned[1], None) if kv_dtype == "fp" \
+        else (pk, pv, tuple(poisoned))
+
+    def call(k, v, sc):
+        return fs.flash_paged_span_chunk(q, k, v, tables, pos, kv_dtype=kv_dtype, kv_scales=sc)
+
+    out = call(*nan_pool)
+    clean = call(pk, pv, scales)
+    ref = fs.paged_span_chunk_reference(q, pk, pv, tables, pos, kv_dtype=kv_dtype,
+                                        kv_scales=scales)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, clean)
+    assert _rel_err(out, ref) <= TOL_PAGED
 
 
 def test_paged_kernels_refuse_what_they_do_not_take(cuda):
