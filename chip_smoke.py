@@ -40,7 +40,8 @@ Phases, each printing one JSON line and raising on failure:
             E's decode shape (16 slots, 4 heads of 128, blocks of 16, and
             both also at blocks of 1) over
             tables of 8-32 blocks with shuffled ids, sentinel padding and
-            stale cursors, at 16 slots of 64 rows, at the paged engine's
+            stale cursors, at 16 slots of 64 rows and of 5 (the verify
+            window), at the paged engine's
             one-row launch, at one row over 1,024 keys (16 splits: the
             merge kernel) and at a 512-row chunk from 0: within 1e-5 of
             max(1, |out|) of their plain versions, bit-equal to the arena
@@ -153,6 +154,26 @@ Phases, each printing one JSON line and raising on failure:
             was launched at in engine_paged and engine_quant, with counts;
             fails on a merge-kernel launch there (at config A's spans the
             splits merge in a thread-block cluster);
+6g. engine_spec — speculative decoding and the SLO policy at config A's
+            width: config A trained through the port's SparkModel on the
+            reference bench's periodic sequences until its greedy
+            continuations are periodic (bench.py:1145-1196), then the
+            bench's lookup-friendly workload (32 requests, 16-token
+            prompts, 48 new tokens, spec_k 4, 8 slots) through engines in
+            turns (2 warm-up runs, 3 timed rounds each): speculation off,
+            n-gram on the fixed arena, on the paged arena in fp and int8,
+            an adversarial drafter, self-speculation through
+            DraftModelDrafter, and FairSharePolicy over two tenants with
+            two deadline classes. Gates: every engine's tokens equal the
+            off engine's (margin rule), acceptance >= 0.5 on n-gram
+            (bench.py:1265), the adversarial engine throttled with its
+            tokens unchanged, self-speculation accepting drafts, the pools
+            whole, one span-chunk launch a layer for every verify round
+            (and every catch-up chunk of the draft model), and a submit
+            burst past max_queue_tokens refused for the heavy tenant
+            only. Printed: decode-only tokens/s of each engine, the
+            on / off and adversarial / off ratios, acceptance rates and
+            TTFT p50 per tenant;
 7. profile — one more training step (fp32, then bf16, then ResNet-50),
             generate() at config A batch 1
             with rope off and on, and one engine decode window, under
@@ -195,7 +216,7 @@ Phases, each printing one JSON line and raising on failure:
 
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
 summed over the serve, train, train_bf16, train_workers, train_stream,
-engine, engine_chunked, engine_paged and engine_quant paths,
+engine, engine_chunked, engine_paged, engine_quant and engine_spec paths,
 times at config A's
 attention shape, at the training rows, at the engine's decode shape and
 its chunk launch at span 256, fp32; the paged decode at span 128 and the
@@ -376,14 +397,16 @@ ENGINE_LONG_REQUESTS = 16
 
 # span chunk vs plain version, within TOL_SPAN: 16 slots of 4 heads of 128
 # with 64 rows a slot (slots, heads, head dim, rows a slot) over the spans
-# the engine's chunks attend, also at chunk widths 1 (verify), 100 (two
-# ragged row groups) and 512 (a suffix bucket of A's maxlen); the engine's
+# the engine's chunks attend, also at chunk widths 1, 5 (a speculative verify
+# window: VERIFY_W = spec_k + 1 rows for every slot), 100 (two ragged row
+# groups) and 512 (a suffix bucket of A's maxlen); the engine's
 # own launch, one prefilling slot of its 16-slot arena through the slot map
 # (CHUNK_ENGINE: rows, heads, head dim, rows a slot) at every span bucket;
 # and a prefix-hit pass, 4 slots through the slot map with 32 suffix rows
 CHUNK_CASE = (16, 4, 128, 64)
 CHUNK_SPANS = (128, 256, 512)
-CHUNK_WIDTHS = (1, 64, 100, 512)
+VERIFY_W = 5
+CHUNK_WIDTHS = (1, VERIFY_W, 64, 100, 512)
 CHUNK_ENGINE = (1, 4, 128, 64)
 CHUNK_PREFIX_HIT = (4, 4, 128, 32)
 # engine_chunked: config A's engine with these options, on prompts that
@@ -405,7 +428,7 @@ PAGED_SPANS = (128, 256, 512)
 # table entry
 PAGED_DECODE_BLOCKS = (16, 1)
 PAGED_DTYPES = ("fp", "int8", "int4")
-PAGED_CHUNKS = ((16, 64), (1, 64))
+PAGED_CHUNKS = ((16, 64), (16, VERIFY_W), (1, 64))
 PAGED_C512 = (1, 512)
 # the paged chunk also at blocks of one position over spans 128-512, and at
 # one row of 64 over a table span of PAGED_OVER_CLUSTER keys (16 splits: past
@@ -432,6 +455,26 @@ QUANT_MODEL = dict(vocab_size=512, maxlen=128, d_model=128, num_heads=4, num_lay
 QUANT_WORKERS, QUANT_EPOCHS, QUANT_BATCH = 4, 4, 32
 QUANT_PROMPTS, QUANT_P_LEN, QUANT_COMPLETION = 6, 16, 48
 QUANT_AGREEMENT = 0.95
+# engine_spec: config A trained on the reference bench's periodic
+# sequences (bench.py:1189-1196: rng 29, 512 rows of tokens 2..5, period
+# 4), an epoch at a time up to SPEC_EPOCHS_MAX, until greedy continuations
+# of its prompts are periodic (at batch 32 and lr 1e-3 it stalls near
+# log 4, uniform over the alphabet; batch 8 at lr 1e-4 took 3 epochs on
+# the H100); its workload (bench.py:1201-1206):
+# SPEC_REQUESTS requests of SPEC_P_LEN-token periodic prompts, SPEC_BUDGET
+# new tokens, spec_k SPEC_K, SPEC_SLOTS slots; SPEC_ROUNDS timed rounds
+# after 2 warm-up runs; the policy engine's tenants and deadline classes,
+# and a burst past SPEC_MAX_QUEUE_TOKENS (SPEC_BURST requests of tenants
+# "a" and "b")
+SPEC_TRAIN = dict(rows=512, batch=8, lr=1e-4)
+SPEC_EPOCHS_MAX = 8
+SPEC_REQUESTS, SPEC_P_LEN, SPEC_BUDGET, SPEC_K, SPEC_SLOTS = 32, 16, 48, 4, 8
+SPEC_ROUNDS = 3
+SPEC_ACCEPTANCE = 0.5
+SPEC_TENANTS = {"a": 1.0, "b": 3.0}
+SPEC_DEADLINES_MS = (200.0, 2000.0)
+SPEC_MAX_QUEUE_TOKENS = 640
+SPEC_BURST = (24, 4)
 
 TIMING = "CUDA events, mean of 50 launches after 5 warm-up, median of 3 rounds in turns"
 GRAPH_TIMING = ("*device_ms: CUDA events around the replay of a CUDA graph of 50 calls "
@@ -2718,7 +2761,9 @@ def phase_times_span_chunk(dev):
     """The span-chunk kernel, its plain version and masked SDPA, eager and
     from CUDA graphs (_chunk_row), at the shapes the main path launches:
     CHUNK_CASE with the ragged offsets of _chunk_inputs over CHUNK_SPANS
-    (``span<n>``, where the first design was timed); the engine's launch, one slot of its
+    (``span<n>``, where the first design was timed); the verify window, VERIFY_W
+    rows on each of CHUNK_CASE's slots at the same offsets (``verify_span<n>``);
+    the engine's launch, one slot of its
     16-slot arena through the slot map with the chunk ending on the span's
     last row, at every span bucket (``engine_span<n>``); and CHUNK_C512, a
     512-row chunk from position 0 through the slot map (``c512_offset0``).
@@ -2734,6 +2779,9 @@ def phase_times_span_chunk(dev):
     for span in CHUNK_SPANS:
         q, k, v, pos = _chunk_inputs(b, h, d, c, span, dev, 19)
         rows[f"span{span}"] = _chunk_row(fs, q, k, v, pos, None, sms)
+    for span in CHUNK_SPANS:  # a speculative verify window on every slot
+        q, k, v, pos = _chunk_inputs(b, h, d, VERIFY_W, span, dev, 23)
+        rows[f"verify_span{span}"] = _chunk_row(fs, q, k, v, pos, None, sms)
     slots = ENGINE["num_slots"]
     for name, (b, h, d, c), spans, offset in (
             ("engine_span", CHUNK_ENGINE, SPAN_TIMES, None),
@@ -3843,6 +3891,244 @@ def phase_engine_quant(dev, model):
     return launches
 
 
+def _periodic(rng, n, length):
+    """``n`` rows of ``length`` tokens of the reference bench's periodic
+    sequences: tokens 2..5, period 4, from a random phase."""
+    starts = rng.integers(2, 6, size=n)
+    return ((starts[:, None] + np.arange(length)) % 4 + 2).astype(np.int32)
+
+
+def _train_spec_standin(dev):
+    """Config A trained through the port's SparkModel on bench.py:1189-1196's
+    periodic data (rng 29), an epoch at a time, until its greedy
+    continuation of each of the four phases' SPEC_P_LEN-token prompts is
+    periodic for SPEC_BUDGET tokens (an untrained model's argmax is noise no
+    drafter predicts: bench.py:1145-1148). Returns the model, the rng (to
+    draw the workload from, as the bench does), the epochs, the final loss
+    and the fit's seconds."""
+    from elephas_tpu_torch import SparkModel, generate, transformer_lm
+
+    cfg = CONFIGS["A"]
+    maxlen = cfg["maxlen"]
+    model = transformer_lm(**cfg, dropout=0.0, lr=SPEC_TRAIN["lr"], seed=0, device=dev)
+    rng = np.random.default_rng(29)
+    seq = _periodic(rng, SPEC_TRAIN["rows"], maxlen + 1)
+    x, y = seq[:, :-1], seq[:, 1:]
+    sm = SparkModel(model, device=dev)
+    probes = _periodic(np.random.default_rng(0), 1, SPEC_P_LEN + SPEC_BUDGET)
+    probes = np.stack([(probes[0] + i) % 4 + 2 for i in range(4)]).astype(np.int32)
+    t0, loss = time.perf_counter(), None
+    for epoch in range(1, SPEC_EPOCHS_MAX + 1):
+        loss = float(sm.fit((x, y), epochs=1, batch_size=SPEC_TRAIN["batch"])["loss"][-1])
+        out = generate(model, probes[:, :SPEC_P_LEN], SPEC_BUDGET, kv_cache=True)
+        if (out == probes).all():
+            torch.cuda.synchronize(dev)
+            return model, rng, epoch, loss, time.perf_counter() - t0
+    raise AssertionError(f"config A's greedy continuations are not periodic after "
+                         f"{SPEC_EPOCHS_MAX} epochs (loss {loss})")
+
+
+@contextlib.contextmanager
+def _counting_chunk_widths(counts):
+    """While the block runs, count the model's span-chunk calls (arena and
+    paged) by (kernel, C) into ``counts``."""
+    from elephas_tpu_torch.models import transformer
+
+    saved = {name: getattr(transformer, name)
+             for name in ("flash_span_chunk", "flash_paged_span_chunk")}
+
+    def counting(name, fn):
+        def call(q, *args, **kwargs):
+            counts[(name, q.shape[2])] += 1
+            return fn(q, *args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(transformer, name, counting(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(transformer, name, fn)
+
+
+def _decode_tok_s(reqs):
+    """Decode-only tokens/s of ``reqs`` (bench.py:1224-1233): tokens after
+    each request's first over its first-to-last token window."""
+    toks = sum(len(r.token_times) - 1 for r in reqs if len(r.token_times) > 1)
+    secs = sum(r.token_times[-1] - r.token_times[0] for r in reqs if len(r.token_times) > 1)
+    return toks / secs
+
+
+def phase_engine_spec(dev):
+    """Speculative decoding and the fair-share policy at config A's width on
+    the bench's lookup-friendly workload (see the module docstring, 6g).
+    Returns the timed rounds' kernel launches."""
+    from elephas_tpu_torch import InferenceEngine
+    from elephas_tpu_torch.serving import (
+        AdmissionRejected,
+        DraftModelDrafter,
+        Drafter,
+        FairSharePolicy,
+    )
+
+    class AdversarialDrafter(Drafter):
+        """bench.py:1173-1182: token 1, which the trained model never emits."""
+
+        def propose(self, req, k):
+            return [1] * int(k)
+
+    model, rng, epochs, loss, fit_s = _train_spec_standin(dev)
+    layers = len(model.blocks)
+    friendly = [(_periodic(rng, 1, SPEC_P_LEN)[0], SPEC_BUDGET) for _ in range(SPEC_REQUESTS)]
+    spec = dict(speculative=True, spec_k=SPEC_K)
+    draft = DraftModelDrafter(model, num_slots=SPEC_SLOTS)
+    engines = {
+        "off": InferenceEngine(model, num_slots=SPEC_SLOTS),
+        "on": InferenceEngine(model, num_slots=SPEC_SLOTS, **spec),
+        "paged": InferenceEngine(model, num_slots=SPEC_SLOTS, **spec, **ENGINE_PAGED),
+        "paged_int8": InferenceEngine(model, num_slots=SPEC_SLOTS, **spec, **ENGINE_PAGED,
+                                      kv_dtype="int8"),
+        "adversarial": InferenceEngine(model, num_slots=SPEC_SLOTS, **spec,
+                                       spec_drafter=AdversarialDrafter()),
+        "self": InferenceEngine(model, num_slots=SPEC_SLOTS, **spec, spec_drafter=draft),
+        "policy": InferenceEngine(model, num_slots=SPEC_SLOTS,
+                                  policy=FairSharePolicy(SPEC_TENANTS)),
+    }
+
+    def submit(label, eng):
+        if label != "policy":
+            return [eng.submit(p, n) for p, n in friendly]
+        return [eng.submit(p, n, tenant="ab"[i % 2],
+                           ttft_deadline_ms=SPEC_DEADLINES_MS[(i // 2) % 2])
+                for i, (p, n) in enumerate(friendly)]
+
+    failures = []
+    for label, eng in engines.items():  # warm-up: every program and bucket
+        for _ in range(2):
+            submit(label, eng)
+            eng.run()
+    tps = {label: [] for label in engines}
+    last = {}
+    counts = Counter()
+    s0 = {label: eng.stats() for label, eng in engines.items()}
+    catchup0 = draft.catchup_passes
+    torch.cuda.synchronize(dev)
+    _reset_launches()
+    launches_by = {label: Counter() for label in engines}
+    with _counting_chunk_widths(counts):
+        for _ in range(SPEC_ROUNDS):
+            for label, eng in engines.items():  # in turns
+                before = _launches()
+                reqs = submit(label, eng)
+                eng.run()
+                torch.cuda.synchronize(dev)
+                after = _launches()
+                launches_by[label].update({k: after[k] - before[k] for k in after})
+                tps[label].append(_decode_tok_s(reqs))
+                last[label] = reqs
+                if eng.paged and eng.stats()["blocks_free"] != eng.num_blocks:
+                    failures.append(f"{label}: the pool is not whole after a run")
+    launches = _launches()
+    med = {k: float(np.median(v)) for k, v in tps.items()}
+
+    def delta(label, key):
+        return engines[label].stats()[key] - s0[label][key]
+
+    # tokens: every engine's equal the off engine's (margin rule), per request
+    off = [r.tokens for r in last["off"]]
+    mismatch = {}
+    for label, reqs in last.items():
+        bad = []
+        for i, (r, want) in enumerate(zip(reqs, off)):
+            p = list(r.prompt)
+
+            def logits_of(j, p=p, want=want):
+                with torch.inference_mode():
+                    return model(torch.tensor([p + want[:j]], device=dev), plain=True)[0, -1]
+
+            fault = _first_divergence(r.tokens, want, logits_of)
+            if fault or len(r.tokens) != len(want):
+                bad.append((i, fault or f"{len(r.tokens)} tokens, want {len(want)}"))
+        mismatch[label] = len(bad)
+        if bad:
+            failures.append(f"{label}: tokens differ from the off engine's: {bad[:3]}")
+    rates = {}
+    for label in ("on", "paged", "paged_int8", "adversarial", "self"):
+        drafted, accepted = delta(label, "spec_draft_tokens"), delta(label, "spec_accepted_tokens")
+        rates[label] = accepted / drafted if drafted else None
+    if not (rates["on"] or 0) >= SPEC_ACCEPTANCE:
+        failures.append(f"n-gram acceptance {rates['on']} below {SPEC_ACCEPTANCE}")
+    if not delta("adversarial", "spec_throttled") >= 1:
+        failures.append("the adversarial drafter never tripped the throttle")
+    if not delta("self", "spec_accepted_tokens") > 0:
+        failures.append("self-speculation accepted no draft")
+    # one span-chunk launch a layer for every verify round (and every draft
+    # model catch-up chunk), counted at the wrappers and by the kernels
+    rounds = {label: delta(label, "spec_verify_rounds")
+              for label in ("on", "paged", "paged_int8", "adversarial", "self")}
+    catchup = draft.catchup_passes - catchup0
+    chunk = DraftModelDrafter.CATCHUP_CHUNK
+    want_arena = (rounds["on"] + rounds["adversarial"] + rounds["self"]) * layers
+    want_paged = (rounds["paged"] + rounds["paged_int8"]) * layers
+    verify_counts = {"arena": counts[("flash_span_chunk", VERIFY_W)],
+                     "paged": counts[("flash_paged_span_chunk", VERIFY_W)],
+                     "catchup": counts[("flash_span_chunk", chunk)]}
+    if verify_counts != {"arena": want_arena, "paged": want_paged, "catchup": catchup * layers}:
+        failures.append(f"verify-window launches {verify_counts}, want arena {want_arena}, "
+                        f"paged {want_paged}, catch-up {catchup * layers}")
+    arena_calls = sum(n for (name, _c), n in counts.items() if name == "flash_span_chunk")
+    paged_calls = sum(n for (name, _c), n in counts.items() if name == "flash_paged_span_chunk")
+    if (launches["span_chunk"], launches["paged_span_chunk"]) != (arena_calls, paged_calls):
+        failures.append(f"kernel launches {launches} differ from the wrappers' calls "
+                        f"{arena_calls} / {paged_calls}")
+    for label in ("on", "self", "adversarial"):
+        if launches_by[label]["span_chunk"] == 0 or launches_by[label]["flash_fwd"] == 0:
+            failures.append(f"{label}: launches {dict(launches_by[label])}")
+    for label in ("paged", "paged_int8"):
+        if launches_by[label]["paged_span_chunk"] == 0 or launches_by[label]["flash_fwd"]:
+            failures.append(f"{label}: launches {dict(launches_by[label])}")
+    # TTFT p50 a tenant in the policy engine's last round
+    ttft = {t: float(np.percentile([r.ttft for r in last["policy"] if r.tenant == t], 50))
+            for t in SPEC_TENANTS}
+    # a burst past max_queue_tokens: refused for the heavy tenant only
+    burst = InferenceEngine(model, num_slots=SPEC_SLOTS, policy=FairSharePolicy(
+        SPEC_TENANTS, max_queue_tokens=SPEC_MAX_QUEUE_TOKENS))
+    submitted = {"a": SPEC_BURST[0], "b": SPEC_BURST[1]}
+    reqs = [burst.submit(p, n, tenant=t) for t in submitted
+            for p, n in friendly[: submitted[t]]]
+    refused = Counter(r.tenant for r in reqs if isinstance(r.error, AdmissionRejected))
+    burst.run()
+    counted = {t: burst.stats()["tenants"][t] for t in submitted}
+    if set(refused) != {"a"} or any(
+            counted[t]["admitted"] + counted[t]["rejected"] != submitted[t] for t in submitted):
+        failures.append(f"burst: refused {dict(refused)}, counted {counted}")
+    emit({"phase": "engine_spec", "config": CONFIGS["A"], "fit_epochs": epochs,
+          "fit_loss": loss, "fit_seconds": fit_s, "requests": SPEC_REQUESTS,
+          "prompt_len": SPEC_P_LEN, "budget": SPEC_BUDGET, "spec_k": SPEC_K,
+          "num_slots": SPEC_SLOTS, "rounds": SPEC_ROUNDS,
+          "decode_tok_s_median": med, "decode_tok_s_rounds": tps,
+          "on_off": med["on"] / med["off"], "paged_off": med["paged"] / med["off"],
+          "paged_int8_off": med["paged_int8"] / med["off"],
+          "adversarial_off": med["adversarial"] / med["off"],
+          "self_off": med["self"] / med["off"], "policy_off": med["policy"] / med["off"],
+          "acceptance": rates, "verify_rounds": rounds,
+          "throttled": delta("adversarial", "spec_throttled"),
+          "draft_catchup_passes": catchup, "chunk_calls_by_width":
+              {f"{name}_C{c}": n for (name, c), n in sorted(counts.items())},
+          "token_mismatches": mismatch, "ttft_p50_s_by_tenant": ttft,
+          "ttft_deadlines_ms": SPEC_DEADLINES_MS, "tenants": SPEC_TENANTS,
+          "burst": {"max_queue_tokens": SPEC_MAX_QUEUE_TOKENS, "submitted": submitted,
+                    "refused": dict(refused), "counted": counted},
+          "launches": launches, "launches_by_engine": {k: dict(v) for k, v in
+                                                        launches_by.items()},
+          "nvidia_smi": nvidia_smi(), "failures": failures})
+    if failures:
+        raise AssertionError(f"engine_spec check failed: {failures}")
+    del engines, burst, draft, model
+    return launches
+
+
 def _paged_row(fs, decode, q, pk, pv, scales, tables, pos, dt):
     """One paged kernel, its plain version and SDPA with a boolean mask over
     the span gathered and dequantized beforehand (the library yardstick:
@@ -3896,17 +4182,20 @@ def phase_times_paged(dev):
     """Each paged kernel and stored type at the shapes of _paged_cases
     (_paged_row): the decode at the engine's shape over spans 128-512, the
     chunk at the paged engine's one-row launch (64 rows ending on the span's
-    last row) over spans 128-512, at a 512-row chunk from position 0 and,
+    last row) and at the verify window (VERIFY_W rows on 16 slots) over spans
+    128-512, at a 512-row chunk from position 0 and,
     once engine_paged has run, at the engines' most frequent launch shape
     (ENGINE_CHUNK_SHAPES) with the positions they gave it."""
     from elephas_tpu_torch.ops import flash_serving as fs
 
     rows = {}
     for kernel, name, dt, inputs in _paged_cases():
-        # the chunk's 16-slot, block-1 and 16-split cases are gated, not timed
+        # the chunk's 16-slot, block-1 and 16-split cases are gated, not
+        # timed; its verify window is timed
         timed = kernel == "paged_span_decode" or name.endswith("offset0") or (
             name.startswith(f"{dt}_B1_C64_span")
-            and not name.endswith(f"span{PAGED_OVER_CLUSTER}"))
+            and not name.endswith(f"span{PAGED_OVER_CLUSTER}")) or (
+            name.startswith(f"{dt}_B16_C{VERIFY_W}_span"))
         if not timed:
             continue
         q, pk, pv, scales, tables, pos = inputs(dev)
@@ -4036,6 +4325,7 @@ def main(argv=None) -> int:
         paged = phase_engine_paged(dev, lm)
         quant = phase_engine_quant(dev, lm)
     phase_engine_chunk_shapes(merges)
+    spec = phase_engine_spec(dev)
     for path, launches, kernels in (
         ("serve", serve, ("flash_fwd", "layer_norm_fwd")),
         ("train", train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
@@ -4048,6 +4338,8 @@ def main(argv=None) -> int:
         ("engine_chunked", chunked, ("span_chunk", "span_decode", "layer_norm_fwd")),
         ("engine_paged", paged, ("paged_span_chunk", "paged_span_decode", "layer_norm_fwd")),
         ("engine_quant", quant, ("paged_span_chunk", "paged_span_decode", "layer_norm_fwd")),
+        ("engine_spec", spec, ("span_chunk", "paged_span_chunk", "span_decode", "flash_fwd",
+                               "layer_norm_fwd")),
     ):
         idle = [k for k in kernels if launches[k] == 0]
         if idle:
@@ -4071,7 +4363,7 @@ def main(argv=None) -> int:
 
     print(nvidia_smi(), flush=True)
     total = {k: serve[k] + train[k] + train_bf16[k] + train_workers[k] + train_stream[k]
-             + engine[k] + chunked[k] + paged[k] + quant[k] for k in serve}
+             + engine[k] + chunked[k] + paged[k] + quant[k] + spec[k] for k in serve}
     emit({"kernels": [
         _kernel_entry(
             "flash_fwd", "elephas_tpu_torch/csrc/flash_fwd.cu",

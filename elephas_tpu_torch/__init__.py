@@ -18,8 +18,9 @@ slots), with validation, checkpoints and resume, and
 written for sm_90a, on their bf16 routes under ``mixed_bfloat16``; the
 flash backward is plain PyTorch. :func:`transformer_lm` serves through
 :func:`generate` and the continuous-batching :class:`InferenceEngine` on
-the fixed KV arena, with decode attention as a CUDA kernel
-(``csrc/span_decode.cu``). Weights cross from and to the reference by
+the fixed or paged KV arena, with decode attention as a CUDA kernel
+(``csrc/span_decode.cu``), speculative decoding through the span-chunk
+kernel (``csrc/span_chunk.cu``) and SLO admission policies. Weights cross from and to the reference by
 Keras path (:func:`load_keras_weights`, :func:`keras_weights`).
 
 Inputs the reference streams (a memmap or other lazy source, a lazy RDD,
@@ -41,7 +42,7 @@ Entry points run on ``cuda`` by default; only an explicit
 versions run.
 """
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 from elephas_tpu_torch.hyperparam import HyperParamModel  # noqa: F401
 from elephas_tpu_torch.models import (  # noqa: F401
@@ -93,4 +94,5 @@ __all__ = [
     "to_simple_rdd",
     "transformer_classifier",
     "transformer_lm",
+    "__version__",
 ]

@@ -15,6 +15,10 @@
 - :mod:`elephas_tpu_torch.serving.prefix_cache` — the deterministic radix
   indexes over cached prompt prefixes: donor slots (fixed arena) or shared
   full blocks (paged);
+- :mod:`elephas_tpu_torch.serving.speculative` — speculative decoding's
+  drafters (n-gram lookup, a draft model) and the acceptance throttle;
+- :mod:`elephas_tpu_torch.serving.policy` — the SLO admission policies
+  (FIFO, tenant fair share with deadlines, aging and admission control);
 - :mod:`elephas_tpu_torch.serving.engine` — :class:`InferenceEngine`, the
   host-side serving loop (also ``SparkModel.serve()``).
 """
@@ -26,6 +30,14 @@ from elephas_tpu_torch.serving.paged_kv import (  # noqa: F401
     PagedKVPool,
     blocks_for,
     table_buckets,
+)
+from elephas_tpu_torch.serving.policy import (  # noqa: F401
+    DEFAULT_TENANT,
+    AdmissionRejected,
+    FairSharePolicy,
+    FifoPolicy,
+    Policy,
+    resolve_policy,
 )
 from elephas_tpu_torch.serving.prefix_cache import (  # noqa: F401
     BlockEntry,
@@ -41,8 +53,16 @@ from elephas_tpu_torch.serving.scheduler import (  # noqa: F401
     bucket_for,
     default_buckets,
 )
+from elephas_tpu_torch.serving.speculative import (  # noqa: F401
+    AcceptanceThrottle,
+    DraftModelDrafter,
+    Drafter,
+    NgramDrafter,
+)
 
-__all__ = ["Admission", "BlockAllocator", "BlockEntry", "CacheEntry", "InferenceEngine",
-           "PagedKVPool", "PagedPrefixIndex", "Preemption", "PrefixCache", "Request",
+__all__ = ["DEFAULT_TENANT", "AcceptanceThrottle", "Admission", "AdmissionRejected",
+           "BlockAllocator", "BlockEntry", "CacheEntry", "DraftModelDrafter", "Drafter",
+           "FairSharePolicy", "FifoPolicy", "InferenceEngine", "NgramDrafter", "PagedKVPool",
+           "PagedPrefixIndex", "Policy", "Preemption", "PrefixCache", "Request",
            "RequestCancelled", "Scheduler", "SlotKVCache", "blocks_for", "bucket_for",
-           "default_buckets", "table_buckets"]
+           "default_buckets", "resolve_policy", "table_buckets"]

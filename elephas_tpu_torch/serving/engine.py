@@ -35,6 +35,19 @@ paged span-decode kernel). With ``preemption=True`` a higher-priority
 arrival swaps lower-priority requests' blocks out to pinned host memory
 and they resume bit for bit.
 
+With ``speculative=True`` a decode phase is a **verify round** on either
+arena: a drafter (:mod:`~elephas_tpu_torch.serving.speculative`) proposes
+up to ``spec_k`` tokens a slot, one pass feeds every decoding slot's window
+of ``spec_k + 1`` rows
+(:func:`~elephas_tpu_torch.serving.kv_cache.verify_forward` or
+:func:`~elephas_tpu_torch.serving.paged_kv.paged_verify_forward`; the
+span-chunk kernels on the card), and the longest draft prefix the model
+agrees with is accepted plus one bonus token; cursors roll back on the
+host. A round where nobody drafted is a plain decode window. A
+``policy`` (:mod:`~elephas_tpu_torch.serving.policy`) orders admission,
+rejects at :meth:`InferenceEngine.submit` under overload and keeps
+per-tenant and SLO counts; it never touches decoding.
+
 Each :meth:`InferenceEngine.step`: admit waiting requests into free slots
 (offloads of preempted requests first, then resumes, copies and prefill),
 spend the step's chunk budget, run one decode window over the slots whose
@@ -43,8 +56,8 @@ Requests may be submitted at any time and join the next step's admission
 wave.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: speculative decoding, SLO policies, the flight recorder,
-sequence-parallel prefill, meshes, the gateway, migration and telemetry.
+ROADMAP.md item: the flight recorder, sequence-parallel prefill, meshes,
+the gateway, migration and telemetry.
 """
 
 from __future__ import annotations
@@ -69,6 +82,7 @@ from elephas_tpu_torch.serving.kv_cache import (
     prefill_forward,
     prefix_copy,
     token_decode_step,
+    verify_forward,
 )
 from elephas_tpu_torch.serving.kv_quant import check_kv_dtype
 from elephas_tpu_torch.serving.paged_kv import (
@@ -77,11 +91,14 @@ from elephas_tpu_torch.serving.paged_kv import (
     gather_blocks,
     paged_chunk_forward,
     paged_token_decode_step,
+    paged_verify_forward,
     scatter_blocks,
     table_bucket_for,
     table_buckets,
 )
+from elephas_tpu_torch.serving.policy import DEFAULT_TENANT, AdmissionRejected, Policy
 from elephas_tpu_torch.serving.scheduler import Request, Scheduler, default_buckets
+from elephas_tpu_torch.serving.speculative import AcceptanceThrottle, resolve_drafter
 
 logger = logging.getLogger(__name__)
 
@@ -161,6 +178,17 @@ class InferenceEngine:
     per-(position, head) scales (``"fp"``, the default, is the parity
     oracle). The five keywords take the reference's validation.
 
+    ``speculative=True`` decodes draft-and-verify: ``spec_drafter``
+    (``"ngram"`` prompt lookup by default, a port LM module as a draft
+    model, or a :class:`~elephas_tpu_torch.serving.speculative.Drafter`)
+    proposes up to ``spec_k`` (default 4) tokens a slot and one batched
+    verify pass accepts the longest agreeing prefix plus a bonus token,
+    token-exact with plain decode at temperature 0; a per-request
+    acceptance throttle falls back to plain decode when drafts stop
+    landing. ``policy`` (a :class:`~elephas_tpu_torch.serving.policy.Policy`)
+    orders admission by tenant fair share, deadline and age, may refuse a
+    submit under overload, and derives preemption priorities.
+
     Every other keyword of the reference is accepted: at the value that
     leaves the behaviour unchanged (the reference's default, and
     ``flight_recorder=None`` or ``0``: the port records nothing yet), any
@@ -196,9 +224,7 @@ class InferenceEngine:
         )
         # (name, value, the value that leaves the behaviour unchanged, item)
         unported = (
-            ("speculative", speculative, False, 3),
-            ("spec_k", spec_k, None, 3), ("spec_drafter", spec_drafter, None, 3),
-            ("policy", policy, None, 3), ("flight_recorder", flight_recorder or None, None, 3),
+            ("flight_recorder", flight_recorder or None, None, 3),
             ("mesh", mesh, None, 5), ("batch_axes", batch_axes, ("data",), 5),
             ("model_axis", model_axis, None, 5), ("rules", rules, None, 5),
             ("sp_prefill", sp_prefill, None, 5), ("sp_axis", sp_axis, "seq", 5),
@@ -293,6 +319,24 @@ class InferenceEngine:
                 "would misreport the KV byte budget"
             )
         self.kv_dtype = kv_dtype
+        self.speculative = bool(speculative)
+        if not self.speculative:
+            if spec_k is not None or spec_drafter is not None:
+                raise ValueError(
+                    "spec_k/spec_drafter require speculative=True — "
+                    "silently ignoring the knobs would misreport how "
+                    "the engine decodes"
+                )
+            self.spec_k = None
+        else:
+            k = 4 if spec_k is None else int(spec_k)
+            # the window feeds the last token and k drafts; the drafts a
+            # round are capped so writes stay inside maxlen
+            if not 1 <= k < self.maxlen:
+                raise ValueError(
+                    f"spec_k={k} outside [1, maxlen={self.maxlen})"
+                )
+            self.spec_k = k
         if attention not in ("flash", "naive"):
             raise ValueError(
                 f"attention must be 'flash' or 'naive', got "
@@ -310,6 +354,13 @@ class InferenceEngine:
         # smallest bucket covering the live residents and the window
         self._sbuckets = span_buckets(self.maxlen)
         self.steps_per_sync = max(1, int(steps_per_sync))
+        if policy is not None and not isinstance(policy, Policy):
+            raise TypeError(
+                f"policy must be a serving.policy.Policy (or None), "
+                f"got {type(policy).__name__} — build one with "
+                f"FairSharePolicy(tenants=...) or resolve_policy()"
+            )
+        self.policy = policy
 
         self._layers = layers
         allocator = None
@@ -322,7 +373,8 @@ class InferenceEngine:
         self.scheduler = Scheduler(self.num_slots, buckets or default_buckets(self.maxlen),
                                    prefix_cache=prefix_cache,
                                    prefix_min_reuse=prefix_min_reuse,
-                                   allocator=allocator, preemption=preemption)
+                                   allocator=allocator, preemption=preemption,
+                                   policy=policy)
         # paged: the device block tables, restaged only when the scheduler's
         # tables or their bucket change; preempted requests' K/V on the host
         self._tables_cache: tuple | None = None
@@ -358,6 +410,23 @@ class InferenceEngine:
         self.rejected = 0
         self.kv_quant_offload_bytes = 0
         self.score_requests = 0
+        # speculative decoding: the drafter, the per-request acceptance
+        # throttle, and the flag set when verify rounds left the device
+        # cursors behind the host's (restaged before a plain window)
+        self._drafter = (
+            resolve_drafter(spec_drafter, num_slots=self.num_slots, maxlen=self.maxlen,
+                            vocab=self.vocab) if self.speculative else None
+        )
+        self._spec_throttle = AcceptanceThrottle() if self.speculative else None
+        self._spec_dirty = False
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_rounds = 0
+        self.spec_throttled = 0
+        # the policy's refusals at submit, and per-tenant counts by label:
+        # admitted, rejected, tokens, SLO met and missed
+        self.admission_rejected = 0
+        self._tenant_counts: dict[str, dict[str, int]] = {}
 
     # -- lifecycle ------------------------------------------------------
 
@@ -418,11 +487,18 @@ class InferenceEngine:
                 "preemption=True for priority scheduling", priority,
             )
         if tenant is not None:
-            raise ValueError(
-                f"submit(tenant={tenant!r}) on an engine without a "
-                f"policy — serve with policy=/tenants= to declare "
-                f"tenants before accounting requests under them"
-            )
+            if self.policy is None:
+                raise ValueError(
+                    f"submit(tenant={tenant!r}) on an engine without a "
+                    f"policy — serve with policy=/tenants= to declare "
+                    f"tenants before accounting requests under them"
+                )
+            if not self.policy.knows(tenant):
+                raise ValueError(
+                    f"unknown tenant {tenant!r} — declared tenants: "
+                    f"{sorted(self.policy.tenants) or '[none]'} (plus "
+                    f"the implicit {DEFAULT_TENANT!r})"
+                )
         if ttft_deadline_ms is not None:
             if not float(ttft_deadline_ms) > 0:
                 raise ValueError(
@@ -430,15 +506,17 @@ class InferenceEngine:
                     f"positive — a deadline at or before submit time "
                     f"can never be met"
                 )
-            raise ValueError(
-                "submit(ttft_deadline_ms=) needs a deadline-aware "
-                "policy (e.g. FairSharePolicy) — this engine's "
-                "policy never reads deadlines, so the knob would "
-                "be a silent no-op"
-            )
+            if self.policy is None or not self.policy.reads_deadlines:
+                raise ValueError(
+                    "submit(ttft_deadline_ms=) needs a deadline-aware "
+                    "policy (e.g. FairSharePolicy) — this engine's "
+                    "policy never reads deadlines, so the knob would "
+                    "be a silent no-op"
+                )
         req = self.scheduler.make_request(
             prompt, max_new_tokens, temperature=temperature, eos_id=eos_id,
-            on_token=on_token, priority=priority,
+            on_token=on_token, priority=priority, tenant=tenant,
+            ttft_deadline_ms=ttft_deadline_ms,
         )
         req.submit_time = time.perf_counter()
         if self.paged:
@@ -454,11 +532,39 @@ class InferenceEngine:
                 )
                 req.done = True
                 self.rejected += 1
+                self._count(tenant, "rejected")
+                logger.warning("%s", req.error)
+                self.finished[req.rid] = req
+                self._evict_finished()
+                return req
+        if self.policy is not None:
+            # overload admission control: the policy sees the queue's
+            # outstanding token debt and may shed this request now
+            verdict = self.policy.admission_verdict(
+                req, self.scheduler.queued_tokens, self.scheduler.queued_tokens_for(tenant),
+            )
+            if not verdict.admitted:
+                req.error = AdmissionRejected(
+                    f"request {req.rid} rejected by "
+                    f"{type(self.policy).__name__}: {verdict.reason}; "
+                    f"retry after {verdict.retry_after_s:.1f}s",
+                    retry_after_s=verdict.retry_after_s,
+                )
+                req.done = True
+                self.admission_rejected += 1
+                self._count(tenant, "rejected")
                 logger.warning("%s", req.error)
                 self.finished[req.rid] = req
                 self._evict_finished()
                 return req
         return self.scheduler.submit(req)
+
+    def _count(self, tenant, key: str) -> None:
+        """Bump one per-tenant count (``tenant`` None: the default
+        tenant)."""
+        label = DEFAULT_TENANT if tenant is None else str(tenant)
+        counts = self._tenant_counts.setdefault(label, {})
+        counts[key] = counts.get(key, 0) + 1
 
     # -- token bookkeeping ----------------------------------------------
 
@@ -468,7 +574,17 @@ class InferenceEngine:
         request cleanly: its slot is reclaimed and the engine goes on."""
         self.total_generated += 1
         slot = req.slot
-        req.token_times.append(time.perf_counter())
+        now = time.perf_counter()
+        req.token_times.append(now)
+        if (len(req.token_times) == 1 and req.submit_time is not None
+                and req.ttft_deadline_ms is not None):
+            # SLO attainment: the wall-clock TTFT meets the declared budget
+            # here only, never in the schedule
+            met = (now - req.submit_time) * 1e3 <= req.ttft_deadline_ms
+            self._count(req.tenant, "slo_met" if met else "slo_missed")
+        if self.policy is not None:
+            self.policy.on_token(req)
+            self._count(req.tenant, "tokens")
         done = self.scheduler.on_token(slot, token)
         if req.on_token is not None:
             try:
@@ -486,9 +602,18 @@ class InferenceEngine:
             self.scheduler.reclaim(slot)
             self._set_active(slot, False)
             self.finished_count += 1
+            self._detach(req)
             self.finished[req.rid] = req
             self._evict_finished()
         return done
+
+    def _detach(self, req: Request) -> None:
+        """A request left the engine (finished, failed or cancelled): the
+        policy's and the throttle's accounting of it drop."""
+        if self.policy is not None:
+            self.policy.on_finish(req)
+        if self._spec_throttle is not None:
+            self._spec_throttle.forget(req.rid)
 
     def _evict_finished(self) -> None:
         """Trim the bounded finished-request registry, oldest first, never
@@ -813,21 +938,38 @@ class InferenceEngine:
             for pre in preempts:
                 self._offload(pre)
             if plan:
+                self._note_admissions(plan)
                 emitted.extend(self._admit_wave_paged(plan))
         else:
             plan = self.scheduler.admit()
             if plan:
+                self._note_admissions(plan)
                 emitted.extend(self._admit_wave(plan))
         emitted.extend(self._prefill_progress())
         if any(slot not in self._prefilling for slot in self.scheduler.active):
-            emitted.extend(self._decode_window())
+            if self.speculative:
+                emitted.extend(self._spec_decode_phase())
+            else:
+                emitted.extend(self._decode_window())
         return emitted
+
+    def _note_admissions(self, plan) -> None:
+        """Per-tenant admitted counts: fresh admissions only (a resume
+        was counted when it first took a slot)."""
+        if self.policy is None:
+            return
+        for a in plan:
+            if a.resume is None:
+                self._count(a.req.tenant, "admitted")
 
     @torch.inference_mode()
     def _decode_window(self):
         """One arena-wide decode window of ``steps_per_sync`` steps; the
         host reads its tokens once, at the end. Paged, every step attends
-        through the staged block tables."""
+        through the staged block tables. The speculative engine's fallback
+        when no slot drafted."""
+        if self._spec_dirty:
+            self._refresh_decode_state()
         tables = self._staged_tables() if self.paged else None
         span = None if self.paged else self._decode_span()
         active = self._sync_active()
@@ -860,6 +1002,123 @@ class InferenceEngine:
                     continue  # mid-prefill: no decode tokens yet
                 done = self._emit(req, int(toks[i, slot]))
                 emitted.append((req, req.tokens[-1], done))
+        return emitted
+
+    # -- speculative decoding ---------------------------------------------
+
+    def _refresh_decode_state(self) -> None:
+        """Restage the device cursors and last tokens from the host's
+        truth: verify rounds advance positions on the host only (resident
+        length = prompt + generated - 1). Mid-prefill and idle slots get
+        zeros; the active mask excludes them, and a chunk's finish sets
+        their state on the device."""
+        lengths = np.zeros((self.num_slots,), np.int32)
+        last = np.zeros((self.num_slots,), np.int64)
+        for slot, req in self.scheduler.active.items():
+            if slot in self._prefilling or not req.tokens:
+                continue
+            lengths[slot] = len(req.prompt) + len(req.tokens) - 1
+            last[slot] = req.tokens[-1]
+        self._lengths = torch.from_numpy(lengths).to(self.device)
+        self._last = torch.from_numpy(last).to(self.device)
+        self._spec_dirty = False
+
+    def _spec_decode_phase(self):
+        """One speculative decode phase: drafts for every decoding slot
+        (throttle- and budget-capped), then one verify round over the whole
+        window, or, when nobody drafted, one plain decode window."""
+        items = []
+        for slot in sorted(self.scheduler.active):
+            if slot in self._prefilling:
+                continue
+            req = self.scheduler.active[slot]
+            remaining = req.max_new_tokens - len(req.tokens)
+            cursor = len(req.prompt) + len(req.tokens) - 1
+            # the window writes positions cursor .. cursor + drafts and
+            # emits at most drafts + 1 tokens: cap the drafts to the row and
+            # the budget (and, paged, the blocks reserved for them)
+            k_cap = min(self.spec_k, remaining - 1, self.maxlen - 1 - cursor)
+            if k_cap >= 1 and self._spec_throttle.should_draft(req.rid):
+                items.append((slot, req, k_cap))
+        proposals = self._drafter.propose_batch(items) if items else {}
+        # a drafter may return more than its k, or drafts for a slot it was
+        # not asked about: clip to each item's cap, drop the others
+        caps = {slot: k for slot, _req, k in items}
+        proposals = {slot: list(d)[: caps[slot]] for slot, d in proposals.items()
+                     if slot in caps and d}
+        drafted = sum(len(d) for d in proposals.values())
+        if drafted == 0:
+            return self._decode_window()
+        return self._verify_round(proposals, drafted)
+
+    @torch.inference_mode()
+    def _verify_round(self, proposals, drafted: int):
+        """One batched verify pass and its verdict: for each decoding slot,
+        the longest draft prefix equal to the model's own tokens is accepted
+        and emitted with the bonus token, and its cursor rolls back over the
+        rejected tail on the host (the rejected rows' K/V is rewritten
+        before any query sees it; paged, they lie in reserved blocks)."""
+        w = self.spec_k + 1
+        # tokens | offset | n_fed | active, one upload
+        packed = np.zeros((self.num_slots, w + 3), np.int64)
+        verifying = []
+        for slot in sorted(self.scheduler.active):
+            if slot in self._prefilling:
+                continue
+            req = self.scheduler.active[slot]
+            drafts = proposals.get(slot, [])
+            packed[slot, 0] = req.tokens[-1]
+            packed[slot, 1:1 + len(drafts)] = drafts
+            packed[slot, w] = len(req.prompt) + len(req.tokens) - 1
+            packed[slot, w + 1] = 1 + len(drafts)
+            packed[slot, w + 2] = 1
+            verifying.append((slot, req, drafts))
+        dev = self.device
+        staged = torch.from_numpy(packed).to(dev)
+        tokens, offs = staged[:, :w], staged[:, w].to(torch.int32)
+        n_fed, act = staged[:, w + 1].to(torch.int32), staged[:, w + 2] != 0
+        if self.paged:
+            logits = paged_verify_forward(self.model, tokens, self.arena, self._staged_tables(),
+                                          offs, n_fed, act, self.attention)
+        else:
+            # the attended span covers the window's deepest write
+            span = self._fixed_span(max(int(packed[s, w] + packed[s, w + 1])
+                                        for s, _r, _d in verifying))
+            logits = verify_forward(self.model, tokens, self.arena, offs, n_fed, act,
+                                    self.attention, span)
+        # one draw of the generator for the whole [num_slots * W] window
+        sampled = _sample_dynamic(logits.reshape(self.num_slots * w, -1), self._generator,
+                                  torch.repeat_interleave(self._temps, w), self.top_k,
+                                  self.top_p)
+        toks = sampled.view(self.num_slots, w).cpu().numpy()
+        self.scheduler.note_step()
+        emitted: list[tuple[Request, int, bool]] = []
+        accepted_total = 0
+        for slot, req, drafts in verifying:
+            t = toks[slot]
+            a = 0
+            while a < len(drafts) and drafts[a] == int(t[a]):
+                a += 1
+            # the accepted drafts and the bonus token, in order; an EOS
+            # inside the window ends the request there
+            n_emitted = 0
+            for j in range(a + 1):
+                done = self._emit(req, int(t[j]))
+                emitted.append((req, req.tokens[-1], done))
+                n_emitted += 1
+                if done:
+                    break
+            # only accepted drafts that were emitted saved a step
+            a = min(a, n_emitted)
+            accepted_total += a
+            req.spec_drafted += len(drafts)
+            req.spec_accepted += a
+            if self._spec_throttle.note(req.rid, len(drafts), a):
+                self.spec_throttled += 1
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted_total
+        self.spec_rounds += 1
+        self._spec_dirty = True
         return emitted
 
     # -- running the engine ---------------------------------------------
@@ -925,6 +1184,7 @@ class InferenceEngine:
             except Exception:
                 logger.warning("request %d stream-end callback failed", rid, exc_info=True)
         self.cancelled += 1
+        self._detach(req)
         self.finished[rid] = req
         self._evict_finished()
         return True
@@ -1010,6 +1270,26 @@ class InferenceEngine:
             "agreement": agreed / len(completion),
         }
 
+    def _tenant_stats(self) -> dict:
+        """Per-tenant queue depth, admitted and rejected requests, tokens
+        and SLO attainment; empty without a policy."""
+        if self.policy is None:
+            return {}
+        out = {}
+        for t in self.policy.tenant_names:
+            c = self._tenant_counts.get(t, {})
+            met, missed = c.get("slo_met", 0), c.get("slo_missed", 0)
+            out[t] = {
+                "queue_depth": self.scheduler.waiting_count(t),
+                "admitted": c.get("admitted", 0),
+                "rejected": c.get("rejected", 0),
+                "tokens": c.get("tokens", 0),
+                "slo_met": met,
+                "slo_missed": missed,
+                "slo_attainment": met / (met + missed) if met + missed else None,
+            }
+        return out
+
     @staticmethod
     def _percentiles(xs) -> dict:
         """``{p50, p99, n}`` summary (seconds) of a latency sample."""
@@ -1029,7 +1309,10 @@ class InferenceEngine:
         arena's counters (preemptions, resumes, rejections, offloaded blocks
         and, quantized, their bytes; blocks free, leased and shared), the
         stored ``kv_dtype``, :meth:`score` calls, and the prefix cache's hit
-        and eviction counters when it is on."""
+        and eviction counters when it is on; speculative decoding's drafted
+        and accepted tokens, verify rounds and throttle trips (zero on an
+        engine without it), the policy's refusals, per-tenant counts and
+        state."""
         finished = list(self.finished.values())
         lat = [
             r.finish_time - r.submit_time
@@ -1062,7 +1345,18 @@ class InferenceEngine:
             "kv_dtype": self.kv_dtype,
             "kv_quant_offload_bytes": self.kv_quant_offload_bytes,
             "score_requests": self.score_requests,
+            "spec_draft_tokens": self.spec_drafted,
+            "spec_accepted_tokens": self.spec_accepted,
+            "spec_acceptance_rate": (
+                self.spec_accepted / self.spec_drafted if self.spec_drafted else None
+            ),
+            "spec_verify_rounds": self.spec_rounds,
+            "spec_throttled": self.spec_throttled,
+            "admission_rejected": self.admission_rejected,
+            "tenants": self._tenant_stats(),
         }
+        if self.policy is not None:
+            out["policy"] = self.policy.stats()
         if self.paged:
             alloc = self.scheduler.allocator
             idx = self.scheduler.prefix_index

@@ -23,11 +23,17 @@ becomes a :class:`~elephas_tpu_torch.serving.prefix_cache.PagedPrefixIndex`
 whose hits splice blocks into the new table; with ``preemption=True`` an
 arrival may swap out active requests of strictly lower priority
 (:class:`Preemption`), which re-queue at the front and resume bit for bit.
-The order of every decision is the reference's.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: SLO policies, wave-aware slot placement and the telemetry
-counters.
+A ``policy`` (:mod:`~elephas_tpu_torch.serving.policy`) re-ranks the
+waiting queue before every admission attempt, is charged at admission and
+told of preemptions, and gives the priorities preemption compares; the
+queue's outstanding token debt (``queued_tokens``, per tenant by
+:meth:`Scheduler.queued_tokens_for`) feeds its admission control. Without
+one the scheduler takes the FIFO path and calls no hook. The order of every
+decision is the reference's.
+
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
+item: wave-aware slot placement. The telemetry counters are not kept.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from collections import deque
 from dataclasses import dataclass, field
 
 from elephas_tpu_torch.serving.paged_kv import blocks_for
+from elephas_tpu_torch.serving.policy import DEFAULT_TENANT
 from elephas_tpu_torch.serving.prefix_cache import PagedPrefixIndex, PrefixCache
 
 _TODO = "Scheduler({}) is not ported yet (ROADMAP.md, Queue A item {})"
@@ -82,7 +89,10 @@ class Request:
     request (``error`` set, slot reclaimed) and keeps serving the rest.
     ``token_times`` holds the host arrival time of each generated token:
     ``token_times[0] - submit_time`` is the TTFT, the consecutive deltas
-    the inter-token latencies."""
+    the inter-token latencies. ``tenant`` (None: the default tenant) and
+    ``ttft_deadline_ms`` are read by a policy; ``spec_drafted`` /
+    ``spec_accepted`` count this request's drafted and accepted tokens
+    under speculative decoding."""
 
     rid: int
     prompt: tuple
@@ -90,6 +100,8 @@ class Request:
     temperature: float = 0.0
     eos_id: int | None = None
     priority: int = 0
+    tenant: str | None = None
+    ttft_deadline_ms: float | None = None
     tokens: list = field(default_factory=list)
     slot: int | None = None
     done: bool = False
@@ -100,6 +112,8 @@ class Request:
     token_times: list = field(default_factory=list)
     # prompt tokens served from the prefix cache instead of prefill
     reused_tokens: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
     @property
     def full_sequence(self) -> list:
@@ -156,17 +170,15 @@ class Preemption:
 
 
 class Scheduler:
-    """FIFO queue + slot (and, paged, block) lease tracking for
-    :class:`~elephas_tpu_torch.serving.engine.InferenceEngine`."""
+    """FIFO (or policy-ordered) queue + slot (and, paged, block) lease
+    tracking for :class:`~elephas_tpu_torch.serving.engine.InferenceEngine`."""
 
     def __init__(self, num_slots: int, buckets, prefix_cache: bool = False,
                  prefix_min_reuse: int = 1, allocator=None,
                  preemption: bool = False, policy=None,
                  wave_slots: int | None = None):
-        for name, value, item in (("policy", policy, 3),
-                                  ("wave_slots", wave_slots, 5)):
-            if value:
-                raise NotImplementedError(_TODO.format(f"{name}={value!r}", item))
+        if wave_slots:
+            raise NotImplementedError(_TODO.format(f"wave_slots={wave_slots!r}", 5))
         self.num_slots = int(num_slots)
         self.buckets = tuple(sorted(int(b) for b in buckets))
         self.waiting: deque[Request] = deque()
@@ -174,6 +186,11 @@ class Scheduler:
         self._free: list[int] = list(range(self.num_slots))
         self.rid_base = next(_rid_bases) * RID_STRIDE
         self._ids = itertools.count(self.rid_base)
+        # the admission policy (None: the FIFO path, no hook called) and
+        # the waiting queue's outstanding token debt, kept at every enqueue
+        # and dequeue
+        self.policy = policy
+        self.queued_tokens = 0
         # paged arena: an allocator switches admission to slot + block
         # leasing, and the prefix cache to the block-refcount index
         self.allocator = allocator
@@ -200,13 +217,24 @@ class Scheduler:
 
     # -- submission ----------------------------------------------------
 
+    @staticmethod
+    def _debt(req: Request) -> int:
+        """Tokens the request still owes the engine (prompt + remaining
+        budget), frozen while it waits."""
+        return len(req.prompt) + req.max_new_tokens - len(req.tokens)
+
     def submit(self, request: Request) -> Request:
         request.rid = next(self._ids) if request.rid is None else request.rid
         self.waiting.append(request)
+        self.queued_tokens += self._debt(request)
+        if self.policy is not None:
+            self.policy.on_submit(request)
         return request
 
     def make_request(self, prompt, max_new_tokens, temperature=0.0,
-                     eos_id=None, on_token=None, priority: int = 0) -> Request:
+                     eos_id=None, on_token=None, priority: int = 0,
+                     tenant: str | None = None,
+                     ttft_deadline_ms: float | None = None) -> Request:
         return Request(
             rid=next(self._ids),
             prompt=tuple(int(t) for t in prompt),
@@ -215,23 +243,60 @@ class Scheduler:
             eos_id=None if eos_id is None else int(eos_id),
             on_token=on_token,
             priority=int(priority),
+            tenant=tenant,
+            ttft_deadline_ms=None if ttft_deadline_ms is None else float(ttft_deadline_ms),
         )
 
     def remove_waiting(self, rid: int) -> Request | None:
-        """Pull one request out of the waiting queue by rid (cancel); None
-        when the rid is not waiting."""
+        """Pull one request out of the waiting queue by rid (cancel): its
+        token debt and any preemption record drop, and the caller owns its
+        policy accounting. None when the rid is not waiting."""
         req = next((r for r in self.waiting if r.rid == rid), None)
         if req is not None:
             self.waiting.remove(req)
+            self.queued_tokens -= self._debt(req)
             self._preempted.pop(rid, None)
         return req
+
+    @staticmethod
+    def _tenant_of(req: Request) -> str:
+        return req.tenant if req.tenant is not None else DEFAULT_TENANT
+
+    def waiting_count(self, tenant: str) -> int:
+        """Waiting requests accounted under ``tenant``."""
+        return sum(1 for r in self.waiting if self._tenant_of(r) == tenant)
+
+    def queued_tokens_for(self, tenant: str | None) -> int:
+        """The waiting queue's token debt owed by one tenant (None: the
+        default tenant), computed over the queue."""
+        t = DEFAULT_TENANT if tenant is None else tenant
+        return sum(self._debt(r) for r in self.waiting if self._tenant_of(r) == t)
+
+    def _prio(self, req: Request) -> int:
+        """Preemption-effective priority: the policy's when one is
+        installed, the caller's ``submit(priority=)`` otherwise."""
+        if self.policy is not None:
+            return self.policy.priority_of(req)
+        return req.priority
+
+    def _policy_reorder(self) -> None:
+        """Let the policy re-rank the waiting queue before an admission
+        attempt."""
+        if self.policy is not None:
+            self.policy.reorder(self.waiting, self._preempted)
 
     def _pop_free_slot(self) -> int:
         """Take the lowest free slot."""
         return self._free.pop(0)
 
     def _dequeue_head(self) -> Request:
-        return self.waiting.popleft()
+        """Pop the queue head into an admission: its debt drops and the
+        policy charges the prefill (a resume charges nothing)."""
+        req = self.waiting.popleft()
+        self.queued_tokens -= self._debt(req)
+        if self.policy is not None:
+            self.policy.on_admit(req, resumed=req.rid in self._preempted)
+        return req
 
     # -- per-step decisions --------------------------------------------
 
@@ -249,7 +314,12 @@ class Scheduler:
         admitted: list[Admission] = []
         pinned: list[int] = []
         cache = self.prefix_cache
+        if self.policy is not None:
+            self.policy.begin_wave()
         while self.waiting:
+            # re-rank before every attempt: an admission earlier in the
+            # wave charged its tenant's counter
+            self._policy_reorder()
             req = self.waiting[0]
             donor, reuse = (None, 0)
             if cache is not None:
@@ -316,7 +386,10 @@ class Scheduler:
         # rids admitted by this wave are never its preemption victims
         wave_rids: set[int] = set()
         alloc, idx = self.allocator, self.prefix_index
+        if self.policy is not None:
+            self.policy.begin_wave()
         while self.waiting:
+            self._policy_reorder()
             req = self.waiting[0]
             need_total = self.blocks_needed(req)
             record = self._preempted.get(req.rid)
@@ -369,17 +442,17 @@ class Scheduler:
     def _plan_preemption(self, req: Request, short: int, have_slot: bool, prefilling,
                          wave_rids):
         """Victims that would admit ``req``, or none at all. Eligible: active,
-        of strictly lower priority, not mid-prefill, not admitted by this
+        of strictly lower priority (the policy's, with one), not mid-prefill, not admitted by this
         wave, holding a generated token. Order: lowest priority first, then
         youngest (largest rid). Only blocks whose last reference is the
         victim's table count as freed."""
-        head_prio = req.priority
+        head_prio = self._prio(req)
         cands = [
             r for slot, r in self.active.items()
-            if r.priority < head_prio and slot not in prefilling
+            if self._prio(r) < head_prio and slot not in prefilling
             and r.tokens and r.rid not in wave_rids
         ]
-        cands.sort(key=lambda r: (r.priority, -r.rid))
+        cands.sort(key=lambda r: (self._prio(r), -r.rid))
         chosen, freed, slots_freed = [], 0, 0
         for r in cands:
             if freed >= short and (have_slot or slots_freed > 0):
@@ -411,6 +484,11 @@ class Scheduler:
         self.allocator.deref(table)
         self._preempted[req.rid] = rec
         self.waiting.appendleft(req)
+        # back in the queue, back in the debt; the policy re-arms its aging
+        # clock (no counter lift)
+        self.queued_tokens += self._debt(req)
+        if self.policy is not None:
+            self.policy.on_preempt(req)
         return rec
 
     def on_prefill_complete(self, req: Request) -> None:

@@ -54,6 +54,7 @@ from elephas_tpu_torch.device import resolve_device, worker_count
 from elephas_tpu_torch.models.transformer import _is_neutral
 from elephas_tpu_torch.models.transformer import generate as _generate
 from elephas_tpu_torch.serving import InferenceEngine
+from elephas_tpu_torch.serving.policy import resolve_policy
 from elephas_tpu_torch.utils import checkpoint as ckpt
 from elephas_tpu_torch.utils import rdd_utils, serialization
 from elephas_tpu_torch.worker import Runner
@@ -63,7 +64,7 @@ logger = logging.getLogger(__name__)
 _TODO = "{} is not ported yet (ROADMAP.md, Queue A item {})"
 _SERVING_TODO = (
     "serve({}) is not ported yet (ROADMAP.md, Queue A item 3: the "
-    "gateway and SLO tenants)"
+    "gateway)"
 )
 # the reference's serve() binds its gateway here when given a port
 _GATEWAY_HOST = "127.0.0.1"
@@ -438,26 +439,33 @@ serialization.save_model`: its builder and arguments, compile spec,
         return _generate(self._master_network, prompt, steps, temperature=temperature,
                          top_k=top_k, top_p=top_p, seed=seed, kv_cache=kv_cache)
 
-    def serve(self, num_slots: int = 8, tenants=None, gateway_port: int | None = None,
-              gateway_host: str = _GATEWAY_HOST, **engine_options):
+    def serve(self, num_slots: int = 8, policy=None, tenants=None,
+              gateway_port: int | None = None, gateway_host: str = _GATEWAY_HOST,
+              **engine_options):
         """A continuous-batching :class:`~elephas_tpu_torch.serving.\
 InferenceEngine` over the wrapped model, on this wrapper's device.
         ``engine_options`` go to the engine (``top_k``, ``top_p``,
         ``seed``, ``buckets``, ``steps_per_sync``, ``attention``, the paged
         arena's ``paged``, ``block_size``, ``num_blocks``, ``preemption`` and
-        ``kv_dtype``, and the reference's other engine keywords,
-        ``flight_recorder`` among them, whose unported values raise there). ``tenants``, ``gateway_port`` and a
-        ``gateway_host`` other than the reference's default raise. Submit
-        with ``engine.submit(prompt, max_new_tokens, temperature=,
-        eos_id=)``, drive with ``engine.step()`` / ``stream()`` /
-        ``run()``."""
-        for name, value in (("tenants", tenants), ("gateway_port", gateway_port)):
-            if value is not None:
-                raise NotImplementedError(_SERVING_TODO.format(f"{name}={value!r}"))
+        ``kv_dtype``, speculative decoding's ``speculative``, ``spec_k`` and
+        ``spec_drafter``, and the reference's other engine keywords,
+        ``flight_recorder`` among them, whose unported values raise there).
+        ``policy`` / ``tenants`` install an admission policy through
+        :func:`~elephas_tpu_torch.serving.policy.resolve_policy`:
+        ``"fair"`` (or only ``tenants={"name": weight}``) for fair share,
+        deadlines and admission control, ``"fifo"``, or a
+        :class:`~elephas_tpu_torch.serving.policy.Policy`. ``gateway_port``
+        and a ``gateway_host`` other than the reference's default raise.
+        Submit with ``engine.submit(prompt, max_new_tokens, temperature=,
+        eos_id=, tenant=, ttft_deadline_ms=)``, drive with
+        ``engine.step()`` / ``stream()`` / ``run()``."""
+        if gateway_port is not None:
+            raise NotImplementedError(_SERVING_TODO.format(f"gateway_port={gateway_port!r}"))
         if gateway_host != _GATEWAY_HOST:
             raise NotImplementedError(_SERVING_TODO.format(f"gateway_host={gateway_host!r}"))
         return InferenceEngine(self._master_network, num_slots=num_slots,
-                               device=self.device, **engine_options)
+                               policy=resolve_policy(policy, tenants), device=self.device,
+                               **engine_options)
 
 
 def _block_evaluate(runner, val_spec, batch_size):

@@ -1092,3 +1092,142 @@ def test_paged_engine_on_cuda_matches_cpu(cuda, kv_dtype):
         with torch.inference_mode():
             top2 = cpu(seq, plain=True)[0, -1].topk(2).values
         assert (top2[0] - top2[1]).item() < 1e-3, (prompt, got, want)
+
+
+# -- speculative decoding's verify window on the card ----------------------------------
+
+# a verify round feeds W = spec_k + 1 = 5 rows for every slot of config A's
+# 16-slot arena (4 heads of 128), at ragged cursors, over the span buckets
+VERIFY_W = 5
+VERIFY_SPANS = [128, 256, 512]
+
+
+@pytest.mark.parametrize("span", VERIFY_SPANS)
+def test_verify_window_matches_plain(cuda, span):
+    """The span chunk at the verify window's shape: within 1e-5 of
+    max(1, |out|) of its plain version, one launch a call, bit for bit on a
+    repeat and from a CUDA-graph replay."""
+    gen = torch.Generator(device=cuda).manual_seed(span + VERIFY_W)
+    q, k, v, pos = _chunk_case(gen, 128, span, VERIFY_W, 16, 4)
+
+    def call():
+        return fs.flash_span_chunk(q, k, v, pos)
+
+    before = fs.chunk_launches
+    out = call()
+    assert fs.chunk_launches == before + 1
+    again, replayed = call(), _graph_replay(call)
+    ref = fs.span_chunk_reference(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and _rel_err(out, ref) <= 1e-5
+    assert torch.equal(out, again) and torch.equal(out, replayed)
+
+
+@pytest.mark.parametrize("span", VERIFY_SPANS)
+@pytest.mark.parametrize("kv_dtype", PAGED_DTYPES)
+def test_paged_verify_window_matches_plain_and_the_arena_kernel(cuda, kv_dtype, span):
+    """The paged chunk at the verify window's shape (16 rows of 5, blocks of
+    16, shuffled and sentinel-padded tables): within 1e-5 of max(1, |out|)
+    of the plain version, bit-equal to the arena kernel over the gathered,
+    dequantized span and on a repeat."""
+    b, h, d, bs = 16, 4, 128, 16
+    pk, pv, scales, tables = _paged_pool(cuda, d, kv_dtype, b, h, bs, span // bs, seed=span)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(gen, b, h, VERIFY_W, d)
+    pos = _chunk_positions(gen, b, VERIFY_W, span)
+
+    def call():
+        return fs.flash_paged_span_chunk(q, pk, pv, tables, pos, kv_dtype=kv_dtype,
+                                         kv_scales=scales)
+
+    before = fs.paged_chunk_launches
+    out = call()
+    assert fs.paged_chunk_launches == before + 1
+    again = call()
+    ref = fs.paged_span_chunk_reference(q, pk, pv, tables, pos, kv_dtype=kv_dtype,
+                                        kv_scales=scales)
+    gk, gv = fs.paged_dense_span(pk, pv, tables, kv_dtype, scales, d)
+    arena = fs.flash_span_chunk(q, gk.contiguous(), gv.contiguous(), pos)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= TOL_PAGED
+    assert torch.equal(out, arena) and torch.equal(out, again)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_speculative_engine_on_cuda_matches_cpu(cuda, paged):
+    """The speculative engine on the card (verify rounds through the span
+    chunk, fallback windows through the span decode), n-gram drafts and a
+    draft model, emits the CPU engine's tokens from the same random
+    weights wherever the plain path's top-2 margin is at least 1e-3, and
+    counts one span-chunk launch a layer a verify round."""
+    cfg = dict(vocab_size=64, maxlen=64, d_model=64, num_heads=2, num_layers=2, seed=3)
+    cpu = et.transformer_lm(**cfg, device="cpu")
+    card = et.transformer_lm(**cfg, device=cuda)
+    et.load_keras_weights(card, et.keras_weights(cpu))
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(1, 8, n)) * 2 for n in (3, 5, 9, 4, 6)]
+    kw = dict(paged=True, block_size=8) if paged else {}
+    for drafter in ("ngram", "model"):
+        outs = {}
+        for name, model in (("cpu", cpu), ("cuda", card)):
+            spec = model if drafter == "model" else "ngram"
+            engine = et.InferenceEngine(model, num_slots=4, speculative=True, spec_k=4,
+                                        spec_drafter=spec, **kw)
+            before = fs.paged_chunk_launches if paged else fs.chunk_launches
+            reqs = [engine.submit(p, 12) for p in prompts]
+            engine.run()
+            outs[name] = [r.tokens for r in reqs]
+            rounds = engine.stats()["spec_verify_rounds"]
+            if name == "cuda":
+                assert rounds > 0
+                launched = (fs.paged_chunk_launches if paged else fs.chunk_launches) - before
+                # paged, every prefill is a chunk pass too; the draft model's
+                # catch-up runs on its own fixed arena
+                if not paged:
+                    catchup = engine._drafter.catchup_passes if drafter == "model" else 0
+                    assert launched == (rounds + catchup) * cfg["num_layers"]
+                else:
+                    assert launched > rounds * cfg["num_layers"]
+        for prompt, got, want in zip(prompts, outs["cuda"], outs["cpu"]):
+            if got == want:
+                continue
+            i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+            seq = torch.tensor([list(prompt) + want[:i]])
+            with torch.inference_mode():
+                top2 = cpu(seq, plain=True)[0, -1].topk(2).values
+            assert (top2[0] - top2[1]).item() < 1e-3, (prompt, got, want)
+
+
+def test_policy_engine_on_cuda_matches_cpu(cuda):
+    """A fair-share engine on the card emits the CPU engine's tokens and
+    admission order (the policy is host code), and refuses the same
+    request."""
+    from elephas_tpu_torch.serving import AdmissionRejected, FairSharePolicy
+
+    cfg = dict(vocab_size=64, maxlen=64, d_model=64, num_heads=2, num_layers=2, seed=3)
+    cpu = et.transformer_lm(**cfg, device="cpu")
+    card = et.transformer_lm(**cfg, device=cuda)
+    et.load_keras_weights(card, et.keras_weights(cpu))
+    rng = np.random.default_rng(1)
+    prompts = [list(rng.integers(1, 64, n)) for n in (3, 9, 17, 5, 12, 30)]
+    outs = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        engine = et.InferenceEngine(model, num_slots=2, policy=FairSharePolicy(
+            {"a": 1.0, "b": 3.0}, max_queue_tokens=120))
+        reqs = [engine.submit(p, 12, tenant="ab"[i % 2], ttft_deadline_ms=100.0 * (i % 3 + 1))
+                for i, p in enumerate(prompts)]
+        order = []
+        while engine.scheduler.has_work:
+            order += [r.rid - engine.scheduler.rid_base for r, _t, _d in engine.step()
+                      if len(r.tokens) == 1]
+        outs[name] = ([r.tokens for r in reqs], [type(r.error).__name__ for r in reqs], order)
+        assert any(isinstance(r.error, AdmissionRejected) for r in reqs)
+    assert outs["cuda"][1:] == outs["cpu"][1:]
+    for prompt, got, want in zip(prompts, outs["cuda"][0], outs["cpu"][0]):
+        if got == want:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        seq = torch.tensor([list(prompt) + want[:i]])
+        with torch.inference_mode():
+            top2 = cpu(seq, plain=True)[0, -1].topk(2).values
+        assert (top2[0] - top2[1]).item() < 1e-3, (prompt, got, want)

@@ -386,10 +386,13 @@ def test_submit_errors_match_jax(engine_pair, args, kwargs):
     assert not engine.scheduler.waiting
 
 
+# speculative decoding and policies are ported since (tests/test_torch_spec.py,
+# tests/test_torch_policy.py): their four cases now name other keywords the
+# port still refuses
 @pytest.mark.parametrize("kwargs", [
-    dict(spec_drafter="lookup"), dict(spec_k=3), dict(flight_recorder=256),
-    dict(sp_threshold=16), dict(model_axis="model"), dict(speculative=True),
-    dict(policy="fair"), dict(sp_prefill="seq"), dict(mesh="mesh"),
+    dict(batch_axes=("data", "seq")), dict(rules={"qkv": "col"}), dict(flight_recorder=256),
+    dict(sp_threshold=16), dict(model_axis="model"), dict(sp_axis="ring"),
+    dict(sp_mechanism="ulysses"), dict(sp_prefill="seq"), dict(mesh="mesh"),
 ])
 def test_unported_engine_options_raise(lm, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item"):
@@ -462,7 +465,14 @@ def _call(where, model, **kwargs):
 # "3a" is the storage half of item 3: the paged arena, preemption, int8 /
 # int4 KV
 PORTED_ITEMS = {1, "3a"}
-NEEDS = {"prefill_budget": {"prefill_chunk": 4},
+# item 3's keywords ported since: 3b (speculative decoding) and 3c (SLO
+# policies); the other value of the two the reference itself refuses raises
+# the reference's error
+PORTED_KEYWORDS = {"speculative", "spec_k", "spec_drafter", "policy", "tenants"}
+REFUSED = {"spec_drafter": (ValueError, "is not a drafter"),
+           "policy": (TypeError, "policy must be a serving.policy.Policy")}
+NEEDS = {"prefill_budget": {"prefill_chunk": 4}, "spec_k": {"speculative": True},
+         "spec_drafter": {"speculative": True},
          **{name: {"paged": True} for name in ("block_size", "num_blocks", "preemption",
                                                "kv_dtype")}}
 
@@ -471,7 +481,11 @@ NEEDS = {"prefill_budget": {"prefill_chunk": 4},
 def test_reference_keywords_pass_or_name_their_item(small_lm, where, name, neutral, other,
                                                     item):
     _call(where, small_lm, **{name: neutral})
-    if item in PORTED_ITEMS:
+    if name in REFUSED:
+        with pytest.raises(REFUSED[name][0], match=REFUSED[name][1]):
+            _call(where, small_lm, **{name: other}, **NEEDS.get(name, {}))
+        return
+    if item in PORTED_ITEMS or name in PORTED_KEYWORDS:
         _call(where, small_lm, **{name: other}, **NEEDS.get(name, {}))
         return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md, Queue A item {item}\b"):
@@ -518,5 +532,7 @@ def test_serve_passes_engine_keywords_through(small_lm):
                       kv_dtype="int8")
     assert (engine.paged, engine.block_size, engine.num_blocks, engine.preemption,
             engine.kv_dtype) == (True, 8, 12, True, "int8")
+    engine = sm.serve(num_slots=2, speculative=True, spec_k=3, spec_drafter="ngram")
+    assert (engine.speculative, engine.spec_k) == (True, 3)
     with pytest.raises(NotImplementedError, match=r"Queue A item 3\b"):
-        sm.serve(speculative=True)
+        sm.serve(flight_recorder=256)

@@ -148,7 +148,7 @@ def test_generate_argument_errors_match_jax(lm_pair, prompt_len, kwargs):
 def test_unported_options_raise(lm_pair):
     _, port = lm_pair
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        et.InferenceEngine(port, speculative=True)
+        et.InferenceEngine(port, flight_recorder=256)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         et.transformer_lm(vocab_size=8, maxlen=16, d_model=32, num_heads=2,
                           num_layers=1, dtype_policy="mixed_float16", device="cpu")
