@@ -174,6 +174,31 @@ Phases, each printing one JSON line and raising on failure:
             only. Printed: decode-only tokens/s of each engine, the
             on / off and adversarial / off ratios, acceptance rates and
             TTFT p50 per tenant;
+6h. gateway — the serving front door at config A's full width: the
+            engine phase's engine (16 slots, windows of 16) behind a
+            Gateway, E's 48 requests from 16 client threads over
+            http.client (half SSE, half JSON, 4 in one batch-form POST) in
+            turns with the same engine in process, 3 rounds: tokens over
+            HTTP equal to the in-process tokens (margin rule), X-Request-Id
+            equal to the body's rid, /healthz 200 "ok" with the watchdog's
+            report, /debug/engine and a request's trace parsing, and
+            /metrics' tokens, finished and admission counters equal to
+            stats(); tokens/s over the wire and in process and the wire's
+            TTFT p50 (medians). Then request migration on the paged arena
+            in fp and int8: two engines (E's options, blocks of 16, 512
+            blocks) behind their own gateways, 8 of E-long's prompts
+            streaming from A, 4 exported through
+            POST /v1/requests/{rid}/export once they hold 8 tokens and
+            POSTed to B's /v1/migrate: every stream's tokens equal an
+            unmigrated run's (margin rule), A's stored rows, the record's
+            and B's resumed rows the same bytes, both pools whole, an fp
+            record refused by the int8 engine; record bytes and export /
+            import milliseconds. Then telemetry's host cost: E's engine
+            with the registry on and built under null mode in turns, 3
+            rounds: tokens/s, and the synchronizing CUDA calls of one run
+            (torch.cuda.set_sync_debug_mode's warnings) equal in both
+            modes. Its launches (the served runs, not the checks) are
+            printed by kernel;
 7. profile — one more training step (fp32, then bf16, then ResNet-50),
             generate() at config A batch 1
             with rope off and on, and one engine decode window, under
@@ -216,7 +241,8 @@ Phases, each printing one JSON line and raising on failure:
 
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
 summed over the serve, train, train_bf16, train_workers, train_stream,
-engine, engine_chunked, engine_paged, engine_quant and engine_spec paths,
+engine, engine_chunked, engine_paged, engine_quant, engine_spec and gateway
+paths,
 times at config A's
 attention shape, at the training rows, at the engine's decode shape and
 its chunk launch at span 256, fp32; the paged decode at span 128 and the
@@ -4129,6 +4155,565 @@ def phase_engine_spec(dev):
     return launches
 
 
+# -- the serving front door (gateway, migration, telemetry's host cost) --------
+
+GATEWAY_CLIENTS = 16
+GATEWAY_BATCH = 4  # E's requests sent as one batch-form POST (one budget)
+GATEWAY_ROUNDS = 3
+MIGRATE_REQUESTS = 8  # E-long's first prompts, started on engine A
+MIGRATE_EXPORTS = 4  # of them exported to engine B
+MIGRATE_AFTER = 8  # generated tokens seen before an export
+MIGRATE_DTYPES = ("fp", "int8")
+HTTP_TIMEOUT_S = 300
+
+
+def _http(port, method, path, body=None):
+    """One request on a fresh connection: ``(status, X-Request-Id, body)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT_S)
+    try:
+        headers = {}
+        if body is not None and not isinstance(body, bytes):
+            body = json.dumps(body).encode()
+            headers["Content-Type"] = "application/json"
+        conn.request(method, path, body=body, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("X-Request-Id"), resp.read()
+    finally:
+        conn.close()
+
+
+def _sse_generate(port, prompt, budget, on_event=None):
+    """``POST /v1/generate`` as an SSE stream: the header's and the opening
+    event's rids, the tokens, the client-side TTFT (send to first token
+    event) and the closing event; ``on_event(result so far)`` after every
+    token."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT_S)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompt": [int(t) for t in prompt], "max_new_tokens": int(budget)}).encode(),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out = {"status": resp.status, "header_rid": resp.getheader("X-Request-Id"),
+               "rid": None, "tokens": [], "ttft_s": None, "done": None}
+        for line in resp:
+            if not line.startswith(b"data: "):
+                continue
+            event = json.loads(line[len(b"data: "):])
+            if "token" in event:
+                if out["ttft_s"] is None:
+                    out["ttft_s"] = time.perf_counter() - t0
+                out["tokens"].append(event["token"])
+                if on_event is not None:
+                    on_event(out)
+            elif "n_tokens" in event:
+                out["done"] = event
+            else:
+                out["rid"] = event["rid"]
+        return out
+    finally:
+        conn.close()
+
+
+def _closed_loop(jobs, run_one, clients=GATEWAY_CLIENTS):
+    """``run_one(job)`` for every job from ``clients`` threads, each taking
+    the next job when its last one is answered (a closed loop of ``clients``
+    users; as many as jobs: every job at once). Returns the wall seconds;
+    raises if a job did."""
+    import threading
+
+    jobs, errors, lock = iter(jobs), [], threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                job = next(jobs, None)
+            if job is None:
+                return
+            try:
+                run_one(job)
+            except Exception as e:  # reported below, failing the phase
+                with lock:
+                    errors.append(f"{job}: {e!r}")
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    seconds = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"requests failed: {errors}")
+    return seconds
+
+
+def _wire_pass(port, workload, batch, clients=GATEWAY_CLIENTS):
+    """E's requests over HTTP in a closed loop of ``clients`` client threads:
+    the requests of ``batch`` as one batch-form POST (``stream: false``), the
+    others one a request, every other one as SSE and the rest as JSON. Runs
+    in the client process. Returns the results by request index and the
+    wall seconds."""
+    singles = [i for i in range(len(workload)) if i not in batch]
+    stream = {i: k % 2 == 0 for k, i in enumerate(singles)}
+    results = [None] * len(workload)
+
+    def one(job):
+        if job == "batch":
+            t0 = time.perf_counter()
+            status, _, body = _http(port, "POST", "/v1/generate", {
+                "prompts": [[int(t) for t in workload[i][0]] for i in batch],
+                "max_new_tokens": int(workload[batch[0]][1]), "stream": False})
+            if status != 200:
+                raise AssertionError(f"batch POST answered {status}: {body[:200]!r}")
+            for i, entry in zip(batch, json.loads(body)["results"]):
+                results[i] = {"rid": entry["rid"], "header_rid": entry["rid"],
+                              "tokens": entry["tokens"], "ttft_s": None,
+                              "seconds": time.perf_counter() - t0,
+                              "error": entry["error"], "stream": "batch"}
+            return
+        prompt, budget = workload[job]
+        t0 = time.perf_counter()
+        if stream[job]:
+            r = _sse_generate(port, prompt, budget)
+            if r["status"] != 200 or r["done"] is None:
+                raise AssertionError(f"SSE request {job}: status {r['status']}, end {r['done']}")
+            results[job] = {**r, "error": r["done"]["error"], "stream": "sse",
+                            "seconds": time.perf_counter() - t0}
+            return
+        status, rid_hdr, body = _http(port, "POST", "/v1/generate", {
+            "prompt": [int(t) for t in prompt], "max_new_tokens": int(budget),
+            "stream": False})
+        if status != 200:
+            raise AssertionError(f"JSON request {job} answered {status}: {body[:200]!r}")
+        doc = json.loads(body)
+        results[job] = {"rid": doc["rid"], "header_rid": rid_hdr, "tokens": doc["tokens"],
+                        "ttft_s": None, "error": doc["error"], "stream": "json",
+                        "seconds": time.perf_counter() - t0}
+
+    seconds = _closed_loop((["batch"] if batch else []) + singles, one, clients)
+    return results, seconds
+
+
+def _in_process_closed_loop(gw, workload, batch):
+    """The same closed loop in process: GATEWAY_CLIENTS threads submit
+    straight to the gateway's engine (under its lock, as the gateway's
+    handlers do) and wait for each request's last token; the gateway's
+    driver steps. The wire's baseline without HTTP. Returns the requests by
+    index, each one's client-side TTFT (from before it waits for the
+    engine lock, as the wire's clients measure theirs) and the wall
+    seconds."""
+    import threading
+
+    engine, reqs, ttft = gw.engine, [None] * len(workload), {}
+
+    def one(job):
+        idx = batch if job == "batch" else [job]
+        done = [threading.Event() for _ in idx]
+        t0 = time.perf_counter()
+        with gw._engine_lock:
+            for i, ev in zip(idx, done):
+                reqs[i] = engine.submit(*workload[i], on_token=lambda t, d, ev=ev: d and ev.set())
+        gw._work.set()
+        for ev in done:
+            if not ev.wait(HTTP_TIMEOUT_S):
+                raise AssertionError(f"request {job} never finished")
+        for i in idx:
+            ttft[i] = reqs[i].token_times[0] - t0
+
+    singles = [i for i in range(len(workload)) if i not in batch]
+    seconds = _closed_loop((["batch"] if batch else []) + singles, one)
+    return reqs, ttft, seconds
+
+
+def _client_process():
+    """One spawned process for the HTTP clients: they parse the SSE streams
+    and JSON bodies on a GIL of their own, not the server's."""
+    import concurrent.futures
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+
+
+def _metric(text, name, labels):
+    """The value of series ``name`` whose labels include every
+    ``label="value"`` of ``labels``, summed over the matching lines of a
+    Prometheus exposition."""
+    total, found = 0.0, False
+    for line in text.splitlines():
+        if line.startswith(name + "{") and all(f'{k}="{v}"' in line for k, v in labels.items()):
+            total += float(line.rsplit(" ", 1)[1])
+            found = True
+    return total if found else None
+
+
+def _percentiles(xs):
+    return {"p50": float(np.percentile(xs, 50)), "p99": float(np.percentile(xs, 99))}
+
+
+def _gateway_over_e(dev, model, clients, failures):
+    """A Gateway over E's engine, GATEWAY_ROUNDS rounds in turns of: E's
+    workload in process all at once (the engine phase's measure, the
+    gateway's driver parked on its engine lock), over HTTP all at once (one
+    client thread a request, from the ``clients`` process), in a closed loop
+    of GATEWAY_CLIENTS in-process submitters, and over HTTP in the same
+    closed loop. All at once, the two differ by the gateway's own work a
+    request and a token; in the closed loop, a client over the wire also
+    resubmits after the driver started its next window. Gates: the wire's
+    tokens equal the in-process tokens (margin rule), the rid echo,
+    /healthz, /debug/engine, a request's trace, and /metrics against
+    stats(). Returns the row and the rounds' launches."""
+    from elephas_tpu_torch import InferenceEngine
+    from elephas_tpu_torch.serving import Gateway
+
+    workload = _engine_workload(model.vocab_size, ENGINE_REQUESTS)
+    batch = [i for i, (_p, b) in enumerate(workload) if b == ENGINE_BUDGETS[0]][-GATEWAY_BATCH:]
+    engine = InferenceEngine(model, **ENGINE)
+    engine.run(workload[: ENGINE["num_slots"]])
+    rows = {"in_process": [], "wire_all_at_once": [], "in_process_closed_loop": [],
+            "wire": []}
+    launches = dict.fromkeys(_launches(), 0)
+    wire_results, inproc = [], None
+    with Gateway(engine) as gw:
+        clients.submit(_wire_pass, gw.port, workload[:GATEWAY_CLIENTS], []).result()  # warm
+        for _ in range(GATEWAY_ROUNDS):
+            before = _launches()
+            with gw._engine_lock:
+                reqs, row = _serve_pass(engine, workload, dev)
+            inproc = inproc or reqs
+            rows["in_process"].append(row)
+            for name, n in (("wire_all_at_once", len(workload)), ("wire", GATEWAY_CLIENTS)):
+                results, seconds = clients.submit(_wire_pass, gw.port, workload, batch,
+                                                  n).result()
+                tokens = sum(len(r["tokens"]) for r in results)
+                rows[name].append({
+                    "seconds": seconds, "tokens_s": tokens / seconds, "generated_tokens": tokens,
+                    "ttft_s": _percentiles([r["ttft_s"] for r in results
+                                            if r["ttft_s"] is not None]),
+                    "request_s": _percentiles([r["seconds"] for r in results])})
+                wire_results.append(results)
+                if name == "wire_all_at_once":
+                    loop_reqs, ttft, seconds = _in_process_closed_loop(gw, workload, batch)
+                    tokens = sum(len(r.tokens) for r in loop_reqs)
+                    rows["in_process_closed_loop"].append({
+                        "seconds": seconds, "tokens_s": tokens / seconds,
+                        "ttft_s": _percentiles(list(ttft.values()))})
+            torch.cuda.synchronize(dev)
+            now = _launches()
+            launches = {k: launches[k] + now[k] - before[k] for k in launches}
+        status, _, body = _http(gw.port, "GET", "/healthz")
+        health = json.loads(body)
+        if status != 200 or health.get("status") != "ok" or "anomalies" not in health:
+            failures.append(f"/healthz answered {status}: {health}")
+        status, _, body = _http(gw.port, "GET", "/debug/engine")
+        debug = json.loads(body)
+        if status != 200 or debug.get("engine") != engine.telemetry_label:
+            failures.append(f"/debug/engine answered {status}")
+        rid = wire_results[-1][0]["rid"]
+        status, rid_hdr, body = _http(gw.port, "GET", f"/v1/requests/{rid}/trace")
+        trace = json.loads(body)
+        if (status != 200 or rid_hdr != str(rid) or trace["finish"]["reason"] != "budget"
+                or trace["tokens"] != len(wire_results[-1][0]["tokens"])):
+            failures.append(f"trace of {rid}: {status}, {trace.get('finish')}")
+        status, _, body = _http(gw.port, "GET", "/metrics")
+        text = body.decode()
+        stats = engine.stats()
+        eid, sid = engine.telemetry_label, engine.scheduler.telemetry_label
+        scraped = {
+            "tokens_generated": _metric(text, "elephas_serving_tokens_generated_total",
+                                        {"engine": eid}),
+            "requests_finished": _metric(text, "elephas_serving_requests_finished_total",
+                                         {"engine": eid}),
+            "admissions": _metric(text, "elephas_serving_admissions_total", {"scheduler": sid}),
+        }
+        want = {"tokens_generated": stats["total_generated"],
+                "requests_finished": stats["finished"], "admissions": stats["finished"]}
+        if status != 200 or scraped != want:
+            failures.append(f"/metrics {scraped} against stats() {want}")
+    if gw._driver_thread.is_alive() or gw._loop_thread.is_alive():
+        failures.append("the gateway's threads outlived stop()")
+    _, close, check_failures, plain = _check_emitted(model, inproc, dev)
+    failures += check_failures
+    exact = differ = 0
+    for results in wire_results:
+        for i, (r, w) in enumerate(zip(results, inproc)):
+            if str(r["rid"]) != str(r["header_rid"]) or r["error"] is not None:
+                failures.append(f"request {i}: rid {r['rid']} header {r['header_rid']}, "
+                                f"error {r['error']}")
+            p = len(w.prompt)
+            bad = _first_divergence(r["tokens"], w.tokens, lambda j, i=i, p=p: plain[i, p - 1 + j])
+            exact += r["tokens"] == w.tokens
+            differ += r["tokens"] != w.tokens
+            if bad:
+                failures.append(f"request {i} over the wire ({r['stream']}): {bad}")
+    med = {name: float(np.median([x["tokens_s"] for x in r])) for name, r in rows.items()}
+    ttft = {name: float(np.median([x["ttft_s"]["p50"] for x in r])) for name, r in rows.items()}
+    return {"requests": len(workload), "batch_requests": batch, "clients": GATEWAY_CLIENTS,
+            "rounds": GATEWAY_ROUNDS, "tokens_s_median": med, "ttft_p50_s_median": ttft,
+            "wire_over_in_process_all_at_once": med["wire_all_at_once"] / med["in_process"],
+            "wire_over_in_process_closed_loop": med["wire"] / med["in_process_closed_loop"],
+            "exact_token_streams": exact, "within_margin_streams": differ,
+            "plain_within_margin": close, "metrics": scraped, "healthz": health,
+            "rows": rows}, launches
+
+
+def _migration_client(a_port, b_port, workload):
+    """Runs in the client process: ``workload``'s requests stream from A as
+    SSE; each of the first MIGRATE_EXPORTS is exported through A's
+    /v1/requests/{rid}/export from the thread reading it as soon as it holds
+    MIGRATE_AFTER tokens (A's gateway hands its engine lock to the export
+    before its next step) and the bytes POSTed to B's /v1/migrate. Returns
+    the rids, streams, record bytes and milliseconds."""
+    import threading
+
+    out = {"rids": {}, "streams": {}, "bodies": {}, "export_ms": [], "import_ms": [],
+           "errors": []}
+
+    def migrate(rid):
+        t0 = time.perf_counter()
+        status, _, body = _http(a_port, "POST", f"/v1/requests/{rid}/export")
+        out["export_ms"].append((time.perf_counter() - t0) * 1e3)
+        if status != 200:
+            raise AssertionError(f"export of {rid} answered {status}: {body[:200]!r}")
+        out["bodies"][rid] = body
+        t0 = time.perf_counter()
+        status, rid_hdr, reply = _http(b_port, "POST", "/v1/migrate", body)
+        out["import_ms"].append((time.perf_counter() - t0) * 1e3)
+        if status != 200 or rid_hdr != str(rid) or not json.loads(reply)["warm"]:
+            raise AssertionError(f"migrate of {rid} answered {status}: {reply[:200]!r}")
+
+    def stream(i):
+        def seen(res):
+            rid = out["rids"][i] = int(res["header_rid"])
+            if i < MIGRATE_EXPORTS and len(res["tokens"]) >= MIGRATE_AFTER \
+                    and rid not in out["bodies"]:
+                migrate(rid)
+
+        try:
+            out["streams"][i] = _sse_generate(a_port, *workload[i], on_event=seen)
+        except Exception as e:  # reported by the caller, failing the phase
+            out["errors"].append(f"stream {i}: {e!r}")
+
+    threads = [threading.Thread(target=stream, args=(i,)) for i in range(len(workload))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HTTP_TIMEOUT_S)
+    return out
+
+
+def _migrate_dtype(dev, model, kv_dtype, clients, failures, foreign=None):
+    """Two paged engines A and B (E's options with ENGINE_PAGED and
+    ``kv_dtype``), each behind its own gateway, MIGRATE_REQUESTS of
+    E-long's prompts streaming from A through _migration_client. Gates:
+    every stream's tokens equal an unmigrated run's (margin rule on the
+    kv_dtype's oracle), A's stored rows, the record's and B's resumed rows
+    the same bytes, both pools whole, and ``foreign`` (a record of another
+    kv_dtype) refused. Returns the row, the first record's bytes and the
+    engines' launches (the unmigrated run's included, the oracle's not)."""
+    from elephas_tpu_torch import InferenceEngine
+    from elephas_tpu_torch.fleet.migration import decode_record
+    from elephas_tpu_torch.serving import Gateway
+    from elephas_tpu_torch.serving.paged_kv import blocks_for, gather_blocks
+
+    opts = dict(ENGINE, **ENGINE_PAGED, kv_dtype=kv_dtype)
+    workload = _long_workload(model.vocab_size)[:MIGRATE_REQUESTS]
+    before = _launches()
+    ref = InferenceEngine(model, **opts)
+    want = [ref.submit(p, b) for p, b in workload]
+    ref.run()
+    a, b = InferenceEngine(model, **opts), InferenceEngine(model, **opts)
+
+    def rows_of(engine, blocks):
+        ids = torch.tensor(list(blocks), dtype=torch.long, device=dev)
+        return {name: tuple(z.cpu() for z in leaves)
+                for name, leaves in gather_blocks(engine.arena, ids).items()}
+
+    held, resumed = {}, {}
+    engine_ms = {"offload": [], "payload": [], "import": []}
+    offload, payload, adopt, resume = a._offload, a._export_payload, b.import_request, b._resume
+
+    def timed(key, fn, *args, **kwargs):  # the engine's own time, under its lock
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        engine_ms[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def snapshot_offload(pre):  # A's stored rows of a request about to leave
+        held[pre.req.rid] = rows_of(a, pre.blocks)
+        timed("offload", offload, pre)
+
+    def snapshot_resume(adm):  # B's rows of the migrated blocks, right after the scatter
+        resume(adm)
+        req = adm.req
+        resumed[req.rid] = rows_of(b, adm.blocks[:blocks_for(
+            len(req.prompt) + len(req.tokens) - 1, b.block_size)])
+
+    a._offload, b._resume = snapshot_offload, snapshot_resume
+    a._export_payload = lambda *args, **kw: timed("payload", payload, *args, **kw)
+    b.import_request = lambda *args, **kw: timed("import", adopt, *args, **kw)
+    with Gateway(a) as ga, Gateway(b) as gb:
+        out = clients.submit(_migration_client, ga.port, gb.port,
+                             [([int(t) for t in p], n) for p, n in workload]).result()
+        records = {rid: decode_record(body) for rid, body in out["bodies"].items()}
+        if out["errors"] or len(records) != MIGRATE_EXPORTS:
+            raise AssertionError(f"{kv_dtype}: {len(records)} requests migrated: {out['errors']}")
+        deadline = time.monotonic() + HTTP_TIMEOUT_S
+        while any(rid not in b.finished for rid in records):
+            if time.monotonic() > deadline:
+                raise AssertionError("a migrated request never finished on B")
+            time.sleep(0.01)
+        if foreign is not None:
+            status, _, reply = _http(gb.port, "POST", "/v1/migrate", foreign)
+            if status != 409 or b"kv_dtype" not in reply:
+                failures.append(f"a foreign-kv_dtype record answered {status}: {reply[:200]!r}")
+    torch.cuda.synchronize(dev)
+    now = _launches()
+    launches = {k: now[k] - before[k] for k in now}
+    rids = out["rids"]
+    got = [b.finished[rids[i]] if rids[i] in records else a.finished[rids[i]]
+           for i in range(len(workload))]
+    faults, differ = _tokens_agree(got, want, lambda seq: _quant_logits(model, seq, kv_dtype, dev))
+    failures += [f"{kv_dtype}: {f}" for f in faults]
+    for i in range(len(workload)):
+        if rids[i] not in records and out["streams"][i]["tokens"] != got[i].tokens:
+            failures.append(f"{kv_dtype}: stream {i}'s SSE tokens are not its request's")
+    for rid, record in records.items():
+        mine = resumed.get(rid)
+        if mine is None or rid not in held:
+            failures.append(f"{kv_dtype}: migrated request {rid} never offloaded or resumed")
+            continue
+        for name, leaves in record["rows"].items():
+            for j, (sent, a_rows, b_rows) in enumerate(zip(leaves, held[rid][name],
+                                                          mine[name])):
+                if not (np.asarray(sent).tobytes() == a_rows.numpy().tobytes()
+                        == b_rows.numpy().tobytes()):
+                    failures.append(f"{kv_dtype}: request {rid} layer {name} array {j}: "
+                                    f"A's stored rows, the record's and B's resumed rows "
+                                    f"are not the same bytes")
+        if len(record["tokens"]) < MIGRATE_AFTER:
+            failures.append(f"{kv_dtype}: request {rid} exported at "
+                            f"{len(record['tokens'])} tokens")
+    for name, e in (("A", a), ("B", b)):
+        if e.scheduler.allocator.free_count != e.num_blocks or e.scheduler.has_work:
+            held_blocks = e.num_blocks - e.scheduler.allocator.free_count
+            failures.append(f"{kv_dtype}: pool {name} holds {held_blocks} blocks after the run")
+    sizes = [len(body) for body in out["bodies"].values()]
+    return {"kv_dtype": kv_dtype, "requests": len(workload), "exported": len(records),
+            "exported_at_tokens": [len(r["tokens"]) for r in records.values()],
+            "record_bytes": sizes, "export_ms": out["export_ms"], "import_ms": out["import_ms"],
+            "export_ms_median": float(np.median(out["export_ms"])),
+            "import_ms_median": float(np.median(out["import_ms"])),
+            "engine_ms": engine_ms,
+            "engine_ms_median": {k: float(np.median(v)) for k, v in engine_ms.items()},
+            "streams_within_margin": differ,
+            "stats_a": {k: a.stats()[k] for k in ("migrated_out", "kv_quant_export_bytes")},
+            "stats_b": {k: b.stats()[k] for k in ("migrated_in", "resumes")}}, \
+        next(iter(out["bodies"].values())), launches
+
+
+def _count_syncs(fn, dev):
+    """The synchronizing CUDA calls ``fn()`` makes, counted by the warnings
+    of torch.cuda.set_sync_debug_mode("warn"), by the Python line that made
+    each."""
+    import warnings
+
+    torch.cuda.synchronize(dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                   if "synchroniz" in str(w.message))
+
+
+def _prime_sync_count(dev):
+    """The first switch to the "warn" mode of a process itself reports one
+    synchronizing call (torch/cuda/__init__.py, seen in one mode's count
+    only when it is counted first): make it before counting."""
+    _count_syncs(lambda: None, dev)
+
+
+def _telemetry_cost(dev, model, failures):
+    """E's engine with the registry on and built under null mode, each warmed
+    up on E's whole workload, then GATEWAY_ROUNDS timed rounds in turns:
+    tokens/s (not gated: the host's spread is wider than the cost), and the
+    synchronizing CUDA calls of one more E run in each mode, which must be
+    equal line for line (telemetry reads no device value). Returns the row
+    and the runs' launches."""
+    from elephas_tpu_torch import InferenceEngine, telemetry
+
+    workload = _engine_workload(model.vocab_size, ENGINE_REQUESTS)
+    before = _launches()
+    was = telemetry.set_null(True)
+    try:
+        null = InferenceEngine(model, **ENGINE)
+    finally:
+        telemetry.set_null(was)
+    engines = {"on": InferenceEngine(model, **ENGINE), "null": null}
+    for e in engines.values():
+        e.run(workload)
+    _prime_sync_count(dev)
+    syncs = {name: _count_syncs(lambda e=e: e.run(workload), dev)
+             for name, e in engines.items()}
+    total = {name: sum(c.values()) for name, c in syncs.items()}
+    if syncs["on"] != syncs["null"] or not total["on"] > 0:
+        diff = {site: (syncs["on"][site], syncs["null"][site])
+                for site in set(syncs["on"]) | set(syncs["null"])
+                if syncs["on"][site] != syncs["null"][site]}
+        failures.append(f"synchronizing calls on / null: {total}, by line {diff}")
+    if null.scrape() != "" or null._flight is not None:
+        failures.append("the null-mode engine registered series or records")
+    rows = {name: [] for name in engines}
+    for _ in range(GATEWAY_ROUNDS):
+        for name, e in engines.items():
+            rows[name].append(_serve_pass(e, workload, dev)[1])
+    tps = {name: float(np.median([r["tokens_s"] for r in rs])) for name, rs in rows.items()}
+    now = _launches()
+    return {"syncs_per_run": total, "sync_lines": dict(syncs["on"]),
+            "tokens_s_median": tps, "on_over_null": tps["on"] / tps["null"],
+            "tokens_s_rounds": {n: [r["tokens_s"] for r in rs] for n, rs in rows.items()},
+            "series_on": sum(1 for line in engines["on"].scrape(full=False).splitlines()
+                             if not line.startswith("#"))}, {k: now[k] - before[k] for k in now}
+
+
+def phase_gateway(dev, model):
+    """The serving front door at config A's full width (``model``, the
+    engine phase's): E's engine behind a Gateway (_gateway_over_e), request
+    migration between two paged engines behind their own gateways in fp and
+    int8 (_migrate_dtype, the int8 pair also refusing the fp record), and
+    telemetry's host cost (_telemetry_cost). The launches are counted over
+    the served, migrated and telemetry runs only, not the checks. Returns
+    them."""
+    failures = []
+    with _client_process() as clients:
+        wire, parts = _gateway_over_e(dev, model, clients, failures)
+        parts = {"wire": parts}
+        migrate, foreign = [], None
+        for kv_dtype in MIGRATE_DTYPES:
+            row, foreign_next, parts[f"migrate_{kv_dtype}"] = _migrate_dtype(
+                dev, model, kv_dtype, clients, failures, foreign)
+            migrate.append(row)
+            foreign = foreign or foreign_next
+    cost, parts["telemetry_cost"] = _telemetry_cost(dev, model, failures)
+    # the checks between the runs launch too: count the served runs only
+    launches = {k: sum(p[k] for p in parts.values()) for k in parts["wire"]}
+    emit({"phase": "gateway", "config": CONFIGS["A"], "options": ENGINE, "wire": wire,
+          "migrate": migrate, "telemetry_cost": cost, "launches": launches,
+          "launches_by_part": parts, "nvidia_smi": nvidia_smi(), "failures": failures})
+    if failures:
+        raise AssertionError(f"gateway check failed: {failures}")
+    return launches
+
+
 def _paged_row(fs, decode, q, pk, pv, scales, tables, pos, dt):
     """One paged kernel, its plain version and SDPA with a boolean mask over
     the span gathered and dequantized beforehand (the library yardstick:
@@ -4326,6 +4911,8 @@ def main(argv=None) -> int:
         quant = phase_engine_quant(dev, lm)
     phase_engine_chunk_shapes(merges)
     spec = phase_engine_spec(dev)
+    _reset_launches()
+    gateway = phase_gateway(dev, lm)
     for path, launches, kernels in (
         ("serve", serve, ("flash_fwd", "layer_norm_fwd")),
         ("train", train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
@@ -4340,6 +4927,8 @@ def main(argv=None) -> int:
         ("engine_quant", quant, ("paged_span_chunk", "paged_span_decode", "layer_norm_fwd")),
         ("engine_spec", spec, ("span_chunk", "paged_span_chunk", "span_decode", "flash_fwd",
                                "layer_norm_fwd")),
+        ("gateway", gateway, ("span_decode", "flash_fwd", "paged_span_chunk",
+                              "paged_span_decode", "layer_norm_fwd")),
     ):
         idle = [k for k in kernels if launches[k] == 0]
         if idle:
@@ -4363,7 +4952,8 @@ def main(argv=None) -> int:
 
     print(nvidia_smi(), flush=True)
     total = {k: serve[k] + train[k] + train_bf16[k] + train_workers[k] + train_stream[k]
-             + engine[k] + chunked[k] + paged[k] + quant[k] + spec[k] for k in serve}
+             + engine[k] + chunked[k] + paged[k] + quant[k] + spec[k] + gateway[k]
+             for k in serve}
     emit({"kernels": [
         _kernel_entry(
             "flash_fwd", "elephas_tpu_torch/csrc/flash_fwd.cu",

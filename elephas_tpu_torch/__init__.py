@@ -20,8 +20,13 @@ flash backward is plain PyTorch. :func:`transformer_lm` serves through
 :func:`generate` and the continuous-batching :class:`InferenceEngine` on
 the fixed or paged KV arena, with decode attention as a CUDA kernel
 (``csrc/span_decode.cu``), speculative decoding through the span-chunk
-kernel (``csrc/span_chunk.cu``) and SLO admission policies. Weights cross from and to the reference by
-Keras path (:func:`load_keras_weights`, :func:`keras_weights`).
+kernel (``csrc/span_chunk.cu``) and SLO admission policies; the engine
+records the reference's telemetry (:mod:`elephas_tpu_torch.telemetry`) and
+serves over HTTP/SSE through :class:`~elephas_tpu_torch.serving.Gateway`
+(``SparkModel.serve(gateway_port=...)``), its requests migrating between
+engines as wire-v3 records (:mod:`elephas_tpu_torch.fleet.migration`).
+Weights cross from and to the reference by Keras path
+(:func:`load_keras_weights`, :func:`keras_weights`).
 
 Inputs the reference streams (a memmap or other lazy source, a lazy RDD,
 ``steps_per_epoch``, ``stream_block_steps``, arrays over

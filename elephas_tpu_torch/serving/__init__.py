@@ -20,11 +20,17 @@
 - :mod:`elephas_tpu_torch.serving.policy` — the SLO admission policies
   (FIFO, tenant fair share with deadlines, aging and admission control);
 - :mod:`elephas_tpu_torch.serving.engine` — :class:`InferenceEngine`, the
-  host-side serving loop (also ``SparkModel.serve()``).
+  host-side serving loop (also ``SparkModel.serve()``), with its telemetry
+  (:mod:`elephas_tpu_torch.telemetry`: ``scrape``, ``explain``,
+  ``debug_snapshot``) and migration records (``export_request`` /
+  ``import_request``);
+- :mod:`elephas_tpu_torch.serving.gateway` — :class:`Gateway`, the HTTP/SSE
+  front door over one engine.
 """
 
 from elephas_tpu_torch.serving.blocks import BlockAllocator  # noqa: F401
 from elephas_tpu_torch.serving.engine import InferenceEngine, RequestCancelled  # noqa: F401
+from elephas_tpu_torch.serving.gateway import Gateway  # noqa: F401
 from elephas_tpu_torch.serving.kv_cache import SlotKVCache  # noqa: F401
 from elephas_tpu_torch.serving.paged_kv import (  # noqa: F401
     PagedKVPool,
@@ -62,7 +68,7 @@ from elephas_tpu_torch.serving.speculative import (  # noqa: F401
 
 __all__ = ["DEFAULT_TENANT", "AcceptanceThrottle", "Admission", "AdmissionRejected",
            "BlockAllocator", "BlockEntry", "CacheEntry", "DraftModelDrafter", "Drafter",
-           "FairSharePolicy", "FifoPolicy", "InferenceEngine", "NgramDrafter", "PagedKVPool",
+           "FairSharePolicy", "FifoPolicy", "Gateway", "InferenceEngine", "NgramDrafter", "PagedKVPool",
            "PagedPrefixIndex", "Policy", "Preemption", "PrefixCache", "Request",
            "RequestCancelled", "Scheduler", "SlotKVCache", "blocks_for", "bucket_for",
            "default_buckets", "resolve_policy", "table_buckets"]

@@ -14,9 +14,9 @@ PagedPrefixIndex`) holds one reference per indexed full-prompt block;
 A block returns to the free list only when its last reference drops. The
 free list stays sorted ascending and allocation takes the lowest ids first,
 so the same submissions lease the same block ids in the same order. The
-reference's optional free-blocks gauge is its telemetry registry's, which
-the port does not have (ROADMAP.md, Queue A item 3): ``free_count`` is read
-directly.
+optional ``free_gauge`` (the engine's ``elephas_serving_blocks_free``
+series in the port's registry) is set after every change of the free list:
+a report-only mirror, nothing reads it back.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ class BlockAllocator:
     """Deterministic refcounted free list over ``num_blocks`` pool blocks of
     ``block_size`` positions each."""
 
-    def __init__(self, num_blocks: int, block_size: int):
+    def __init__(self, num_blocks: int, block_size: int, free_gauge=None):
         if int(num_blocks) < 1:
             raise ValueError(f"num_blocks={num_blocks} < 1")
         if int(block_size) < 1:
@@ -35,6 +35,12 @@ class BlockAllocator:
         self.block_size = int(block_size)
         self._free: list[int] = list(range(self.num_blocks))
         self._refs: dict[int, int] = {}
+        self._gauge = free_gauge
+        self._set_gauge()
+
+    def _set_gauge(self) -> None:
+        if self._gauge is not None:
+            self._gauge.set(len(self._free))
 
     @property
     def free_count(self) -> int:
@@ -55,6 +61,7 @@ class BlockAllocator:
         blocks, self._free = self._free[:n], self._free[n:]
         for b in blocks:
             self._refs[b] = 1
+        self._set_gauge()
         return blocks
 
     def ref(self, blocks) -> None:
@@ -80,6 +87,7 @@ class BlockAllocator:
         if freed:
             freed.sort()
             self._free = sorted(self._free + freed)
+            self._set_gauge()
         return freed
 
     def ref_count(self, block: int) -> int:

@@ -55,19 +55,48 @@ prefill is complete, reclaim slots that hit EOS or their token budget.
 Requests may be submitted at any time and join the next step's admission
 wave.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: the flight recorder, sequence-parallel prefill, meshes,
-the gateway, migration and telemetry.
+**Telemetry.** The engine registers the reference's ``elephas_serving_*``
+series in the port's registry (:mod:`elephas_tpu_torch.telemetry`), traces
+each request's lifecycle on the event tracer (``serve.submit`` →
+``serve.admission_verdict`` → ``serve.admit`` → ``serve.prefill`` /
+``serve.prefill_chunk`` → ``serve.first_token`` → ``serve.preempt`` /
+``serve.resume`` / ``serve.spec_verify`` → ``serve.finish``, with spans
+around each wave, chunk, window and verify round) and keeps the last
+``flight_recorder`` (default 256) finished lifecycles for
+:meth:`InferenceEngine.explain`; :meth:`InferenceEngine.scrape`,
+:meth:`InferenceEngine.debug_snapshot` and
+:meth:`InferenceEngine.release_telemetry` read and retire them, and
+:class:`~elephas_tpu_torch.serving.gateway.Gateway` serves them over HTTP.
+Two rules hold: every value recorded is a host value already at hand (the
+engine reads the card once a window, a prefill wave and a verify round,
+and telemetry adds no read), and no decision reads a series back:
+``stats()``, the scheduler, the policy and the throttle keep their plain
+counts, exact under null mode while the series read 0.
+:meth:`InferenceEngine.export_request` and
+:meth:`InferenceEngine.import_request` move a request between engines as a
+migration record (:mod:`elephas_tpu_torch.fleet.migration`).
+
+Parts of the reference with no counterpart here: the JAX compile set
+(``compile_stats``, the ``compile_stats`` key of :meth:`debug_snapshot` and
+the ``jit.compile`` spans; the eager port compiles no programs) and the
+backend probe (``backend_fallback`` in :meth:`debug_snapshot` is always
+``None``: the port has no fallback). Not ported yet, each raising
+``NotImplementedError`` that names its ROADMAP.md item: sequence-parallel
+prefill and meshes (item 5); ``weight_version`` stays 0 until
+``refresh_weights`` (item 4).
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import time
+import weakref
 
 import numpy as np
 import torch
 
+from elephas_tpu_torch import telemetry
 from elephas_tpu_torch.device import resolve_device
 from elephas_tpu_torch.models.transformer import (
     _filter_logits,
@@ -189,11 +218,12 @@ class InferenceEngine:
     orders admission by tenant fair share, deadline and age, may refuse a
     submit under overload, and derives preemption priorities.
 
-    Every other keyword of the reference is accepted: at the value that
-    leaves the behaviour unchanged (the reference's default, and
-    ``flight_recorder=None`` or ``0``: the port records nothing yet), any
-    other value raising ``NotImplementedError`` that names its ROADMAP.md
-    item."""
+    ``flight_recorder`` keeps the last N finished request lifecycles for
+    :meth:`explain` (0 or None: off; an engine built under telemetry null
+    mode records none). Every other keyword of the reference is accepted:
+    at the value that leaves the behaviour unchanged (the reference's
+    default), any other value raising ``NotImplementedError`` that names
+    its ROADMAP.md item."""
 
     def __init__(self, model, num_slots: int = 8, mesh=None,
                  batch_axes=("data",), model_axis=None, rules=None,
@@ -217,14 +247,13 @@ class InferenceEngine:
                  sp_axis: str = "seq",
                  sp_threshold: int | None = None,
                  sp_mechanism: str = "ring",
-                 flight_recorder: int | None = None,
+                 flight_recorder: int | None = 256,
                  device=None):
         layers = validate_token_decode_model(
             model, what="the serving engine", hint="use one-shot generate()"
         )
         # (name, value, the value that leaves the behaviour unchanged, item)
         unported = (
-            ("flight_recorder", flight_recorder or None, None, 3),
             ("mesh", mesh, None, 5), ("batch_axes", batch_axes, ("data",), 5),
             ("model_axis", model_axis, None, 5), ("rules", rules, None, 5),
             ("sp_prefill", sp_prefill, None, 5), ("sp_axis", sp_axis, "seq", 5),
@@ -363,13 +392,42 @@ class InferenceEngine:
         self.policy = policy
 
         self._layers = layers
-        allocator = None
         if self.paged:
             self.arena = PagedKVPool(layers, self.num_blocks, self.block_size, self.device,
                                      self.kv_dtype)
-            allocator = BlockAllocator(self.num_blocks, self.block_size)
         else:
             self.arena = SlotKVCache(layers, self.num_slots, self.maxlen, self.device)
+        # the telemetry identity, captured before the allocator so its gauge
+        # shares the engine's label (release_telemetry retires them
+        # together); an engine built under null mode stays null for life
+        treg = telemetry.registry()
+        self._telemetry_registry = treg
+        self._tracer = telemetry.tracer()
+        eid = telemetry.instance_label()
+        self.telemetry_label = eid
+        if flight_recorder is not None and int(flight_recorder) < 0:
+            raise ValueError(
+                f"flight_recorder={flight_recorder} < 0 — use 0/None "
+                f"to disable, or a positive record capacity"
+            )
+        fr_capacity = 0 if flight_recorder is None else int(flight_recorder)
+        self._flight = (
+            telemetry.FlightRecorder(fr_capacity)
+            if fr_capacity and not telemetry.null_mode() else None
+        )
+        # in-flight lifecycle records (rid -> dict); finished ones move
+        # into the bounded ring
+        self._flight_live: dict[int, dict] = {}
+        allocator = None
+        if self.paged:
+            allocator = BlockAllocator(
+                self.num_blocks, self.block_size,
+                free_gauge=treg.gauge(
+                    "elephas_serving_blocks_free",
+                    "Unleased KV pool blocks (paged arena)",
+                    labels=("engine",),
+                ).labels(engine=eid),
+            )
         self.scheduler = Scheduler(self.num_slots, buckets or default_buckets(self.maxlen),
                                    prefix_cache=prefix_cache,
                                    prefix_min_reuse=prefix_min_reuse,
@@ -427,14 +485,217 @@ class InferenceEngine:
         # admitted, rejected, tokens, SLO met and missed
         self.admission_rejected = 0
         self._tenant_counts: dict[str, dict[str, int]] = {}
+        self.migrated_out = 0
+        self.migrated_in = 0
+        self.kv_quant_export_bytes = 0
+        # the weight generation served; refresh_weights stamps it (ROADMAP.md,
+        # Queue A item 4)
+        self.weight_version = 0
+        # the Gateway serving this engine, if any: close() stops it
+        self.gateway = None
+        self._register_series(treg, eid)
+
+    def _register_series(self, treg, eid: str) -> None:
+        """The engine's registry series: report-only mirrors of the plain
+        counts above (names, help texts and labels as the reference's)."""
+        def _c(name, help_):
+            return treg.counter(name, help_, labels=("engine",)).labels(engine=eid)
+
+        self._m_tokens = _c(
+            "elephas_serving_tokens_generated_total",
+            "Generated tokens emitted by the serving engine",
+        )
+        self._m_finished = _c(
+            "elephas_serving_requests_finished_total",
+            "Requests that completed (EOS or token budget)",
+        )
+        self._m_finished_evicted = _c(
+            "elephas_serving_finished_evicted_total",
+            "Finished requests evicted from the bounded result registry "
+            "before the caller consumed them",
+        )
+        self._m_decode_windows = _c(
+            "elephas_serving_decode_windows_total",
+            "Arena-wide decode window dispatches",
+        )
+        self._m_prefill_stalls = _c(
+            "elephas_serving_prefill_stall_slots_total",
+            "Mid-prefill slots deferred to a later step because the "
+            "per-step chunk-token budget was exhausted",
+        )
+        self._m_ttft = treg.histogram(
+            "elephas_serving_ttft_seconds",
+            "Submit-to-first-token latency of served requests",
+            labels=("engine",),
+        ).labels(engine=eid)
+        self._m_itl = treg.histogram(
+            "elephas_serving_inter_token_seconds",
+            "Arrival gap between consecutive tokens of one request",
+            labels=("engine",),
+        ).labels(engine=eid)
+        self._m_preemptions = _c(
+            "elephas_serving_preemptions_total",
+            "Requests preempted (blocks offloaded to host) so a "
+            "higher-priority arrival could admit",
+        )
+        self._m_resumes = _c(
+            "elephas_serving_resumes_total",
+            "Preempted requests restored from host offload",
+        )
+        self._m_offload_blocks = _c(
+            "elephas_serving_offloaded_blocks_total",
+            "KV pool blocks swapped to host memory by preemption",
+        )
+        self._m_rejected = _c(
+            "elephas_serving_rejected_total",
+            "Requests rejected at submit because prompt + "
+            "max_new_tokens can never fit the block pool",
+        )
+        self._m_spec_drafted = _c(
+            "elephas_serving_spec_draft_tokens_total",
+            "Drafted tokens scored by the speculative verify forward",
+        )
+        self._m_spec_accepted = _c(
+            "elephas_serving_spec_accepted_tokens_total",
+            "Drafted tokens accepted by the longest-matching-prefix "
+            "rule (each saved one target-model decode step)",
+        )
+        self._m_spec_rounds = _c(
+            "elephas_serving_spec_verify_rounds_total",
+            "Batched speculative verify dispatches",
+        )
+        self._m_spec_throttled = _c(
+            "elephas_serving_spec_throttled_total",
+            "Times a request's collapsed acceptance rate tripped the "
+            "drafting throttle (fell back to plain decode)",
+        )
+        self._m_admission_rejected = _c(
+            "elephas_serving_admission_rejected_total",
+            "Requests rejected at submit by the policy's overload "
+            "admission control (429 on the gateway)",
+        )
+        self._m_cancelled = _c(
+            "elephas_serving_cancelled_total",
+            "In-flight requests cancelled before completion "
+            "(slot/blocks reclaimed; gateway client disconnects land "
+            "here)",
+        )
+        self._m_migrated_out = _c(
+            "elephas_serving_migrated_out_total",
+            "Requests exported off this engine as migration records "
+            "(fleet drain / rebalancing)",
+        )
+        self._m_migrated_in = _c(
+            "elephas_serving_migrated_in_total",
+            "Requests adopted from another replica's migration record",
+        )
+        self._m_offload_bytes = _c(
+            "elephas_serving_kv_quant_offload_bytes_total",
+            "Host bytes written by preemption offload records (KV "
+            "block rows + scales at the arena's stored kv_dtype)",
+        )
+        self._m_export_bytes = _c(
+            "elephas_serving_kv_quant_export_bytes_total",
+            "Payload bytes of migration/handoff export records "
+            "(per-layer arrays at the stored kv_dtype, header "
+            "excluded) — the counted wire-size the bench quant "
+            "section gates on",
+        )
+        self._m_score_requests = _c(
+            "elephas_serving_score_requests_total",
+            "Completions scored through score() / POST /v1/score "
+            "(one verify-style forward each, engine state untouched)",
+        )
+
+        def _tc(name, help_):
+            return treg.counter(name, help_, labels=("engine", "tenant"))
+
+        # the per-tenant families by the key of _count
+        self._mf_tenant = {
+            "tokens": _tc("elephas_serving_tenant_tokens_total",
+                          "Generated tokens emitted, by tenant"),
+            "admitted": _tc("elephas_serving_tenant_admitted_total",
+                            "Requests admitted into KV slots, by tenant"),
+            "rejected": _tc("elephas_serving_tenant_rejected_total",
+                            "Requests rejected at submit, by tenant (admission "
+                            "control and paged never-fit alike)"),
+            "slo_met": _tc("elephas_serving_slo_met_total",
+                           "First tokens that landed within their declared TTFT "
+                           "deadline, by tenant"),
+            "slo_missed": _tc("elephas_serving_slo_missed_total",
+                              "First tokens that landed after their declared TTFT "
+                              "deadline, by tenant"),
+        }
+        tenant_queue = treg.gauge(
+            "elephas_serving_tenant_queue_depth",
+            "Waiting requests queued, by tenant",
+            labels=("engine", "tenant"),
+        )
+        if self.policy is not None:
+            # pull-time gauges over the live queue, through a weak reference:
+            # the process registry must not keep a dropped engine's
+            # scheduler alive
+            sched = weakref.ref(self.scheduler)
+            for t in self.policy.tenant_names:
+                tenant_queue.labels(engine=eid, tenant=t).set_function(
+                    lambda t=t: sched().waiting_count(t) if sched() is not None else 0)
+                # the zero-valued children exist before the first request
+                for fam in self._mf_tenant.values():
+                    fam.labels(engine=eid, tenant=t)
+        treg.gauge(
+            "elephas_serving_attn_kernel",
+            "Attention kernel the serving programs run (info gauge: "
+            "constant 1, kernel name in the label)",
+            labels=("engine", "kernel"),
+        ).labels(engine=eid, kernel=self.attention).set(1)
+        treg.gauge(
+            "elephas_serving_kv_quant_mode",
+            "KV storage dtype of the paged arena (info gauge: "
+            "constant 1, dtype name in the label)",
+            labels=("engine", "kv_dtype"),
+        ).labels(engine=eid, kv_dtype=self.kv_dtype).set(1)
+        treg.gauge(
+            "elephas_serving_weight_version",
+            "Weight generation the engine currently serves "
+            "(0 = unversioned; stamped by refresh_weights(version=))",
+            labels=("engine",),
+        ).labels(engine=eid).set(self.weight_version)
+        self._mf_prefill_tokens = treg.histogram(
+            "elephas_serving_prefill_tokens",
+            "Prompt tokens ingested per completed prefill, by prompt "
+            "size class (the prompt-bucket ladder; sp<S> = sequence-"
+            "parallel padded length). NOTE: chunked/paged prefills "
+            "compile per chunk width, not per prompt bucket — this "
+            "label classifies the PROMPT, not the program.",
+            labels=("engine", "bucket"),
+        )
+        treg.gauge(
+            "elephas_serving_slots", "KV-cache slots in the arena",
+            labels=("engine",),
+        ).labels(engine=eid).set(self.num_slots)
+        treg.gauge(
+            "elephas_serving_kv_arena_bytes",
+            "Host-side size estimate of the full KV arena at its "
+            "stored dtype (f32, or int8/int4 codes + scales)",
+            labels=("engine",),
+        ).labels(engine=eid).set(self.arena.nbytes())
+        if self.paged:
+            treg.gauge(
+                "elephas_serving_kv_blocks",
+                "KV pool blocks in the paged arena",
+                labels=("engine",),
+            ).labels(engine=eid).set(self.num_blocks)
 
     # -- lifecycle ------------------------------------------------------
 
     def close(self) -> None:
-        """The reference stops its attached gateway here; the port
-        attaches none yet (ROADMAP.md, Queue A item 3), so this only keeps
-        ``with engine:`` as in the reference. Idempotent; the engine stays
-        usable."""
+        """Stop the attached gateway (``engine.gateway``), if any: its live
+        SSE connections are severed, its port released, its threads
+        joined. Idempotent; the engine itself stays usable in process."""
+        gw = self.gateway
+        if gw is not None:
+            self.gateway = None
+            gw.stop()
 
     def __enter__(self) -> "InferenceEngine":
         return self
@@ -519,6 +780,18 @@ class InferenceEngine:
             ttft_deadline_ms=ttft_deadline_ms,
         )
         req.submit_time = time.perf_counter()
+        # the rid is the request's trace identity from here on
+        req.submit_step = self.scheduler._steps
+        req.exemplar = {"rid": str(req.rid)}
+        rec = self._fr_new(req)
+        submit_seq = self._tracer.emit(
+            "serve.submit", rid=req.rid,
+            tenant=DEFAULT_TENANT if tenant is None else str(tenant),
+            prompt_tokens=p, max_new_tokens=int(max_new_tokens),
+            step=req.submit_step,
+        )
+        if rec is not None:
+            rec["submit_seq"] = submit_seq
         if self.paged:
             need = blocks_for(p + max_new_tokens, self.block_size)
             if need > self.num_blocks:
@@ -532,17 +805,36 @@ class InferenceEngine:
                 )
                 req.done = True
                 self.rejected += 1
+                self._m_rejected.inc()
                 self._count(tenant, "rejected")
                 logger.warning("%s", req.error)
+                self._fr_finish(req, "rejected_capacity")
                 self.finished[req.rid] = req
                 self._evict_finished()
                 return req
         if self.policy is not None:
             # overload admission control: the policy sees the queue's
             # outstanding token debt and may shed this request now
+            tenant_debt = self.scheduler.queued_tokens_for(tenant)
             verdict = self.policy.admission_verdict(
-                req, self.scheduler.queued_tokens, self.scheduler.queued_tokens_for(tenant),
+                req, self.scheduler.queued_tokens, tenant_debt,
             )
+            # the fairness state the verdict was made against rides along
+            self._tracer.emit(
+                "serve.admission_verdict", rid=req.rid,
+                admitted=verdict.admitted, reason=verdict.reason,
+                queued_tokens=self.scheduler.queued_tokens,
+                tenant_queued_tokens=tenant_debt,
+            )
+            if rec is not None:
+                rec["verdict"] = {
+                    "admitted": verdict.admitted,
+                    "reason": verdict.reason,
+                    "retry_after_s": verdict.retry_after_s,
+                    "queued_tokens": self.scheduler.queued_tokens,
+                    "tenant_queued_tokens": tenant_debt,
+                    "virtual_counters": self.policy.snapshot_counters(),
+                }
             if not verdict.admitted:
                 req.error = AdmissionRejected(
                     f"request {req.rid} rejected by "
@@ -552,8 +844,10 @@ class InferenceEngine:
                 )
                 req.done = True
                 self.admission_rejected += 1
+                self._m_admission_rejected.inc()
                 self._count(tenant, "rejected")
                 logger.warning("%s", req.error)
+                self._fr_finish(req, "rejected_admission")
                 self.finished[req.rid] = req
                 self._evict_finished()
                 return req
@@ -561,10 +855,116 @@ class InferenceEngine:
 
     def _count(self, tenant, key: str) -> None:
         """Bump one per-tenant count (``tenant`` None: the default
-        tenant)."""
+        tenant) and its tenant-labeled series."""
         label = DEFAULT_TENANT if tenant is None else str(tenant)
         counts = self._tenant_counts.setdefault(label, {})
         counts[key] = counts.get(key, 0) + 1
+        self._mf_tenant[key].labels(engine=self.telemetry_label, tenant=label).inc()
+
+    # -- request lifecycle records --------------------------------------
+
+    def _fr(self, rid: int) -> dict | None:
+        """The request's lifecycle record: in flight first, then the
+        finished ring (late entries, such as the verify round that ended the
+        request, land there). None when recording is off or the record was
+        evicted."""
+        if self._flight is None:
+            return None
+        rec = self._flight_live.get(rid)
+        return rec if rec is not None else self._flight.get(rid)
+
+    def _fr_new(self, req: Request) -> dict | None:
+        """Open one in-flight lifecycle record. Every key is set here and
+        only reassigned later, so a reader without the engine lock always
+        sees a dict of fixed shape."""
+        if self._flight is None:
+            return None
+        rec = {
+            "rid": req.rid,
+            "tenant": req.tenant,
+            "prompt_tokens": len(req.prompt),
+            "max_new_tokens": req.max_new_tokens,
+            "temperature": req.temperature,
+            "priority": req.priority,
+            "ttft_deadline_ms": req.ttft_deadline_ms,
+            "submit_step": req.submit_step,
+            "submit_seq": -1,  # set from the serve.submit instant
+            "weight_version": self.weight_version,
+            "verdict": None,
+            # first-admission mirrors; `admissions` keeps every entry
+            "admission_kind": None,
+            "reuse_len": 0,
+            "queue_wait_steps": None,
+            "admissions": [],
+            "chunks": [],
+            "sp_prefill": None,
+            "preemptions": [],
+            "resumes": [],
+            "spec_rounds": [],
+            "first_token": None,
+            "token_steps": [],
+            "tokens": 0,
+            "spec_drafted": 0,
+            "spec_accepted": 0,
+            "finish": None,
+        }
+        self._flight_live[req.rid] = rec
+        return rec
+
+    def _fr_finish(self, req: Request, reason: str) -> None:
+        """Emit ``serve.finish`` and file the request's record in the
+        bounded ring."""
+        seq = self._tracer.emit(
+            "serve.finish", rid=req.rid, reason=reason,
+            tokens=len(req.tokens), step=self.scheduler._steps,
+        )
+        if self._flight is None:
+            return
+        rec = self._flight_live.get(req.rid)
+        if rec is None:
+            return
+        rec["finish"] = {
+            "reason": reason,
+            "step": self.scheduler._steps,
+            "seq": seq,
+            "error": None if req.error is None else str(req.error),
+        }
+        rec["tokens"] = len(req.tokens)
+        rec["spec_drafted"] = req.spec_drafted
+        rec["spec_accepted"] = req.spec_accepted
+        # into the ring before leaving the live map: a reader between the
+        # two stores finds the record in one of them
+        self._flight.record(req.rid, rec)
+        self._flight_live.pop(req.rid, None)
+
+    def _trace_admissions(self, plan) -> None:
+        """One ``serve.admit`` instant and record entry per admission of
+        the wave: kind (cold, prefix_hit, resume), slot, reuse length and
+        the queue wait in scheduler steps."""
+        step = self.scheduler._steps
+        for a in plan:
+            if a.resume is not None:
+                kind, reuse = "resume", 0
+            elif a.donor_slot is not None or a.shared_len:
+                kind, reuse = "prefix_hit", (a.reuse_len or a.shared_len)
+            else:
+                kind, reuse = "cold", 0
+            req = a.req
+            wait = step - req.submit_step if req.submit_step is not None else None
+            seq = self._tracer.emit(
+                "serve.admit", rid=req.rid, kind=kind, slot=a.slot,
+                reuse_len=reuse, step=step, queue_wait_steps=wait,
+            )
+            rec = self._fr(req.rid)
+            if rec is not None:
+                rec["admissions"].append({
+                    "kind": kind, "slot": a.slot, "reuse_len": reuse,
+                    "step": step, "seq": seq,
+                })
+                if rec["admission_kind"] is None:
+                    rec["admission_kind"] = kind
+                    rec["reuse_len"] = reuse
+                    rec["queue_wait_steps"] = wait
 
     # -- token bookkeeping ----------------------------------------------
 
@@ -573,15 +973,31 @@ class InferenceEngine:
         finished. Returns done. A raising per-token callback fails the
         request cleanly: its slot is reclaimed and the engine goes on."""
         self.total_generated += 1
+        self._m_tokens.inc()
         slot = req.slot
         now = time.perf_counter()
         req.token_times.append(now)
-        if (len(req.token_times) == 1 and req.submit_time is not None
-                and req.ttft_deadline_ms is not None):
-            # SLO attainment: the wall-clock TTFT meets the declared budget
-            # here only, never in the schedule
-            met = (now - req.submit_time) * 1e3 <= req.ttft_deadline_ms
-            self._count(req.tenant, "slo_met" if met else "slo_missed")
+        rec = self._fr(req.rid) if self._flight is not None else None
+        if rec is not None:
+            rec["token_steps"].append(self.scheduler._steps)
+        # the latency observations carry the rid as an exemplar
+        if len(req.token_times) == 1:
+            seq = self._tracer.emit("serve.first_token", rid=req.rid,
+                                    step=self.scheduler._steps)
+            if req.submit_time is not None:
+                ttft = now - req.submit_time
+                self._m_ttft.observe(ttft, exemplar=req.exemplar)
+                if rec is not None:
+                    # wall-derived, export-only
+                    rec["first_token"] = {"step": self.scheduler._steps, "seq": seq,
+                                          "ttft_s": ttft}
+                if req.ttft_deadline_ms is not None:
+                    # SLO attainment: the wall-clock TTFT meets the declared
+                    # budget here only, never in the schedule
+                    met = ttft * 1e3 <= req.ttft_deadline_ms
+                    self._count(req.tenant, "slo_met" if met else "slo_missed")
+        else:
+            self._m_itl.observe(now - req.token_times[-2], exemplar=req.exemplar)
         if self.policy is not None:
             self.policy.on_token(req)
             self._count(req.tenant, "tokens")
@@ -602,18 +1018,27 @@ class InferenceEngine:
             self.scheduler.reclaim(slot)
             self._set_active(slot, False)
             self.finished_count += 1
-            self._detach(req)
+            self._m_finished.inc()
+            if req.error is not None:
+                reason = "callback_error"
+            elif req.eos_id is not None and req.tokens and req.tokens[-1] == req.eos_id:
+                reason = "eos"
+            else:
+                reason = "budget"
+            self._detach(req, reason)
             self.finished[req.rid] = req
             self._evict_finished()
         return done
 
-    def _detach(self, req: Request) -> None:
-        """A request left the engine (finished, failed or cancelled): the
-        policy's and the throttle's accounting of it drop."""
+    def _detach(self, req: Request, reason: str) -> None:
+        """A request left the engine (finished, failed, cancelled or
+        migrated): the policy's and the throttle's accounting of it drop
+        and its record files with ``reason``."""
         if self.policy is not None:
             self.policy.on_finish(req)
         if self._spec_throttle is not None:
             self._spec_throttle.forget(req.rid)
+        self._fr_finish(req, reason)
 
     def _evict_finished(self) -> None:
         """Trim the bounded finished-request registry, oldest first, never
@@ -625,6 +1050,8 @@ class InferenceEngine:
                 return  # every resident request is protected
             self.finished.pop(victim)
             self.finished_evicted += 1
+            self._m_finished_evicted.inc()
+            self._tracer.emit("serve.evict", rid=victim)
             if self.finished_evicted == 1 or self.finished_evicted % 1024 == 0:
                 logger.warning(
                     "finished-request registry hit its bound (%d): "
@@ -664,11 +1091,22 @@ class InferenceEngine:
 
     # -- device work ----------------------------------------------------
 
-    @torch.inference_mode()
     def _prefill_wave(self, admitted: list[Request]) -> None:
         """Prefill one admission wave: one forward per prompt bucket over
         the wave's requests of that bucket, the first token of each
         sampled from its prompt-end logits."""
+        with self._tracer.span("serve.prefill_wave", reqs=len(admitted)):
+            self._prefill_wave_inner(admitted)
+
+    def _note_prefill(self, req: Request, bucket) -> None:
+        """One prefill-tokens observation per completed prefill, labeled by
+        the prompt's bucket (its size class, not the pass that ran it)."""
+        self._mf_prefill_tokens.labels(
+            engine=self.telemetry_label, bucket=str(bucket)
+        ).observe(len(req.prompt))
+
+    @torch.inference_mode()
+    def _prefill_wave_inner(self, admitted: list[Request]) -> None:
         by_bucket: dict[int, list[Request]] = {}
         for req in admitted:
             by_bucket.setdefault(self.scheduler.bucket_for(len(req.prompt)), []).append(req)
@@ -695,6 +1133,16 @@ class InferenceEngine:
                 # only slots the cache knows)
                 self.scheduler.on_prefill_complete(req)
                 self._set_active(req.slot, True)
+                self._note_prefill(req, bucket)
+                seq = self._tracer.emit(
+                    "serve.prefill", rid=req.rid, bucket=bucket,
+                    prompt_tokens=len(req.prompt), step=self.scheduler._steps,
+                )
+                rec = self._fr(req.rid)
+                if rec is not None:
+                    # a whole-prompt wave is one chunk covering the prompt
+                    rec["chunks"].append({"offset": 0, "take": len(req.prompt),
+                                          "step": self.scheduler._steps, "seq": seq})
                 self._emit(req, int(toks[i]))
 
     def _copy_vectors(self, copies):
@@ -714,7 +1162,6 @@ class InferenceEngine:
         if copies:
             prefix_copy(self.arena, *self._copy_vectors(copies))
 
-    @torch.inference_mode()
     def _run_chunk(self, items: list, width: int, copies=()):
         """One chunk pass: each ``(admission, progress, take)`` item
         advances ``take`` prompt tokens (``<= width``) of its slot from
@@ -723,6 +1170,12 @@ class InferenceEngine:
         prompt-end logits and join decode. Only the items' slots are
         computed. Returns the ``(request, token, done)`` emissions of the
         finished prefills."""
+        with self._tracer.span("serve.chunk", width=width, slots=len(items),
+                               copies=len(copies)):
+            return self._run_chunk_inner(items, width, copies)
+
+    @torch.inference_mode()
+    def _run_chunk_inner(self, items: list, width: int, copies):
         self._copy_prefixes(copies)
         n, dev = len(items), self.device
         rows = np.zeros((n, width), np.int64)
@@ -731,6 +1184,14 @@ class InferenceEngine:
         for i, (adm, progress, take) in enumerate(items):
             rows[i, :take] = adm.req.prompt[progress:progress + take]
             offs[i], clens[i] = progress, take
+            seq = self._tracer.emit(
+                "serve.prefill_chunk", rid=adm.req.rid, offset=progress, take=take,
+                final=progress + take == len(adm.req.prompt), step=self.scheduler._steps,
+            )
+            rec = self._fr(adm.req.rid)
+            if rec is not None:
+                rec["chunks"].append({"offset": progress, "take": take,
+                                      "step": self.scheduler._steps, "seq": seq})
         slots = torch.tensor([a.slot for a, _p, _t in items], dtype=torch.long, device=dev)
         offs_d = torch.from_numpy(offs).to(dev)
         if self.paged:
@@ -770,6 +1231,7 @@ class InferenceEngine:
             self._prefilling.pop(items[i][0].slot, None)
             self.scheduler.on_prefill_complete(req)
             self._set_active(req.slot, True)
+            self._note_prefill(req, self.scheduler.bucket_for(len(req.prompt)))
             self._emit(req, int(toks[j]))
             emitted.append((req, req.tokens[-1], req.done))
         return emitted
@@ -838,19 +1300,27 @@ class InferenceEngine:
         every later write."""
         req = pre.req
         n = len(pre.blocks)
-        ids = torch.tensor(pre.blocks, dtype=torch.long, device=self.device)
-        rows = gather_blocks(self.arena, ids)
-        store = _OffloadRecord(
-            rows={name: tuple(self._host_copy(z) for z in leaves)
-                  for name, leaves in rows.items()},
-            n_blocks=n, cur_len=pre.cur_len,
-        )
-        self._offloaded[req.rid] = store
+        with self._tracer.span("serve.preempt", rid=req.rid, blocks=n) as sp:
+            rec = self._fr(req.rid)
+            if rec is not None:
+                rec["preemptions"].append({"blocks": n, "cur_len": pre.cur_len,
+                                           "step": self.scheduler._steps,
+                                           "seq": sp.begin_seq})
+            ids = torch.tensor(pre.blocks, dtype=torch.long, device=self.device)
+            rows = gather_blocks(self.arena, ids)
+            store = _OffloadRecord(
+                rows={name: tuple(self._host_copy(z) for z in leaves)
+                      for name, leaves in rows.items()},
+                n_blocks=n, cur_len=pre.cur_len,
+            )
+            self._offloaded[req.rid] = store
         self._set_active(pre.slot, False)
         self.preemptions += 1
         self.offloaded_blocks += n
-        if self.kv_dtype != "fp":
-            self.kv_quant_offload_bytes += store.nbytes()
+        self.kv_quant_offload_bytes += store.nbytes()
+        self._m_preemptions.inc()
+        self._m_offload_blocks.inc(n)
+        self._m_offload_bytes.inc(store.nbytes())
         logger.info(
             "preempted request %d (priority %d): %d blocks offloaded "
             "to host, slot %d freed", req.rid, req.priority, n, pre.slot,
@@ -864,13 +1334,19 @@ class InferenceEngine:
         req = adm.req
         store = self._offloaded.pop(req.rid)
         n = store.n_blocks
-        ids = torch.tensor(adm.blocks[:n], dtype=torch.long, device=self.device)
-        scatter_blocks(self.arena, ids, store.rows)
-        self._lengths[adm.slot] = store.cur_len
-        self._last[adm.slot] = req.tokens[-1]
-        self._temps[adm.slot] = req.temperature
+        with self._tracer.span("serve.resume", rid=req.rid, blocks=n) as sp:
+            rec = self._fr(req.rid)
+            if rec is not None:
+                rec["resumes"].append({"blocks": n, "cur_len": store.cur_len,
+                                       "step": self.scheduler._steps, "seq": sp.begin_seq})
+            ids = torch.tensor(adm.blocks[:n], dtype=torch.long, device=self.device)
+            scatter_blocks(self.arena, ids, store.rows)
+            self._lengths[adm.slot] = store.cur_len
+            self._last[adm.slot] = req.tokens[-1]
+            self._temps[adm.slot] = req.temperature
         self._set_active(adm.slot, True)
         self.resumes += 1
+        self._m_resumes.inc()
         logger.info(
             "resumed request %d into slot %d (%d blocks restored, "
             "cursor %d)", req.rid, adm.slot, n, store.cur_len,
@@ -908,6 +1384,7 @@ class InferenceEngine:
         these slices."""
         emitted: list[tuple[Request, int, bool]] = []
         budget = self._prefill_budget
+        served: set[int] = set()
         while self._prefilling and budget > 0:
             items = []
             for slot in sorted(self._prefilling):
@@ -916,11 +1393,16 @@ class InferenceEngine:
                 adm, progress = self._prefilling[slot]
                 take = min(self.prefill_chunk, len(adm.req.prompt) - progress)
                 items.append((adm, progress, take))
+                served.add(slot)
                 budget -= take
             emitted.extend(self._run_chunk(items, self.prefill_chunk))
             for adm, progress, take in items:
                 if adm.slot in self._prefilling:
                     self._prefilling[adm.slot][1] = progress + take
+        # slots that got no chunk this step wait for the next one
+        stalled = sum(1 for s in self._prefilling if s not in served)
+        if stalled:
+            self._m_prefill_stalls.inc(stalled)
         return emitted
 
     def step(self) -> list[tuple[Request, int, bool]]:
@@ -939,14 +1421,17 @@ class InferenceEngine:
                 self._offload(pre)
             if plan:
                 self._note_admissions(plan)
+                self._trace_admissions(plan)
                 emitted.extend(self._admit_wave_paged(plan))
         else:
             plan = self.scheduler.admit()
             if plan:
                 self._note_admissions(plan)
+                self._trace_admissions(plan)
                 emitted.extend(self._admit_wave(plan))
         emitted.extend(self._prefill_progress())
         if any(slot not in self._prefilling for slot in self.scheduler.active):
+            self._m_decode_windows.inc()
             if self.speculative:
                 emitted.extend(self._spec_decode_phase())
             else:
@@ -962,7 +1447,6 @@ class InferenceEngine:
             if a.resume is None:
                 self._count(a.req.tenant, "admitted")
 
-    @torch.inference_mode()
     def _decode_window(self):
         """One arena-wide decode window of ``steps_per_sync`` steps; the
         host reads its tokens once, at the end. Paged, every step attends
@@ -970,6 +1454,12 @@ class InferenceEngine:
         when no slot drafted."""
         if self._spec_dirty:
             self._refresh_decode_state()
+        with self._tracer.span("serve.decode_window", steps=self.steps_per_sync,
+                               active=len(self.scheduler.active)):
+            return self._decode_window_inner()
+
+    @torch.inference_mode()
+    def _decode_window_inner(self):
         tables = self._staged_tables() if self.paged else None
         span = None if self.paged else self._decode_span()
         active = self._sync_active()
@@ -1051,13 +1541,28 @@ class InferenceEngine:
             return self._decode_window()
         return self._verify_round(proposals, drafted)
 
-    @torch.inference_mode()
     def _verify_round(self, proposals, drafted: int):
         """One batched verify pass and its verdict: for each decoding slot,
         the longest draft prefix equal to the model's own tokens is accepted
         and emitted with the bonus token, and its cursor rolls back over the
         rejected tail on the host (the rejected rows' K/V is rewritten
         before any query sees it; paged, they lie in reserved blocks)."""
+        slots = sum(1 for slot in self.scheduler.active if slot not in self._prefilling)
+        with self._tracer.span("serve.verify", slots=slots, drafted=drafted,
+                               k=self.spec_k) as span:
+            emitted, accepted_total = self._verify_round_inner(proposals)
+            span.set(accepted=accepted_total)
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted_total
+        self.spec_rounds += 1
+        self._m_spec_drafted.inc(drafted)
+        self._m_spec_accepted.inc(accepted_total)
+        self._m_spec_rounds.inc()
+        self._spec_dirty = True
+        return emitted
+
+    @torch.inference_mode()
+    def _verify_round_inner(self, proposals):
         w = self.spec_k + 1
         # tokens | offset | n_fed | active, one upload
         packed = np.zeros((self.num_slots, w + 3), np.int64)
@@ -1115,11 +1620,22 @@ class InferenceEngine:
             req.spec_accepted += a
             if self._spec_throttle.note(req.rid, len(drafts), a):
                 self.spec_throttled += 1
-        self.spec_drafted += drafted
-        self.spec_accepted += accepted_total
-        self.spec_rounds += 1
-        self._spec_dirty = True
-        return emitted
+                self._m_spec_throttled.inc()
+            throttled = self._spec_throttle.throttled(req.rid)
+            seq = self._tracer.emit(
+                "serve.spec_verify", rid=req.rid, drafted=len(drafts), accepted=a,
+                throttled=throttled, step=self.scheduler._steps,
+            )
+            rec = self._fr(req.rid)
+            if rec is not None:
+                rec["spec_rounds"].append({"drafted": len(drafts), "accepted": a,
+                                           "throttled": throttled,
+                                           "step": self.scheduler._steps, "seq": seq})
+                # a request that finished inside this round was filed before
+                # these increments: the totals follow its own rounds
+                rec["spec_drafted"] = req.spec_drafted
+                rec["spec_accepted"] = req.spec_accepted
+        return emitted, accepted_total
 
     # -- running the engine ---------------------------------------------
 
@@ -1178,18 +1694,387 @@ class InferenceEngine:
             self._set_active(slot, False)
         req.done = True
         req.error = RequestCancelled(f"request {rid} cancelled")
-        if req.on_token is not None:
-            try:
-                req.on_token(None, True)
-            except Exception:
-                logger.warning("request %d stream-end callback failed", rid, exc_info=True)
+        # a live stream gets the end sentinel: cancel delivers no last token
+        self._notify_stream_end(req)
         self.cancelled += 1
-        self._detach(req)
+        self._m_cancelled.inc()
+        self._tracer.emit("serve.cancel", rid=rid, tokens=len(req.tokens), step=sched._steps)
+        self._detach(req, "cancelled")
         self.finished[rid] = req
         self._evict_finished()
         return True
 
+    def _notify_stream_end(self, req: Request) -> None:
+        """``on_token(None, True)``: the request's live stream ended with no
+        final engine token (cancelled, or exported away), so a consumer
+        blocking on it ends instead of waiting forever."""
+        cb = req.on_token
+        if cb is not None:
+            try:
+                cb(None, True)
+            except BaseException:
+                logger.warning("request %d stream-end callback failed", req.rid,
+                               exc_info=True)
+
+    def _find_slot(self, rid: int) -> int | None:
+        return next((s for s, r in self.scheduler.active.items() if r.rid == rid), None)
+
+    # -- migration ---------------------------------------------------------
+
+    def export_request(self, rid: int, *, notify_stream: bool = False) -> dict:
+        """Freeze one live request and return its migration record: prompt,
+        generated tokens, budget, sampling and tenant knobs and, warm, the
+        preemption offload rows (per-layer K/V blocks at the stored dtype)
+        with the cursor, which :meth:`import_request` on another engine
+        resumes bit-exact at temperature 0. The request leaves this engine
+        (policy accounting dropped, record filed as ``migrated``; it is not
+        in ``finished``). Encode it with
+        :func:`~elephas_tpu_torch.fleet.migration.encode_record`.
+
+        A warm export needs a paged engine and a request holding a generated
+        token; waiting, mid-prefill and tokenless requests export cold (the
+        target re-prefills). An in-flight fixed-arena request with tokens
+        is refused (``ValueError``); an rid not live here raises
+        ``KeyError``. ``notify_stream=True`` sends the request's live
+        ``on_token`` the ``(None, True)`` end sentinel (the wire shape, where
+        no callback travels)."""
+        rid = int(rid)
+        sched = self.scheduler
+        store = self._offloaded.pop(rid, None)
+        if store is not None:
+            # preempted: its offload record is the payload (victims wait in
+            # the queue)
+            req = sched.remove_waiting(rid)
+            return self._export_payload(req, store, notify_stream=notify_stream)
+        slot = self._find_slot(rid)
+        if slot is not None:
+            req = sched.active[slot]
+            if slot not in self._prefilling and req.tokens:
+                if not self.paged:
+                    raise ValueError(
+                        f"cannot warm-export in-flight request {rid} "
+                        f"from a fixed-arena engine — block offload "
+                        f"needs paged=True (cancel it or let it finish)"
+                    )
+                # preempt whatever the priorities: the rows go to the host,
+                # then the record detaches through the branch above
+                self._offload(sched._preempt(req))
+                return self.export_request(rid, notify_stream=notify_stream)
+            # mid-prefill or tokenless: partial rows do not resume, export cold
+            self._prefilling.pop(slot, None)
+            sched.reclaim(slot)
+            self._set_active(slot, False)
+            return self._export_payload(req, None, notify_stream=notify_stream)
+        req = sched.remove_waiting(rid)
+        if req is None:
+            raise KeyError(f"request {rid} is not live on this engine")
+        return self._export_payload(req, None, notify_stream=notify_stream)
+
+    def _export_payload(self, req: Request, store, *, notify_stream: bool = False) -> dict:
+        rows = {}
+        if store is not None:
+            if self.device.type == "cuda":
+                # the offload's copies to the host were issued without a sync
+                torch.cuda.current_stream(self.device).synchronize()
+            rows = {name: tuple(t.numpy() for t in leaves) for name, leaves in store.rows.items()}
+        self._detach(req, "migrated")
+        if notify_stream:
+            self._notify_stream_end(req)
+        nbytes = 0 if store is None else store.nbytes()
+        self.migrated_out += 1
+        self.kv_quant_export_bytes += nbytes
+        self._m_migrated_out.inc()
+        self._m_export_bytes.inc(nbytes)
+        self._tracer.emit(
+            "serve.export", rid=req.rid, warm=store is not None,
+            n_blocks=0 if store is None else store.n_blocks,
+            tokens=len(req.tokens), step=self.scheduler._steps,
+        )
+        return {
+            "version": 3,
+            "kv_dtype": self.kv_dtype,
+            "weight_ver": self.weight_version,
+            "rid": int(req.rid),
+            "prompt": [int(t) for t in req.prompt],
+            "tokens": [int(t) for t in req.tokens],
+            "max_new_tokens": int(req.max_new_tokens),
+            "temperature": float(req.temperature),
+            "eos_id": None if req.eos_id is None else int(req.eos_id),
+            "priority": int(req.priority),
+            "tenant": req.tenant,
+            "ttft_deadline_ms": req.ttft_deadline_ms,
+            # the trace context rides the record, so the migrated half of
+            # the lifecycle joins the same story
+            "trace": telemetry.current_trace(),
+            "block_size": self.block_size,
+            "cur_len": 0 if store is None else store.cur_len,
+            "n_blocks": 0 if store is None else store.n_blocks,
+            "rows": rows,
+        }
+
+    def import_request(self, record: dict, on_token=None) -> Request:
+        """Adopt a migration record exported by another engine (of either
+        package). A warm record (``n_blocks > 0``) re-enters through the
+        preemption resume: its rows park as a host offload record, the
+        request waits at the queue's front, and the next admission scatters
+        the rows into a fresh block table, bit-exact at temperature 0 when
+        both engines serve the same weights. A cold record is an ordinary
+        submission. ``on_token`` re-attaches the caller's stream.
+
+        Validated as the reference validates it: version, maxlen fit, rid not
+        already live or served here, tenant known to this engine's policy,
+        and, warm: a paged target, the same block size, ``kv_dtype`` and
+        layers, matching non-zero weight generations, the stored arity, and
+        ``cur_len == prompt + generated - 1``."""
+        if int(record.get("version", -1)) not in (1, 2, 3):
+            raise ValueError(
+                f"unknown migration record version "
+                f"{record.get('version')!r} (this engine speaks "
+                f"v1..v3)"
+            )
+        sched = self.scheduler
+        rid = int(record["rid"])
+        prompt = tuple(int(t) for t in record["prompt"])
+        tokens = [int(t) for t in record["tokens"]]
+        max_new = int(record["max_new_tokens"])
+        if not prompt:
+            raise ValueError("migration record has an empty prompt")
+        if len(prompt) + max_new > self.maxlen:
+            raise ValueError(
+                f"record needs prompt ({len(prompt)}) + budget "
+                f"({max_new}) <= maxlen ({self.maxlen})"
+            )
+        if (rid in self._offloaded or rid in self.finished
+                or any(r.rid == rid for r in sched.waiting)
+                or any(r.rid == rid for r in sched.active.values())):
+            raise ValueError(
+                f"request {rid} is already live (or was already "
+                f"served) on this engine — a record must be imported "
+                f"exactly once"
+            )
+        tenant = record.get("tenant")
+        if tenant is not None and (self.policy is None or not self.policy.knows(tenant)):
+            raise ValueError(
+                f"record carries tenant {tenant!r} unknown to this "
+                f"engine's policy — fleet replicas must declare "
+                f"identical tenants"
+            )
+        rows = record.get("rows") or {}
+        n_blocks = int(record.get("n_blocks") or 0)
+        warm = n_blocks > 0
+        if not warm and tokens:
+            raise ValueError(
+                f"cold record (n_blocks=0) carries {len(tokens)} "
+                f"generated tokens — token-holding requests must "
+                f"export WARM (K/V travels) or not at all"
+            )
+        if warm:
+            self._check_warm_record(record, rows, prompt, tokens, max_new, n_blocks)
+        req = Request(
+            rid=rid, prompt=prompt, max_new_tokens=max_new,
+            temperature=float(record.get("temperature") or 0.0),
+            eos_id=None if record.get("eos_id") is None else int(record["eos_id"]),
+            priority=int(record.get("priority") or 0),
+            tenant=tenant,
+            ttft_deadline_ms=record.get("ttft_deadline_ms"),
+            tokens=tokens,
+            on_token=on_token,
+        )
+        req.submit_step = sched._steps
+        # submit_time stays None: the TTFT was observed where the request
+        # first ran
+        req.exemplar = {"rid": str(rid)}
+        rec = self._fr_new(req)
+        seq = self._tracer.emit(
+            "serve.import", rid=rid, warm=warm, n_blocks=n_blocks,
+            tokens=len(tokens), step=sched._steps,
+        )
+        if rec is not None:
+            rec["submit_seq"] = seq
+        if warm:
+            self._offloaded[rid] = _OffloadRecord(
+                rows={name: tuple(self._host_rows(a) for a in leaves)
+                      for name, leaves in rows.items()},
+                n_blocks=n_blocks, cur_len=int(record["cur_len"]),
+            )
+            sched.adopt_preempted(req, int(record["cur_len"]))
+        else:
+            sched.submit(req)
+        self.migrated_in += 1
+        self._m_migrated_in.inc()
+        return req
+
+    def _check_warm_record(self, record, rows, prompt, tokens, max_new, n_blocks) -> None:
+        """The reference's refusals of a warm record this engine cannot
+        resume bit-exact."""
+        if not self.paged:
+            raise ValueError("warm migration record needs a paged target engine")
+        if int(record["block_size"]) != self.block_size:
+            raise ValueError(
+                f"record block_size {record['block_size']} != this "
+                f"engine's {self.block_size} — K/V blocks are not "
+                f"geometry-portable"
+            )
+        rec_dtype = record.get("kv_dtype", "fp")
+        if rec_dtype != self.kv_dtype:
+            raise ValueError(
+                f"record kv_dtype {rec_dtype!r} != this engine's "
+                f"{self.kv_dtype!r} — quantized KV blocks are "
+                f"bit-portable only between arenas storing the "
+                f"same dtype (re-drive the request cold instead)"
+            )
+        rec_wver = int(record.get("weight_ver", 0))
+        if rec_wver and self.weight_version and rec_wver != self.weight_version:
+            raise ValueError(
+                f"record weight_ver {rec_wver} != this engine's "
+                f"weight_version {self.weight_version} — warm K/V "
+                f"from another weight generation cannot resume "
+                f"bit-exact (re-drive the request cold instead)"
+            )
+        arity = 2 if self.kv_dtype == "fp" else 4
+        bad_arity = {name: len(leaves) for name, leaves in rows.items() if len(leaves) != arity}
+        if bad_arity:
+            raise ValueError(
+                f"record rows carry {bad_arity} arrays per layer "
+                f"— a {self.kv_dtype!r} arena stores {arity} "
+                f"(torn or mis-encoded record)"
+            )
+        if not tokens:
+            raise ValueError(
+                "warm record without generated tokens — the resume "
+                "cursor math (last token re-arm) would be wrong"
+            )
+        cur_len = int(record["cur_len"])
+        if cur_len != len(prompt) + len(tokens) - 1:
+            raise ValueError(
+                f"corrupt record: cur_len {cur_len} != prompt "
+                f"({len(prompt)}) + generated ({len(tokens)}) - 1"
+            )
+        if n_blocks != blocks_for(cur_len, self.block_size):
+            raise ValueError(
+                f"corrupt record: {n_blocks} blocks cannot cover "
+                f"cur_len {cur_len} at block_size {self.block_size}"
+            )
+        expected = {name for name, _h, _d in self.arena.specs}
+        if set(rows) != expected:
+            raise ValueError(
+                f"record layers {sorted(rows)} != this engine's "
+                f"{sorted(expected)} — different model architecture"
+            )
+        if blocks_for(len(prompt) + max_new, self.block_size) > self.num_blocks:
+            raise ValueError(
+                f"record can never fit this pool ({self.num_blocks}"
+                f" blocks) — route it to a larger replica"
+            )
+
+    def _host_rows(self, a) -> torch.Tensor:
+        """One imported row array as a host tensor of its own (pinned when
+        the engine is on a card, so the resume's copy is asynchronous)."""
+        t = a.clone() if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
     # -- introspection -------------------------------------------------
+
+    def scrape(self, openmetrics: bool = False, full: bool = True) -> str:
+        """The port's registry as Prometheus exposition text (empty for an
+        engine built under null mode). ``openmetrics=True`` renders the
+        OpenMetrics flavor, whose histogram buckets carry rid exemplars;
+        ``full=False`` narrows the 0.0.4 text to this engine's own series
+        (its ``engine=`` and its scheduler's ``scheduler=`` labels)."""
+        reg = self._telemetry_registry
+        if openmetrics:
+            if not full:
+                raise ValueError(
+                    "full=False is a 0.0.4-flavor filter — the "
+                    "OpenMetrics surface renders the whole registry"
+                )
+            return telemetry.render_openmetrics(reg)
+        if not full:
+            return (telemetry.render(reg, only={"engine": self.telemetry_label})
+                    + telemetry.render(reg, only={"scheduler": self.scheduler.telemetry_label}))
+        return telemetry.render(reg)
+
+    def explain(self, rid: int) -> dict:
+        """The lifecycle record of one request (a copy): admission verdict,
+        queue wait, admission kind and reuse, prefill chunks, preemptions
+        and resumes, verify rounds, the step of every token, the first token
+        and the finish, each stamped with the scheduler step and tracer
+        sequence number it happened at. An in-flight request's record has
+        ``finish`` None. Raises ``RuntimeError`` when the recorder is off
+        and ``KeyError`` for an unknown or evicted rid. The gateway serves it
+        as ``GET /v1/requests/{rid}/trace``."""
+        if self._flight is None:
+            raise RuntimeError(
+                "flight recorder is off (flight_recorder=0/None, or "
+                "the engine was built under telemetry null mode) — "
+                "explain() has no lifecycle records to read"
+            )
+        rec = self._fr(int(rid))
+        if rec is None:
+            raise KeyError(
+                f"no lifecycle record for request {rid} — never "
+                f"submitted to this engine, or evicted from the "
+                f"{self._flight.capacity}-record flight ring"
+            )
+        return copy.deepcopy(rec)
+
+    def debug_snapshot(self) -> dict:
+        """Live engine state in one dict (the gateway's ``GET
+        /debug/engine``): slot map, waiting queue with each request's debt,
+        block-pool occupancy, offloaded requests, prefix cache or index
+        summary, policy state and the flight recorder's occupancy. Host
+        reads only. The reference's ``compile_stats`` has no counterpart
+        (the port compiles no programs) and ``backend_fallback`` is always
+        None (the port has no fallback)."""
+        sched = self.scheduler
+        slots = {}
+        for slot, req in sorted(sched.active.items()):
+            pre = self._prefilling.get(slot)
+            slots[str(slot)] = {
+                "rid": req.rid,
+                "tenant": req.tenant,
+                "prompt_tokens": len(req.prompt),
+                "generated": len(req.tokens),
+                "prefilling": pre is not None,
+                "prefill_progress": pre[1] if pre is not None else None,
+                "table_blocks": len(sched.tables.get(slot, ())) if self.paged else None,
+            }
+        out = {
+            "engine": self.telemetry_label,
+            "steps": sched._steps,
+            "num_slots": self.num_slots,
+            "attention": self.attention,
+            "kv_dtype": self.kv_dtype,
+            "weight_version": self.weight_version,
+            "backend_fallback": None,
+            "slots": slots,
+            "waiting": sched.queue_snapshot(),
+            "queued_tokens": sched.queued_tokens,
+            "offloaded": {str(rid): {"blocks": r.n_blocks, "cur_len": r.cur_len}
+                          for rid, r in sorted(self._offloaded.items())},
+            "policy": self.policy.stats() if self.policy is not None else None,
+            "flight_recorder": None if self._flight is None else {
+                "capacity": self._flight.capacity,
+                "finished_resident": len(self._flight),
+                "in_flight": len(self._flight_live),
+            },
+        }
+        if self.paged:
+            out["blocks_total"] = self.num_blocks
+            out["blocks_free"] = sched.allocator.free_count
+            idx = sched.prefix_index
+            out["prefix_index"] = idx.stats() if idx is not None else None
+        elif sched.prefix_cache is not None:
+            out["prefix_cache"] = sched.prefix_cache.stats()
+        return out
+
+    def release_telemetry(self) -> None:
+        """Retire this engine's labeled series, its scheduler's and its
+        prefix cache's, from the registry. Never called implicitly: a
+        finished engine's counters stay scrapeable until a host that builds
+        engines in a loop retires them. The plain counts keep reading."""
+        telemetry.remove_series(engine=self.telemetry_label)
+        self.scheduler.release_telemetry()
 
     def prefix_warm_probe(self, prompt) -> int:
         """How many leading tokens of ``prompt`` the prefix cache would
@@ -1263,6 +2148,9 @@ class InferenceEngine:
         g = [int(t) for t in greedy[p - 1:n]]
         agreed = sum(1 for a, b in zip(g, completion) if a == b)
         self.score_requests += 1
+        self._m_score_requests.inc()
+        self._tracer.emit("serve.score", prompt_tokens=p, completion_tokens=len(completion),
+                          agreement=agreed / len(completion))
         return {
             "logprobs": lps,
             "total_logprob": float(sum(lps)),
@@ -1354,6 +2242,10 @@ class InferenceEngine:
             "spec_throttled": self.spec_throttled,
             "admission_rejected": self.admission_rejected,
             "tenants": self._tenant_stats(),
+            "migrated_out": self.migrated_out,
+            "migrated_in": self.migrated_in,
+            "kv_quant_export_bytes": self.kv_quant_export_bytes,
+            "weight_version": self.weight_version,
         }
         if self.policy is not None:
             out["policy"] = self.policy.stats()

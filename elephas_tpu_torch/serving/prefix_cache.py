@@ -20,8 +20,11 @@ the rows instead of recomputing them. This module finds such donors.
   finished) are reclaimable: with no free slot the scheduler evicts the
   least recently used unpinned, unleased entry.
 
-The counters are plain integers (the reference keeps them in its telemetry
-registry, which the port does not have yet: ROADMAP.md, Queue A item 3).
+The counters are plain integers, read by ``stats()``; each is mirrored
+into the port's telemetry registry (the reference's ``elephas_prefix_*``
+series, labeled ``cache=<instance>``), report-only: null mode leaves the
+counts exact and the series at 0. ``release_telemetry()`` retires the
+series.
 
 The paged arena's index (:class:`PagedPrefixIndex`, entries
 :class:`BlockEntry`) holds block ids instead of slots: a hit splices the
@@ -32,6 +35,36 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
+
+from elephas_tpu_torch import telemetry
+
+
+def _cache_series(shared: bool = False) -> tuple[str, dict]:
+    """This cache's instance label and its registry counters: hits,
+    misses, reused tokens, evictions and (paged) shared blocks."""
+    reg = telemetry.registry()
+    cid = telemetry.instance_label()
+
+    def c(name, help_):
+        return reg.counter(name, help_, labels=("cache",)).labels(cache=cid)
+
+    series = {
+        "hits": c("elephas_prefix_cache_hits_total",
+                  "Admissions served a donor copy from the prefix cache"),
+        "misses": c("elephas_prefix_cache_misses_total",
+                    "Admissions that landed cold (no usable cached prefix)"),
+        "reused_tokens": c("elephas_prefix_cache_reused_tokens_total",
+                           "Prompt tokens served by donor copy instead of prefill"),
+        "evictions": c("elephas_prefix_cache_evictions_total",
+                       "Donor entries evicted under slot pressure (LRU)"),
+    }
+    if shared:
+        series["shared_blocks"] = c(
+            "elephas_prefix_blocks_shared_total",
+            "Pool blocks spliced copy-free into admitted requests' "
+            "block tables via prefix-index refcount sharing",
+        )
+    return cid, series
 
 
 @dataclass
@@ -68,6 +101,13 @@ class PrefixCache:
         self.misses = 0
         self.reused_tokens = 0
         self.evictions = 0
+        self.telemetry_label, self._m = _cache_series()
+
+    def release_telemetry(self) -> None:
+        """Retire this cache's labeled series from the registry (the
+        owning scheduler's and engine's ``release_telemetry`` cascade
+        here); the plain counts keep reading."""
+        telemetry.remove_series(cache=self.telemetry_label)
 
     # -- registration ---------------------------------------------------
 
@@ -164,10 +204,13 @@ class PrefixCache:
             entry.last_use = self._clock
         self.hits += 1
         self.reused_tokens += int(reuse_len)
+        self._m["hits"].inc()
+        self._m["reused_tokens"].inc(int(reuse_len))
 
     def record_miss(self) -> None:
         """An admission landed with no reuse."""
         self.misses += 1
+        self._m["misses"].inc()
 
     def flush(self) -> list[int]:
         """Drop every entry and return the slots that were resident as
@@ -188,6 +231,7 @@ class PrefixCache:
         victim = min(victims, key=lambda e: (e.last_use, e.slot))
         self.remove(victim.slot)
         self.evictions += 1
+        self._m["evictions"].inc()
         return victim.slot
 
     # -- introspection --------------------------------------------------
@@ -252,6 +296,10 @@ class PagedPrefixIndex:
         self.reused_tokens = 0
         self.evictions = 0
         self.shared_blocks = 0
+        self.telemetry_label, self._m = _cache_series(shared=True)
+
+    def release_telemetry(self) -> None:
+        telemetry.remove_series(cache=self.telemetry_label)
 
     # -- registration ---------------------------------------------------
 
@@ -344,10 +392,14 @@ class PagedPrefixIndex:
         self.hits += 1
         self.reused_tokens += int(reuse_len)
         self.shared_blocks += n
+        self._m["hits"].inc()
+        self._m["reused_tokens"].inc(int(reuse_len))
+        self._m["shared_blocks"].inc(n)
         return shared
 
     def record_miss(self) -> None:
         self.misses += 1
+        self._m["misses"].inc()
 
     # -- eviction / flush -----------------------------------------------
 
@@ -364,6 +416,7 @@ class PagedPrefixIndex:
                 break
             freed += len(self._remove(pick))
             self.evictions += 1
+            self._m["evictions"].inc()
         return freed
 
     def flush(self) -> None:

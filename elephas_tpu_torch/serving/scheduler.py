@@ -32,8 +32,15 @@ queue's outstanding token debt (``queued_tokens``, per tenant by
 one the scheduler takes the FIFO path and calls no hook. The order of every
 decision is the reference's.
 
+Admissions by kind and the waiting queue's depth are mirrored into the
+port's telemetry registry (the reference's ``elephas_serving_admissions_total``
+and ``elephas_serving_waiting_requests``, labeled ``scheduler=<instance>``),
+report-only: no decision reads them. :meth:`Scheduler.adopt_preempted`
+queues a migrated request whose K/V the engine holds on the host, and
+:meth:`Scheduler.queue_snapshot` lists the queue for ``debug_snapshot``.
+
 Not ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
-item: wave-aware slot placement. The telemetry counters are not kept.
+item: wave-aware slot placement.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import itertools
 from collections import deque
 from dataclasses import dataclass, field
 
+from elephas_tpu_torch import telemetry
 from elephas_tpu_torch.serving.paged_kv import blocks_for
 from elephas_tpu_torch.serving.policy import DEFAULT_TENANT
 from elephas_tpu_torch.serving.prefix_cache import PagedPrefixIndex, PrefixCache
@@ -92,7 +100,10 @@ class Request:
     the inter-token latencies. ``tenant`` (None: the default tenant) and
     ``ttft_deadline_ms`` are read by a policy; ``spec_drafted`` /
     ``spec_accepted`` count this request's drafted and accepted tokens
-    under speculative decoding."""
+    under speculative decoding. ``submit_step`` (the scheduler step at
+    submit: queue waits are counted in steps, never wall time) and
+    ``exemplar`` (the rid label set of its latency observations, built once)
+    feed telemetry only."""
 
     rid: int
     prompt: tuple
@@ -105,6 +116,7 @@ class Request:
     tokens: list = field(default_factory=list)
     slot: int | None = None
     done: bool = False
+    submit_step: int | None = None
     submit_time: float | None = None
     finish_time: float | None = None
     on_token: object | None = None
@@ -114,6 +126,7 @@ class Request:
     reused_tokens: int = 0
     spec_drafted: int = 0
     spec_accepted: int = 0
+    exemplar: dict | None = None
 
     @property
     def full_sequence(self) -> list:
@@ -214,6 +227,33 @@ class Scheduler:
         # occupancy accounting: decode steps, and busy slots summed over them
         self._steps = 0
         self._busy_slot_steps = 0
+        # admissions by kind and the queue depth, report-only mirrors
+        reg = telemetry.registry()
+        sid = telemetry.instance_label()
+        self.telemetry_label = sid
+        admissions = reg.counter(
+            "elephas_serving_admissions_total",
+            "Requests admitted into KV slots, by admission kind",
+            labels=("scheduler", "kind"),
+        )
+        self._m_admit_cold = admissions.labels(scheduler=sid, kind="cold")
+        self._m_admit_hit = admissions.labels(scheduler=sid, kind="prefix_hit")
+        self._m_admit_resume = admissions.labels(scheduler=sid, kind="resume")
+        self._m_waiting = reg.gauge(
+            "elephas_serving_waiting_requests",
+            "Requests queued behind a full slot arena",
+            labels=("scheduler",),
+        ).labels(scheduler=sid)
+
+    def release_telemetry(self) -> None:
+        """Retire this scheduler's labeled series, and its prefix cache's,
+        from the registry (the engine's ``release_telemetry`` cascades
+        here)."""
+        telemetry.remove_series(scheduler=self.telemetry_label)
+        if self.prefix_cache is not None:
+            self.prefix_cache.release_telemetry()
+        if self.prefix_index is not None:
+            self.prefix_index.release_telemetry()
 
     # -- submission ----------------------------------------------------
 
@@ -229,6 +269,7 @@ class Scheduler:
         self.queued_tokens += self._debt(request)
         if self.policy is not None:
             self.policy.on_submit(request)
+        self._m_waiting.set(len(self.waiting))
         return request
 
     def make_request(self, prompt, max_new_tokens, temperature=0.0,
@@ -248,15 +289,29 @@ class Scheduler:
         )
 
     def remove_waiting(self, rid: int) -> Request | None:
-        """Pull one request out of the waiting queue by rid (cancel): its
-        token debt and any preemption record drop, and the caller owns its
-        policy accounting. None when the rid is not waiting."""
+        """Pull one request out of the waiting queue by rid (cancel,
+        migration export): its token debt and any preemption record drop,
+        and the caller owns its policy accounting. None when the rid is not
+        waiting."""
         req = next((r for r in self.waiting if r.rid == rid), None)
         if req is not None:
             self.waiting.remove(req)
             self.queued_tokens -= self._debt(req)
             self._preempted.pop(rid, None)
+            self._m_waiting.set(len(self.waiting))
         return req
+
+    def adopt_preempted(self, req: Request, cur_len: int) -> None:
+        """Queue a request whose K/V the engine holds as a host offload
+        record (a migration import): it waits at the front like a local
+        preemption victim, and :meth:`admit_paged` plans its resume through
+        the same path."""
+        self._preempted[req.rid] = Preemption(req=req, slot=-1, blocks=(), cur_len=int(cur_len))
+        self.waiting.appendleft(req)
+        self.queued_tokens += self._debt(req)
+        if self.policy is not None:
+            self.policy.on_submit(req)
+        self._m_waiting.set(len(self.waiting))
 
     @staticmethod
     def _tenant_of(req: Request) -> str:
@@ -351,12 +406,14 @@ class Scheduler:
             req.slot = slot
             req.reused_tokens = reuse
             self.active[slot] = req
+            (self._m_admit_hit if donor is not None else self._m_admit_cold).inc()
             admitted.append(Admission(req=req, slot=slot, donor_slot=donor, reuse_len=reuse))
         # the engine copies the donors' rows right after this wave returns,
         # and nothing evicts before the next admit(): the pins end here
         if cache is not None:
             for slot in pinned:
                 cache.unpin(slot)
+        self._m_waiting.set(len(self.waiting))
         return admitted
 
     # -- paged admission ------------------------------------------------
@@ -431,12 +488,15 @@ class Scheduler:
             wave_rids.add(req.rid)
             if record is not None:
                 self._preempted.pop(req.rid)
+                self._m_admit_resume.inc()
                 admitted.append(Admission(req=req, slot=slot, blocks=self.tables[slot],
                                           resume=record))
             else:
                 req.reused_tokens = reuse
+                (self._m_admit_hit if eid is not None else self._m_admit_cold).inc()
                 admitted.append(Admission(req=req, slot=slot, blocks=self.tables[slot],
                                           shared_len=reuse))
+        self._m_waiting.set(len(self.waiting))
         return admitted, preempts
 
     def _plan_preemption(self, req: Request, short: int, have_slot: bool, prefilling,
@@ -554,6 +614,24 @@ class Scheduler:
         self._busy_slot_steps += len(self.active)
 
     # -- introspection -------------------------------------------------
+
+    def queue_snapshot(self) -> list[dict]:
+        """The waiting queue as rows, in its current (policy-ranked) order:
+        rid, tenant, priority, outstanding token debt, prompt length,
+        deadline, and whether the entry is a preempted request awaiting
+        resume (``debug_snapshot``'s queue section)."""
+        return [
+            {
+                "rid": r.rid,
+                "tenant": r.tenant,
+                "priority": r.priority,
+                "debt_tokens": self._debt(r),
+                "prompt_tokens": len(r.prompt),
+                "ttft_deadline_ms": r.ttft_deadline_ms,
+                "preempted": r.rid in self._preempted,
+            }
+            for r in self.waiting
+        ]
 
     @property
     def has_work(self) -> bool:

@@ -29,8 +29,10 @@ Every keyword of the reference is accepted. At the value that leaves the
 behaviour unchanged (the reference's default) it passes; any other value
 raises ``NotImplementedError`` naming its ROADMAP.md item: the parameter
 server and fault tolerance (item 4), model, pipeline and sequence
-parallelism (item 5), and the serving engine's options beyond the fixed and
-paged arenas (:meth:`SparkModel.serve`, item 3). A ``mixed_bfloat16`` language
+parallelism (item 5), and the serving engine's mesh and sequence-parallel
+options (item 5). :meth:`SparkModel.serve` with ``gateway_port`` puts the
+HTTP/SSE gateway in front of the engine, and :meth:`SparkModel.scrape`
+renders the port's telemetry registry. A ``mixed_bfloat16`` language
 model is refused by :meth:`SparkModel.serve` and
 ``generate(kv_cache=True)``, as in the reference.
 """
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from elephas_tpu_torch import telemetry
 from elephas_tpu_torch.data import streaming
 from elephas_tpu_torch.data.linalg import DenseVector
 from elephas_tpu_torch.data.rdd import Rdd
@@ -62,10 +65,6 @@ from elephas_tpu_torch.worker import Runner
 logger = logging.getLogger(__name__)
 
 _TODO = "{} is not ported yet (ROADMAP.md, Queue A item {})"
-_SERVING_TODO = (
-    "serve({}) is not ported yet (ROADMAP.md, Queue A item 3: the "
-    "gateway)"
-)
 # the reference's serve() binds its gateway here when given a port
 _GATEWAY_HOST = "127.0.0.1"
 
@@ -454,18 +453,40 @@ InferenceEngine` over the wrapped model, on this wrapper's device.
         :func:`~elephas_tpu_torch.serving.policy.resolve_policy`:
         ``"fair"`` (or only ``tenants={"name": weight}``) for fair share,
         deadlines and admission control, ``"fifo"``, or a
-        :class:`~elephas_tpu_torch.serving.policy.Policy`. ``gateway_port``
-        and a ``gateway_host`` other than the reference's default raise.
-        Submit with ``engine.submit(prompt, max_new_tokens, temperature=,
-        eos_id=, tenant=, ttft_deadline_ms=)``, drive with
-        ``engine.step()`` / ``stream()`` / ``run()``."""
+        :class:`~elephas_tpu_torch.serving.policy.Policy`. Submit with
+        ``engine.submit(prompt, max_new_tokens, temperature=, eos_id=,
+        tenant=, ttft_deadline_ms=)``, drive with ``engine.step()`` /
+        ``stream()`` / ``run()``.
+
+        ``gateway_port`` (0: an ephemeral port) also starts a
+        :class:`~elephas_tpu_torch.serving.gateway.Gateway` on
+        ``gateway_host`` in front of the engine, as ``engine.gateway``: it
+        serves ``POST /v1/generate`` (SSE or JSON), ``/metrics``,
+        ``/stats``, ``/healthz``, ``/debug/engine``, the per-request trace,
+        cancel and export routes, ``/v1/migrate`` and ``/v1/score``. The
+        engine is a context manager: leaving the ``with`` block (or
+        ``engine.close()``) stops the gateway and releases the port."""
+        engine = InferenceEngine(self._master_network, num_slots=num_slots,
+                                 policy=resolve_policy(policy, tenants), device=self.device,
+                                 **engine_options)
         if gateway_port is not None:
-            raise NotImplementedError(_SERVING_TODO.format(f"gateway_port={gateway_port!r}"))
-        if gateway_host != _GATEWAY_HOST:
-            raise NotImplementedError(_SERVING_TODO.format(f"gateway_host={gateway_host!r}"))
-        return InferenceEngine(self._master_network, num_slots=num_slots,
-                               policy=resolve_policy(policy, tenants), device=self.device,
-                               **engine_options)
+            from elephas_tpu_torch.serving.gateway import Gateway
+
+            gw = Gateway(engine, host=gateway_host, port=int(gateway_port))
+            try:
+                engine.gateway = gw.start()
+            except Exception:
+                # the caller never receives the engine: retire both its and
+                # the half-built gateway's series before re-raising
+                gw.release_telemetry()
+                engine.release_telemetry()
+                raise
+        return engine
+
+    def scrape(self) -> str:
+        """The port's telemetry registry (the serving engines' series and
+        their gateways') as Prometheus exposition text."""
+        return telemetry.scrape_text()
 
 
 def _block_evaluate(runner, val_spec, batch_size):

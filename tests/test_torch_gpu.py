@@ -1231,3 +1231,213 @@ def test_policy_engine_on_cuda_matches_cpu(cuda):
         with torch.inference_mode():
             top2 = cpu(seq, plain=True)[0, -1].topk(2).values
         assert (top2[0] - top2[1]).item() < 1e-3, (prompt, got, want)
+
+
+# -- the serving front door on the card: gateway, migration, telemetry --------------
+
+FRONT_DOOR = dict(vocab_size=64, maxlen=128, d_model=64, num_heads=2, num_layers=2, seed=3)
+
+
+def _front_door_prompts(n=4, seed=2):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(1, 64, k)] for k in (5, 17, 9, 30)[:n]]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_gateway_on_cuda_serves_the_in_process_tokens(cuda, paged):
+    """A Gateway over an engine on the card, the wrappers' per-device caches
+    (SM counts, the paged kernels' set-up) emptied first, so the driver
+    thread makes their first calls: a batch-form POST and an SSE stream
+    give the tokens the same engine gives in process for the same
+    submissions afterwards."""
+    import http.client
+    import json
+
+    from elephas_tpu_torch.serving import Gateway
+
+    options = dict(paged=True, block_size=16, num_blocks=64) if paged else {}
+    engine = et.InferenceEngine(et.transformer_lm(**FRONT_DOOR, device=cuda), num_slots=4,
+                                steps_per_sync=4, **options)
+    prompts = _front_door_prompts()
+    for cache in (fs._SMS, fs._PAGED_DECODE, fs._PAGED_CHUNK, ln._SMS):
+        cache.clear()
+    launches = (fs.launches, fs.paged_launches)
+    with Gateway(engine) as gw:
+        conn = http.client.HTTPConnection("127.0.0.1", gw.port, timeout=120)
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompts": prompts, "max_new_tokens": 12, "stream": False}))
+        results = json.loads(conn.getresponse().read())["results"]
+        conn.close()
+        conn = http.client.HTTPConnection("127.0.0.1", gw.port, timeout=120)
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompt": prompts[1], "max_new_tokens": 12}))
+        resp = conn.getresponse()
+        rid = int(resp.getheader("X-Request-Id"))
+        events = [json.loads(line[6:]) for line in resp.read().decode().splitlines()
+                  if line.startswith("data: ")]
+        conn.close()
+    assert (fs.paged_launches if paged else fs.launches) > launches[paged]
+    batch = [engine.submit(p, 12) for p in prompts]
+    engine.run()
+    alone = engine.submit(prompts[1], 12)
+    engine.run()
+    assert [r["tokens"] for r in results] == [r.tokens for r in batch]
+    assert events[0]["rid"] == rid
+    assert [e["token"] for e in events if "token" in e] == alone.tokens
+
+
+def _rows_of(engine, blocks):
+    from elephas_tpu_torch.serving.paged_kv import gather_blocks
+
+    ids = torch.tensor(list(blocks), dtype=torch.long, device=engine.device)
+    return {name: [z.cpu().numpy().tobytes() for z in leaves]
+            for name, leaves in gather_blocks(engine.arena, ids).items()}
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_migration_between_cuda_paged_engines_is_bit_exact(cuda, kv_dtype):
+    """export_request → wire → import_request between two paged engines on
+    the card: the migrated request's tokens are those of the same request
+    run alone, and A's stored rows, the record's and B's resumed rows are
+    the same bytes (fp rows, or int8 codes and scales); both pools whole."""
+    from elephas_tpu_torch.fleet.migration import decode_record, encode_record
+    from elephas_tpu_torch.serving.paged_kv import blocks_for
+
+    model = et.transformer_lm(**FRONT_DOOR, device=cuda)
+    opts = dict(num_slots=4, steps_per_sync=4, paged=True, block_size=16, num_blocks=64,
+                kv_dtype=kv_dtype)
+    prompt = _front_door_prompts()[3]
+    ref = et.InferenceEngine(model, **opts)
+    want = ref.submit(prompt, 40)
+    ref.run()
+    a, b = et.InferenceEngine(model, **opts), et.InferenceEngine(model, **opts)
+    req = a.submit(prompt, 40)
+    a.step()
+    a.step()
+    cur = len(prompt) + len(req.tokens) - 1
+    held = _rows_of(a, a.scheduler.tables[req.slot][:blocks_for(cur, 16)])
+    record = decode_record(encode_record(a.export_request(req.rid)))
+    resumed = {}
+    resume = b._resume
+
+    def snapshot(adm):
+        resume(adm)
+        resumed.update(_rows_of(b, adm.blocks[:record["n_blocks"]]))
+
+    b._resume = snapshot
+    moved = b.import_request(record)
+    b.run()
+    assert moved.tokens == want.tokens
+    sent = {name: [np.asarray(x).tobytes() for x in leaves]
+            for name, leaves in record["rows"].items()}
+    assert held == sent == resumed
+    for e in (a, b):
+        assert e.scheduler.allocator.free_count == e.num_blocks
+
+
+def _sync_calls(fn):
+    """The synchronizing CUDA calls of ``fn()``, by the Python line that made
+    each (torch.cuda.set_sync_debug_mode's warnings)."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter(f"{w.filename}:{w.lineno}" for w in caught
+                               if "synchroniz" in str(w.message))
+
+
+def test_telemetry_adds_no_synchronizing_call(cuda):
+    """The same requests on an engine with the registry on and on one built
+    under null mode make the same number of synchronizing CUDA calls:
+    telemetry records host values only."""
+    from elephas_tpu_torch import telemetry
+
+    model = et.transformer_lm(**FRONT_DOOR, device=cuda)
+    prompts = _front_door_prompts()
+    was = telemetry.set_null(True)
+    try:
+        null = et.InferenceEngine(model, num_slots=4, steps_per_sync=4)
+    finally:
+        telemetry.set_null(was)
+    on = et.InferenceEngine(model, num_slots=4, steps_per_sync=4)
+    engines = (("on", on), ("null", null))
+    for _name, engine in engines:  # warm
+        engine.run([(p, 12) for p in prompts])
+    # a process's first switch to the "warn" mode reports one synchronizing
+    # call of its own (torch/cuda/__init__.py): make it before counting
+    _sync_calls(lambda: None)
+    counts = {name: _sync_calls(lambda e=engine: e.run([(p, 12) for p in prompts]))
+              for name, engine in engines}
+    assert counts["on"] == counts["null"] and sum(counts["on"].values()) > 0, counts
+    assert null.scrape() == "" and on.scrape(full=False)
+
+
+def test_driver_cuda_error_turns_healthz_503_and_stops_the_gateway(cuda):
+    """A CUDA error raised in the gateway's driver thread (an allocation the
+    card refuses) makes /healthz answer 503 driver-dead while the teardown
+    runs, then the gateway stops and releases its port: nothing carries on."""
+    import http.client
+    import json
+    import socket
+    import threading
+    import time
+
+    from elephas_tpu_torch.serving import Gateway
+
+    engine = et.InferenceEngine(et.transformer_lm(**FRONT_DOOR, device=cuda), num_slots=2)
+    gw = Gateway(engine).start()
+    port = gw.port
+
+    def refused_allocation():
+        return torch.empty(1 << 62, dtype=torch.uint8, device=cuda)
+
+    engine.step = refused_allocation
+
+    def submit():
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            conn.request("POST", "/v1/generate", body=json.dumps(
+                {"prompt": [2, 3, 4], "max_new_tokens": 4, "stream": False}))
+            conn.getresponse().read()
+        except (OSError, http.client.HTTPException):
+            pass  # severed by the teardown
+
+    with gw._stop_lock:  # the teardown waits here: /healthz answers meanwhile
+        client = threading.Thread(target=submit)
+        client.start()
+        deadline = time.monotonic() + 30
+        while True:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            conn.request("GET", "/healthz")
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            conn.close()
+            if resp.status == 503:
+                break
+            assert time.monotonic() < deadline, body
+            time.sleep(0.05)
+        assert body["status"] == "driver-dead" and body["driver_alive"] is False
+    client.join(60)
+    assert isinstance(gw.driver_error, torch.OutOfMemoryError)
+    deadline = time.monotonic() + 30
+    while True:
+        probe = socket.socket()
+        probe.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            probe.bind(("127.0.0.1", port))
+            break
+        except OSError:
+            assert time.monotonic() < deadline, "port still held after the driver died"
+            time.sleep(0.1)
+        finally:
+            probe.close()
+    gw._driver_thread.join(30)  # the teardown ran on the driver thread itself
+    assert not gw._driver_thread.is_alive()
+    gw.stop()  # idempotent after the crash teardown

@@ -18,9 +18,10 @@ the JAX package's, on the CPU. Mirrors ``tests/test_serving_quant.py``:
   validation messages, and no perturbation of serving; log-probabilities
   within 1e-4 of the JAX engine's ``score``.
 
-Not mirrored: ``:229`` (the telemetry registry's series, ROADMAP.md Queue
-A item 3), ``:321`` (the gateway's ``/v1/score`` route, item 3), and
-``TestMigrationWireV2`` (the migration wire, item 3).
+``:229`` (the quantized engine's series) and ``:321`` (the gateway's
+``/v1/score`` route) run on the port in ``tests/test_torch_telemetry.py``;
+the migration wire is held to v3 in ``tests/test_torch_gateway.py``
+(``TestMigrationWireV2`` asserts v2 and is stale).
 """
 
 import numpy as np

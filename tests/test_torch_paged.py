@@ -21,8 +21,9 @@ paged engine) against the JAX package's, on the CPU.
 
 Not mirrored: ``:188`` (a TP mesh: ROADMAP.md Queue A item 5), ``:204``
 (the compile set: JAX's compile cache, which the eager port does not
-have), ``:490`` (the telemetry registry's series, item 3), ``:544`` and
-``:588`` (the bench smokes, item 7).
+have), ``:544`` and ``:588`` (the bench smokes, item 7). ``:490`` (the
+telemetry series against ``stats()``) runs on the port in
+``tests/test_torch_telemetry.py``.
 """
 
 import jax

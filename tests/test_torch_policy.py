@@ -16,8 +16,9 @@ on the CPU.
   temperature-0 tokens equal per request under no policy, FIFO and fair
   share, on the fixed and the paged arena.
 
-Not mirrored: ``:291`` (a TP mesh: ROADMAP.md Queue A item 5), the scrape
-half of ``:311`` (the metrics registry, 3d).
+Not mirrored: ``:342`` (a TP mesh: ROADMAP.md Queue A item 5). The
+tenant series against ``stats()`` (``:361``) run on the port in
+``tests/test_torch_telemetry.py``.
 """
 
 import numpy as np

@@ -332,8 +332,11 @@ def test_spark_model_serve(lm):
     r = engine.submit([2, 3, 4, 5], 6)
     engine.run()
     np.testing.assert_array_equal(r.full_sequence, _cached(lm, [2, 3, 4, 5], 6))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sm.serve(gateway_port=0)
+    # the gateway is ported since (tests/test_torch_gateway.py): serve()
+    # binds one, and leaving the engine's with block stops it
+    with sm.serve(num_slots=2, gateway_port=0) as served:
+        assert served.gateway is not None and served.gateway.port
+    assert served.gateway is None
 
 
 # -- errors, word for word ------------------------------------------------
@@ -386,11 +389,11 @@ def test_submit_errors_match_jax(engine_pair, args, kwargs):
     assert not engine.scheduler.waiting
 
 
-# speculative decoding and policies are ported since (tests/test_torch_spec.py,
-# tests/test_torch_policy.py): their four cases now name other keywords the
-# port still refuses
+# speculative decoding, policies (tests/test_torch_spec.py,
+# tests/test_torch_policy.py) and the flight recorder (tests/test_torch_telemetry.py)
+# are ported since: their cases now name other keywords the port still refuses
 @pytest.mark.parametrize("kwargs", [
-    dict(batch_axes=("data", "seq")), dict(rules={"qkv": "col"}), dict(flight_recorder=256),
+    dict(batch_axes=("data", "seq")), dict(rules={"qkv": "col"}), dict(batch_axes=("workers",)),
     dict(sp_threshold=16), dict(model_axis="model"), dict(sp_axis="ring"),
     dict(sp_mechanism="ulysses"), dict(sp_prefill="seq"), dict(mesh="mesh"),
 ])
@@ -465,10 +468,11 @@ def _call(where, model, **kwargs):
 # "3a" is the storage half of item 3: the paged arena, preemption, int8 /
 # int4 KV
 PORTED_ITEMS = {1, "3a"}
-# item 3's keywords ported since: 3b (speculative decoding) and 3c (SLO
-# policies); the other value of the two the reference itself refuses raises
-# the reference's error
-PORTED_KEYWORDS = {"speculative", "spec_k", "spec_drafter", "policy", "tenants"}
+# item 3's keywords ported since: 3b (speculative decoding), 3c (SLO
+# policies), telemetry's flight recorder and the gateway; the other value of
+# the two the reference itself refuses raises the reference's error
+PORTED_KEYWORDS = {"speculative", "spec_k", "spec_drafter", "policy", "tenants",
+                   "flight_recorder", "gateway_port", "gateway_host"}
 REFUSED = {"spec_drafter": (ValueError, "is not a drafter"),
            "policy": (TypeError, "policy must be a serving.policy.Policy")}
 NEEDS = {"prefill_budget": {"prefill_chunk": 4}, "spec_k": {"speculative": True},
@@ -486,7 +490,9 @@ def test_reference_keywords_pass_or_name_their_item(small_lm, where, name, neutr
             _call(where, small_lm, **{name: other}, **NEEDS.get(name, {}))
         return
     if item in PORTED_ITEMS or name in PORTED_KEYWORDS:
-        _call(where, small_lm, **{name: other}, **NEEDS.get(name, {}))
+        built = _call(where, small_lm, **{name: other}, **NEEDS.get(name, {}))
+        if isinstance(built, InferenceEngine):
+            built.close()  # a gateway_port engine serves until closed
         return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md, Queue A item {item}\b"):
         _call(where, small_lm, **{name: other})
@@ -534,5 +540,7 @@ def test_serve_passes_engine_keywords_through(small_lm):
             engine.kv_dtype) == (True, 8, 12, True, "int8")
     engine = sm.serve(num_slots=2, speculative=True, spec_k=3, spec_drafter="ngram")
     assert (engine.speculative, engine.spec_k) == (True, 3)
-    with pytest.raises(NotImplementedError, match=r"Queue A item 3\b"):
-        sm.serve(flight_recorder=256)
+    engine = sm.serve(num_slots=2, flight_recorder=16)
+    assert engine._flight.capacity == 16
+    with pytest.raises(NotImplementedError, match=r"Queue A item 5\b"):
+        sm.serve(sp_prefill="seq")

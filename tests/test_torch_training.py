@@ -345,11 +345,11 @@ def test_refusals(tmp_path):
     assert sorted(hist) == ["accuracy", "loss", "val_accuracy", "val_loss"]
     sm.save(str(tmp_path / "m.pt"))
     assert et.load_spark_model(str(tmp_path / "m.pt"), device="cpu").num_workers == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sm.serve(gateway_port=0)
-    # the engine is ported: a classifier is refused as the reference refuses it
-    with pytest.raises(ValueError, match="causal by construction"):
-        sm.serve()
+    # the engine and its gateway are ported: a classifier is refused as the
+    # reference refuses it, with or without a gateway port
+    for kwargs in ({}, dict(gateway_port=0)):
+        with pytest.raises(ValueError, match="causal by construction"):
+            sm.serve(**kwargs)
 
 
 def test_worker_count_clamps_like_the_reference(monkeypatch, caplog):

@@ -148,7 +148,7 @@ def test_generate_argument_errors_match_jax(lm_pair, prompt_len, kwargs):
 def test_unported_options_raise(lm_pair):
     _, port = lm_pair
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        et.InferenceEngine(port, flight_recorder=256)
+        et.InferenceEngine(port, sp_prefill="seq")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         et.transformer_lm(vocab_size=8, maxlen=16, d_model=32, num_heads=2,
                           num_layers=1, dtype_policy="mixed_float16", device="cpu")
@@ -187,7 +187,7 @@ def test_import_loads_no_jax_keras_or_reference():
         "for m in pkgutil.walk_packages(elephas_tpu_torch.__path__, 'elephas_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'keras', 'elephas_tpu')]\n"
+        "('jax', 'jaxlib', 'keras', 'ml_dtypes', 'elephas_tpu')]\n"
         "print(','.join(bad))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -195,6 +195,23 @@ def test_import_loads_no_jax_keras_or_reference():
         [sys.executable, "-c", code], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
     )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == ""
+
+
+def test_chip_smoke_imports_no_jax_keras_or_reference():
+    """chip_smoke.py, the port's driver on the card, loads none of them
+    either (the gateway phase's modules included)."""
+    code = (
+        "import sys; sys.argv = ['chip_smoke.py']\n"
+        "import chip_smoke, elephas_tpu_torch.serving.gateway, elephas_tpu_torch.fleet\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'keras', 'ml_dtypes', 'elephas_tpu')]\n"
+        "print(','.join(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == ""
 
@@ -212,5 +229,8 @@ def test_import_check_walks_every_module():
                  "serving.engine", "data.streaming", "data.dataframe", "data.linalg",
                  "mllib.adapter", "ml.params", "ml.adapter", "ml.pipeline", "ml_model",
                  "models.keras_config", "hyperparam", "serving.prefix_cache",
-                 "serving.blocks", "serving.kv_quant", "serving.paged_kv"):
+                 "serving.blocks", "serving.kv_quant", "serving.paged_kv",
+                 "telemetry", "telemetry.registry", "telemetry.expose", "telemetry.events",
+                 "telemetry.flight", "telemetry.watch", "fleet", "fleet.migration",
+                 "serving.gateway"):
         assert f"elephas_tpu_torch.{name}" in found
