@@ -111,6 +111,28 @@ Phases, each printing one JSON line and raising on failure:
             trial's loss finite, the best trial the least loss, the
             returned module evaluating to that loss bit for bit, the
             random strategy's params the numpy sampler's; seconds a trial;
+5i. train_ps — the parameter-server path: SparkModel.fit of T in
+            mixed_bfloat16 (TRAIN_ROWS rows, batch TRAIN_BATCH, 2 epochs)
+            with mode='asynchronous', parameter_server_mode='socket', port
+            0 and a journal in build/train_ps: a SocketClient pull after
+            the fit (before the store stops) bit-equal to the master's host
+            weights, the journal bit-equal too; the same fit shortened (256
+            rows, 1 epoch) with the native and the HTTP store, each pulled
+            bit-equal; a fresh T's fit(resume=True) adopting the journal bit
+            for bit; run_chaos_training with its worker on the card under a
+            PSKiller (kill after 2 updates, a quarter of the pushes sent
+            twice) beside the fault-free run: the same applied count,
+            every duplicate skipped, nothing lost, the loss down by 5 % and
+            within 5 % of the fault-free run's. Recorded: the store's fixed
+            costs (its start, each publication, its stop split into the
+            terminal journal write and the shutdown poll) and the pull's
+            bytes and seconds; the epoch's seconds with and without the
+            store, at T's 4-step epochs, show those fixed costs, not a
+            share of a real epoch.
+            Printed: the fit's seconds an epoch with and without the store
+            (in turns), each publication's milliseconds on the fit thread,
+            the pull's bytes and GB/s, the card's name and power limit. Its
+            launches (the three stores' fits) join the launch check;
 6. engine — the continuous-batching InferenceEngine at config A's full
             width (16 slots, 16 steps a decode window, 48 requests as the
             reference's serving bench sends them), after a warm-up pass:
@@ -1761,6 +1783,220 @@ def _engine_checks(model, reqs, dev):
     return {"a_token_mismatches": mismatches, "a_within_margin": close,
             "b_generate": generate_report, "c_window_logits_max_abs_err": err,
             "c_window": {"slots": len(window), "steps": steps, "span": span}}, failures
+
+
+PS_SHORT_ROWS = 256
+# run_chaos_training's run on the card (the reference test's sizes)
+PS_CHAOS = dict(rows=256, epochs=2, batch_size=64, seed=0)
+
+
+def _fit_pull(sm, client_of, data, epochs, batch):
+    """``sm.fit`` with a pull through ``client_of(endpoint)`` after the
+    final publication, before the fit stops its store; returns the
+    history, the fit's wall seconds, the pulled weights, the client's
+    bytes received and the pull's seconds, the milliseconds each
+    publication held the fit thread, and those of the store's start and
+    stop (its terminal journal write)."""
+    out = {}
+    start, stop = sm.start_server, sm.stop_server
+    publish = sm._publish_weights
+    publish_ms = []
+
+    def timed_start(restore_journal=True):
+        t0 = time.perf_counter()
+        start(restore_journal)
+        out["start_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def timed_publish(final=False):
+        t0 = time.perf_counter()
+        publish(final)
+        publish_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def pull_then_stop():
+        client = client_of(sm.ps_endpoints)
+        t0 = time.perf_counter()
+        out["weights"] = client.get_parameters()
+        out["pull_s"] = time.perf_counter() - t0
+        out["pull_bytes"] = getattr(client, "bytes_received", None)
+        client.close()
+        # the stop's terminal journal write, timed apart from the rest of
+        # the stop (the accept loop's shutdown poll, closing the socket)
+        server, journal_ms = sm._parameter_server, []
+        write_journal = getattr(server, "write_journal", None)
+        if write_journal is not None:
+            def timed_journal():
+                t1 = time.perf_counter()
+                try:
+                    return write_journal()
+                finally:
+                    journal_ms.append((time.perf_counter() - t1) * 1e3)
+            server.write_journal = timed_journal
+        t0 = time.perf_counter()
+        stop()
+        out["stop_ms"] = (time.perf_counter() - t0) * 1e3
+        out["stop_journal_ms"] = sum(journal_ms)
+        out["stop_other_ms"] = out["stop_ms"] - out["stop_journal_ms"]
+
+    sm.start_server, sm.stop_server = timed_start, pull_then_stop
+    sm._publish_weights = timed_publish
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["history"] = sm.fit(data, epochs=epochs, batch_size=batch)
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    out["publish_ms"] = publish_ms
+    return out
+
+
+def _arrays_bit_equal(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def phase_train_ps(dev):
+    """T in mixed_bfloat16 with a live weight store (see the module
+    docstring, 5i). Returns the launches of the three stores' fits."""
+    from elephas_tpu_torch import SparkModel, transformer_classifier
+    from elephas_tpu_torch.fault import FaultPlan, run_chaos_training
+    from elephas_tpu_torch.fault.harness import _chaos_data, _chaos_model
+    from elephas_tpu_torch.parameter import HttpClient, SocketClient, journal
+    from elephas_tpu_torch.parameter.native import NativeClient, _Flattener
+    from elephas_tpu_torch.utils.weights import get_weights, set_weights
+    from elephas_tpu_torch.worker import Runner
+
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_ps")
+    shutil.rmtree(scratch, ignore_errors=True)
+    failures = []
+    try:
+        x, y = _synthetic_tokens(TRAIN_ROWS, TRAIN["maxlen"], TRAIN["vocab_size"],
+                                 TRAIN["num_classes"])
+        model = transformer_classifier(**TRAIN, seed=0, dtype_policy="mixed_bfloat16",
+                                       device=dev)
+        layers, norms = TRAIN["num_layers"], 2 * TRAIN["num_layers"] + 1
+        jdir = os.path.join(scratch, "journal")
+
+        def socket_client(endpoint):
+            return SocketClient(master=endpoint)
+
+        def fit_without_store():
+            sm = SparkModel(model, mode="asynchronous", device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sm.fit((x, y), epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        # in turns: without the store, with it (the main path), without
+        no_ps_s = [fit_without_store()]
+        _reset_launches()
+        sm = SparkModel(model, mode="asynchronous", parameter_server_mode="socket", port=0,
+                        ps_journal_dir=jdir, device=dev)
+        main = _fit_pull(sm, socket_client, (x, y), TRAIN_EPOCHS, TRAIN_BATCH)
+        master = get_weights(model)
+        if not _arrays_bit_equal(main["weights"], master):
+            failures.append("socket: the post-fit pull is not the master's host weights")
+        journaled = journal.load_journal(jdir)[0]
+        if not _arrays_bit_equal(journaled, master):
+            failures.append("socket: the journal is not the master's host weights")
+        hist = main["history"]
+        if any(len(v) != TRAIN_EPOCHS or not np.all(np.isfinite(v)) for v in hist.values()):
+            failures.append(f"socket: bad history {hist}")
+
+        shortened = {}
+        xs, ys = x[:PS_SHORT_ROWS], y[:PS_SHORT_ROWS]
+        def native_client(endpoint):
+            host, port = endpoint.rsplit(":", 1)
+            return NativeClient(host, int(port), _Flattener(get_weights(model)))
+
+        for store, client_of in (("native", native_client),
+                                 ("http", lambda endpoint: HttpClient(master=endpoint))):
+            sm_s = SparkModel(model, mode="asynchronous", parameter_server_mode=store, port=0,
+                              device=dev)
+            got = _fit_pull(sm_s, client_of, (xs, ys), 1, TRAIN_BATCH)
+            if not _arrays_bit_equal(got["weights"], get_weights(model)):
+                failures.append(f"{store}: the post-fit pull is not the master's host weights")
+            shortened[store] = {"fit_s": got["fit_s"], "publish_ms": got["publish_ms"],
+                                "start_ms": got["start_ms"], "stop_ms": got["stop_ms"],
+                                "stop_journal_ms": got["stop_journal_ms"],
+                                "pull_s": got["pull_s"], "pull_bytes": got["pull_bytes"],
+                                "loss": got["history"]["loss"]}
+        launches = _launches()
+        no_ps_s.append(fit_without_store())
+        steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // TRAIN_BATCH) + 2 * -(-PS_SHORT_ROWS // TRAIN_BATCH)
+        want = {"flash_fwd": layers * steps, "layer_norm_fwd": norms * steps,
+                "layer_norm_bwd": 2 * norms * steps, "span_decode": 0, "span_chunk": 0,
+                "paged_span_decode": 0, "paged_span_chunk": 0,
+                "flash_fwd_bf16": layers * steps, "layer_norm_fwd_bf16": (norms - 1) * steps,
+                "layer_norm_bwd_bf16": 2 * (norms - 1) * steps}
+        if launches != want:
+            failures.append(f"launches {launches}, expected {want}")
+
+        # resume: a fresh T adopts the socket store's journal
+        fresh = transformer_classifier(**TRAIN, seed=1, dtype_policy="mixed_bfloat16", device=dev)
+        resumed = SparkModel(fresh, mode="asynchronous", parameter_server_mode="socket", port=0,
+                             ps_journal_dir=jdir, device=dev)
+        if resumed.fit((x, y), epochs=0, batch_size=TRAIN_BATCH, resume=True)["loss"] != []:
+            failures.append("resume: a fit of 0 epochs left trained")
+        resume_equal = _arrays_bit_equal(get_weights(fresh), journaled)
+        if not resume_equal:
+            failures.append("resume: the master is not the journal")
+        del fresh, resumed
+
+        # chaos: the worker trains on the card while its store is killed
+        clean = run_chaos_training("socket", plan=None, device=dev, **PS_CHAOS)
+        plan = FaultPlan(seed=0, kill_ps_after_updates=2, restart_delay_s=0.4,
+                         duplicate_fraction=0.25)
+        faulted = run_chaos_training("socket", plan=plan, journal_dir=os.path.join(
+            scratch, "chaos"), journal_every=1, device=dev, **PS_CHAOS)
+        periods = PS_CHAOS["epochs"] * -(-PS_CHAOS["rows"] // PS_CHAOS["batch_size"])
+        cx, cy, d, k = _chaos_data(PS_CHAOS["seed"], PS_CHAOS["rows"])
+        probe, _ = _chaos_model(PS_CHAOS["seed"], d, k, device=dev)
+        runner = Runner(probe, "synchronous", "epoch", 1)
+        losses = {}
+        for name, weights in (("initial", get_weights(probe)),
+                              ("clean", clean["final_weights"]),
+                              ("faulted", faulted["final_weights"])):
+            set_weights(probe, weights)
+            losses[name] = runner.evaluate([(cx, cy)], PS_CHAOS["batch_size"])["loss"]
+        chaos = {k: faulted[k] for k in ("kills", "restarts", "updates_applied",
+                                         "duplicates_sent", "duplicates_skipped",
+                                         "updates_resent", "updates_lost_final", "recovery_s",
+                                         "journal_restored", "samples_per_s")}
+        chaos.update(clean_updates_applied=clean["updates_applied"],
+                     clean_samples_per_s=clean["samples_per_s"], losses=losses)
+        if not (faulted["kills"] == 1 and faulted["restarts"] == 1
+                and faulted["journal_restored"]):
+            failures.append(f"chaos: the store was not killed and restored once: {chaos}")
+        if not faulted["updates_applied"] == clean["updates_applied"] == periods:
+            failures.append(f"chaos: updates lost or doubled: {chaos}")
+        if faulted["updates_lost_final"] or not (
+                faulted["duplicates_skipped"] >= faulted["duplicates_sent"] >= 1):
+            failures.append(f"chaos: duplicates applied or updates lost: {chaos}")
+        if not losses["faulted"] < losses["initial"] * 0.95:
+            failures.append(f"chaos: the faulted run did not converge: {losses}")
+        if not losses["faulted"] < losses["clean"] * 1.05:
+            failures.append(f"chaos: the faulted run ended 5 % above the clean run: {losses}")
+        pub = main["publish_ms"]
+        out = {"phase": "train_ps", "config": TRAIN, "dtype_policy": "mixed_bfloat16",
+               "rows": TRAIN_ROWS, "batch": TRAIN_BATCH, "epochs": TRAIN_EPOCHS,
+               "launches": launches, "launches_expected": want, "history": hist,
+               "epoch_s_without_store": [t / TRAIN_EPOCHS for t in no_ps_s],
+               "epoch_s_with_store": main["fit_s"] / TRAIN_EPOCHS,
+               "publish_ms_mid_fit": pub[:-1], "publish_ms_final": pub[-1],
+               "store_start_ms": main["start_ms"], "store_stop_ms": main["stop_ms"],
+               "store_stop_journal_ms": main["stop_journal_ms"],
+               "store_stop_other_ms": main["stop_other_ms"],
+               "weight_bytes": int(sum(w.nbytes for w in master)),
+               "pull_bytes": main["pull_bytes"], "pull_s": main["pull_s"],
+               "pull_gb_s": main["pull_bytes"] / main["pull_s"] / 1e9,
+               "shortened": shortened, "resume_bit_equal": resume_equal, "chaos": chaos,
+               "card": nvidia_smi(), "failures": failures}
+        emit(out)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"parameter-server path check failed: {failures}")
+    return launches
 
 
 def phase_engine(dev):
@@ -4902,6 +5138,7 @@ def main(argv=None) -> int:
     train_stream = phase_train_stream(dev)
     phase_ml_pipeline(dev)
     phase_hyperparam(dev)
+    train_ps = phase_train_ps(dev)
     engine, lm = phase_engine(dev)
     phase_engine_long(dev, lm)
     chunked = phase_engine_chunked(dev, lm)
@@ -4921,6 +5158,7 @@ def main(argv=None) -> int:
         ("train_workers", train_workers, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
         ("train_stream", train_stream, ("flash_fwd_bf16", "layer_norm_fwd_bf16",
                                         "layer_norm_bwd_bf16")),
+        ("train_ps", train_ps, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
         ("engine", engine, ("span_decode", "flash_fwd", "layer_norm_fwd")),
         ("engine_chunked", chunked, ("span_chunk", "span_decode", "layer_norm_fwd")),
         ("engine_paged", paged, ("paged_span_chunk", "paged_span_decode", "layer_norm_fwd")),
@@ -4952,7 +5190,7 @@ def main(argv=None) -> int:
 
     print(nvidia_smi(), flush=True)
     total = {k: serve[k] + train[k] + train_bf16[k] + train_workers[k] + train_stream[k]
-             + engine[k] + chunked[k] + paged[k] + quant[k] + spec[k] + gateway[k]
+             + train_ps[k] + engine[k] + chunked[k] + paged[k] + quant[k] + spec[k] + gateway[k]
              for k in serve}
     emit({"kernels": [
         _kernel_entry(

@@ -63,13 +63,18 @@ class Bottleneck(nn.Module):
         return F.relu(cast(shortcut, y.dtype) + y)
 
     def keras_paths(self, name: str) -> dict:
+        # in Keras's ``model.weights`` order (the layers as the graph
+        # creates them), which ``get_weights()`` lists
         paths = {}
-        if self.project:
-            paths.update(conv_paths(f"{name}_sc_conv", self.sc_conv))
-            paths.update(batch_norm_paths(f"{name}_sc_bn", self.sc_bn))
-        for i in (1, 2, 3):
+        for i in (1, 2):
             paths.update(conv_paths(f"{name}_c{i}", getattr(self, f"c{i}")))
             paths.update(batch_norm_paths(f"{name}_bn{i}", getattr(self, f"bn{i}")))
+        if self.project:
+            paths.update(conv_paths(f"{name}_sc_conv", self.sc_conv))
+        paths.update(conv_paths(f"{name}_c3", self.c3))
+        if self.project:
+            paths.update(batch_norm_paths(f"{name}_sc_bn", self.sc_bn))
+        paths.update(batch_norm_paths(f"{name}_bn3", self.bn3))
         return paths
 
 

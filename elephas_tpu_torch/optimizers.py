@@ -218,6 +218,22 @@ def deserialize(config, params) -> torch.optim.Optimizer:
                           if theirs in settings})
 
 
+def get(identifier, params) -> torch.optim.Optimizer:
+    """The optimizer over ``params`` that ``identifier`` names, as
+    ``model.compile(optimizer=...)`` takes it in Keras: a class name
+    (``"adam"``, ``"rmsprop"``, ``"sgd"``, any case) with Keras's
+    defaults, or a serialized config (:func:`deserialize`)."""
+    if isinstance(identifier, str) and not identifier.lstrip().startswith("{"):
+        by_name = {name.lower(): cls for name, (cls, _, _) in _KERAS_OPTIMIZERS.items()}
+        cls = by_name.get(identifier.lower())
+        if cls is None:
+            raise NotImplementedError(_TODO.format(f"the optimizer {identifier!r}"))
+        return cls(params)
+    if isinstance(identifier, (str, dict)):
+        return deserialize(identifier, params)
+    raise NotImplementedError(_TODO.format(f"the optimizer {identifier!r}"))
+
+
 def hyperparameters(optimizer: torch.optim.Optimizer) -> dict:
     """The keyword arguments that rebuild ``optimizer``'s class with its
     defaults (``torch.optim.Optimizer.load_state_dict`` adds keys of its

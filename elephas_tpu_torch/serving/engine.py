@@ -83,7 +83,7 @@ backend probe (``backend_fallback`` in :meth:`debug_snapshot` is always
 ``None``: the port has no fallback). Not ported yet, each raising
 ``NotImplementedError`` that names its ROADMAP.md item: sequence-parallel
 prefill and meshes (item 5); ``weight_version`` stays 0 until
-``refresh_weights`` (item 4).
+``refresh_weights`` (item 4b).
 """
 
 from __future__ import annotations
@@ -489,7 +489,7 @@ class InferenceEngine:
         self.migrated_in = 0
         self.kv_quant_export_bytes = 0
         # the weight generation served; refresh_weights stamps it (ROADMAP.md,
-        # Queue A item 4)
+        # Queue A item 4b)
         self.weight_version = 0
         # the Gateway serving this engine, if any: close() stops it
         self.gateway = None

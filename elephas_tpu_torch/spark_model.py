@@ -25,12 +25,25 @@ the module (:mod:`elephas_tpu_torch.utils.serialization`) and the
 reference's ``<file>.elephas.json`` sidecar. :class:`SparkMLlibModel`
 trains on an RDD of ``LabeledPoint``s.
 
-Every keyword of the reference is accepted. At the value that leaves the
-behaviour unchanged (the reference's default) it passes; any other value
-raises ``NotImplementedError`` naming its ROADMAP.md item: the parameter
-server and fault tolerance (item 4), model, pipeline and sequence
-parallelism (item 5), and the serving engine's mesh and sequence-parallel
-options (item 5). :meth:`SparkModel.serve` with ``gateway_port`` puts the
+``parameter_server_mode`` (``"http"``, ``"socket"`` or ``"native"``)
+starts a live weight store for the fit (:mod:`elephas_tpu_torch.\
+parameter`, on ``port``, sharded over ``ps_shards`` servers, journaled
+under ``ps_journal_dir``): the master's weights, in Keras's
+``get_weights()`` order, are published to it at every epoch boundary (in
+the background with ``ps_overlap``) and once more at the end, and external
+:class:`~elephas_tpu_torch.worker.AsynchronousSparkWorker` workers of
+either package can pull from and push to it at :attr:`SparkModel.ps_endpoints`.
+``fit(resume=True)`` adopts the journal's weights; under a
+:class:`~elephas_tpu_torch.fault.FaultPlan` the fit survives up to
+``failure_budget`` lost worker partitions (their rows reassigned to the
+survivors with ``reassign_orphans``). The training itself does not go
+through the store, as in the reference.
+
+Every other keyword of the reference is accepted. At the value that leaves
+the behaviour unchanged (the reference's default) it passes; any other
+value raises ``NotImplementedError`` naming its ROADMAP.md item: model,
+pipeline and sequence parallelism (item 5), and the serving engine's mesh
+and sequence-parallel options (item 5). :meth:`SparkModel.serve` with ``gateway_port`` puts the
 HTTP/SSE gateway in front of the engine, and :meth:`SparkModel.scrape`
 renders the port's telemetry registry. A ``mixed_bfloat16`` language
 model is refused by :meth:`SparkModel.serve` and
@@ -40,9 +53,12 @@ model is refused by :meth:`SparkModel.serve` and
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import logging
 import os
+import queue
+import threading
 import time
 
 import numpy as np
@@ -60,6 +76,7 @@ from elephas_tpu_torch.serving import InferenceEngine
 from elephas_tpu_torch.serving.policy import resolve_policy
 from elephas_tpu_torch.utils import checkpoint as ckpt
 from elephas_tpu_torch.utils import rdd_utils, serialization
+from elephas_tpu_torch.utils.weights import get_weights, set_weights
 from elephas_tpu_torch.worker import Runner
 
 logger = logging.getLogger(__name__)
@@ -67,6 +84,61 @@ logger = logging.getLogger(__name__)
 _TODO = "{} is not ported yet (ROADMAP.md, Queue A item {})"
 # the reference's serve() binds its gateway here when given a port
 _GATEWAY_HOST = "127.0.0.1"
+# fit()'s trace ids: a process-monotonic run count (no pids, no wall
+# time), as in the reference
+_fit_trace_ids = itertools.count()
+
+
+class _WeightPublisher:
+    """Latest-wins background publication to the in-process weight store
+    (the reference's ``_WeightPublisher``): the epoch loop hands off a
+    snapshot and keeps training while ``set_weights`` runs on a daemon
+    thread. The queue holds ONE snapshot: a slow store drops intermediate
+    epochs rather than stalling training (the end-of-fit publish is
+    always synchronous and final).
+
+    A snapshot is a list of host numpy arrays that own their memory
+    (:func:`~elephas_tpu_torch.utils.weights.get_weights`), finished on
+    the fit thread before the handoff: the optimizer updates the module's
+    tensors in place while this thread publishes, and the thread itself
+    touches no tensor."""
+
+    _STOP = object()
+
+    def __init__(self, server):
+        self._server = server
+        self._q: queue.Queue = queue.Queue(maxsize=1)
+        self._thread = threading.Thread(
+            target=self._run, name="elephas-ps-publish", daemon=True
+        )
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is self._STOP:
+                return
+            try:
+                self._server.set_weights(item)
+            except Exception:  # publication is best-effort mid-fit
+                logger.exception("background weight publication failed")
+
+    def publish(self, weights) -> None:
+        try:
+            self._q.put_nowait(weights)
+        except queue.Full:  # replace the stale queued snapshot
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            try:
+                self._q.put_nowait(weights)
+            except queue.Full:
+                pass  # a concurrent publish won the slot; equally fresh
+
+    def stop(self) -> None:
+        self._q.put(self._STOP)  # behind any queued snapshot: drains first
+        self._thread.join(timeout=30)
 
 
 class SparkModel:
@@ -123,14 +195,14 @@ class SparkModel:
             )
         # the reference's ps_overlap: None means "on unless synchronous"
         self.ps_overlap = mode != "synchronous" if ps_overlap is None else bool(ps_overlap)
+        if int(ps_shards) > 1 and parameter_server_mode == "native":
+            raise ValueError(
+                "ps_shards > 1 needs parameter_server_mode='http' or "
+                "'socket' — the native raw-f32 wire has no shard "
+                "identity or sequence IDs"
+            )
         # (name, value, the value that leaves the behaviour unchanged, item)
         unported = (
-            ("parameter_server_mode", parameter_server_mode, None, 4),
-            ("port", port, 4000, 4),
-            ("ps_overlap", self.ps_overlap, mode != "synchronous", 4),
-            ("ps_journal_dir", ps_journal_dir, None, 4), ("ps_shards", ps_shards, 1, 4),
-            ("failure_budget", failure_budget, 0, 4),
-            ("reassign_orphans", reassign_orphans, True, 4),
             ("model_parallel", model_parallel, 1, 5),
             ("pipeline_parallel", pipeline_parallel, 1, 5),
             ("pipeline_microbatches", pipeline_microbatches, 4, 5),
@@ -151,10 +223,17 @@ class SparkModel:
         self.custom_objects = custom_objects
         self.batch_size = batch_size
         self.port = port
+        # journal the weight store (a crash-restartable PS, and the
+        # sub-epoch resume source of fit(resume=True)), and tolerate up
+        # to failure_budget lost worker partitions before aborting a fit
         self.ps_journal_dir = ps_journal_dir
         self.ps_shards = int(ps_shards)
-        self.failure_budget = int(failure_budget)
+        self.failure_budget = max(0, int(failure_budget))
+        # within the budget a lost partition's rows go to the survivors
+        # (False drops them)
         self.reassign_orphans = bool(reassign_orphans)
+        self._parameter_server = None
+        self._publisher = None
         self.model_parallel = int(model_parallel)
         self.pipeline_parallel = int(pipeline_parallel)
         self.pipeline_microbatches = int(pipeline_microbatches)
@@ -188,6 +267,98 @@ class SparkModel:
             "sequence_parallel": self.sequence_parallel,
             "sequence_attention": self.sequence_attention,
         }
+
+    # -- parameter server -----------------------------------------------
+
+    def start_server(self, restore_journal: bool = True) -> None:
+        """Start the weight store that ``parameter_server_mode`` names
+        (nothing without one), seeded with the master's weights in Keras's
+        ``get_weights()`` order: an :class:`~elephas_tpu_torch.parameter.\
+HttpServer`, a :class:`~elephas_tpu_torch.parameter.SocketServer` or
+        a :class:`~elephas_tpu_torch.parameter.native.\
+NativeParameterServer` on ``port`` (0: an ephemeral one), or with
+        ``ps_shards > 1`` a :class:`~elephas_tpu_torch.parameter.\
+ShardedServerGroup` on consecutive ports. With ``ps_journal_dir`` the
+        store journals (each shard under ``shard-<i>/``) and, with
+        ``restore_journal``, replays an existing journal first."""
+        if self.parameter_server_mode is None:
+            return
+        from elephas_tpu_torch.parameter.server import HttpServer, SocketServer
+
+        cls = {"http": HttpServer, "socket": SocketServer}.get(self.parameter_server_mode)
+        if cls is None:
+            # mode already validated in __init__; only 'native' remains
+            from elephas_tpu_torch.parameter.native import NativeParameterServer
+
+            cls = NativeParameterServer
+        kwargs = {}
+        if self.ps_journal_dir:
+            # a fresh (non-resume) fit passes restore_journal=False:
+            # starting over must not continue from an earlier run's
+            # journal (it is overwritten as this run snapshots)
+            kwargs["restore_journal"] = restore_journal
+            if self.ps_shards <= 1:
+                kwargs["journal_dir"] = self.ps_journal_dir
+        weights = get_weights(self._master_network)
+        if self.ps_shards > 1:
+            from elephas_tpu_torch.parameter.sharding import ShardedServerGroup
+
+            ports = ([0] * self.ps_shards if not self.port
+                     else [self.port + i for i in range(self.ps_shards)])
+            self._parameter_server = ShardedServerGroup(
+                cls, weights, self.ps_shards, mode=self.mode, ports=ports,
+                journal_dir=self.ps_journal_dir, **kwargs,
+            )
+        else:
+            self._parameter_server = cls(weights, mode=self.mode, port=self.port, **kwargs)
+        self._parameter_server.start()
+        if self.ps_overlap and self.mode != "synchronous":
+            self._publisher = _WeightPublisher(self._parameter_server)
+
+    @property
+    def ps_endpoints(self) -> str | None:
+        """The running weight store's endpoint list: one ``host:port``, or
+        with ``ps_shards > 1`` a comma-separated shard list in shard order,
+        the string an :class:`~elephas_tpu_torch.worker.\
+AsynchronousSparkWorker` takes as ``master=``. None until
+        :meth:`start_server` ran."""
+        server = self._parameter_server
+        if server is None:
+            return None
+        if hasattr(server, "endpoints"):
+            return server.endpoints
+        return f"127.0.0.1:{server.port}"
+
+    def stop_server(self) -> None:
+        self._stop_publisher()
+        if self._parameter_server is not None:
+            self._parameter_server.stop()
+            self._parameter_server = None
+
+    def _stop_publisher(self) -> None:
+        if self._publisher is not None:
+            self._publisher.stop()
+            self._publisher = None
+
+    def _publish_weights(self, final: bool = False) -> None:
+        """Publish the master's weights to the store: in the background
+        (latest wins) mid-fit with ``ps_overlap``, else synchronously. The
+        host copy is taken here, on the fit thread."""
+        if self._parameter_server is None:
+            return
+        telemetry.registry().counter(
+            "elephas_ps_weight_publications_total",
+            "Master-weight snapshots published to the external store",
+        ).inc()
+        weights = get_weights(self._master_network)
+        if self._publisher is not None and not final:
+            self._publisher.publish(weights)
+            return
+        if final:
+            # drain the background publisher so the synchronous final
+            # publish cannot be overwritten by a stale queued snapshot
+            self._stop_publisher()
+        self._parameter_server.set_weights(weights)
 
     def fit(
         self,
@@ -302,11 +473,24 @@ run_epochs_stream`) instead of staging whole epochs on the device when
             if meta is not None:
                 start_epoch = int(meta["epoch"])
                 logger.info("resuming from %s at epoch %d", checkpoint_dir, start_epoch)
+        if resume and self.ps_journal_dir:
+            # the PS journal may hold sub-epoch updates newer than the
+            # epoch checkpoint: adopt them as the master state; the
+            # server below replays the same journal
+            journaled = self._load_ps_journal_weights()
+            if journaled is not None:
+                set_weights(self._master_network, journaled)
+                logger.info("resume: adopted journaled parameter-server state from %s",
+                            self.ps_journal_dir)
         if start_epoch >= epochs:
             history = {"loss": []}
             self.training_histories.append(history)
             return history
         epochs -= start_epoch
+        if partitions is not None:
+            # drop (or reassign) the partitions of workers that died,
+            # within the failure budget
+            partitions = self._survive_partitions(partitions)
 
         val_partitions = None
         if validation_split and validation_split > 0.0:
@@ -332,7 +516,26 @@ run_epochs_stream`) instead of staging whole epochs on the device when
         elif val_spec is not None:
             val_evaluate = _block_evaluate(runner, val_spec, batch_size)
 
-        callbacks = []
+        self.start_server(restore_journal=bool(resume))
+        try:
+            return self._run_fit(runner, partitions, epochs, batch_size, verbose, start_epoch,
+                                 profile_dir, checkpoint_dir, checkpoint_every, history_log,
+                                 stream, val_evaluate)
+        finally:
+            self.stop_server()
+
+    def _run_fit(self, runner, partitions, epochs, batch_size, verbose, start_epoch,
+                 profile_dir, checkpoint_dir, checkpoint_every, history_log, stream,
+                 val_evaluate) -> dict:
+        """The epochs of a fit, with the weight store (if any) running:
+        epoch boundaries land on the trace as ``fit.epoch`` events and are
+        published to the store, all under one trace id that the PS
+        clients forward over the wire; the final publish is synchronous
+        and not caught."""
+        callbacks = [lambda epoch, loss: telemetry.emit("fit.epoch", epoch=int(epoch),
+                                                        loss=float(loss))]
+        if self._parameter_server is not None:
+            callbacks.append(lambda *_: self._publish_weights())
         if checkpoint_dir:
             def save_ckpt(epoch, _loss):
                 done = start_epoch + epoch + 1
@@ -358,7 +561,8 @@ run_epochs_stream`) instead of staging whole epochs on the device when
 
             callbacks.append(eval_cb)
 
-        with self._profile(profile_dir):
+        with self._profile(profile_dir), \
+                telemetry.trace_scope(f"fit-r{next(_fit_trace_ids)}e{start_epoch}"):
             if stream is not None:
                 history = runner.run_epochs_stream(stream, epochs, verbose, callbacks)
             else:
@@ -376,8 +580,105 @@ run_epochs_stream`) instead of staging whole epochs on the device when
         if history_log:
             with open(history_log, "a") as f:
                 f.write(json.dumps({"final": True, "history": history}) + "\n")
+        self._publish_weights(final=True)
         self.training_histories.append(history)
         return history
+
+    def _load_ps_journal_weights(self):
+        """The journaled PS weights for ``fit(resume=True)``, or None. With
+        ``ps_shards > 1`` each shard journaled its slice: they are gathered
+        through the shard map the servers used; a topology journaled only
+        in part is refused as a resume source (with a warning) rather than
+        mixing journal slices with the older checkpoint."""
+        from elephas_tpu_torch.parameter import journal as ps_journal
+
+        if self.ps_shards <= 1:
+            state = ps_journal.load_journal(self.ps_journal_dir)
+            return None if state is None else state[0]
+        from elephas_tpu_torch.parameter.sharding import ShardMap, shard_journal_dir
+
+        smap = ShardMap.from_weights(get_weights(self._master_network), self.ps_shards)
+        slices: list = [None] * self.ps_shards
+        missing = []
+        for i in range(self.ps_shards):
+            state = ps_journal.load_journal(shard_journal_dir(self.ps_journal_dir, i))
+            if state is None:
+                missing.append(i)
+            else:
+                slices[i] = state[0]
+        if missing:
+            if len(missing) < self.ps_shards:
+                logger.warning(
+                    "resume: shard journal(s) %s missing under %s (%d of %d exist) — "
+                    "refusing a mixed journal/checkpoint weight state; resuming from "
+                    "the checkpoint alone", missing, self.ps_journal_dir,
+                    self.ps_shards - len(missing), self.ps_shards)
+            return None
+        return smap.gather(slices)
+
+    def _survive_partitions(self, partitions):
+        """Worker-loss supervision: a partition whose executor died
+        (:func:`~elephas_tpu_torch.fault.plan.check_partition` raises
+        under an active fault plan) is dropped, or with
+        ``reassign_orphans`` its rows go to the survivors, until more than
+        ``failure_budget`` workers are lost, which raises
+        :class:`~elephas_tpu_torch.fault.plan.FaultBudgetExceeded`."""
+        from elephas_tpu_torch.fault.plan import (
+            FaultBudgetExceeded,
+            WorkerFault,
+            active_plan,
+            check_partition,
+        )
+
+        if active_plan() is None:
+            return partitions
+        survivors, orphans, lost = [], [], []
+        for i, part in enumerate(partitions):
+            try:
+                check_partition(i)
+            except WorkerFault as e:
+                logger.warning("worker partition %d lost: %s", i, e)
+                lost.append(i)
+                orphans.append(part)
+                continue
+            survivors.append(part)
+        if not lost:
+            return partitions
+        if len(lost) > self.failure_budget or not survivors:
+            raise FaultBudgetExceeded(
+                f"lost {len(lost)} worker partition(s) {lost} of "
+                f"{len(partitions)}, exceeding failure_budget="
+                f"{self.failure_budget} (survivors: {len(survivors)}) — "
+                f"raise the budget to continue degraded, or repair the "
+                f"failing workers"
+            )
+        if self.reassign_orphans:
+            survivors = self._reassign_orphans(survivors, orphans)
+            logger.warning(
+                "reassigned %d orphaned partition(s) %s across %d survivors "
+                "(failure_budget=%d) — full dataset, fewer workers",
+                len(lost), lost, len(survivors), self.failure_budget)
+            return survivors
+        logger.warning("continuing with %d/%d worker partitions (failure_budget=%d)",
+                       len(survivors), len(partitions), self.failure_budget)
+        return survivors
+
+    @staticmethod
+    def _reassign_orphans(survivors, orphans):
+        """Concatenate each orphaned partition onto a survivor
+        (round-robin). ``y`` may nest row-aligned arrays in lists, tuples
+        and dicts (several outputs): they are joined leaf by leaf."""
+        from elephas_tpu_torch.utils.functional_utils import tree_map
+
+        merged = list(survivors)
+        for j, (ox, oy) in enumerate(orphans):
+            t = j % len(merged)
+            sx, sy = merged[t]
+            merged[t] = (
+                np.concatenate([np.asarray(sx), np.asarray(ox)]),
+                tree_map(lambda a, b: np.concatenate([np.asarray(a), np.asarray(b)]), sy, oy),
+            )
+        return merged
 
     def _profile(self, profile_dir):
         """A ``torch.profiler`` trace of the host and, on a GPU, the device,

@@ -36,10 +36,13 @@ Two contracts the serving stack leans on:
 - **Wall time is export-only**, and nothing here reads the device:
   every value recorded is a host value already at hand.
 
-The reference's fleet-wide modules (``telemetry/aggregate.py``, which
-scrapes and joins several processes, and ``telemetry/merge.py``, which
-merges their traces) come with the fleet router (ROADMAP.md, Queue A
-item 4).
+The parameter server's and the workers' series (``elephas_ps_*``,
+``elephas_worker_*``) are registered by :mod:`elephas_tpu_torch.parameter`
+and :mod:`elephas_tpu_torch.worker` themselves, under the reference's
+names. The reference's fleet-wide modules (``telemetry/aggregate.py``,
+which scrapes and joins several processes, and ``telemetry/merge.py``,
+which merges their traces) come with the fleet router (ROADMAP.md, Queue
+A item 4b).
 """
 
 from elephas_tpu_torch.telemetry.events import (  # noqa: F401

@@ -33,9 +33,14 @@ not seconds — no wall clock anywhere (the standing determinism
 contract).
 
 The parameter-server rules (journal lag, stale heartbeats, unreachable
-shards) and the router's replica rule read series that no module of the
-port registers yet (ROADMAP.md, Queue A item 4): they stay in
-:func:`default_rules` and report nothing until those components land.
+shards) read the series of :mod:`elephas_tpu_torch.parameter`'s servers
+and clients (``elephas_ps_journal_lag_updates``,
+``elephas_ps_oldest_heartbeat_age_seconds``,
+``elephas_ps_client_shard_pauses_total``,
+``elephas_ps_client_updates_lost``). The router's replica rule reads
+series that no module of the port registers yet (the fleet router,
+ROADMAP.md, Queue A item 4b): it stays in :func:`default_rules` and
+reports nothing until the router lands.
 """
 
 from __future__ import annotations
@@ -582,7 +587,7 @@ class Watchdog:
     construction (null mode ⇒ permanently inert); a ``Registry``; or
     anything with a ``series(name) -> [(labels, value)]`` method (the
     reference's fleet scraper is that shape; the port's comes with
-    ROADMAP.md Queue A item 4)."""
+    ROADMAP.md Queue A item 4b)."""
 
     def __init__(self, source=None, rules=None):
         self._source = source if source is not None \

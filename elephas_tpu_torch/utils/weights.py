@@ -12,6 +12,11 @@ it) names its layers from a counter global to the process
 weights are matched by layer order, weight role and shape: the layers of
 one kind are renumbered in the order of their counters
 (:func:`canonical_keras_names`), as a fresh process would name them.
+
+Every module lists its paths in Keras's ``model.weights`` order, so
+:func:`get_weights` / :func:`set_weights` give and take the list that
+Keras's ``model.get_weights()`` / ``set_weights()`` do: the order the
+parameter server's wire carries between the two packages.
 """
 
 from __future__ import annotations
@@ -100,10 +105,38 @@ def load_keras_weights(module, weights: dict[str, np.ndarray]) -> None:
 
 def keras_weights(module) -> dict[str, np.ndarray]:
     """The inverse of :func:`load_keras_weights`: ``{Keras path: array}``
-    of ``module``'s weights, in Keras's layouts (copies on the host);
-    a Sequential model's paths as a fresh process names them."""
+    of ``module``'s weights, in Keras's layouts, as host arrays that own
+    their memory; a Sequential model's paths as a fresh process names
+    them. The copies are complete when this returns, so later in-place
+    updates of the module (an optimizer step, on the device or the CPU)
+    cannot tear them."""
     out = {}
     for path, (tensor, perm) in _keras_paths(module).items():
-        arr = tensor.detach().cpu().numpy()
-        out[path] = np.ascontiguousarray(arr if perm is None else arr.transpose(np.argsort(perm)))
+        t = tensor.detach()
+        if perm is not None:
+            t = t.permute(*np.argsort(perm).tolist())
+        # Keras's layout made where the tensor lies (a transpose is exact),
+        # then one blocking copy into host memory of its own
+        out[path] = t.to("cpu", memory_format=torch.contiguous_format, copy=True).numpy()
     return out
+
+
+def weight_paths(module) -> list[str]:
+    """``module``'s Keras paths in Keras's ``model.weights`` order."""
+    return list(_keras_paths(module))
+
+
+def get_weights(module) -> list[np.ndarray]:
+    """Keras's ``model.get_weights()``: :func:`keras_weights`'s arrays in
+    ``model.weights`` order (BatchNorm's moving statistics included)."""
+    return list(keras_weights(module).values())
+
+
+def set_weights(module, weights) -> None:
+    """The inverse of :func:`get_weights`: copy a weight list in Keras's
+    order into ``module`` (checked as :func:`load_keras_weights` checks)."""
+    paths = weight_paths(module)
+    weights = list(weights)
+    if len(weights) != len(paths):
+        raise ValueError(f"{len(weights)} weights for a model of {len(paths)}")
+    load_keras_weights(module, dict(zip(paths, weights)))

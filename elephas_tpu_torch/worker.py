@@ -37,24 +37,39 @@ shuffling. :meth:`Runner.run_epochs` stages a whole epoch on the device;
 :meth:`Runner.run_epochs_stream` takes the same steps in blocks of a
 :class:`~elephas_tpu_torch.data.streaming.ShardedStream`, which
 :class:`BlockStager` moves onto the device while it trains.
+
+The reference's executor-side workers are here too:
+:class:`SparkWorker` (train one partition, yield its weights and history)
+and :class:`AsynchronousSparkWorker` (pull, train on the device, push
+the delta to a weight store of :mod:`elephas_tpu_torch.parameter` or of
+the reference, under a supervised retry, optionally through
+:class:`OverlappedSync`'s background window). They build their module
+from Keras JSON and train it with :class:`Runner` on one worker.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import itertools
 import logging
 import math
+import queue
 import threading
 import time
+from concurrent.futures import Future
 
 import numpy as np
 import torch
 
+from elephas_tpu_torch import telemetry
 from elephas_tpu_torch.data.streaming import prefetch_blocks
+from elephas_tpu_torch.device import resolve_device
 from elephas_tpu_torch.optimizers import hyperparameters
 from elephas_tpu_torch.training import MeanMetric
+from elephas_tpu_torch.utils import sockets
+from elephas_tpu_torch.utils.weights import get_weights, set_weights
 
 logger = logging.getLogger(__name__)
 
@@ -487,3 +502,513 @@ data.streaming.prefetch_blocks` gathers the next blocks on the host in
         offsets = np.cumsum([0] + [len(a) for a in xs])
         return [(a, y[offsets[i]:offsets[i + 1]]) if len(a) else (xs[0][:1], y[:1])
                 for i, a in enumerate(xs)]
+
+
+# -- overlapped parameter sync --------------------------------------------
+
+
+class OverlappedSync:
+    """Background push(delta)/pull(weights) window for async/hogwild
+    workers: one daemon thread owns the parameter client (a single
+    connection — wire ops stay serialized), so a sync round overlaps the
+    next period's compute instead of blocking it.
+
+    Staleness bound: at most ``staleness`` rounds may be in flight;
+    :meth:`submit` blocks until the oldest lands once the window is
+    full. ``synchronous`` mode never routes through this class — it
+    stays blocking and bit-exact.
+
+    The thread touches only host numpy arrays and the client's socket: a
+    delta is computed from host copies before it is submitted, so the
+    thread launches no device work and reads no tensor that training
+    updates in place.
+    """
+
+    def __init__(self, client, staleness: int = 1):
+        self.client = client
+        self.staleness = max(1, int(staleness))
+        self._queue: queue.Queue = queue.Queue()
+        self._pending: collections.deque[Future] = collections.deque()
+        self.max_in_flight = 0  # high-water mark (tested staleness bound)
+        # trace context is THREAD-local and the wire ops
+        # below run on this daemon thread — capture the constructing
+        # thread's scope so overlapped rounds stamp (and forward) the
+        # same trace id the blocking path would
+        self._trace_id = telemetry.current_trace()
+        self._thread = threading.Thread(
+            target=self._run, name="elephas-ps-sync", daemon=True
+        )
+        self._thread.start()
+
+    def _run(self):
+        with telemetry.trace_scope(self._trace_id):
+            while True:
+                item = self._queue.get()
+                if item is None:
+                    return
+                delta, fut = item
+                try:
+                    if delta is not None:
+                        self.client.update_parameters(delta)
+                    fut.set_result(self.client.get_parameters())
+                except BaseException as e:  # surfaced at submit/drain
+                    fut.set_exception(e)
+
+    def submit(self, delta) -> Future:
+        """Queue one round (push ``delta``, then pull fresh weights)."""
+        while len(self._pending) >= self.staleness:
+            self._pending.popleft().result()  # staleness bound: block
+        fut: Future = Future()
+        self._queue.put((delta, fut))
+        self._pending.append(fut)
+        self.max_in_flight = max(self.max_in_flight, len(self._pending))
+        return fut
+
+    def freshest(self):
+        """Newest completed pull (dropping older ones), or None if every
+        in-flight round is still on the wire — the caller then continues
+        from its local weights, Hogwild-style."""
+        newest = None
+        while self._pending and self._pending[0].done():
+            newest = self._pending.popleft().result()
+        return newest
+
+    def drain(self):
+        """Wait for every in-flight round; returns the last pull."""
+        out = None
+        while self._pending:
+            out = self._pending.popleft().result()
+        return out
+
+    def close(self) -> None:
+        self._queue.put(None)
+        self._thread.join(timeout=30)
+
+
+# -- executor-side worker classes (reference API parity) ----------------
+
+
+class SparkWorker:
+    """Per-partition synchronous worker (counterpart of
+    ``elephas_tpu.worker.SparkWorker``, the reference's
+    ``[U] elephas/worker.py::SparkWorker``).
+
+    ``train(data_iterator)`` yields ``(trained_weights, history_dict)``.
+    The module is built from the Keras JSON text (``model.to_json()``) by
+    :func:`~elephas_tpu_torch.models.keras_config.model_from_json`, on
+    ``device`` (``cuda:0`` unless the caller names another), and compiled
+    with ``master_optimizer`` (a Keras name such as ``"adam"`` with Keras's
+    defaults, or a serialized config), ``master_loss`` and
+    ``master_metrics``. Weights cross as Keras's ``get_weights()`` list.
+    Training is :class:`Runner`'s on one worker: batches in row order,
+    the last one wrap-padded. Keras's ``fit`` shuffles each epoch with its
+    own generator, which the port does not reproduce.
+    """
+
+    def __init__(
+        self,
+        json_model: str,
+        parameters,
+        train_config: dict | None = None,
+        master_optimizer="rmsprop",
+        master_loss="categorical_crossentropy",
+        master_metrics=None,
+        custom_objects: dict | None = None,
+        device=None,
+    ):
+        self.json_model = json_model
+        self.parameters = parameters
+        self.train_config = dict(train_config or {})
+        self.master_optimizer = master_optimizer
+        self.master_loss = master_loss
+        self.master_metrics = master_metrics
+        self.custom_objects = custom_objects
+        self.device = device
+
+    def _build(self):
+        from elephas_tpu_torch.models.keras_config import model_from_json
+        from elephas_tpu_torch.optimizers import get as get_optimizer
+        from elephas_tpu_torch.training import compile_model
+
+        # the device resolves here, as the module is built: no GPU and
+        # no explicit CPU raises
+        model = model_from_json(self.json_model, custom_objects=self.custom_objects,
+                                device=resolve_device(self.device))
+        compile_model(model, get_optimizer(self.master_optimizer, model.parameters()),
+                      self.master_loss, self.master_metrics or ())
+        if self.parameters is not None:
+            set_weights(model, self.parameters)
+        return model
+
+    @staticmethod
+    def _stack(data_iterator):
+        xs, ys = [], []
+        for x, y in data_iterator:
+            xs.append(np.asarray(x))
+            ys.append(np.asarray(y))
+        if not xs:
+            return None, None
+        return np.stack(xs), np.stack(ys)
+
+    @staticmethod
+    def _fit(model, x, y, epochs: int, batch_size: int, validation_split: float = 0.0) -> dict:
+        """Keras's ``model.fit(x, y, epochs, batch_size, validation_split)``
+        on one worker: the history of each epoch's loss and metrics, and
+        ``val_*`` of the held-out tail."""
+        runner = Runner(model, "synchronous", "epoch", 1)
+        val_history: dict[str, list[float]] = {}
+        callbacks = ()
+        if validation_split and len(x) > 1:
+            cut = len(x) - min(max(1, int(len(x) * validation_split)), len(x) - 1)
+            val = [(x[cut:], y[cut:])]
+            x, y = x[:cut], y[:cut]
+
+            def evaluate(_epoch, _loss):
+                for k, v in runner.evaluate(val, batch_size).items():
+                    val_history.setdefault(f"val_{k}", []).append(v)
+
+            callbacks = (evaluate,)
+        history = runner.run_epochs([(x, y)], epochs, batch_size, callbacks=callbacks)
+        history.update(val_history)
+        return history
+
+    def train(self, data_iterator):
+        """Train on one partition's rows; yields (weights, history)."""
+        x, y = self._stack(data_iterator)
+        if x is None:
+            return
+        model = self._build()
+        history = self._fit(
+            model, x, y,
+            epochs=self.train_config.get("epochs", 1),
+            batch_size=self.train_config.get("batch_size", 32),
+            validation_split=self.train_config.get("validation_split", 0.0),
+        )
+        yield get_weights(model), history
+
+
+class AsynchronousSparkWorker(SparkWorker):
+    """Per-partition async worker: pull → local train → push delta
+    (counterpart of ``elephas_tpu.worker.AsynchronousSparkWorker``, the
+    reference's ``[U] elephas/worker.py::AsynchronousSparkWorker``).
+
+    Speaks the parameter-server protocol through a
+    :mod:`elephas_tpu_torch.parameter` client, so it works against a
+    weight store of either package on another host. ``frequency='epoch'``
+    syncs once per epoch, ``'batch'`` once per mini-batch. The model
+    trains on ``device``; every pull is copied into it and every push is
+    the difference of two host copies (``after − before``, in numpy), so
+    the wire and the codec see the bytes the reference sends.
+
+    ``compression``/``topk`` select the binary codec's int8 quantization
+    (with error-feedback residuals held by the client) and top-k delta
+    sparsification; ``overlap=True`` routes sync rounds through
+    :class:`OverlappedSync` so the wire rides under the next period's
+    compute, trading a bounded ``staleness`` (in sync periods) for
+    throughput — never applied to the synchronous worker.
+
+    Fault tolerance: each sync period runs under a **supervised retry**
+    — when a period's pull/push fails even after the client's own
+    reconnect retries (a PS crash/restart, a severed wire), the worker
+    backs off with capped exponential delays
+    (:func:`~elephas_tpu_torch.utils.sockets.retry_call`), re-pulls fresh
+    weights, and re-runs that period, up to ``ps_retries`` times before
+    giving up. The worker registers under ``client_id`` and heartbeats
+    the server once per sync period on the existing connection. On
+    protocol-2 servers every push carries a sequence ID, making the
+    period re-run's resends effectively-once (a re-run period's
+    *recompute* trains that period's rows again: at-least-once training
+    under crash recovery). With lossy compression a re-encoded retry
+    folds the previous attempt's residual into the fresh delta.
+
+    Sharded PS: ``master="host:p0,host:p1,..."`` — a comma-separated
+    endpoint list — routes the same loop through a
+    :class:`~elephas_tpu_torch.parameter.client.ShardedClient`
+    (scatter/gather over per-shard servers, per-shard sequence IDs, one
+    dead shard pausing only its slice). Workers may join and leave such
+    a topology mid-run: registration is implicit (first heartbeat or
+    sequenced update) and a departed worker's lease goes stale.
+    """
+
+    def __init__(
+        self,
+        json_model: str,
+        parameters=None,
+        train_config: dict | None = None,
+        frequency: str = "epoch",
+        parameter_server_mode: str = "http",
+        master: str | None = None,
+        port: int = 4000,
+        master_optimizer="rmsprop",
+        master_loss="categorical_crossentropy",
+        master_metrics=None,
+        custom_objects: dict | None = None,
+        compression: str = "none",
+        topk: float | None = None,
+        pull_compression: str | None = None,
+        overlap: bool = False,
+        staleness: int = 1,
+        ps_retries: int = 6,
+        ps_retry_max_delay: float = 5.0,
+        client_id: str | None = None,
+        trace_id: str | None = None,
+        device=None,
+    ):
+        super().__init__(
+            json_model,
+            parameters,
+            train_config,
+            master_optimizer,
+            master_loss,
+            master_metrics,
+            custom_objects,
+            device,
+        )
+        if frequency not in ("epoch", "batch"):
+            raise ValueError(f"frequency must be 'epoch' or 'batch', got {frequency!r}")
+        self.frequency = frequency
+        self.parameter_server_mode = parameter_server_mode
+        self.master = master
+        self.port = port
+        self.compression = compression
+        self.topk = topk
+        self.pull_compression = pull_compression
+        self.overlap = bool(overlap)
+        self.staleness = max(1, int(staleness))
+        self.ps_retries = max(0, int(ps_retries))
+        self.ps_retry_max_delay = float(ps_retry_max_delay)
+        self.client_id = client_id
+        # when set, train() runs under this trace id: its sync spans,
+        # retries and PS round-trips stamp it, and the clients forward
+        # it over the wire; None inherits the caller's scope
+        self.trace_id = trace_id
+        # the retry loop and sync cadence, on the same scrape as the
+        # server's own counters
+        reg = telemetry.registry()
+        wid = telemetry.instance_label()
+        self.telemetry_label = wid
+        self._tracer = telemetry.tracer()
+        self._m_sync_periods = reg.counter(
+            "elephas_worker_sync_periods_total",
+            "Completed pull-train-push sync periods",
+            labels=("worker",),
+        ).labels(worker=wid)
+        self._m_retries = reg.counter(
+            "elephas_worker_ps_retries_total",
+            "Supervised re-runs of a sync period after a PS failure",
+            labels=("worker",),
+        ).labels(worker=wid)
+
+    def release_telemetry(self) -> None:
+        """Retire this worker's labeled series from the process
+        registry. Explicit-only (see ``Registry.remove_series``):
+        post-fit scrapes showing what the partitions did are a
+        supported shape, so retirement is the host's call."""
+        telemetry.remove_series(worker=self.telemetry_label)
+
+    def _client(self, model=None):
+        from elephas_tpu_torch.parameter.client import HttpClient, SocketClient
+
+        if self.master and "," in str(self.master):
+            # sharded topology: a comma-separated endpoint
+            # list selects the scatter/gather client — the worker
+            # derives the SAME deterministic shard map the server group
+            # derived from the same weight template
+            from elephas_tpu_torch.parameter.client import ShardedClient
+            from elephas_tpu_torch.parameter.sharding import (
+                ShardMap,
+                shard_endpoints,
+            )
+
+            if self.parameter_server_mode not in ("http", "socket"):
+                raise ValueError(
+                    f"sharded endpoint lists need parameter_server_mode="
+                    f"'http' or 'socket', got "
+                    f"{self.parameter_server_mode!r}"
+                )
+            if model is None:
+                raise ValueError(
+                    "sharded endpoints need the built model to derive "
+                    "the shard map from its weight template"
+                )
+            endpoints = shard_endpoints(self.master)
+            return ShardedClient(
+                endpoints,
+                ShardMap.from_weights(get_weights(model), len(endpoints)),
+                transport=self.parameter_server_mode,
+                client_id=self.client_id,
+                compression=self.compression, topk=self.topk,
+                pull_compression=self.pull_compression,
+                retries=max(3, self.ps_retries) if self.overlap else 3,
+            )
+        if self.parameter_server_mode == "native":
+            if (
+                self.compression != "none"
+                or self.topk is not None
+                or self.pull_compression not in (None, "none")
+            ):
+                raise ValueError(
+                    "the native parameter server speaks raw float32 "
+                    "frames — compression/topk need "
+                    "parameter_server_mode='http' or 'socket'"
+                )
+            from elephas_tpu_torch.parameter.native import NativeClient, _Flattener
+
+            host, _, p = (self.master or "127.0.0.1").partition(":")
+            port = int(p) if p else self.port
+            return NativeClient(host, port, _Flattener(get_weights(model)))
+        cls = {"http": HttpClient, "socket": SocketClient}.get(
+            self.parameter_server_mode
+        )
+        if cls is None:
+            raise ValueError(
+                f"parameter_server_mode must be 'http', 'socket' or "
+                f"'native', got {self.parameter_server_mode!r}"
+            )
+        # overlap rounds ride a background thread where the supervised
+        # period re-run below cannot reach them — give the client itself
+        # the longer retry horizon there
+        retries = max(3, self.ps_retries) if self.overlap else 3
+        return cls(
+            self.master, self.port,
+            compression=self.compression, topk=self.topk,
+            pull_compression=self.pull_compression,
+            retries=retries, client_id=self.client_id,
+        )
+
+    def _periods(self, x, y, epochs: int, batch_size: int):
+        """The sync-period stream: whole epochs or mini-batches."""
+        for _ in range(epochs):
+            if self.frequency == "epoch":
+                yield x, y
+            else:
+                for start in range(0, len(x), batch_size):
+                    yield x[start : start + batch_size], y[start : start + batch_size]
+
+    def _fit_period(self, model, xp, yp, batch_size: int) -> None:
+        """One epoch over the period's rows (Keras's ``fit``), or one step
+        on the whole batch (``train_on_batch``)."""
+        steps = batch_size if self.frequency == "epoch" else len(xp)
+        Runner(model, "synchronous", "epoch", 1).run_epochs([(xp, yp)], 1, steps)
+
+    def _heartbeat(self, client) -> None:
+        """Best-effort lease refresh once per sync period (liveness is
+        advisory; the period's own ops carry the hard failure path)."""
+        beat = getattr(client, "heartbeat", None)
+        if beat is None:
+            return
+        try:
+            beat()
+        except (ConnectionError, TimeoutError, OSError) as e:
+            logger.debug("heartbeat failed (non-fatal): %r", e)
+
+    def _supervised(self, fn):
+        """One sync period under the supervision contract:
+        capped-backoff re-runs survive a PS outage that outlasts the
+        client's own reconnect retries; the final failure propagates
+        so the driver's failure budget can count this worker. Each
+        re-run counts in ``elephas_worker_ps_retries_total`` and lands
+        as a trace event so outage windows line up with the
+        chaos timeline."""
+
+        def on_retry(attempt, exc):
+            self._m_retries.inc()
+            self._tracer.emit(
+                "worker.retry", worker=self.telemetry_label,
+                attempt=attempt, error=repr(exc),
+            )
+
+        return sockets.retry_call(
+            fn,
+            retries=self.ps_retries,
+            base_delay=0.25,
+            max_delay=self.ps_retry_max_delay,
+            on_retry=on_retry,
+        )
+
+    def train(self, data_iterator):
+        from elephas_tpu_torch.utils.functional_utils import subtract_params
+
+        x, y = self._stack(data_iterator)
+        if x is None:
+            return
+        # trace_scope(None) is a passthrough: without an explicit
+        # trace_id this worker inherits whatever scope the caller set
+        with telemetry.trace_scope(self.trace_id):
+            yield from self._train_scoped(x, y, subtract_params)
+
+    def _train_scoped(self, x, y, subtract_params):
+        model = self._build()
+        client = self._client(model)
+        epochs = self.train_config.get("epochs", 1)
+        batch_size = self.train_config.get("batch_size", 32)
+        try:
+            if self.overlap:
+                self._train_overlapped(
+                    model, client, x, y, epochs, batch_size
+                )
+            else:
+                for xp, yp in self._periods(x, y, epochs, batch_size):
+
+                    def sync_period(xp=xp, yp=yp):
+                        # resume-from-last-PS-pull: every (re-)run of a
+                        # period starts from fresh server weights, so a
+                        # re-run after an outage trains on the
+                        # post-recovery state, not a stale snapshot
+                        self._heartbeat(client)
+                        before = client.get_parameters()
+                        set_weights(model, before)
+                        self._fit_period(model, xp, yp, batch_size)
+                        # server applies weights += delta, so the delta
+                        # must be the descent step (after − before)
+                        client.update_parameters(
+                            subtract_params(get_weights(model), before)
+                        )
+
+                    with self._tracer.span(
+                        "worker.sync_period",
+                        worker=self.telemetry_label,
+                    ):
+                        self._supervised(sync_period)
+                    self._m_sync_periods.inc()
+                # confirmed delivery: every pipelined push is acked (or
+                # sequence-deduplicated-resent) before this partition
+                # reports done — without this, a connection dying on
+                # the run's FINAL pushes would lose them silently
+                flush = getattr(client, "flush", None)
+                if flush is not None:
+                    self._supervised(flush)
+        finally:
+            if hasattr(client, "close"):
+                client.close()
+        yield get_weights(model), {}
+
+    def _train_overlapped(self, model, client, x, y, epochs, batch_size):
+        """Double-buffered loop: period ``i``'s compute overlaps round
+        ``i-1``'s push+pull; adopted weights are stale by at most
+        ``staleness`` periods (else the worker continues from its own
+        local weights, Hogwild-style)."""
+        from elephas_tpu_torch.utils.functional_utils import subtract_params
+
+        sync = OverlappedSync(client, self.staleness)
+        try:
+            before = client.get_parameters()  # initial pull: blocking
+            set_weights(model, before)
+            for xp, yp in self._periods(x, y, epochs, batch_size):
+                self._fit_period(model, xp, yp, batch_size)
+                after = get_weights(model)
+                sync.submit(subtract_params(after, before))
+                self._m_sync_periods.inc()
+                fresh = sync.freshest()
+                if fresh is not None:
+                    before = fresh
+                    set_weights(model, fresh)
+                else:
+                    # round still on the wire: continue from local
+                    # weights (Hogwild-style), no extra copies
+                    before = after
+            final = sync.drain()  # every push acked before we report
+            if final is not None:
+                set_weights(model, final)
+        finally:
+            sync.close()

@@ -18,8 +18,8 @@ JAX package's, on the CPU.
 - ``tests/test_telemetry_fleet.py``'s watchdog rule cases (``:534-757``)
   rebound to the port's telemetry, and its
   ``test_engine_stall_detected_and_cleared`` (``:848``) with a local
-  engine staller (the reference's ``fault.harness`` is ROADMAP.md Queue A
-  item 4, and so is the merged-trace case at ``:888``, which reads
+  engine staller (the reference's ``fault.harness.EngineStaller`` is
+  ROADMAP.md Queue A item 4b, and so is the merged-trace case at ``:888``, which reads
   ``telemetry/merge.py``).
 - SSE tokens equal the port's in-process engine and the JAX engine.
 - Migration wire v3: ``encode_record`` of the same numpy record is the
@@ -236,7 +236,7 @@ _FLEET_NS = port_namespace(
 
 
 # tests/test_telemetry_fleet.py:533-760 on the port's watchdog (the fleet-scraper
-# case waits for telemetry/aggregate.py, ROADMAP.md Queue A item 4), and :51-108 on
+# case waits for telemetry/aggregate.py, ROADMAP.md Queue A item 4b), and :51-108 on
 # the port's tracer: the trace context is thread-local, scopes nest, events are stamped
 TestWatchdogRules = port_class(ref_fleet.TestWatchdogRules, _FLEET_NS,
                                skip=("test_watchdog_over_fleet_scraper",))

@@ -1441,3 +1441,91 @@ def test_driver_cuda_error_turns_healthz_503_and_stops_the_gateway(cuda):
     gw._driver_thread.join(30)  # the teardown ran on the driver thread itself
     assert not gw._driver_thread.is_alive()
     gw.stop()  # idempotent after the crash teardown
+
+
+# -- the parameter server on the card ------------------------------------
+
+
+@pytest.mark.parametrize("store", ["http", "socket", "native"])
+def test_ps_fit_on_cuda_publishes_the_master(cuda, store, tmp_path):
+    """A fit with a live weight store on the card: the store's final
+    weights are the master's host copy bit for bit, the journal holds
+    them, and the fit ran the flash and LayerNorm kernels."""
+    from elephas_tpu_torch.parameter import journal
+    from elephas_tpu_torch.utils.weights import get_weights
+
+    gen = np.random.default_rng(0)
+    x = gen.integers(0, 64, size=(64, 32)).astype(np.int32)
+    y = gen.integers(0, 2, size=64).astype(np.int32)
+    model = et.transformer_classifier(vocab_size=64, maxlen=32, num_classes=2, d_model=64,
+                                      num_heads=2, num_layers=2, device=cuda)
+    sm = et.SparkModel(model, mode="asynchronous", parameter_server_mode=store, port=0,
+                       ps_journal_dir=str(tmp_path), device=cuda)
+    fwd0, ln0 = fa.launches, ln.fwd_launches
+    hist = sm.fit((x, y), epochs=2, batch_size=16)
+    assert np.isfinite(hist["loss"]).all()
+    assert fa.launches > fwd0 and ln.fwd_launches > ln0
+    stored, _, _ = journal.load_journal(str(tmp_path))
+    master = get_weights(model)
+    for got, want in zip(stored, master):
+        np.testing.assert_array_equal(got, want)
+    # the device-side Keras layout is the host-side one, bit for bit
+    host = et.keras_weights(model)
+    for got, path in zip(master, et.utils.weights.weight_paths(model)):
+        assert got.flags.c_contiguous
+        np.testing.assert_array_equal(got, host[path])
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_async_worker_on_cuda_descends(cuda, overlap):
+    """``AsynchronousSparkWorker`` trains on the card against a socket
+    store (overlapped rounds too: the sync thread sees host arrays only)
+    and the store's loss falls. Without overlap the rounds are in step,
+    so the same worker on the CPU, against a store of its own, ends
+    where the card's does."""
+    from elephas_tpu_torch.fault.harness import _chaos_data, _chaos_model
+    from elephas_tpu_torch.parameter import SocketServer
+    from elephas_tpu_torch.utils.weights import get_weights, set_weights
+    from elephas_tpu_torch.worker import AsynchronousSparkWorker, Runner
+
+    x, y, d, k = _chaos_data(0, 256)
+    model, model_json = _chaos_model(0, d, k, device=cuda)
+    initial = get_weights(model)
+
+    def train_on(device):
+        server = SocketServer(initial, mode="asynchronous", port=0)
+        server.start()
+        try:
+            worker = AsynchronousSparkWorker(
+                model_json, train_config={"epochs": 3, "batch_size": 64}, frequency="batch",
+                parameter_server_mode="socket", master=f"127.0.0.1:{server.port}",
+                master_optimizer="adam", master_loss="sparse_categorical_crossentropy",
+                overlap=overlap, device=device)
+            (weights, _), = worker.train(iter(zip(x, y)))
+            assert len(weights) == len(initial)
+            return server.get_parameters()
+        finally:
+            server.stop()
+
+    final = train_on(cuda)
+    runner = Runner(model, "synchronous", "epoch", 1)
+    losses = []
+    for w in (initial, final):
+        set_weights(model, w)
+        losses.append(runner.evaluate([(x, y)], 64)["loss"])
+    assert losses[1] < losses[0] * 0.9
+    if not overlap:
+        for a, b in zip(final, train_on("cpu")):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+def test_chaos_training_on_cuda_loses_nothing(cuda, tmp_path):
+    from elephas_tpu_torch.fault import FaultPlan, run_chaos_training
+
+    plan = FaultPlan(seed=0, kill_ps_after_updates=2, restart_delay_s=0.3,
+                     duplicate_fraction=0.25)
+    out = run_chaos_training("socket", rows=192, epochs=2, batch_size=64, plan=plan,
+                             journal_dir=str(tmp_path), journal_every=1, device=cuda)
+    assert out["kills"] == 1 and out["restarts"] == 1
+    assert out["updates_applied"] == 6 and out["updates_lost_final"] == 0
+    assert out["duplicates_skipped"] >= out["duplicates_sent"] >= 1

@@ -24,7 +24,7 @@ and the engine's verify round) against the JAX package's, on the CPU.
 
 Not mirrored: ``:153`` (a TP mesh: ROADMAP.md Queue A item 5), ``:222`` and
 ``:238`` (the compile set: JAX's compile cache, which the eager port does
-not have), ``:464`` (``refresh_weights`` through the engine, item 4).
+not have), ``:464`` (``refresh_weights`` through the engine, item 4b).
 ``:552`` (the metrics scrape) runs on the port in
 ``tests/test_torch_telemetry.py``.
 """

@@ -9,7 +9,8 @@ JAX package's, on the CPU.
   runs them on the JAX package. Its engine cases (``TestEngineScrape``,
   ``TestPrefillStallSemantics``, the engine half of ``TestSeriesLifecycle``,
   ``TestNullMode``) are written out here for the port's LM. The parameter
-  server and chaos cases wait for ROADMAP.md Queue A item 4.
+  server, chaos and worker-retry cases run on the port in
+  ``tests/test_torch_ps_wire.py``.
 - The two registries side by side: the same series render byte for byte
   in both packages (Prometheus and OpenMetrics, escapes, edges, exemplars,
   ``only=`` filters, retirement), and the tracers keep the same logical
@@ -67,7 +68,8 @@ def not_null():
 _NS = port_namespace(ref_telemetry, telemetry=telemetry)
 TestRegistry = port_class(ref_telemetry.TestRegistry, _NS)
 TestEventTracer = port_class(ref_telemetry.TestEventTracer, _NS)
-# the component (a parameter server) and engine halves are below or wait for item 4
+# the engine half is below; the component half (a parameter server) runs in
+# tests/test_torch_ps_wire.py
 TestSeriesLifecycle = port_class(ref_telemetry.TestSeriesLifecycle, _NS, skip=(
     "test_component_release_telemetry_bounds_scrape", "test_engine_release_cascades"))
 

@@ -331,10 +331,14 @@ def test_refusals(tmp_path):
         et.SparkModel(port, frequency="hourly", device="cpu")
     with pytest.raises(ValueError, match="parameter_server_mode must be"):
         et.SparkModel(port, parameter_server_mode="grpc", device="cpu")
-    for kwargs in (dict(parameter_server_mode="socket"), dict(model_parallel=2),
-                   dict(pipeline_parallel=2), dict(sequence_parallel=2)):
+    for kwargs in (dict(model_parallel=2), dict(pipeline_parallel=2),
+                   dict(sequence_parallel=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             et.SparkModel(port, device="cpu", **kwargs)
+    # ported since: the parameter server
+    assert et.SparkModel(port, parameter_server_mode="socket", device="cpu").ps_endpoints is None
+    with pytest.raises(ValueError, match="ps_shards > 1 needs"):
+        et.SparkModel(port, parameter_server_mode="native", ps_shards=2, device="cpu")
     sm = et.SparkModel(port, device="cpu")
     data = (_tokens(61, (4, 16), 0), _labels(2, 4, 0))
     # ported since: streaming, validation, checkpoints and resume, save and load

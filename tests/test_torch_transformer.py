@@ -201,10 +201,11 @@ def test_import_loads_no_jax_keras_or_reference():
 
 def test_chip_smoke_imports_no_jax_keras_or_reference():
     """chip_smoke.py, the port's driver on the card, loads none of them
-    either (the gateway phase's modules included)."""
+    either (the gateway and parameter-server phases' modules included)."""
     code = (
         "import sys; sys.argv = ['chip_smoke.py']\n"
         "import chip_smoke, elephas_tpu_torch.serving.gateway, elephas_tpu_torch.fleet\n"
+        "import elephas_tpu_torch.parameter.native, elephas_tpu_torch.fault\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'keras', 'ml_dtypes', 'elephas_tpu')]\n"
         "print(','.join(bad))\n"
@@ -218,7 +219,8 @@ def test_chip_smoke_imports_no_jax_keras_or_reference():
 
 def test_import_check_walks_every_module():
     """The subprocess check above imports what ``pkgutil`` finds: every
-    module of the package, the training and serving slices' included."""
+    module of the package, the training, serving and parameter-server
+    slices' included."""
     import pkgutil
 
     found = {m.name for m in pkgutil.walk_packages(et.__path__, "elephas_tpu_torch.")}
@@ -232,5 +234,8 @@ def test_import_check_walks_every_module():
                  "serving.blocks", "serving.kv_quant", "serving.paged_kv",
                  "telemetry", "telemetry.registry", "telemetry.expose", "telemetry.events",
                  "telemetry.flight", "telemetry.watch", "fleet", "fleet.migration",
-                 "serving.gateway"):
+                 "serving.gateway", "parameter", "parameter.codec", "parameter.journal",
+                 "parameter.server", "parameter.client", "parameter.sharding",
+                 "parameter.native", "fault", "fault.plan", "fault.harness",
+                 "utils.sockets", "utils.functional_utils"):
         assert f"elephas_tpu_torch.{name}" in found
