@@ -221,6 +221,35 @@ Phases, each printing one JSON line and raising on failure:
             (torch.cuda.set_sync_debug_mode's warnings) equal in both
             modes. Its launches (the served runs, not the checks) are
             printed by kernel;
+6i. fleet — the serving fleet at config A's full width: two paged
+            replicas of E's engine (blocks of 16, 512 blocks, preemption,
+            the prefix cache) on the one card behind a Router; E's 48
+            requests behind 3 system prompts of 32 tokens (a group's first
+            request alone, then the rest at once). In turns with one engine,
+            2 rounds: tokens equal the one engine's (margin rule), router
+            and one-engine tokens/s and TTFT p50 printed; a round-robin
+            router on the same prompts (prefix hits at most the affinity
+            router's); a drain in the middle of the streams (migrated,
+            none dropped or doubled, tokens equal); a ReplicaKiller kill in
+            the middle of the streams (re-driven token-exact, delivered =
+            generated less stale, replica_down fired then cleared on
+            restore_replica, the dead replica's arena freed);
+6j. deploy — train-while-serving at the same width, two replicas on their
+            own copies of the weights: a VersionLedger publishes the
+            weights 3 times (same content) over a socket store of one
+            shard, then two, while the router serves pass after pass and
+            each replica's WeightSubscriber polls over the wire (each
+            generation applied exactly once, tokens equal steady state's,
+            p99 ITL during pushes against steady printed); a
+            CanaryController with a noisy candidate and an EngineStaller on
+            the canary past its requests' TTFT deadlines (slo_burn fires,
+            rollback, tokens equal the baseline's, the watchdog fired once
+            and cleared once), then a clean window (promoted fleet-wide,
+            tokens equal a fresh engine's on those weights); a ShardKiller
+            on one of two journaled shards during a publication through a
+            DeployChaosStore (both replicas converge, no generation applied
+            twice); a warm record refused across generations and accepted
+            once re-stamped. Publication, pull and apply ms printed;
 7. profile — one more training step (fp32, then bf16, then ResNet-50),
             generate() at config A batch 1
             with rope off and on, and one engine decode window, under
@@ -263,8 +292,8 @@ Phases, each printing one JSON line and raising on failure:
 
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
 summed over the serve, train, train_bf16, train_workers, train_stream,
-engine, engine_chunked, engine_paged, engine_quant, engine_spec and gateway
-paths,
+engine, engine_chunked, engine_paged, engine_quant, engine_spec, gateway,
+fleet and deploy paths,
 times at config A's
 attention shape, at the training rows, at the engine's decode shape and
 its chunk launch at span 256, fp32; the paged decode at span 128 and the
@@ -295,6 +324,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 
@@ -4551,7 +4581,7 @@ def _in_process_closed_loop(gw, workload, batch):
         idx = batch if job == "batch" else [job]
         done = [threading.Event() for _ in idx]
         t0 = time.perf_counter()
-        with gw._engine_lock:
+        with gw.engine.lock:
             for i, ev in zip(idx, done):
                 reqs[i] = engine.submit(*workload[i], on_token=lambda t, d, ev=ev: d and ev.set())
         gw._work.set()
@@ -4619,7 +4649,7 @@ def _gateway_over_e(dev, model, clients, failures):
         clients.submit(_wire_pass, gw.port, workload[:GATEWAY_CLIENTS], []).result()  # warm
         for _ in range(GATEWAY_ROUNDS):
             before = _launches()
-            with gw._engine_lock:
+            with gw.engine.lock:
                 reqs, row = _serve_pass(engine, workload, dev)
             inproc = inproc or reqs
             rows["in_process"].append(row)
@@ -4950,6 +4980,718 @@ def phase_gateway(dev, model):
     return launches
 
 
+# -- the serving fleet and weight deployment ---------------------------------------------
+
+# fleet: two paged replicas of E's engine (E's 16 slots and windows of 16,
+# blocks of 16, E-paged's 512 blocks, preemption, the prefix cache) on the
+# one card behind a Router. E's 48 requests sit behind FLEET_GROUPS system
+# prompts of FLEET_SYSTEM tokens (two blocks), so a group's requests share
+# a prefix the affinity stage can see (FLEET_MIN_AFFINITY: one block); an odd
+# number of groups, so a round-robin walk spreads each group over both
+FLEET_ENGINE = dict(ENGINE, **ENGINE_PAGED, preemption=True, prefix_cache=True)
+FLEET_SYSTEM = 32
+FLEET_GROUPS = 3
+FLEET_MIN_AFFINITY = 16
+FLEET_ROUNDS = 2
+FLEET_DRAIN_AFTER = 96  # tokens the fleet delivered before the drain starts
+FLEET_KILL_AFTER = 96  # and before the ReplicaKiller fires
+# the killed replica's arena back to the allocator, less this much of the
+# survivor's state that may have grown between the two idle readings
+FLEET_ARENA_SLACK = 4 << 20
+# deploy: config A's weights in a socket store (one shard, then two);
+# DEPLOY_GENERATIONS publications of the same content while the router
+# serves, subscribers polling every DEPLOY_POLL_S; canary candidates are the
+# weights plus seeded noise of DEPLOY_NOISE; the burn holds the canary for
+# DEPLOY_STALL_S under TTFT deadlines of DEPLOY_DEADLINE_MS, the clean
+# window is DEPLOY_WINDOW evaluations (share 0.5 as the reference's bench)
+DEPLOY_GENERATIONS = 3
+DEPLOY_POLL_S = 0.02
+DEPLOY_NOISE = 0.02
+DEPLOY_STALL_S = 1.0
+DEPLOY_DEADLINE_MS = 250.0
+DEPLOY_GENEROUS_MS = 60_000.0
+DEPLOY_WINDOW = 2
+DEPLOY_SHARDS = (1, 2)
+DEPLOY_RESTART_S = 1.5  # the shard killed mid-deployment stays down this long
+DEPLOY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "deploy")
+
+
+def _fleet_workload(vocab):
+    """E's requests, each behind one of FLEET_GROUPS seeded system prompts."""
+    rng = np.random.default_rng(7)
+    systems = [rng.integers(1, vocab, size=FLEET_SYSTEM).astype(np.int32)
+               for _ in range(FLEET_GROUPS)]
+    return [(np.concatenate([systems[i % FLEET_GROUPS], prompt]), budget)
+            for i, (prompt, budget) in enumerate(_engine_workload(vocab, ENGINE_REQUESTS))]
+
+
+def _counting(dev):
+    """A tally of launches by kernel, and ``counted(fn)``: ``fn()``'s result,
+    its launches added to the tally (the served runs of a phase, not its
+    checks)."""
+    launches = dict.fromkeys(_launches(), 0)
+
+    def counted(fn):
+        before = _launches()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        now = _launches()
+        for k in launches:
+            launches[k] += now[k] - before[k]
+        return out
+
+    return launches, counted
+
+
+def _allocated(dev):
+    torch.cuda.synchronize(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _pass_row(seconds, reqs, stamps):
+    """tokens/s, TTFT and inter-token percentiles of one pass; ``stamps``
+    maps a request's index to its tokens' arrival times."""
+    tokens = sum(len(r.tokens) for r in reqs)
+    itls = [b - a for ts in stamps.values() for a, b in zip(ts, ts[1:])]
+    return {"seconds": seconds, "tokens_s": tokens / seconds, "generated_tokens": tokens,
+            "ttft_s": _percentiles([r.ttft for r in reqs]),
+            "inter_token_s": _percentiles(itls) if itls else None}
+
+
+def _router_pass(router, workload, dev, **submit):
+    """The first request of each group alone (each warms a replica's prefix
+    cache), then the rest all at once; returns the handles in workload order
+    and the pass's row."""
+    stamps = {i: [] for i in range(len(workload))}
+
+    def submit_one(i):
+        prompt, budget = workload[i]
+        return router.submit(prompt, budget, on_token=lambda t, d, i=i: (
+            stamps[i].append(time.perf_counter()) if t is not None else None), **submit)
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    first = [submit_one(i) for i in range(FLEET_GROUPS)]
+    if not all(r.wait(HTTP_TIMEOUT_S) for r in first):
+        raise AssertionError("a group's first request did not finish")
+    reqs = first + [submit_one(i) for i in range(FLEET_GROUPS, len(workload))]
+    if not all(r.wait(HTTP_TIMEOUT_S) for r in reqs):
+        raise AssertionError("router requests did not finish")
+    torch.cuda.synchronize(dev)
+    return reqs, _pass_row(time.perf_counter() - t0, reqs, stamps)
+
+
+def _engine_pass(engine, workload, dev):
+    """The same pass on one engine: the groups' first requests, then the rest."""
+    stamps = {i: [] for i in range(len(workload))}
+
+    def submit_one(i):
+        prompt, budget = workload[i]
+        return engine.submit(prompt, budget, on_token=lambda t, d, i=i: (
+            stamps[i].append(time.perf_counter()) if t is not None else None))
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    reqs = [submit_one(i) for i in range(FLEET_GROUPS)]
+    engine.run()
+    reqs += [submit_one(i) for i in range(FLEET_GROUPS, len(workload))]
+    engine.run()
+    torch.cuda.synchronize(dev)
+    return reqs, _pass_row(time.perf_counter() - t0, reqs, stamps)
+
+
+def _same_tokens(what, got, want, plain, failures):
+    """Each of ``got`` (handles) against ``want`` (handles of the one-engine
+    pass on the same weights), the margin rule on ``plain`` (the plain
+    logits of ``want``'s sequences): returns (exact, within margin)."""
+    exact = close = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.error is not None or len(g.tokens) != w.max_new_tokens:
+            failures.append(f"{what} request {i}: {len(g.tokens)} of {w.max_new_tokens} "
+                            f"tokens, error {g.error}")
+            continue
+        p = len(w.prompt)
+        bad = _first_divergence(g.tokens, w.tokens, lambda j, i=i, p=p: plain[i, p - 1 + j])
+        exact += g.tokens == w.tokens
+        close += g.tokens != w.tokens
+        if bad:
+            failures.append(f"{what} request {i}: {bad}")
+    return exact, close
+
+
+class _RouterView:
+    """A watchdog source reading one router's replica-up gauge only."""
+
+    def __init__(self, router):
+        self.gauge, self.label = router._mf_up, router.telemetry_label
+
+    def series(self, name):
+        if name != "elephas_router_replica_up":
+            return []
+        return [({"router": self.label, "replica": replica}, child.value)
+                for (router, replica), child in self.gauge.series() if router == self.label]
+
+
+def _fleet_reference(dev, model, workload, failures):
+    """One engine serving the fleet workload: its handles, the plain logits
+    of their sequences and the row (the reference every router pass is held
+    to)."""
+    from elephas_tpu_torch import InferenceEngine
+
+    engine = InferenceEngine(model, **FLEET_ENGINE)
+    reqs, row = _engine_pass(engine, workload, dev)
+    _, _, check_failures, plain = _check_emitted(model, reqs, dev)
+    failures += check_failures
+    engine.release_telemetry()
+    return reqs, plain, row
+
+
+def phase_fleet(dev, model):
+    """The serving fleet at config A's full width (``model``, the engine
+    phase's): two paged replicas behind a Router. Rounds in turns of one
+    engine and the router on the grouped workload (tokens equal, margin
+    rule; tokens/s and TTFT printed); the same prompts through a
+    round-robin router (the affinity router's prefix hits at least its);
+    a drain in the middle of the streams (requests migrated, none dropped
+    or doubled, tokens equal); a ReplicaKiller kill in the middle of the
+    streams (re-driven token-exact, delivered = generated less stale,
+    replica_down fired then cleared on restore, the dead arena freed).
+    Returns the launches of the routed runs."""
+    from elephas_tpu_torch import InferenceEngine
+    from elephas_tpu_torch.fault import ReplicaKiller
+    from elephas_tpu_torch.fleet import Router
+    from elephas_tpu_torch.telemetry.watch import ReplicaDownRule, Watchdog
+
+    failures = []
+    workload = _fleet_workload(model.vocab_size)
+    ref, plain, _ = _fleet_reference(dev, model, workload, failures)
+    launches, counted = _counting(dev)
+
+    def pair():
+        return {f"replica-{i}": InferenceEngine(model, **FLEET_ENGINE) for i in range(2)}
+
+    def release(router, engines):
+        router.release_telemetry()
+        for e in engines.values():
+            e.release_telemetry()
+
+    rows = {"one_engine": [], "router": []}
+    exact = close = 0
+    hits = {}
+    for _ in range(FLEET_ROUNDS):
+        engine = InferenceEngine(model, **FLEET_ENGINE)
+        rows["one_engine"].append(_engine_pass(engine, workload, dev)[1])
+        engine.release_telemetry()
+        engines = pair()
+        router = Router(engines, min_affinity_tokens=FLEET_MIN_AFFINITY)
+        with router:
+            reqs, row = counted(lambda: _router_pass(router, workload, dev))
+        rows["router"].append(row)
+        e, c = _same_tokens("router", reqs, ref, plain, failures)
+        exact, close = exact + e, close + c
+        hits["affinity"] = sum(e.stats()["prefix_cache"]["hits"] for e in engines.values())
+        placements = router.stats()["placements"]
+        release(router, engines)
+    engines = pair()
+    router = Router(engines, placement="round_robin")
+    with router:
+        reqs, rr_row = counted(lambda: _router_pass(router, workload, dev))
+    _same_tokens("round-robin", reqs, ref, plain, failures)
+    hits["round_robin"] = sum(e.stats()["prefix_cache"]["hits"] for e in engines.values())
+    release(router, engines)
+    if hits["affinity"] < hits["round_robin"]:
+        failures.append(f"prefix hits: affinity {hits['affinity']} < round-robin "
+                        f"{hits['round_robin']}")
+
+    # a drain in the middle of the streams
+    engines = pair()
+    router = Router(engines, min_affinity_tokens=FLEET_MIN_AFFINITY)
+    with router:
+        def drained():
+            reqs = [router.submit(p, b) for p, b in workload[:FLEET_GROUPS]]
+            if not all(r.wait(HTTP_TIMEOUT_S) for r in reqs):
+                raise AssertionError("drain pass: a group's first request did not finish")
+            delivered = router.tokens_delivered
+            reqs += [router.submit(p, b) for p, b in workload[FLEET_GROUPS:]]
+            while router.tokens_delivered < delivered + FLEET_DRAIN_AFTER:
+                time.sleep(0.0005)
+            counts = Counter(r.replica for r in reqs if not r.done)
+            victim = max(sorted(counts), key=lambda n: counts[n])
+            t0 = time.perf_counter()
+            moved = router.drain(victim, timeout=HTTP_TIMEOUT_S)
+            drain_s = time.perf_counter() - t0
+            if not all(r.wait(HTTP_TIMEOUT_S) for r in reqs):
+                raise AssertionError("drain pass: requests did not finish")
+            router.undrain(victim)
+            return reqs, victim, moved, drain_s
+
+        reqs, victim, moved, drain_s = counted(drained)
+        stats = router.stats()
+    d_exact, d_close = _same_tokens("drain", reqs, ref, plain, failures)
+    delivered = sum(len(r.tokens) for r in reqs)
+    drain = {"victim": victim, "migrated": moved, "seconds": drain_s,
+             "delivered": stats["tokens_delivered"], "tokens": delivered,
+             "stale_tokens_dropped": stats["stale_tokens_dropped"],
+             "exact_streams": d_exact, "within_margin_streams": d_close}
+    if not moved >= 1 or stats["migrated"] != moved:
+        failures.append(f"drain migrated {moved} (stats {stats['migrated']})")
+    if stats["tokens_delivered"] != delivered or stats["stale_tokens_dropped"]:
+        failures.append(f"drain: delivered {stats['tokens_delivered']}, streams hold "
+                        f"{delivered}, stale {stats['stale_tokens_dropped']}")
+    release(router, engines)
+
+    # a replica killed in the middle of the streams
+    engines = pair()
+    router = Router(engines, min_affinity_tokens=FLEET_MIN_AFFINITY)
+    watchdog = Watchdog(source=_RouterView(router), rules=[ReplicaDownRule()])
+    with router:
+        idle_before = _allocated(dev)
+        generated0 = {n: e.total_generated for n, e in engines.items()}
+
+        def killed():
+            reqs = [router.submit(p, b) for p, b in workload[:FLEET_GROUPS]]
+            if not all(r.wait(HTTP_TIMEOUT_S) for r in reqs):
+                raise AssertionError("kill pass: a group's first request did not finish")
+            victim = reqs[0].replica
+            arena = engines[victim].arena.nbytes()
+            after = router.tokens_delivered + FLEET_KILL_AFTER
+            reqs += [router.submit(p, b) for p, b in workload[FLEET_GROUPS:]]
+            killer = ReplicaKiller(router, victim, after_tokens=after)
+            killer.start()
+            if not killer.killed.wait(HTTP_TIMEOUT_S):
+                raise AssertionError("the ReplicaKiller never fired")
+            if not all(r.wait(HTTP_TIMEOUT_S) for r in reqs):
+                raise AssertionError("kill pass: requests did not finish")
+            killer.cancel()
+            return reqs, victim, killer.redriven, arena
+
+        reqs, victim, redriven, arena = counted(killed)
+        fired = [(a.rule, a.labels.get("replica")) for a in watchdog.evaluate()]
+        stats = router.stats()
+        generated = sum(e.total_generated - generated0[n] for n, e in engines.items())
+        idle_after = _allocated(dev)
+        released = engines[victim].arena is None
+        router.restore_replica(victim, InferenceEngine(model, **FLEET_ENGINE))
+        cleared = watchdog.evaluate()
+        seen = set()
+        # prompts no replica holds warm: placed by load, the fresh replica first
+        for prompt, budget in _engine_workload(model.vocab_size, FLEET_GROUPS):
+            r = router.submit(prompt, budget)
+            r.wait(HTTP_TIMEOUT_S)
+            seen.add(r.replica)
+        report = watchdog.report()
+    k_exact, k_close = _same_tokens("kill", reqs, ref, plain, failures)
+    kill = {"victim": victim, "redriven_by_kill": redriven, "redriven": stats["redriven"],
+            "delivered": stats["tokens_delivered"],
+            "generated": generated, "stale_tokens_dropped": stats["stale_tokens_dropped"],
+            "fired": fired, "cleared": [a.rule for a in cleared],
+            "fired_total": report["fired_total"], "cleared_total": report["cleared_total"],
+            "freed_bytes": idle_before - idle_after, "arena_bytes": arena,
+            "restored_serves": victim in seen,
+            "exact_streams": k_exact, "within_margin_streams": k_close}
+    if not stats["redriven"] >= 1:
+        failures.append(f"the kill re-drove nothing ({redriven} from kill_replica, "
+                        f"{stats['redriven']} in all)")
+    if stats["tokens_delivered"] != generated - stats["stale_tokens_dropped"]:
+        failures.append(f"kill: delivered {stats['tokens_delivered']} != generated "
+                        f"{generated} less stale {stats['stale_tokens_dropped']}")
+    if fired != [("replica_down", victim)] or cleared or \
+            (report["fired_total"], report["cleared_total"]) != (1, 1):
+        failures.append(f"replica_down fired {fired}, then {cleared}: {report}")
+    if not released or idle_before - idle_after < arena - FLEET_ARENA_SLACK:
+        failures.append(f"the killed replica freed {idle_before - idle_after} bytes, "
+                        f"its arena held {arena}")
+    if victim not in seen:
+        failures.append(f"the restored {victim} took no placement")
+    watchdog.release_telemetry()
+    release(router, engines)
+
+    med = {name: float(np.median([x["tokens_s"] for x in r])) for name, r in rows.items()}
+    ttft = {name: float(np.median([x["ttft_s"]["p50"] for x in r])) for name, r in rows.items()}
+    emit({"phase": "fleet", "config": CONFIGS["A"], "options": FLEET_ENGINE,
+          "requests": len(workload), "groups": FLEET_GROUPS, "system_tokens": FLEET_SYSTEM,
+          "min_affinity_tokens": FLEET_MIN_AFFINITY, "rounds": FLEET_ROUNDS,
+          "tokens_s_median": med, "ttft_p50_s_median": ttft,
+          "router_over_one_engine": med["router"] / med["one_engine"], "rows": rows,
+          "round_robin": rr_row, "prefix_hits": hits, "placements": placements,
+          "exact_streams": exact, "within_margin_streams": close,
+          "drain": drain, "kill": kill, "launches": launches,
+          "nvidia_smi": nvidia_smi(), "failures": failures})
+    if failures:
+        raise AssertionError(f"fleet check failed: {failures}")
+    return launches
+
+
+def _timed(obj, name, into):
+    """Wrap ``obj.name`` to append each call's milliseconds to ``into``."""
+    real = getattr(obj, name)
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            into.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(obj, name, call)
+
+
+def _noisy(content, seed):
+    rng = np.random.default_rng(seed)
+    return [w + rng.normal(0.0, DEPLOY_NOISE, w.shape).astype(w.dtype) for w in content]
+
+
+def _live_pushes(dev, models, shards, workload, ref, plain, counted, failures):
+    """DEPLOY_GENERATIONS publications of the same content through a
+    VersionLedger over a socket store of ``shards`` shards while the router
+    serves the workload pass after pass, each replica's WeightSubscriber
+    polling over the wire on its own thread. Gates: each replica applies
+    each generation exactly once, every pass's tokens equal the one-engine
+    reference (margin rule). Returns the row."""
+    from elephas_tpu_torch import InferenceEngine
+    from elephas_tpu_torch.deploy import VersionLedger, WeightSubscriber
+    from elephas_tpu_torch.fleet import Router
+    from elephas_tpu_torch.parameter.client import ShardedClient, SocketClient
+    from elephas_tpu_torch.parameter.server import SocketServer
+    from elephas_tpu_torch.parameter.sharding import ShardedServerGroup
+    from elephas_tpu_torch.utils.weights import get_weights
+
+    content = get_weights(models[0])
+    journal = os.path.join(DEPLOY_DIR, f"shards{shards}")
+    if shards == 1:
+        store = SocketServer(content, mode="asynchronous", port=0, journal_dir=journal)
+        store.start()
+        clients = [SocketClient(master=f"127.0.0.1:{store.port}") for _ in models]
+    else:
+        store = ShardedServerGroup(SocketServer, content, shards, journal_dir=journal)
+        store.start()
+        clients = [ShardedClient(store.endpoints, store.shard_map, transport="socket")
+                   for _ in models]
+    engines = {f"replica-{i}": InferenceEngine(m, **FLEET_ENGINE) for i, m in enumerate(models)}
+    pull_ms, apply_ms, publish_ms, applied = [], [], [], {n: [] for n in engines}
+    for c in clients:
+        _timed(c, "get_parameters", pull_ms)
+    for name, e in engines.items():
+        real = e.load_weights
+
+        def load(weights, version=None, real=real, name=name):
+            t0 = time.perf_counter()
+            real(weights, version=version)
+            apply_ms.append((time.perf_counter() - t0) * 1e3)
+            applied[name].append(version)
+
+        e.load_weights = load
+    ledger = VersionLedger(store)
+    subs = {n: WeightSubscriber(e, c) for (n, e), c in zip(engines.items(), clients)}
+    router = Router(engines, min_affinity_tokens=FLEET_MIN_AFFINITY)
+    passes, steady = [], None
+    try:
+        with router:
+            reqs, steady = counted(lambda: _router_pass(router, workload, dev))
+            _same_tokens(f"steady ({shards} shard(s))", reqs, ref, plain, failures)
+            for s in subs.values():
+                s.start(interval_s=DEPLOY_POLL_S)
+            errors = []
+
+            def publish():
+                try:
+                    for g in range(1, DEPLOY_GENERATIONS + 1):
+                        t0 = time.perf_counter()
+                        if ledger.publish(content) != g:
+                            raise AssertionError(f"the ledger minted {ledger.version}, not {g}")
+                        publish_ms.append((time.perf_counter() - t0) * 1e3)
+                        deadline = time.monotonic() + HTTP_TIMEOUT_S
+                        while any(s.applied_version < g for s in subs.values()):
+                            if time.monotonic() > deadline:
+                                raise AssertionError(f"generation {g} not applied: "
+                                                     f"{[s.status() for s in subs.values()]}")
+                            time.sleep(0.001)
+                except BaseException as e:  # noqa: BLE001 — reported by the phase
+                    errors.append(e)
+
+            publisher = threading.Thread(target=publish, name="chip-smoke-publisher")
+            publisher.start()
+            while publisher.is_alive() or not passes:
+                reqs, row = counted(lambda: _router_pass(router, workload, dev))
+                passes.append(row)
+                _same_tokens(f"during pushes ({shards} shard(s))", reqs, ref, plain, failures)
+            publisher.join()
+            for s in subs.values():
+                s.stop()
+            failures += [f"publisher ({shards} shard(s)): {e!r}" for e in errors]
+    finally:
+        for c in clients:
+            c.close()
+        store.stop()
+        shutil.rmtree(journal, ignore_errors=True)
+    for name, s in subs.items():
+        want = list(range(1, DEPLOY_GENERATIONS + 1))
+        if applied[name] != want or s.applies != DEPLOY_GENERATIONS or \
+                engines[name].weight_version != DEPLOY_GENERATIONS:
+            failures.append(f"{name} ({shards} shard(s)) applied {applied[name]} "
+                            f"({s.status()}), want {want} once each")
+    row = {"shards": shards, "generations": DEPLOY_GENERATIONS, "passes_during": len(passes),
+           "publish_ms": publish_ms, "pull_ms": pull_ms, "apply_ms": apply_ms,
+           "applied": applied, "skips": {n: s.skips for n, s in subs.items()},
+           "steady": steady, "during": passes,
+           "itl_p99_steady_s": steady["inter_token_s"]["p99"],
+           "itl_p99_during_s": max(r["inter_token_s"]["p99"] for r in passes)}
+    row["itl_p99_ratio"] = row["itl_p99_during_s"] / row["itl_p99_steady_s"]
+    for obj in (router, ledger, *subs.values(), *engines.values()):
+        obj.release_telemetry()
+    return row
+
+
+def _canary(dev, models, workload, ref, plain, counted, failures):
+    """Two canary cycles through a CanaryController over the router's
+    scraper (the slo_burn watchdog). The burn: a candidate of the weights
+    plus seeded noise on the canary replica, an EngineStaller holding it
+    past the requests' TTFT deadlines; gates: automatic rollback, every
+    replica's tokens equal the baseline's after it, the watchdog fired once
+    and cleared once. The clean window: a second noisy candidate promoted
+    fleet-wide, its tokens equal a fresh engine's on those weights."""
+    from elephas_tpu_torch import InferenceEngine, transformer_lm
+    from elephas_tpu_torch.deploy import CanaryController, VersionLedger, WeightSubscriber
+    from elephas_tpu_torch.fault import EngineStaller
+    from elephas_tpu_torch.fleet import Router
+    from elephas_tpu_torch.parameter.client import SocketClient
+    from elephas_tpu_torch.parameter.server import SocketServer
+    from elephas_tpu_torch.serving.policy import FairSharePolicy
+    from elephas_tpu_torch.utils.weights import get_weights, set_weights
+
+    content = get_weights(models[0])
+    store = SocketServer(content, mode="asynchronous", port=0)
+    store.start()
+    clients = [SocketClient(master=f"127.0.0.1:{store.port}") for _ in models]
+    engines = {name: InferenceEngine(m, **FLEET_ENGINE, policy=FairSharePolicy())
+               for name, m in zip(("stable", "canary"), models)}
+    ledger = VersionLedger(store)
+    subs = {n: WeightSubscriber(e, c) for (n, e), c in zip(engines.items(), clients)}
+    router = Router(engines, min_affinity_tokens=FLEET_MIN_AFFINITY)
+    split = workload[:2 * FLEET_GROUPS]
+    out = {}
+    try:
+        with router:
+            ctrl = CanaryController(router, ledger, subs, canary=["canary"], share=0.5,
+                                    window=DEPLOY_WINDOW)
+            router.scraper.poll()
+            ctrl.watchdog.evaluate()  # the burn rule's first look
+            out["burn_candidate"] = ctrl.begin(_noisy(content, 1))
+            reqs, _ = counted(lambda: _router_pass(router, split, dev,
+                                                   ttft_deadline_ms=DEPLOY_GENEROUS_MS))
+            out["canary_differs"] = sum(r.tokens != w.tokens for r, w in zip(reqs, ref)
+                                        if r.replica == "canary")
+            if not out["canary_differs"]:
+                failures.append("the noisy candidate's tokens equal the baseline's")
+            router.scraper.poll()
+            if ctrl.evaluate() != "canary":
+                failures.append(f"met deadlines concluded the canary: {ctrl.status()}")
+            router.set_canary(["canary"], 1.0)
+            with EngineStaller(engines["canary"]):
+                burn = [router.submit(p, b, ttft_deadline_ms=DEPLOY_DEADLINE_MS)
+                        for p, b in split]
+                time.sleep(DEPLOY_STALL_S)
+            if not all(r.wait(HTTP_TIMEOUT_S) for r in burn):
+                failures.append("the burn's requests did not finish")
+            router.scraper.poll()
+            state = ctrl.evaluate()
+            router.scraper.poll()
+            ctrl.watchdog.evaluate()
+            report = ctrl.watchdog.report()
+            out["burn"] = {"state": state, "outcome": ctrl.last_outcome,
+                           "fired_total": report["fired_total"],
+                           "cleared_total": report["cleared_total"],
+                           "rollback_generation": ledger.version,
+                           "applied": {n: s.applied_version for n, s in subs.items()}}
+            if state != "idle" or ctrl.last_outcome != "rolled_back" or \
+                    (report["fired_total"], report["cleared_total"]) != (1, 1) or \
+                    any(s.applied_version != ledger.version for s in subs.values()):
+                failures.append(f"the burn: {out['burn']}")
+            reqs, _ = counted(lambda: _router_pass(router, workload, dev))
+            out["after_rollback"] = _same_tokens("after the rollback", reqs, ref, plain,
+                                                 failures)
+
+            clean = _noisy(content, 2)
+            out["clean_candidate"] = ctrl.begin(clean)
+            reqs, _ = counted(lambda: _router_pass(router, split, dev,
+                                                   ttft_deadline_ms=DEPLOY_GENEROUS_MS))
+            for _ in range(DEPLOY_WINDOW):
+                router.scraper.poll()
+                ctrl.evaluate()
+            out["clean"] = {"outcome": ctrl.last_outcome, "state": ctrl.state,
+                            "applied": {n: s.applied_version for n, s in subs.items()}}
+            if ctrl.last_outcome != "promoted" or any(
+                    e.weight_version != out["clean_candidate"] for e in engines.values()):
+                failures.append(f"the clean window: {out['clean']}")
+            promoted, _ = counted(lambda: _router_pass(router, workload, dev))
+    finally:
+        for c in clients:
+            c.close()
+        store.stop()
+    fresh = transformer_lm(**CONFIGS["A"], seed=0, device=dev)
+    set_weights(fresh, clean)
+    want, fresh_plain, _ = _fleet_reference(dev, fresh, workload, failures)
+    out["promoted_tokens"] = _same_tokens("promoted", promoted, want, fresh_plain, failures)
+    del fresh, fresh_plain
+    for obj in (ctrl, ctrl.watchdog, router, ledger, *subs.values(), *engines.values()):
+        obj.release_telemetry()
+    return out
+
+
+def _shard_kill_mid_deployment(dev, models, failures):
+    """A ShardKiller kills one of two journaled shards between two
+    publications through a DeployChaosStore: the publication past the dead
+    shard lands on the live one, subscribers skip (a wire error, then the
+    mixed cut of the restarted shard), and the next publication converges
+    both replicas; each applies each generation it applies once."""
+    from elephas_tpu_torch import InferenceEngine
+    from elephas_tpu_torch.deploy import VersionLedger, WeightSubscriber
+    from elephas_tpu_torch.fault import DeployChaosStore, ShardedRestartablePS, ShardKiller
+    from elephas_tpu_torch.parameter.client import ShardedClient
+    from elephas_tpu_torch.parameter.server import SocketServer
+    from elephas_tpu_torch.utils.weights import get_weights
+
+    content = get_weights(models[0])
+    journal = os.path.join(DEPLOY_DIR, "chaos")
+    ps = ShardedRestartablePS(SocketServer, content, 2, journal_dir=journal, journal_every=1)
+    clients, subs, out = {}, {}, {}
+    engines = {f"replica-{i}": InferenceEngine(m, **FLEET_ENGINE) for i, m in enumerate(models)}
+    applied = {n: [] for n in engines}
+    try:
+        store = DeployChaosStore(ps)
+        ledger = VersionLedger(store)
+        for name, e in engines.items():
+            real = e.load_weights
+            e.load_weights = (lambda w, version=None, real=real, name=name: (
+                applied[name].append(version), real(w, version=version)))
+            clients[name] = ShardedClient(ps.endpoints, ps.shard_map, transport="socket",
+                                          client_id=name, retries=1)
+            subs[name] = WeightSubscriber(e, clients[name])
+        g1 = ledger.publish(content)
+        polls = {"g1": [s.poll_once() for s in subs.values()]}
+        killer = ShardKiller(ps, 0, after_updates=0, restart_delay_s=DEPLOY_RESTART_S)
+        killer.start()
+        deadline = time.monotonic() + HTTP_TIMEOUT_S
+        while not ps.kills[0]:
+            if time.monotonic() > deadline:
+                raise AssertionError("the ShardKiller never fired")
+            time.sleep(0.001)
+        g2 = ledger.publish(_noisy(content, 3))
+        polls["outage"] = [s.poll_once() for s in subs.values()]
+        while not ps.restarts[0]:
+            if time.monotonic() > deadline:
+                raise AssertionError("the killed shard never restarted")
+            time.sleep(0.005)
+        polls["mixed"] = [s.poll_once() for s in subs.values()]
+        converged_before = ledger.status()["converged"]
+        g3 = ledger.publish(content)
+        polls["g3"] = [s.poll_once() for s in subs.values()]
+        polls["again"] = [s.poll_once() for s in subs.values()]
+        killer.cancel()
+        killer.join(timeout=30)
+        out = {"generations": [g1, g2, g3], "polls": polls, "applied": applied,
+               "skips": {n: s.skips for n, s in subs.items()},
+               "kills": list(ps.kills), "restarts": list(ps.restarts),
+               "converged_before": converged_before,
+               "converged": ledger.status()["converged"],
+               "updates_duplicate": ps.counters()["updates_duplicate"]}
+        want = {"g1": [g1, g1], "outage": [None, None], "mixed": [None, None],
+                "g3": [g3, g3], "again": [None, None]}
+        if polls != want or any(v != [g1, g3] for v in applied.values()) or \
+                converged_before or not out["converged"] or out["updates_duplicate"] or \
+                any(s.skips["wire_error"] < 1 or s.skips["mixed_cut"] < 1
+                    for s in subs.values()):
+            failures.append(f"shard kill mid-deployment: {out}")
+        for obj in (ledger, *subs.values()):
+            obj.release_telemetry()
+    finally:
+        for c in clients.values():
+            c.close()
+        ps.stop()
+        shutil.rmtree(journal, ignore_errors=True)
+    for e in engines.values():
+        e.release_telemetry()
+    return out
+
+
+def _migration_across_generations(dev, model, workload, ref, plain, failures):
+    """A warm record exported from a paged engine at generation 5 is refused
+    by one at 7, and accepted (continuing token-exact) once it is re-stamped
+    at 5."""
+    from elephas_tpu_torch import InferenceEngine
+    from elephas_tpu_torch.fleet import decode_record, encode_record
+
+    a, b = InferenceEngine(model, **FLEET_ENGINE), InferenceEngine(model, **FLEET_ENGINE)
+    a.refresh_weights(version=5)
+    b.refresh_weights(version=7)
+    # a request of the second wave with the longer budget: still decoding
+    # after the first step's window
+    i = next(j for j in range(FLEET_GROUPS, len(workload))
+             if workload[j][1] == max(ENGINE_BUDGETS))
+    prompt, budget = workload[i]
+    req = a.submit(prompt, budget)
+    while len(req.tokens) < 2:
+        a.step()
+    record = decode_record(encode_record(a.export_request(req.rid)))
+    out = {"record_weight_ver": record["weight_ver"], "warm_blocks": record["n_blocks"]}
+    try:
+        b.import_request(record)
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+    b.refresh_weights(version=5)
+    moved = b.import_request(record)
+    b.run()
+    out["accepted_tokens"] = len(moved.tokens)
+    exact, close = _same_tokens("migrated across generations", [moved], [ref[i]],
+                                plain[i:i + 1], failures)
+    out["exact"], out["within_margin"] = exact, close
+    if record["weight_ver"] != 5 or not record["n_blocks"] or \
+            "weight_ver" not in (out["refused"] or ""):
+        failures.append(f"migration across generations: {out}")
+    a.release_telemetry()
+    b.release_telemetry()
+    return out
+
+
+def phase_deploy(dev, model):
+    """Train-while-serving at config A's full width: two paged replicas on
+    their own copies of ``model``'s weights behind a Router. Live pushes
+    through a VersionLedger over a socket store of one shard, then two
+    (_live_pushes); a canary rolled back by an slo_burn, then one promoted
+    (_canary); a shard killed mid-deployment (_shard_kill_mid_deployment);
+    a warm record across generations (_migration_across_generations).
+    Prints publication, pull and apply milliseconds and p99 ITL during
+    pushes against steady state. Returns the launches of the routed runs."""
+    from elephas_tpu_torch import transformer_lm
+    from elephas_tpu_torch.utils.weights import get_weights, set_weights
+
+    failures = []
+    launches, counted = _counting(dev)
+    content = get_weights(model)
+    second = transformer_lm(**CONFIGS["A"], seed=0, device=dev)
+    set_weights(second, content)
+    models = [model, second]
+    workload = _fleet_workload(model.vocab_size)
+    ref, plain, _ = _fleet_reference(dev, model, workload, failures)
+    os.makedirs(DEPLOY_DIR, exist_ok=True)
+    pushes = [_live_pushes(dev, models, n, workload, ref, plain, counted, failures)
+              for n in DEPLOY_SHARDS]
+    canary = _canary(dev, models, workload, ref, plain, counted, failures)
+    # the canary left its promoted candidate in both modules: back to the content
+    for m in models:
+        set_weights(m, content)
+    chaos = _shard_kill_mid_deployment(dev, models, failures)
+    migration = _migration_across_generations(dev, model, workload, ref, plain, failures)
+    emit({"phase": "deploy", "config": CONFIGS["A"], "options": FLEET_ENGINE,
+          "pushes": pushes, "canary": canary, "shard_kill": chaos, "migration": migration,
+          "launches": launches, "nvidia_smi": nvidia_smi(), "failures": failures})
+    shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"deploy check failed: {failures}")
+    return launches
+
+
 def _paged_row(fs, decode, q, pk, pv, scales, tables, pos, dt):
     """One paged kernel, its plain version and SDPA with a boolean mask over
     the span gathered and dequantized beforehand (the library yardstick:
@@ -5150,6 +5892,10 @@ def main(argv=None) -> int:
     spec = phase_engine_spec(dev)
     _reset_launches()
     gateway = phase_gateway(dev, lm)
+    _reset_launches()
+    fleet = phase_fleet(dev, lm)
+    _reset_launches()
+    deploy = phase_deploy(dev, lm)
     for path, launches, kernels in (
         ("serve", serve, ("flash_fwd", "layer_norm_fwd")),
         ("train", train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
@@ -5167,6 +5913,8 @@ def main(argv=None) -> int:
                                "layer_norm_fwd")),
         ("gateway", gateway, ("span_decode", "flash_fwd", "paged_span_chunk",
                               "paged_span_decode", "layer_norm_fwd")),
+        ("fleet", fleet, ("paged_span_chunk", "paged_span_decode", "layer_norm_fwd")),
+        ("deploy", deploy, ("paged_span_chunk", "paged_span_decode", "layer_norm_fwd")),
     ):
         idle = [k for k in kernels if launches[k] == 0]
         if idle:
@@ -5191,7 +5939,7 @@ def main(argv=None) -> int:
     print(nvidia_smi(), flush=True)
     total = {k: serve[k] + train[k] + train_bf16[k] + train_workers[k] + train_stream[k]
              + train_ps[k] + engine[k] + chunked[k] + paged[k] + quant[k] + spec[k] + gateway[k]
-             for k in serve}
+             + fleet[k] + deploy[k] for k in serve}
     emit({"kernels": [
         _kernel_entry(
             "flash_fwd", "elephas_tpu_torch/csrc/flash_fwd.cu",

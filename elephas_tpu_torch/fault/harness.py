@@ -241,6 +241,100 @@ class PSKiller(threading.Thread):
             self.ps.t_recovered = time.monotonic()
 
 
+class EngineStaller:
+    """Deliberate serving-engine stall injection: while active,
+    ``engine.step()`` is replaced by a do-nothing stand-in — queued work
+    stays queued, tokens stop landing — which is exactly the signature
+    the watchdog's ``decode_stall``/``queue_stall`` rules (and, behind a
+    router, ``slo_burn``) must detect, and must CLEAR once the context
+    exits and real steps resume. A fault injector like
+    :class:`PSKiller`: the harness drives control flow by design;
+    telemetry only observes.
+
+    Use as a context manager::
+
+        with EngineStaller(engine):
+            ...probe /healthz, assert the anomaly fired...
+        ...drain, assert it cleared...
+    """
+
+    def __init__(self, engine, sleep_s: float = 0.01):
+        _require_telemetry("EngineStaller")
+        self.engine = engine
+        self.sleep_s = float(sleep_s)
+
+    def __enter__(self) -> "EngineStaller":
+        telemetry.emit(
+            "chaos.engine_stall", engine=self.engine.telemetry_label,
+        )
+
+        def stalled_step():
+            # keep the driver loop cheap while stalled (it spins on
+            # has_work); queued requests stay queued, nothing decodes
+            time.sleep(self.sleep_s)
+            return []
+
+        # instance attribute shadows the bound method; __exit__
+        # deletes it to restore the real step
+        self.engine.step = stalled_step
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        del self.engine.step
+        telemetry.emit(
+            "chaos.engine_resume", engine=self.engine.telemetry_label,
+        )
+
+
+# evaluations after a watched chaos run, at most, to let an outage the
+# cadence missed fire and clear (each rule clears within a few looks)
+_WATCH_SETTLE_EVALUATIONS = 16
+
+
+class _RunSeries:
+    """A watchdog source holding the series of one chaos run only: its
+    clients' (the sharded client's and its per-shard clients') and its
+    shard servers', every incarnation's. The process registry also holds
+    what other work in the process left there (an engine with requests
+    still waiting keeps the serving rules firing), which is not this run's
+    outage and must not sit in its report."""
+
+    def __init__(self, ps):
+        self._registry = telemetry.registry()
+        self._ps = ps
+        self.clients: set[str] = set()
+        self._servers: set[str] = set()
+
+    def series(self, name: str) -> list:
+        self._servers.update(s.telemetry_label for s in self._ps.servers if s is not None)
+        out = []
+        for fam in self._registry.collect():
+            if fam.name != name or fam.kind == "histogram":
+                continue
+            for values, child in fam.series():
+                labels = dict(zip(fam.labelnames, values))
+                if labels.get("client") in self.clients or \
+                        labels.get("server") in self._servers:
+                    out.append((labels, float(child.value)))
+        return out
+
+
+def _watch_baseline(client, poller, run_series) -> None:
+    """Give the watchdog its first look at ``client``'s per-shard pause
+    counters at 0, before any push. The unreachable-shard rule fires on a
+    rise between two looks, and a series first seen after the outage
+    would read as its own baseline: with this look, the outage fires on
+    the first evaluation after it, whenever that evaluation runs."""
+    run_series.clients.update(
+        [client.telemetry_label]
+        + [part.telemetry_label for part in getattr(client, "_parts", ())])
+    pauses = getattr(client, "_m_shard_pauses", None)
+    if pauses is not None:
+        for i in range(len(client.endpoints)):
+            pauses.labels(client=client.telemetry_label, shard=str(i))
+    poller.evaluate()
+
+
 class WatchdogPoller:
     """Evaluate a watchdog at a fixed cadence on a daemon thread for
     the duration of a chaos run — the end-to-end wiring (shard kill ⇒ anomaly with the right label ⇒
@@ -251,13 +345,21 @@ class WatchdogPoller:
         self.watchdog = watchdog
         self.interval_s = float(interval_s)
         self._stop = threading.Event()
+        # one evaluation at a time: the rules keep state between looks
+        self._lock = threading.Lock()
         self._thread = threading.Thread(
             target=self._run, name="elephas-watchdog-poll", daemon=True
         )
 
+    def evaluate(self) -> list:
+        """One evaluation now, from the calling thread, serialized with
+        the cadence's."""
+        with self._lock:
+            return self.watchdog.evaluate()
+
     def _run(self) -> None:
         while not self._stop.is_set():
-            self.watchdog.evaluate()
+            self.evaluate()
             self._stop.wait(self.interval_s)
 
     def __enter__(self) -> "WatchdogPoller":
@@ -270,6 +372,52 @@ class WatchdogPoller:
     def stop(self) -> None:
         self._stop.set()
         self._thread.join(timeout=10)
+
+
+class ReplicaKiller(threading.Thread):
+    """Kill one fleet-router serving replica mid-stream: a daemon thread
+    watches the router's PLAIN delivered-token counter (host truth, not
+    a registry series — the trigger never reads telemetry) and, once the
+    fleet has streamed ``after_tokens`` tokens, abandons the named
+    replica through ``router.kill_replica()`` — driver dead, engine
+    state lost and its arena released, exactly a crashed process — which
+    re-drives the survivors. Telemetry is still REQUIRED: the kill's
+    evidence trail (the ``chaos.replica_kill`` instant, the router's
+    replica-up gauge the ``replica_down`` watchdog rule fires on) is the
+    point of running chaos at all.
+
+    ``killed`` is set after the kill; ``redriven`` records how many
+    in-flight requests moved. Like :class:`PSKiller`, the trigger is a
+    COUNT, not a wall-clock timer: the same workload kills at the same
+    logical point on any host speed."""
+
+    def __init__(self, router, replica: str, after_tokens: int = 8,
+                 poll_s: float = 0.005):
+        super().__init__(name="elephas-replica-killer", daemon=True)
+        _require_telemetry("ReplicaKiller")
+        self.router = router
+        self.replica = str(replica)
+        self.after_tokens = int(after_tokens)
+        self.poll_s = float(poll_s)
+        self.killed = threading.Event()
+        self.redriven: int | None = None
+        self._halt = threading.Event()
+
+    def run(self) -> None:
+        while not self._halt.is_set():
+            if self.router.tokens_delivered >= self.after_tokens:
+                telemetry.emit(
+                    "chaos.replica_kill", replica=self.replica,
+                    after_tokens=self.after_tokens,
+                )
+                self.redriven = self.router.kill_replica(self.replica)
+                self.killed.set()
+                return
+            self._halt.wait(self.poll_s)
+
+    def cancel(self) -> None:
+        self._halt.set()
+        self.join(timeout=15)
 
 
 class ShardedRestartablePS:
@@ -467,6 +615,63 @@ class ShardedRestartablePS:
                 self.servers[i] = None
 
 
+class DeployChaosStore:
+    """Ledger-facing store view over a :class:`ShardedRestartablePS`:
+    lets a :class:`~elephas_tpu_torch.deploy.versions.VersionLedger`
+    publish weight generations THROUGH the chaos harness, so a shard can
+    be crash-killed mid-deployment.
+
+    Semantics under a kill: a dead shard simply MISSES the publication
+    (weights are state, not a sequenced delta — there is nothing to
+    park and replay). After its journal restore it reports the
+    generation it last journaled, the store shows a MIXED version cut
+    (which every :class:`~elephas_tpu_torch.deploy.subscriber.WeightSubscriber`
+    refuses to apply — serving never tears), and the NEXT publication
+    re-converges every shard. The subscriber's version compare makes
+    that convergence idempotent: one apply per generation, never two.
+    """
+
+    def __init__(self, harness: ShardedRestartablePS):
+        self.harness = harness
+
+    @property
+    def servers(self) -> list:
+        """Live shard servers — the unit the ledger journals at. Dead
+        shards are absent (their journal was written at the last
+        publication they saw; re-snapshotting a corpse is meaningless)."""
+        return [s for s in self.harness.servers if s is not None]
+
+    def set_weights(self, weights, weight_version: int | None = None):
+        """Scatter one generation onto every LIVE shard. Dead shards
+        are skipped loudly — they rejoin at an older generation and the
+        mixed cut is visible on ``status()`` until re-published."""
+        slices = self.harness.shard_map.scatter(
+            [np.asarray(w) for w in weights]
+        )
+        dead = [
+            i for i, s in enumerate(self.harness.servers) if s is None
+        ]
+        if dead:
+            logger.warning(
+                "deploy chaos: publishing generation %s past dead "
+                "shard(s) %s — they rejoin on an older generation "
+                "until the next publication", weight_version, dead,
+            )
+        for server, piece in zip(self.harness.servers, slices):
+            if server is not None:
+                server.set_weights(piece, weight_version=weight_version)
+
+    def get_parameters(self):
+        return self.harness.get_parameters()
+
+    def status(self) -> list[dict]:
+        """Per-LIVE-shard status, shard order (dead shards absent —
+        the wire-facing unreachability story belongs to the clients)."""
+        return [
+            s.status() for s in self.harness.servers if s is not None
+        ]
+
+
 class ShardKiller(threading.Thread):
     """Kills ONE shard once it has applied ``after_updates`` more
     updates (beyond ``baseline``), then waits for its recovery —
@@ -600,7 +805,8 @@ def run_sharded_chaos_training(
     over the wire — worker sync spans, per-shard applies, and journal
     writes share it on the exported timeline. ``watch=True``
     additionally runs a default-rule
-    :class:`~elephas_tpu_torch.telemetry.watch.Watchdog` at 50ms cadence for
+    :class:`~elephas_tpu_torch.telemetry.watch.Watchdog` over the run's own
+    series (its clients' and shard servers') at 50ms cadence for
     the run's duration: the shard kill must surface as a
     ``ps_unreachable`` anomaly labeled with the killed shard, then
     clear once the parked pushes replay — the fired/cleared event
@@ -644,6 +850,8 @@ def run_sharded_chaos_training(
         if plan.duplicate_fraction > 0.0:
             client.chaos_duplicate = plan.duplicate
         clients.append(client)
+        if poller is not None:
+            _watch_baseline(client, poller, run_series)
         return client
 
     worker._client = chaotic_client
@@ -653,7 +861,8 @@ def run_sharded_chaos_training(
     if watch:
         from elephas_tpu_torch.telemetry.watch import Watchdog
 
-        watchdog = Watchdog()
+        run_series = _RunSeries(ps)
+        watchdog = Watchdog(source=run_series)
         poller = WatchdogPoller(watchdog)
 
     killer = None
@@ -694,11 +903,15 @@ def run_sharded_chaos_training(
         if poller is not None:
             poller.stop()
     if watchdog is not None:
-        # a few post-run evaluations: PsUnreachableRule clears after
-        # `clear_after` quiet looks, and the run may have ended inside
-        # its hysteresis window
-        for _ in range(4):
-            watchdog.evaluate()
+        # evaluate until the outage has fired and cleared: the cadence
+        # above may have missed the whole outage on a loaded host (the
+        # first look past it then sees the pauses' rise against the
+        # baseline and fires), or the run may have ended inside
+        # PsUnreachableRule's `clear_after` quiet looks. Bounded: an
+        # anomaly that stays (in-doubt pushes) stays in the report.
+        for _ in range(_WATCH_SETTLE_EVALUATIONS):
+            if not poller.evaluate():
+                break
     try:
         per_shard = [ps.shard_counters(i) for i in range(num_shards)]
         final_weights = ps.get_parameters()

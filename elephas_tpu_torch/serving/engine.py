@@ -82,8 +82,16 @@ the ``jit.compile`` spans; the eager port compiles no programs) and the
 backend probe (``backend_fallback`` in :meth:`debug_snapshot` is always
 ``None``: the port has no fallback). Not ported yet, each raising
 ``NotImplementedError`` that names its ROADMAP.md item: sequence-parallel
-prefill and meshes (item 5); ``weight_version`` stays 0 until
-``refresh_weights`` (item 4b).
+prefill and meshes (item 5).
+
+Weight generations: :meth:`InferenceEngine.refresh_weights` stamps the
+generation served (``weight_version``: stats, scrape, explain, migration
+records) and drops what the old weights computed (the prefix cache,
+donations of prefills that straddle the change, a draft model's
+frontiers); :meth:`InferenceEngine.load_weights` puts a pulled weight list
+into the model first. The module's parameters are updated in place, so a
+new generation goes in only between two steps (``step`` and the copy take
+one lock): a step never reads two generations.
 """
 
 from __future__ import annotations
@@ -114,6 +122,7 @@ from elephas_tpu_torch.serving.kv_cache import (
     verify_forward,
 )
 from elephas_tpu_torch.serving.kv_quant import check_kv_dtype
+from elephas_tpu_torch.serving.locks import HandoffLock
 from elephas_tpu_torch.serving.paged_kv import (
     PagedKVPool,
     blocks_for,
@@ -441,6 +450,16 @@ class InferenceEngine:
         # the prompt tokens already resident (a copied prefix included); the
         # slot decodes once progress == len(prompt)
         self._prefilling: dict[int, list] = {}
+        # slots whose chunked prefill straddled refresh_weights(): their rows
+        # mix two generations, so they decode but never donate a prefix
+        self._stale_prefill: set[int] = set()
+        # the one lock over this engine's serving state: step(), score(),
+        # load_weights() and refresh_weights() take it, and so do the
+        # callers above (a gateway's handlers, a fleet replica's submit,
+        # probe and export). A step reads one generation of the module's
+        # parameters; a driver stepping in a tight loop lets a waiting
+        # caller in before its next step instead of re-taking it at once
+        self.lock = HandoffLock()
         self._generator = torch.Generator(device=self.device).manual_seed(int(seed))
         # per-slot device state: cursor (resident length), last token,
         # temperature, and the decode-active mask (host mirror + device
@@ -488,8 +507,7 @@ class InferenceEngine:
         self.migrated_out = 0
         self.migrated_in = 0
         self.kv_quant_export_bytes = 0
-        # the weight generation served; refresh_weights stamps it (ROADMAP.md,
-        # Queue A item 4b)
+        # the weight generation served; refresh_weights stamps it
         self.weight_version = 0
         # the Gateway serving this engine, if any: close() stops it
         self.gateway = None
@@ -654,12 +672,13 @@ class InferenceEngine:
             "constant 1, dtype name in the label)",
             labels=("engine", "kv_dtype"),
         ).labels(engine=eid, kv_dtype=self.kv_dtype).set(1)
-        treg.gauge(
+        self._g_weight_version = treg.gauge(
             "elephas_serving_weight_version",
             "Weight generation the engine currently serves "
             "(0 = unversioned; stamped by refresh_weights(version=))",
             labels=("engine",),
-        ).labels(engine=eid).set(self.weight_version)
+        ).labels(engine=eid)
+        self._g_weight_version.set(self.weight_version)
         self._mf_prefill_tokens = treg.histogram(
             "elephas_serving_prefill_tokens",
             "Prompt tokens ingested per completed prefill, by prompt "
@@ -1228,8 +1247,14 @@ class InferenceEngine:
         emitted = []
         for j, i in enumerate(fin):
             req = items[i][0].req
-            self._prefilling.pop(items[i][0].slot, None)
-            self.scheduler.on_prefill_complete(req)
+            slot = items[i][0].slot
+            self._prefilling.pop(slot, None)
+            if slot in self._stale_prefill:
+                # the prefill straddled refresh_weights(): its rows mix two
+                # generations — decode fine, donate never
+                self._stale_prefill.discard(slot)
+            else:
+                self.scheduler.on_prefill_complete(req)
             self._set_active(req.slot, True)
             self._note_prefill(req, self.scheduler.bucket_for(len(req.prompt)))
             self._emit(req, int(toks[j]))
@@ -1411,7 +1436,14 @@ class InferenceEngine:
         then one arena-wide decode window of ``steps_per_sync`` steps over
         the slots whose prefill is complete. Returns ``(request, token,
         done)`` triples in generation order; ``done`` is per TOKEN, True
-        only on a request's final token."""
+        only on a request's final token. Runs under :attr:`lock`, so
+        :meth:`load_weights` lands before or after it, never inside; a load
+        already waiting goes first."""
+        self.lock.yield_to_waiters()
+        with self.lock:
+            return self._step()
+
+    def _step(self) -> list[tuple[Request, int, bool]]:
         emitted: list[tuple[Request, int, bool]] = []
         if self.paged:
             plan, preempts = self.scheduler.admit_paged(prefilling=frozenset(self._prefilling))
@@ -1690,6 +1722,7 @@ class InferenceEngine:
             if slot is None:
                 return False
             self._prefilling.pop(slot, None)
+            self._stale_prefill.discard(slot)
             req = sched.reclaim(slot)
             self._set_active(slot, False)
         req.done = True
@@ -1762,6 +1795,7 @@ class InferenceEngine:
                 return self.export_request(rid, notify_stream=notify_stream)
             # mid-prefill or tokenless: partial rows do not resume, export cold
             self._prefilling.pop(slot, None)
+            self._stale_prefill.discard(slot)
             sched.reclaim(slot)
             self._set_active(slot, False)
             return self._export_payload(req, None, notify_stream=notify_stream)
@@ -2076,6 +2110,59 @@ class InferenceEngine:
         telemetry.remove_series(engine=self.telemetry_label)
         self.scheduler.release_telemetry()
 
+    def refresh_weights(self, version: int | None = None) -> None:
+        """Take note that the model's weights changed (further training, or
+        :meth:`load_weights`). ``version`` stamps the new weight generation;
+        ``None`` keeps the current stamp. The engine reads the module's
+        parameters at every step, so nothing is re-uploaded; what the old
+        weights computed is dropped instead: the prefix cache (a donor's
+        K/V would splice stale rows into a new request), the donation of
+        every prefill now in progress (its rows mix generations) and a draft
+        model's committed frontiers. In-flight requests keep their slots and
+        finish on mixed weights, as in the reference. Runs under
+        :attr:`lock`, between two steps."""
+        with self.lock:
+            if version is not None:
+                self.weight_version = int(version)
+            # the push that ends here carries the caller's trace id: the
+            # deployment is one story on the merged timeline
+            self._tracer.emit(
+                "serve.refresh_weights", engine=self.telemetry_label,
+                weight_version=self.weight_version,
+            )
+            self._g_weight_version.set(self.weight_version)
+            self.scheduler.flush_prefix_cache()
+            self._stale_prefill = set(self._prefilling)
+            if self._drafter is not None:
+                self._drafter.refresh_weights()
+                self._drafter.weight_version = self.weight_version
+
+    def load_weights(self, weights, version: int | None = None) -> None:
+        """Serve a weight list in Keras's ``model.weights`` order (what the
+        parameter server's wire carries) and stamp it as ``version``.
+
+        The values go to the device first, outside any lock; then, between
+        two steps, one device-to-device copy a tensor puts them in and
+        :meth:`refresh_weights` runs, so no step reads two generations."""
+        from elephas_tpu_torch.utils.weights import commit_staged, stage_weights
+
+        staged = stage_weights(self.model, weights)
+        with self.lock:
+            commit_staged(staged)
+            self.refresh_weights(version=version)
+
+    def release_arena(self) -> None:
+        """Drop the KV arena and every host record of the K/V it held: an
+        engine abandoned by a crash (the fleet router's ``kill_replica``)
+        gives its device memory back before a successor is built. The
+        engine serves nothing afterwards."""
+        with self.lock:
+            self.arena = None
+            self._offloaded.clear()
+            self._tables_cache = None
+            if self._drafter is not None:
+                self._drafter.release()
+
     def prefix_warm_probe(self, prompt) -> int:
         """How many leading tokens of ``prompt`` the prefix cache would
         serve without recompute (0 without a prefix cache). Pure: no hit,
@@ -2086,7 +2173,6 @@ class InferenceEngine:
             return 0
         return cache.match_len(np.asarray(prompt).reshape(-1))
 
-    @torch.inference_mode()
     def score(self, prompt, completion) -> dict:
         """Log-probabilities of ``completion`` given ``prompt`` in one
         teacher-forced forward: ``prompt + completion[:-1]`` goes through the
@@ -2100,7 +2186,14 @@ class InferenceEngine:
         Returns ``{"logprobs", "total_logprob", "greedy_tokens",
         "agreement"}`` (``agreement``: the fraction of completion tokens
         equal to the argmax). ``prompt`` and ``completion`` must be non-empty
-        and fit ``maxlen`` together."""
+        and fit ``maxlen`` together. Runs under :attr:`lock`: one
+        generation a pass."""
+        with self.lock:
+            return self._score(prompt, completion)
+
+    @torch.inference_mode()
+    def _score(self, prompt, completion) -> dict:
+        """The body of :meth:`score`."""
         prompt = [int(t) for t in prompt]
         completion = [int(t) for t in completion]
         if not prompt:

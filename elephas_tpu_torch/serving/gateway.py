@@ -130,40 +130,6 @@ class _Conn:
         return not self.persist
 
 
-class _EngineLock:
-    """The lock that serializes ``submit()`` / ``step()`` on the engine,
-    handed to waiting handlers between the driver's steps: a plain lock
-    would let the driver, which takes it again right after each step, keep
-    a handler (an export, a cancel, a submit) waiting until the queue
-    drains. Handlers and the driver enter it as a context manager; the
-    driver calls :meth:`yield_to_waiters` before each step."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._waiting = 0
-        self._changed = threading.Condition(threading.Lock())
-
-    def __enter__(self):
-        with self._changed:
-            self._waiting += 1
-        self._lock.acquire()
-        with self._changed:
-            self._waiting -= 1
-            self._changed.notify_all()
-        return self
-
-    def __exit__(self, *exc):
-        self._lock.release()
-        return False
-
-    def yield_to_waiters(self, timeout: float = 1.0) -> None:
-        """Wait (at most ``timeout`` seconds) until every handler waiting
-        for the lock has taken it. Called without holding it."""
-        with self._changed:
-            if self._waiting:
-                self._changed.wait_for(lambda: self._waiting == 0, timeout)
-
-
 class _ConnectionClosed(Exception):
     """EOF where a request line should start — a 400 on a fresh
     connection, a clean goodbye on an idle keep-alive one."""
@@ -228,7 +194,6 @@ class Gateway:
         # serializes engine.submit() (loop thread) vs engine.step()
         # (driver thread) — both are host bookkeeping; device dispatch
         # stays on the driver side of this lock
-        self._engine_lock = _EngineLock()
         self._work = threading.Event()
         self._stopping = threading.Event()
         # _stopping means "no new work" (the driver's crash path sets
@@ -434,8 +399,8 @@ class Gateway:
         try:
             with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
                 while not self._stopping.is_set():
-                    self._engine_lock.yield_to_waiters()
-                    with self._engine_lock:
+                    self.engine.lock.yield_to_waiters()
+                    with self.engine.lock:
                         has_work = self.engine.scheduler.has_work
                         if has_work:
                             self.engine.step()
@@ -801,7 +766,7 @@ class Gateway:
         loop = asyncio.get_running_loop()
 
         def do_score():
-            with self._engine_lock:
+            with self.engine.lock:
                 if self._stopping.is_set():
                     raise _HttpError(503, "gateway is stopping")
                 return self.engine.score(
@@ -824,7 +789,7 @@ class Gateway:
         loop = asyncio.get_running_loop()
 
         def do_cancel():
-            with self._engine_lock:
+            with self.engine.lock:
                 return self.engine.cancel(rid)
 
         if not await loop.run_in_executor(None, do_cancel):
@@ -850,7 +815,7 @@ class Gateway:
         loop = asyncio.get_running_loop()
 
         def do_export():
-            with self._engine_lock:
+            with self.engine.lock:
                 # notify_stream: the request leaves THIS engine for
                 # good over the wire — a local SSE/JSON handler
                 # blocking on its token stream must end, not hang
@@ -895,7 +860,7 @@ class Gateway:
 
         def do_import():
             record = decode_record(body)
-            with self._engine_lock:
+            with self.engine.lock:
                 req = self.engine.import_request(record)
                 return req.rid, int(record.get("n_blocks") or 0) > 0
 
@@ -918,7 +883,7 @@ class Gateway:
         loop = asyncio.get_running_loop()
 
         def snapshot():
-            with self._engine_lock:
+            with self.engine.lock:
                 return json.dumps(
                     fn(), default=float
                 ).encode("utf-8") + b"\n"
@@ -939,7 +904,7 @@ class Gateway:
         loop = asyncio.get_running_loop()
 
         def lookup():
-            with self._engine_lock:
+            with self.engine.lock:
                 return self.engine.explain(rid)
 
         try:
@@ -1095,7 +1060,7 @@ class Gateway:
             # off-loop: the engine lock may be held by a long step()
             # — waiting for it must block
             # THIS request only, not the whole event loop
-            with self._engine_lock:
+            with self.engine.lock:
                 if self._stopping.is_set():
                     raise _HttpError(503, "gateway is stopping")
                 return self.engine.submit(
@@ -1172,7 +1137,7 @@ class Gateway:
 
         def do_submit():
             out = []
-            with self._engine_lock:
+            with self.engine.lock:
                 if self._stopping.is_set():
                     raise _HttpError(503, "gateway is stopping")
                 for i, p in enumerate(prompts):
@@ -1298,7 +1263,7 @@ class Gateway:
                 ]
 
                 def do_cancel():
-                    with self._engine_lock:
+                    with self.engine.lock:
                         for rid in rids:
                             self.engine.cancel(rid)
 
@@ -1375,7 +1340,7 @@ class Gateway:
                 loop = asyncio.get_running_loop()
 
                 def do_cancel():
-                    with self._engine_lock:
+                    with self.engine.lock:
                         return self.engine.cancel(req.rid)
 
                 await loop.run_in_executor(None, do_cancel)

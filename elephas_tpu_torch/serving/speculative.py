@@ -49,6 +49,10 @@ class Drafter:
     verify compute (the acceptance rule discards it); a missing guess costs
     nothing (the slot rides the round as a one-token decode)."""
 
+    # the weight generation this drafter's state was built under: the
+    # engine's refresh_weights() stamps it. 0 = unversioned.
+    weight_version: int = 0
+
     def propose(self, req, k: int) -> list[int]:
         """Up to ``k`` guessed continuation tokens for ``req`` (which
         exposes ``prompt``, ``tokens`` and ``full_sequence``). Return ``[]``
@@ -65,9 +69,9 @@ class Drafter:
         drafters do nothing."""
 
     def release(self) -> None:
-        """Drop device and host resources. The engine does not call this;
-        owners of a drafter built directly may, to free a draft arena
-        early."""
+        """Drop device and host resources: the engine's ``release_arena``
+        calls it, and owners of a drafter built directly may, to free a
+        draft arena early."""
 
 
 class NgramDrafter(Drafter):

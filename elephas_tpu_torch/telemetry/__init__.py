@@ -39,12 +39,14 @@ Two contracts the serving stack leans on:
 The parameter server's and the workers' series (``elephas_ps_*``,
 ``elephas_worker_*``) are registered by :mod:`elephas_tpu_torch.parameter`
 and :mod:`elephas_tpu_torch.worker` themselves, under the reference's
-names. The reference's fleet-wide modules (``telemetry/aggregate.py``,
-which scrapes and joins several processes, and ``telemetry/merge.py``,
-which merges their traces) come with the fleet router (ROADMAP.md, Queue
-A item 4b).
+names. Fleet-wide: :class:`~elephas_tpu_torch.telemetry.aggregate.FleetScraper`
+scrapes several processes' expositions into one instance-labelled view
+(the fleet router ranks replicas by it), and
+:mod:`elephas_tpu_torch.telemetry.merge` merges their Chrome traces onto one
+aligned timeline (``python -m elephas_tpu_torch.telemetry.merge``).
 """
 
+from elephas_tpu_torch.telemetry.aggregate import FleetScraper  # noqa: F401
 from elephas_tpu_torch.telemetry.events import (  # noqa: F401
     EventTracer,
     NullTracer,
@@ -88,6 +90,7 @@ __all__ = [
     "EventTracer",
     "NullTracer",
     "FlightRecorder",
+    "FleetScraper",
     "Watchdog",
     "Anomaly",
     "default_rules",

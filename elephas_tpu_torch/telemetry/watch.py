@@ -38,9 +38,8 @@ and clients (``elephas_ps_journal_lag_updates``,
 ``elephas_ps_oldest_heartbeat_age_seconds``,
 ``elephas_ps_client_shard_pauses_total``,
 ``elephas_ps_client_updates_lost``). The router's replica rule reads
-series that no module of the port registers yet (the fleet router,
-ROADMAP.md, Queue A item 4b): it stays in :func:`default_rules` and
-reports nothing until the router lands.
+:class:`~elephas_tpu_torch.fleet.router.Router`'s
+``elephas_router_replica_up`` gauge.
 """
 
 from __future__ import annotations
@@ -585,9 +584,8 @@ class Watchdog:
 
     ``source``: None = this process's registry, captured at
     construction (null mode ⇒ permanently inert); a ``Registry``; or
-    anything with a ``series(name) -> [(labels, value)]`` method (the
-    reference's fleet scraper is that shape; the port's comes with
-    ROADMAP.md Queue A item 4b)."""
+    anything with a ``series(name) -> [(labels, value)]`` method (a
+    :class:`~elephas_tpu_torch.telemetry.aggregate.FleetScraper`)."""
 
     def __init__(self, source=None, rules=None):
         self._source = source if source is not None \

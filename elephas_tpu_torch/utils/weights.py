@@ -77,6 +77,13 @@ def load_keras_weights(module, weights: dict[str, np.ndarray]) -> None:
     ``s0_b0_bn1/moving_mean``, ``mnist_mlp/dense_3/kernel``, ...). Raises
     ``ValueError`` on a missing, unexpected or mis-shaped key; nothing is
     copied unless every key fits."""
+    commit_staged(_stage(module, weights))
+
+
+def _stage(module, weights: dict[str, np.ndarray]) -> list:
+    """``[(the module's tensor, its new value)]`` for
+    :func:`load_keras_weights`'s checked ``weights``, each value already on
+    its tensor's device."""
     paths = _keras_paths(module)
     names = canonical_keras_names(module, weights)
     given = {names[p]: p for p in weights}
@@ -90,14 +97,23 @@ def load_keras_weights(module, weights: dict[str, np.ndarray]) -> None:
     staged = []
     for path, (tensor, perm) in paths.items():
         src = np.asarray(weights[given[path]])
-        arr = src if perm is None else src.transpose(perm)
-        if tuple(arr.shape) != tuple(tensor.shape):
+        shape = src.shape if perm is None else tuple(src.shape[a] for a in perm)
+        if tuple(shape) != tuple(tensor.shape):
             raise ValueError(
                 f"{given[path]}: Keras shape {src.shape} does not fit the "
                 f"module's {tuple(tensor.shape)}"
                 + ("" if perm is None else f" (axes {perm} of the Keras array)")
             )
-        staged.append((tensor, torch.tensor(np.ascontiguousarray(arr))))
+        # Keras's layout goes over as it is; the axes are permuted where the
+        # value lies (on the device: a strided device copy at commit, no
+        # host transpose)
+        value = torch.tensor(np.ascontiguousarray(src)).to(tensor.device)
+        staged.append((tensor, value if perm is None else value.permute(*perm)))
+    return staged
+
+
+def commit_staged(staged) -> None:
+    """Copy :func:`stage_weights`'s values into their tensors."""
     with torch.no_grad():
         for tensor, value in staged:
             tensor.copy_(value)
@@ -135,8 +151,21 @@ def get_weights(module) -> list[np.ndarray]:
 def set_weights(module, weights) -> None:
     """The inverse of :func:`get_weights`: copy a weight list in Keras's
     order into ``module`` (checked as :func:`load_keras_weights` checks)."""
+    commit_staged(stage_weights(module, weights))
+
+
+def stage_weights(module, weights) -> list:
+    """:func:`set_weights` in two halves, of which this is the first: the
+    checked values of a weight list in Keras's order, each already on its
+    tensor's device, nothing of ``module`` changed. :func:`commit_staged`
+    then copies them in (device to device), which is what a server does
+    between two steps to swap a whole generation at once."""
+    return _stage(module, _by_path(module, weights))
+
+
+def _by_path(module, weights) -> dict:
     paths = weight_paths(module)
     weights = list(weights)
     if len(weights) != len(paths):
         raise ValueError(f"{len(weights)} weights for a model of {len(paths)}")
-    load_keras_weights(module, dict(zip(paths, weights)))
+    return dict(zip(paths, weights))

@@ -38,8 +38,11 @@ def rebind(fn, g):
 
 def port_class(ref_cls, g, skip=(), only=None):
     """A class of ``ref_cls``'s test methods rebound to ``g``: those named in
-    ``only`` (default: all), less ``skip``."""
+    ``only`` (default: all), less ``skip``; its helper methods (``_name``)
+    come along, rebound too."""
     methods = {name: rebind(fn, g) for name, fn in vars(ref_cls).items()
-               if name.startswith("test_") and name not in skip
-               and (only is None or name in only)}
+               if isinstance(fn, types.FunctionType) and (
+                   (name.startswith("_") and not name.startswith("__"))
+                   or (name.startswith("test_") and name not in skip
+                       and (only is None or name in only)))}
     return type(ref_cls.__name__, (), {"__doc__": ref_cls.__doc__, **methods})

@@ -15,12 +15,11 @@ JAX package's, on the CPU.
 - ``tests/test_serving_trace.py``'s cases, written out for the port: no
   ``jit.compile`` span (the port compiles no programs) and no
   ``compile_stats`` key in ``/debug/engine``.
-- ``tests/test_telemetry_fleet.py``'s watchdog rule cases (``:534-757``)
+- ``tests/test_telemetry_fleet.py``'s watchdog rule cases (``:534-780``)
   rebound to the port's telemetry, and its
-  ``test_engine_stall_detected_and_cleared`` (``:848``) with a local
-  engine staller (the reference's ``fault.harness.EngineStaller`` is
-  ROADMAP.md Queue A item 4b, and so is the merged-trace case at ``:888``, which reads
-  ``telemetry/merge.py``).
+  ``test_engine_stall_detected_and_cleared`` (``:848``) with the port's
+  ``fault.harness.EngineStaller`` (the merged-trace case at ``:888`` is in
+  ``tests/test_torch_fleet_telemetry.py``).
 - SSE tokens equal the port's in-process engine and the JAX engine.
 - Migration wire v3: ``encode_record`` of the same numpy record is the
   same bytes in both packages, each decodes the other's, a record exported
@@ -44,11 +43,13 @@ import tests.test_telemetry_fleet as ref_fleet
 from elephas_tpu.fleet import migration as jax_migration
 from elephas_tpu.serving import InferenceEngine as JaxEngine
 from elephas_tpu_torch import telemetry
+from elephas_tpu_torch.fault.harness import EngineStaller
 from elephas_tpu_torch.fleet import migration
 from elephas_tpu_torch.serving import Drafter, Gateway, InferenceEngine
 from elephas_tpu_torch.serving.paged_kv import blocks_for, gather_blocks
 from elephas_tpu_torch.serving.policy import FairSharePolicy
 from elephas_tpu_torch.telemetry import watch
+from elephas_tpu_torch.telemetry.aggregate import FleetScraper
 from tests._port_cases import port_class, port_namespace
 from tests.test_torch_serving import lm  # noqa: F401  (module fixture: the port LM)
 
@@ -66,8 +67,12 @@ def _port_case(name):
 @pytest.fixture(scope="module")
 def gw(lm):  # noqa: F811
     """One shared port engine and gateway for the read-mostly cases, as the
-    reference's fixture builds them."""
+    reference's fixture builds them, with one request served before the
+    gateway starts: ``test_metrics_and_stats_routes`` reads a finished
+    request, which the reference takes from the cases that ran before it on
+    the fixture, and xdist's workers do not keep that order."""
     engine = InferenceEngine(lm, num_slots=2, policy=FairSharePolicy({"a": 1.0, "b": 1.0}))
+    engine.run([([2, 3, 4], 2)])
     gateway = Gateway(engine, port=0).start()
     engine.gateway = gateway
     yield gateway
@@ -230,36 +235,17 @@ def test_sse_tokens_match_the_port_and_jax_engines(serving_lm, lm, gw):  # noqa:
 
 _FLEET_NS = port_namespace(
     ref_fleet, telemetry=telemetry, Registry=telemetry.Registry, Watchdog=watch.Watchdog,
+    FleetScraper=FleetScraper,
     **{name: getattr(watch, name) for name in (
         "BlocksExhaustedRule", "DecodeStallRule", "HeartbeatStaleRule", "JournalLagRule",
         "PsUnreachableRule", "QueueStallRule", "SloBurnRule", "SpecCollapseRule")})
 
 
-# tests/test_telemetry_fleet.py:533-760 on the port's watchdog (the fleet-scraper
-# case waits for telemetry/aggregate.py, ROADMAP.md Queue A item 4b), and :51-108 on
-# the port's tracer: the trace context is thread-local, scopes nest, events are stamped
-TestWatchdogRules = port_class(ref_fleet.TestWatchdogRules, _FLEET_NS,
-                               skip=("test_watchdog_over_fleet_scraper",))
+# tests/test_telemetry_fleet.py:533-780 on the port's watchdog (the last case reads a
+# FleetScraper), and :51-108 on the port's tracer: the trace context is
+# thread-local, scopes nest, events are stamped
+TestWatchdogRules = port_class(ref_fleet.TestWatchdogRules, _FLEET_NS)
 TestTraceContext = port_class(ref_fleet.TestTraceContext, _FLEET_NS)
-
-
-class _EngineStaller:
-    """The reference's ``fault.harness.EngineStaller``: while active the
-    engine's ``step`` does nothing, so queued work stays queued."""
-
-    def __init__(self, engine):
-        self.engine = engine
-
-    def __enter__(self):
-        def stalled_step():
-            time.sleep(0.01)
-            return []
-
-        self.engine.step = stalled_step
-        return self
-
-    def __exit__(self, *exc):
-        del self.engine.step
 
 
 def _get(port, path):
@@ -275,8 +261,9 @@ class _EngineSeries:
     """A watchdog source that reads one engine's series (its engine= and
     scheduler= labels) out of the port's registry: the process registry
     also holds the series of engines other tests left with queued requests,
-    which would keep the process-wide stall rules firing (the reference's
-    case is order-dependent for this reason)."""
+    and of parameter servers they left with stale leases, which would keep
+    the process-wide rules firing (the reference's case is order-dependent
+    for this reason). A sample without either label is not the engine's."""
 
     def __init__(self, engine):
         self.labels = {"engine": engine.telemetry_label,
@@ -288,7 +275,8 @@ class _EngineSeries:
                 rows = [dict(zip(fam.labelnames, values)) for values, _c in fam.series()]
                 return [(labels, float(child.value))
                         for labels, (_v, child) in zip(rows, fam.series())
-                        if all(labels.get(k, v) == v for k, v in self.labels.items())]
+                        if any(labels.get(k) == v for k, v in self.labels.items())
+                        and all(labels.get(k, v) == v for k, v in self.labels.items())]
         return []
 
 
@@ -303,13 +291,13 @@ def test_engine_stall_detected_and_cleared(lm):  # noqa: F811
                  watchdog=telemetry.Watchdog(source=_EngineSeries(engine))).start()
     try:
         done = threading.Event()
-        with gw._engine_lock:
+        with gw.engine.lock:
             engine.submit([2, 3, 4], 3, on_token=lambda t, d: done.set() if d else None)
         gw._work.set()
         assert done.wait(120)
         assert _get(gw.port, "/healthz")[1]["anomalies"]["critical"] == 0
-        with _EngineStaller(engine):
-            with gw._engine_lock:
+        with EngineStaller(engine):
+            with gw.engine.lock:
                 engine.submit([3, 4, 5], 3)  # queues; the step is stalled
             gw._work.set()
             deadline = time.monotonic() + 60
@@ -516,7 +504,7 @@ def test_debug_engine_and_healthz(traced):
     gw.health_stall_grace = -1.0
     gw._hz_anchor = (engine.scheduler._steps, time.monotonic())
     try:
-        with gw._engine_lock:
+        with gw.engine.lock:
             engine.scheduler.waiting.append(engine.scheduler.make_request([2, 3], 1))
             try:
                 resp, raw = _trace_request(port, "GET", "/healthz")
@@ -554,7 +542,7 @@ def test_healthz_driver_dead_is_503(lm):  # noqa: F811
 
     engine.step = boom
     with gateway._stop_lock:  # the crash's teardown waits on this latch
-        with gateway._engine_lock:
+        with gateway.engine.lock:
             engine.submit([2, 3], 2)
         gateway._work.set()
         deadline = time.monotonic() + 30

@@ -1529,3 +1529,123 @@ def test_chaos_training_on_cuda_loses_nothing(cuda, tmp_path):
     assert out["kills"] == 1 and out["restarts"] == 1
     assert out["updates_applied"] == 6 and out["updates_lost_final"] == 0
     assert out["duplicates_skipped"] >= out["duplicates_sent"] >= 1
+
+
+# -- the serving fleet and weight deployment on the card --------------------------------
+
+FLEET_ENGINE = dict(num_slots=4, steps_per_sync=4, paged=True, block_size=16, num_blocks=48,
+                    preemption=True, prefix_cache=True)
+
+
+def _assert_tokens_or_ties(cpu_model, prompts, got, want):
+    """``got`` (card) equals ``want`` (CPU) request by request, except past a
+    step where the CPU's plain path has a top-2 logit margin under 1e-3 (a
+    tie either side may break)."""
+    for prompt, g, w in zip(prompts, got, want):
+        if g == w:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+        seq = torch.tensor([list(prompt) + w[:i]])
+        with torch.inference_mode():
+            top2 = cpu_model(seq, plain=True)[0, -1].topk(2).values
+        assert (top2[0] - top2[1]).item() < 1e-3, (prompt, g, w)
+
+
+def test_router_on_cuda_serves_the_cpu_tokens(cuda):
+    """Two paged replicas on the one card behind a Router: prefix affinity,
+    a drain in the middle of the streams and a replica killed in the middle
+    of the streams; every request's tokens are one CPU engine's on the same
+    weights, and the killed replica's arena goes back to the allocator."""
+    import threading
+    import time
+
+    from elephas_tpu_torch.fleet import Router
+
+    cpu = et.transformer_lm(**FRONT_DOOR, device="cpu")
+    card = et.transformer_lm(**FRONT_DOOR, device=cuda)
+    et.load_keras_weights(card, et.keras_weights(cpu))
+    prompts = [_front_door_prompts()[1] + p for p in _front_door_prompts()]
+    ref = et.InferenceEngine(cpu, **FLEET_ENGINE)
+    want = ref.run([(p, 24) for p in prompts])
+    want = [seq.tolist()[len(p):] for p, seq in zip(prompts, want.values())]
+    engines = {"a": et.InferenceEngine(card, **FLEET_ENGINE),
+               "b": et.InferenceEngine(card, **FLEET_ENGINE)}
+    router = Router(engines, min_affinity_tokens=16)
+    with router:
+        first = router.submit(prompts[0], 24)
+        assert first.wait(120)
+        # the first replica's steps stop once one of them has emitted, so
+        # the drain finds its streams in flight, some tokens delivered
+        victim = engines[first.replica]
+        held = threading.Event()
+        real_step = victim.step
+
+        def step_then_hold():
+            if held.is_set():
+                time.sleep(0.001)
+                return []
+            out = real_step()
+            if out:
+                held.set()
+            return out
+
+        victim.step = step_then_hold
+        reqs = [first] + [router.submit(p, 24) for p in prompts[1:]]
+        assert held.wait(120)
+        streamed = [len(r.tokens) for r in reqs]
+        moved = router.drain(first.replica, timeout=120)
+        del victim.step
+        router.undrain(first.replica)
+        assert moved >= 1 and router.stats()["migrated"] == moved
+        assert any(r.migrations >= 1 and n > 0 for r, n in zip(reqs, streamed))
+        assert all(r.wait(120) for r in reqs)
+        assert router.stats()["placements"]["affinity"] >= 1
+        _assert_tokens_or_ties(cpu, prompts, [r.tokens for r in reqs], want)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda)
+        arena = engines["a"].arena.nbytes()
+        reqs = [router.submit(p, 24) for p in prompts]
+        router.kill_replica("a")
+        assert all(r.wait(120) for r in reqs)
+        _assert_tokens_or_ties(cpu, prompts, [r.tokens for r in reqs], want)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(cuda) <= before - arena
+    router.release_telemetry()
+
+
+def test_subscriber_applies_on_cuda(cuda):
+    """A socket store holds the weights; a ledger publishes new ones; the
+    subscriber pulls them over the wire (int8 pull compression off) into a
+    card engine, which then serves a CPU engine's tokens on them."""
+    from elephas_tpu_torch.deploy import VersionLedger, WeightSubscriber
+    from elephas_tpu_torch.parameter.client import SocketClient
+    from elephas_tpu_torch.parameter.server import SocketServer
+    from elephas_tpu_torch.utils.weights import get_weights, set_weights
+
+    cpu = et.transformer_lm(**FRONT_DOOR, device="cpu")
+    card = et.transformer_lm(**FRONT_DOOR, device=cuda)
+    et.load_keras_weights(card, et.keras_weights(cpu))
+    store = SocketServer(get_weights(cpu), mode="asynchronous", port=0)
+    store.start()
+    client = SocketClient(master=f"127.0.0.1:{store.port}")
+    engine = et.InferenceEngine(card, **FLEET_ENGINE)
+    try:
+        ledger = VersionLedger(store)
+        sub = WeightSubscriber(engine, client)
+        rng = np.random.default_rng(4)
+        new = [w + rng.normal(0, 0.02, w.shape).astype(w.dtype) for w in get_weights(cpu)]
+        version = ledger.publish(new)
+        assert sub.poll_once() == version and sub.poll_once() is None
+        assert engine.weight_version == version and sub.applies == 1
+        for a, b in zip(get_weights(card), new):
+            np.testing.assert_array_equal(a, b)
+        set_weights(cpu, new)
+        prompts = _front_door_prompts()
+        got = engine.run([(p, 16) for p in prompts])
+        want = et.InferenceEngine(cpu, **FLEET_ENGINE).run([(p, 16) for p in prompts])
+        _assert_tokens_or_ties(cpu, prompts,
+                               [s.tolist()[len(p):] for p, s in zip(prompts, got.values())],
+                               [s.tolist()[len(p):] for p, s in zip(prompts, want.values())])
+    finally:
+        client.close()
+        store.stop()

@@ -201,11 +201,13 @@ def test_import_loads_no_jax_keras_or_reference():
 
 def test_chip_smoke_imports_no_jax_keras_or_reference():
     """chip_smoke.py, the port's driver on the card, loads none of them
-    either (the gateway and parameter-server phases' modules included)."""
+    either (the gateway, parameter-server, fleet and deploy phases' modules
+    included)."""
     code = (
         "import sys; sys.argv = ['chip_smoke.py']\n"
         "import chip_smoke, elephas_tpu_torch.serving.gateway, elephas_tpu_torch.fleet\n"
         "import elephas_tpu_torch.parameter.native, elephas_tpu_torch.fault\n"
+        "import elephas_tpu_torch.deploy, elephas_tpu_torch.telemetry.merge\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'keras', 'ml_dtypes', 'elephas_tpu')]\n"
         "print(','.join(bad))\n"
@@ -219,8 +221,8 @@ def test_chip_smoke_imports_no_jax_keras_or_reference():
 
 def test_import_check_walks_every_module():
     """The subprocess check above imports what ``pkgutil`` finds: every
-    module of the package, the training, serving and parameter-server
-    slices' included."""
+    module of the package, the training, serving, parameter-server, fleet
+    and deployment slices' included."""
     import pkgutil
 
     found = {m.name for m in pkgutil.walk_packages(et.__path__, "elephas_tpu_torch.")}
@@ -237,5 +239,8 @@ def test_import_check_walks_every_module():
                  "serving.gateway", "parameter", "parameter.codec", "parameter.journal",
                  "parameter.server", "parameter.client", "parameter.sharding",
                  "parameter.native", "fault", "fault.plan", "fault.harness",
-                 "utils.sockets", "utils.functional_utils"):
+                 "utils.sockets", "utils.functional_utils", "fleet.placement",
+                 "fleet.router", "deploy", "deploy.versions", "deploy.subscriber",
+                 "deploy.rollout", "telemetry.aggregate", "telemetry.merge",
+                 "serving.locks"):
         assert f"elephas_tpu_torch.{name}" in found
