@@ -47,7 +47,12 @@ Phases, each printing one JSON line and raising on failure:
             max(1, |out|) of their plain versions, bit-equal to the arena
             kernels over the gathered, dequantized span, on a second call
             and from a CUDA-graph replay, the paged chunk launching its
-            merge kernel only past 8 splits;
+            merge kernel only past 8 splits; and moe_ffn (the Switch
+            layer's index route, PyTorch ops: no TPU kernel) against its dense
+            plain version at SW-A's decode and prefill and a 4,096-token
+            slice of an SW-T layer with and without drops: the kept routing
+            equal, outputs within 1e-6 of max(1, |out|), gradients within
+            1e-5 of each tensor's largest;
 4. serve  — the serving path: generate() on transformer_lm at full width
             (config A with and without rope, config B), and one
             transformer_classifier forward, with launch counts of the
@@ -250,6 +255,33 @@ Phases, each printing one JSON line and raising on failure:
             DeployChaosStore (both replicas converge, no generation applied
             twice); a warm record refused across generations and accepted
             once re-stamped. Publication, pull and apply ms printed;
+6k. switch_serve — SW-A, the Switch LM at config A's widths (8 experts
+            of 2,048, top-2, capacity factor 4.0 so that nothing drops):
+            generate with and without the KV cache on serve's prompts, then
+            E's 48 requests through E's engine on the fixed arena, the paged
+            arena (blocks of 16, 512 blocks) in fp and int8, chunked prefill
+            with the prefix cache on E-chunked's workload, and n-gram
+            speculative decoding; E's engine over config A and SW-A's in
+            turns. Gates: the kernels' launches, teacher-forced logits within
+            1e-3 of the plain path (plain attention and LayerNorm, the dense
+            moe_ffn_reference), every emitted token as the plain argmax
+            and every engine's tokens as generate(kv_cache=True)'s (the
+            chunked engine's as the fixed engine's on its workload, the int8
+            engine's as its naive twin's on the quantized oracle) where the
+            top-2 margin is >= 1e-3, and the synchronizing calls of one E run
+            line for line those of config A's. Printed: launches, tokens/s
+            and TTFT against E's, the MoE layers' share of one profiled
+            decode window's device time;
+6l. switch_train — SW-T, the Switch classifier at T's widths (8 experts,
+            top-2, capacity factor 1.5): the first-step gradients (task loss
+            plus load-balance losses, 16 rows) within 1e-3 of the plain
+            path's; SparkModel.fit as T (batch 128, 512 rows, 2 epochs,
+            fp32) with every layer's load-balance loss added each step and
+            a finite, descending loss; step time, tokens/s against T's, peak
+            memory, first-choice expert fractions, the MoE layers' share of
+            a profiled training step; then one epoch on 4 workers of the
+            card: synchronous replicas bit-identical to the master,
+            asynchronous/batch's master the mean of the replicas;
 7. profile — one more training step (fp32, then bf16, then ResNet-50),
             generate() at config A batch 1
             with rope off and on, and one engine decode window, under
@@ -293,7 +325,7 @@ Phases, each printing one JSON line and raising on failure:
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
 summed over the serve, train, train_bf16, train_workers, train_stream,
 engine, engine_chunked, engine_paged, engine_quant, engine_spec, gateway,
-fleet and deploy paths,
+fleet, deploy, switch_serve and switch_train paths,
 times at config A's
 attention shape, at the training rows, at the engine's decode shape and
 its chunk launch at span 256, fp32; the paged decode at span 128 and the
@@ -553,6 +585,43 @@ SPEC_TENANTS = {"a": 1.0, "b": 3.0}
 SPEC_DEADLINES_MS = (200.0, 2000.0)
 SPEC_MAX_QUEUE_TOKENS = 640
 SPEC_BURST = (24, 4)
+
+# the Switch mixture-of-experts family (switch_serve, switch_train and the
+# MoE rows of kernel). SW-A: config A's widths with 8 experts, top-2
+# (docs/API.md:757) and capacity factor 4.0 (the docs' 2.0 raised so that
+# k·cf = E: nothing drops, and every serving path routes to the same
+# tokens), experts of 4·d_model = 2,048 units, about 115 M parameters,
+# fp32, seed 0. SW-T: T's widths with 8 experts, top-2 and the builder's
+# capacity factor 1.5 (tokens drop), fp32, Adam at 1e-5, TRAIN_ROWS rows
+# of _labelled_tokens, batch TRAIN_BATCH, TRAIN_EPOCHS epochs: at the
+# builders' 1e-3 the loss rises at these widths (T's own on its random
+# labels from 6.32 to 7.87, SW-T's on labelled rows from 6.95 to 9.01), and
+# at 1e-4 SW-T's still (6.88 to 8.85, H100), the mean-pooled head
+# saturating; a descending loss shows that the training works. Its gradient
+# check on SWITCH_GRAD_ROWS
+# rows (4,096 tokens: the plain path's dense routing tensors [T, E, C]
+# grow as T², 12.9 GB each at the batch's 32,768 tokens); then
+# SWITCH_WORKER_EPOCHS epoch on WORKERS workers. Plain teacher-forced
+# forwards take SWITCH_PLAIN_ROWS rows at a time for the same reason. SW-A
+# and E's engines are timed in turns, SWITCH_ROUNDS rounds after a warm-up.
+SWITCH_A = dict(CONFIGS["A"], num_experts=8, k=2, capacity_factor=4.0, dropout=0.0)
+SWITCH_T = dict(TRAIN, num_experts=8, k=2, lr=1e-5)
+SWITCH_GRAD_ROWS = 16
+SWITCH_WORKER_EPOCHS = 1
+SWITCH_PLAIN_ROWS = 8
+SWITCH_ROUNDS = 2
+# moe_ffn against its dense plain version: (case, tokens T, d_model, expert
+# hidden, capacity factor) at SW-A's decode (16 slots) and prefill (a
+# 512-token forward), and a 4,096-token slice of an SW-T layer with and
+# without drops; 8 experts, top-2, exact GELU. Outputs within TOL_MOE_OUT
+# of max(1, |out|), gradients within TOL_MOE_GRAD of each tensor's largest,
+# the kept (token, expert, place) routing equal
+MOE_CASES = (("SW-A_decode", 16, 512, 2048, 4.0), ("SW-A_prefill", 512, 512, 2048, 4.0),
+             ("SW-T_slice_cf1.5", 4096, 1024, 4096, 1.5),
+             ("SW-T_slice_cf0.5", 4096, 1024, 4096, 0.5))
+MOE_EXPERTS, MOE_K = 8, 2
+TOL_MOE_OUT = 1e-6
+TOL_MOE_GRAD = 1e-5
 
 TIMING = "CUDA events, mean of 50 launches after 5 warm-up, median of 3 rounds in turns"
 GRAPH_TIMING = ("*device_ms: CUDA events around the replay of a CUDA graph of 50 calls "
@@ -985,6 +1054,7 @@ def phase_kernel(dev):
     span_rows, span_failures = _kernel_span_decode(dev)
     chunk_rows, chunk_failures = _kernel_span_chunk(dev)
     paged_rows, paged_failures = _kernel_paged(dev)
+    moe_rows, moe_failures = _kernel_moe(dev)
     emit({"phase": "kernel",
           "tol": {"flash_out": {"float32": TOL_OUT[torch.float32],
                                 "bfloat16": TOL_OUT[torch.bfloat16]},
@@ -998,10 +1068,13 @@ def phase_kernel(dev):
                   "span_decode_of_max_1_abs_out": TOL_SPAN,
                   "span_chunk_of_max_1_abs_out": TOL_SPAN,
                   "paged_of_max_1_abs_out": TOL_SPAN,
-                  "paged_against_arena_kernel": "bit-equal"},
+                  "paged_against_arena_kernel": "bit-equal",
+                  "moe_ffn_out_of_max_1_abs": TOL_MOE_OUT,
+                  "moe_ffn_grad_of_largest": TOL_MOE_GRAD, "moe_ffn_routing": "equal"},
           "flash": flash, "layer_norm": ln_rows, "span_decode": span_rows,
-          "span_chunk": chunk_rows, "paged": paged_rows})
-    failures = flash_failures + ln_failures + span_failures + chunk_failures + paged_failures
+          "span_chunk": chunk_rows, "paged": paged_rows, "moe_ffn": moe_rows})
+    failures = (flash_failures + ln_failures + span_failures + chunk_failures + paged_failures
+                + moe_failures)
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: {failures}")
     f32 = [r for r in ln_rows if r["dtype"] == "float32"]
@@ -1170,13 +1243,20 @@ def _gradient_check(model, x, y):
     weights; returns {name: error} and {name: the largest plain gradient's
     magnitude}. The error is the largest difference relative to that
     tensor's largest plain gradient, in fp32 and bf16 alike, so a tensor
-    whose gradient the kernels lost reads 1."""
+    whose gradient the kernels lost reads 1. The loss is the training
+    step's: the task loss plus the auxiliary losses the layers add (the
+    Switch models' load-balance losses)."""
+    from elephas_tpu_torch.training import auxiliary_losses
+
     spec = model.training_spec
     grads = {}
     model.train()
     for plain in (False, True):
         model.zero_grad(set_to_none=True)
-        spec.loss(y, model(x, plain=plain)).mean().backward()
+        with auxiliary_losses() as aux:
+            out = model(x, plain=plain)
+        loss = spec.loss(y, out).mean()
+        (loss + torch.stack(aux).sum() if aux else loss).backward()
         grads[plain] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     model.eval()
@@ -2319,12 +2399,13 @@ def _kernel_class(name):
     return "other"
 
 
-def _profile(dev, fn, what, per=1, extra=None):
+def _profile(dev, fn, what, per=1, extra=None, annotation=None):
     """``fn`` once under torch.profiler (after the caller's warm-up):
     device time by kernel class and the top kernels beside the wall time,
     each divided by ``per`` (steps in the call), with ``extra`` in the
-    printed line. Reports, and does not fail, when the profiler records
-    no device time."""
+    printed line, and with ``annotation`` the device time of the
+    record_function ranges of that name (:func:`_annotation_ms`). Reports,
+    and does not fail, when the profiler records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2355,6 +2436,8 @@ def _profile(dev, fn, what, per=1, extra=None):
             "top_kernels": [{"ms": ms, "count": n, "name": name}
                             for ms, n, name in sorted(top, reverse=True)[:12]],
         })
+        if annotation:
+            out["annotation"] = _annotation_ms(prof, annotation, per)
     else:
         out["note"] = "the profiler recorded no device time: not measured"
     emit(out)
@@ -5784,6 +5867,609 @@ def phase_times_paged(dev):
     return rows
 
 
+# -- the Switch mixture-of-experts family ----------------------------------------
+
+
+def _moe_case(dev, t, d, h, cf, seed=0):
+    """One MOE_CASES input: ``x`` ``[t, d]``, the reference initializer's
+    weights with biases drawn too (the reference's are zero), and the
+    capacity."""
+    from elephas_tpu_torch.ops import moe
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gate, w1, _, w2, _ = moe.init_moe_params(gen, d, h, MOE_EXPERTS)
+    b1 = 0.1 * torch.randn(MOE_EXPERTS, h, generator=gen, device=dev)
+    b2 = 0.1 * torch.randn(MOE_EXPERTS, d, generator=gen, device=dev)
+    x = torch.randn(t, d, generator=gen, device=dev)
+    return x, (gate, w1, b1, w2, b2), moe.capacity_for(t, MOE_EXPERTS, cf, MOE_K)
+
+
+def _kept_keys(experts, positions, capacity):
+    """The kept routings of topk_route as sorted keys (token·E + expert)·C +
+    place."""
+    tok = torch.arange(experts.shape[1], device=experts.device).expand_as(experts)
+    keys = (tok * MOE_EXPERTS + experts.long()) * capacity + positions.long()
+    return torch.sort(keys[positions < capacity]).values
+
+
+def _kernel_moe(dev):
+    """moe_ffn (the main path's index route) against moe_ffn_reference (the
+    dense plain version) at MOE_CASES: the kept routing equal, outputs and
+    aux within TOL_MOE_OUT of max(1, |·|), the gradients of sum(out²) + aux
+    in x and every weight within TOL_MOE_GRAD of each tensor's largest."""
+    from elephas_tpu_torch.ops import moe
+
+    gelu = torch.nn.functional.gelu
+    rows, failures = [], []
+    for name, t, d, h, cf in MOE_CASES:
+        x, params, capacity = _moe_case(dev, t, d, h, cf)
+        xs = [a.clone().requires_grad_() for a in (x, *params)]
+        out, aux = moe.moe_ffn(*xs, capacity, MOE_K, gelu, return_aux=True)
+        ref, ref_aux = moe.moe_ffn_reference(*xs, cf, gelu, k=MOE_K, return_aux=True)
+        grads = torch.autograd.grad((out ** 2).sum() + aux, xs)
+        want = torch.autograd.grad((ref ** 2).sum() + ref_aux, xs)
+        with torch.no_grad():
+            experts, positions, _, _ = moe.topk_route(x, params[0], MOE_EXPERTS, capacity,
+                                                      MOE_K)
+            dense = torch.nonzero(moe._topk_dispatch(x, params[0], MOE_EXPERTS, capacity,
+                                                     MOE_K)[0])
+            want_keys = torch.sort((dense[:, 0] * MOE_EXPERTS + dense[:, 1]) * capacity
+                                   + dense[:, 2]).values
+            got_keys = _kept_keys(experts, positions, capacity)
+        row = {"case": name, "tokens": t, "d_model": d, "expert_hidden": h,
+               "capacity_factor": cf, "capacity": capacity, "kept": got_keys.numel(),
+               "dropped": MOE_K * t - got_keys.numel(),
+               "routing_equal": torch.equal(got_keys, want_keys),
+               "out_err_of_max_1_abs": ((out - ref).abs().max()
+                                        / ref.abs().max().clamp_min(1.0)).item(),
+               "aux_err": abs(aux.item() - ref_aux.item()),
+               "grad_max_rel_err": max(_rel(g, w) for g, w in zip(grads, want))}
+        rows.append(row)
+        if not row["routing_equal"] or row["out_err_of_max_1_abs"] > TOL_MOE_OUT or \
+                row["aux_err"] > TOL_MOE_OUT or row["grad_max_rel_err"] > TOL_MOE_GRAD:
+            failures.append(f"moe_ffn {name}: {row}")
+        del x, params, xs, out, ref, grads, want, dense
+    return rows, failures
+
+
+@contextlib.contextmanager
+def _annotated_moe():
+    """Every MoeFFN forward inside a ``moe_ffn`` record_function range, for
+    the profiler."""
+    from elephas_tpu_torch.models.switch import MoeFFN
+
+    inner = MoeFFN.forward
+
+    def forward(self, *args, **kwargs):
+        with torch.profiler.record_function("moe_ffn"):
+            return inner(self, *args, **kwargs)
+
+    MoeFFN.forward = forward
+    try:
+        yield
+    finally:
+        MoeFFN.forward = inner
+
+
+def _device_us(ev):
+    dt = getattr(ev, "device_time_total", None)
+    return ev.cuda_time_total if dt is None else dt
+
+
+def _annotation_ms(prof, name, per):
+    """Device ms, each divided by ``per``, of the kernels launched inside the
+    record_function ranges called ``name`` (forward), and of the backward
+    of the ops made there (the autograd nodes with those ops' sequence
+    numbers)."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    ranges = [ev for ev in events if ev.name == name and ev.device_type == DeviceType.CPU]
+    seqs = set()
+
+    def walk(ev):
+        for child in ev.cpu_children:
+            if getattr(child, "sequence_nr", -1) >= 0:
+                seqs.add(child.sequence_nr)
+            walk(child)
+
+    for ev in ranges:
+        walk(ev)
+    backward = [ev for ev in events if ev.name.startswith("autograd::engine::evaluate_function")
+                and getattr(ev, "sequence_nr", -1) in seqs]
+    return {"name": name, "calls": len(ranges) / per,
+            "forward_device_ms": sum(_device_us(ev) for ev in ranges) / 1e3 / per,
+            "backward_device_ms": sum(_device_us(ev) for ev in backward) / 1e3 / per,
+            "backward_nodes": len(backward) / per}
+
+
+def _moe_share(out):
+    """The MoE layers' share of a profile's device time (forward and, in a
+    training step, backward), or None where the profiler saw no device
+    time."""
+    ann = out.get("annotation")
+    if not out["device_ms"] > 0 or not ann:
+        return None
+    return (ann["forward_device_ms"] + ann["backward_device_ms"]) / out["device_ms"]
+
+
+def _switch_logits(model, rows, plain):
+    """Teacher-forced logits of ``rows`` through the kernels or the plain
+    path, SWITCH_PLAIN_ROWS rows a forward."""
+    with torch.inference_mode():
+        return torch.cat([model(rows[i:i + SWITCH_PLAIN_ROWS], plain=plain)
+                          for i in range(0, len(rows), SWITCH_PLAIN_ROWS)])
+
+
+def _sequence_rows(seqs, maxlen, dev):
+    rows = torch.zeros(len(seqs), maxlen, dtype=torch.long, device=dev)
+    for i, seq in enumerate(seqs):
+        rows[i, :len(seq)] = torch.tensor([int(t) for t in seq], device=dev)
+    return rows
+
+
+def _check_a_rows(plain, prompt_lens, seqs):
+    """Check (a) over plain logits ``[n, maxlen, vocab]``: the emitted tokens
+    of ``seqs`` (prompt + generated) that differ from the plain argmax where
+    its top-2 margin is >= MARGIN, and those within it."""
+    mismatches = close = 0
+    for i, (p, seq) in enumerate(zip(prompt_lens, seqs)):
+        pos = slice(p - 1, len(seq) - 1)
+        top2 = plain[i, pos].topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        emitted = torch.tensor([int(t) for t in seq[p:]], device=plain.device)
+        wrong = plain[i, pos].argmax(dim=-1) != emitted
+        mismatches += int((wrong & (margin >= MARGIN)).sum())
+        close += int((wrong & (margin < MARGIN)).sum())
+    return mismatches, close
+
+
+def _cached_generate(model, workload):
+    """generate(kv_cache=True)'s new tokens for each request of
+    ``workload``, the requests of one prompt length and budget in one call."""
+    from elephas_tpu_torch import generate
+
+    groups = {}
+    for i, (prompt, budget) in enumerate(workload):
+        groups.setdefault((len(prompt), budget), []).append(i)
+    out = [None] * len(workload)
+    for (p, budget), idx in groups.items():
+        tokens = generate(model, np.stack([workload[i][0] for i in idx]), budget, kv_cache=True)
+        for i, row in zip(idx, tokens):
+            out[i] = row[p:].tolist()
+    return out
+
+
+def _against(reqs, want, plain):
+    """Requests whose tokens differ from ``want`` (token lists) where the
+    plain path's top-2 margin is >= MARGIN (faults), and those that differ
+    at all."""
+    faults, differ = [], []
+    for i, (r, w) in enumerate(zip(reqs, want)):
+        if r.tokens == w:
+            continue
+        differ.append(i)
+        p = len(r.prompt)
+        bad = _first_divergence(r.tokens, w, lambda j, i=i, p=p: plain[i, p - 1 + j])
+        if bad:
+            faults.append(f"request {i}: {bad}")
+    return faults, differ
+
+
+def _profile_moe_window(dev, model, what):
+    """One decode window of E's engine over ``model`` (16 busy slots, 16
+    steps) under torch.profiler after a warm-up window, the MoE layers
+    annotated: per step, the device time by class and the MoE layers'."""
+    from elephas_tpu_torch import InferenceEngine
+
+    steps = ENGINE["steps_per_sync"]
+    engine = InferenceEngine(model, **ENGINE)
+    for prompt, _ in _engine_workload(model.vocab_size, ENGINE["num_slots"]):
+        engine.submit(prompt, 4 * steps)
+    engine.step()  # prefill and the warm-up window
+    with _annotated_moe():
+        out = _profile(dev, engine.step, f"engine decode window at {what}, "
+                       f"{ENGINE['num_slots']} slots, per step of {steps}", per=steps,
+                       annotation="moe_ffn")
+    if len(engine.scheduler.active) != ENGINE["num_slots"]:
+        raise AssertionError("a request of the profiled window finished early")
+    return out
+
+
+def phase_switch_serve(dev, dense):
+    """SW-A, the Switch LM's serving path (see the module docstring, 6k).
+    ``dense`` is config A's LM (the engine phase's), E's engine over which
+    runs in turns with SW-A's. Returns the launches of the served runs."""
+    from elephas_tpu_torch import InferenceEngine, generate, switch_transformer_lm
+
+    model = switch_transformer_lm(**SWITCH_A, seed=0, device=dev)
+    layers, vocab, maxlen = SWITCH_A["num_layers"], SWITCH_A["vocab_size"], SWITCH_A["maxlen"]
+    prompts = _prompts(vocab)
+    workload = _engine_workload(vocab, ENGINE_REQUESTS)
+    warm, chunked_workload = _chunked_workload(vocab)
+    options = {"fixed": {}, "paged": ENGINE_PAGED, "paged_int8": dict(ENGINE_PAGED, kv_dtype="int8"),
+               "chunked": CHUNKED, "speculative": dict(speculative=True, spec_k=SPEC_K)}
+    engines = {name: InferenceEngine(model, **ENGINE, **kw) for name, kw in options.items()}
+    naive_int8 = InferenceEngine(model, **ENGINE, **options["paged_int8"], attention="naive")
+    dense_engine = InferenceEngine(dense, **ENGINE)
+    for name, engine in [*engines.items(), ("naive", naive_int8), ("dense", dense_engine)]:
+        engine.run(workload[: ENGINE["num_slots"]])
+        if name == "chunked":
+            for requests in warm:
+                engine.run(requests)
+    failures = []
+
+    # the main path, counted: generate with and without the cache, then
+    # each engine's pass and the rounds in turns with E
+    _reset_launches()
+    launches, counted = _counting(dev)
+    gen = {}
+    for name, kw in (("full", {}), ("cached", {"kv_cache": True})):
+        outs, seconds = [], 0.0
+        for prompt in prompts:
+            steps = STEPS if not kw else len(prompt) + STEPS - 1
+            before = _launches()
+            t0 = time.perf_counter()
+            outs.append(counted(lambda p=prompt, kw=kw: generate(model, p[None], STEPS, **kw))[0])
+            seconds += time.perf_counter() - t0
+            _check_launches(f"SW-A generate {name}", before, {
+                "flash_fwd": 0 if kw else layers * STEPS,
+                "span_decode": layers * steps if kw else 0,
+                "layer_norm_fwd": (2 * layers + 1) * steps, "layer_norm_bwd": 0})
+        gen[name] = {"tokens": outs, "seconds": seconds}
+    served = {name: counted(lambda e=engine, n=name: _serve_pass(
+        e, chunked_workload if n == "chunked" else workload, dev))
+        for name, engine in engines.items()}
+    turns = {"A": [], "SW-A": []}
+    for _ in range(SWITCH_ROUNDS):
+        turns["A"].append(_serve_pass(dense_engine, workload, dev)[1])
+        turns["SW-A"].append(counted(lambda: _serve_pass(engines["fixed"], workload, dev))[1])
+    launches = dict(launches)
+    for path, kernels in (("generate", ("flash_fwd", "span_decode")),
+                          ("engines", ("span_chunk", "paged_span_chunk", "paged_span_decode",
+                                       "layer_norm_fwd"))):
+        idle = [k for k in kernels if not launches[k] > 0]
+        if idle:
+            failures.append(f"the SW-A {path} path never launched {idle}")
+
+    # checks: generate against the plain path and the cache
+    rows = _sequence_rows(gen["full"]["tokens"], maxlen, dev)
+    kern, plain = _switch_logits(model, rows, False), _switch_logits(model, rows, True)
+    checks = {"generate_logits_max_abs_err": (kern - plain).abs().max().item()}
+    if not checks["generate_logits_max_abs_err"] <= TOL_LOGITS or not torch.isfinite(kern).all():
+        failures.append(f"generate logits vs plain: {checks['generate_logits_max_abs_err']}")
+    lens = [len(p) for p in prompts]
+    checks["generate_a"] = _check_a_rows(plain, lens, gen["full"]["tokens"])
+    cached_faults = [
+        bad for i, (p, full, cached) in enumerate(zip(lens, gen["full"]["tokens"],
+                                                       gen["cached"]["tokens"]))
+        if (bad := _first_divergence(cached[p:].tolist(), full[p:].tolist(),
+                                     lambda j, i=i, p=p: plain[i, p - 1 + j]))]
+    checks["cached_vs_full_faults"] = cached_faults
+    if checks["generate_a"][0] or cached_faults:
+        failures.append(f"generate: check (a) {checks['generate_a']}, cache {cached_faults}")
+    del kern, plain
+
+    # every engine against generate(kv_cache=True) and check (a); the int8
+    # engine's flash against its naive twin on the quantized oracle, as E-quant
+    want = _cached_generate(model, workload)
+    for name, (reqs, _row) in served.items():
+        seqs = [r.full_sequence for r in reqs]
+        rows = _sequence_rows(seqs, maxlen, dev)
+        plain = _switch_logits(model, rows, True)
+        if name == "fixed":
+            kern = _switch_logits(model, rows, False)
+            checks["engine_logits_max_abs_err"] = (kern - plain).abs().max().item()
+            if not checks["engine_logits_max_abs_err"] <= TOL_LOGITS:
+                failures.append(f"engine logits vs plain: {checks['engine_logits_max_abs_err']}")
+            del kern
+        if name == "paged_int8":
+            naive, _ = _serve_pass(naive_int8, workload, dev)
+            cache = {}
+
+            def oracle(seq, cache=cache):
+                key = tuple(seq)
+                if key not in cache:
+                    cache[key] = _quant_logits(model, seq, "int8", dev)
+                return cache[key]
+
+            faults, differ = _tokens_agree(reqs, naive, oracle)
+            checks["paged_int8_vs_naive"] = {"faults": faults, "differ": differ}
+            failures += [f"SW-A int8 flash vs naive: {f}" for f in faults]
+            continue
+        if name == "chunked":
+            base, _ = _serve_pass(engines["fixed"], chunked_workload, dev)
+            faults, differ = _against(reqs, [r.tokens for r in base], plain)
+        else:
+            faults, differ = _against(reqs, want, plain)
+        a = _check_a_rows(plain, [len(r.prompt) for r in reqs], seqs)
+        checks[name] = {"a_token_mismatches": a[0], "a_within_margin": a[1],
+                        "faults": faults, "differ": differ}
+        failures += [f"SW-A {name}: {f}" for f in faults]
+        if a[0]:
+            failures.append(f"SW-A {name}: check (a) {a[0]} emitted tokens differ")
+        del plain
+
+    # synchronizing calls of one E run: SW-A's against config A's
+    _prime_sync_count(dev)
+    syncs = {"SW-A": _count_syncs(lambda: engines["fixed"].run(workload), dev),
+             "A": _count_syncs(lambda: dense_engine.run(workload), dev)}
+    if syncs["SW-A"] != syncs["A"]:
+        failures.append(f"synchronizing calls a run: SW-A {dict(syncs['SW-A'])}, "
+                        f"A {dict(syncs['A'])}")
+
+    window = _profile_moe_window(dev, model, "SW-A")
+    tps = {k: float(np.median([r["tokens_s"] for r in rs])) for k, rs in turns.items()}
+    ttft = {k: float(np.median([r["ttft_s"]["p50"] for r in rs])) for k, rs in turns.items()}
+    out = {"phase": "switch_serve", "config": SWITCH_A,
+           "parameters": sum(p.numel() for p in model.parameters()),
+           "launches": launches,
+           "generate_tokens_s": {k: len(prompts) * STEPS / g["seconds"] for k, g in gen.items()},
+           "engines": {name: row for name, (_reqs, row) in served.items()},
+           "turns": turns, "tokens_s_median": tps, "ttft_p50_median": ttft,
+           "sw_a_over_a_tokens_s": tps["SW-A"] / tps["A"],
+           "sw_a_over_a_ttft_p50": ttft["SW-A"] / ttft["A"],
+           "syncs_per_run": {k: sum(c.values()) for k, c in syncs.items()},
+           "sync_lines": {k: dict(c) for k, c in syncs.items()},
+           "moe_share_of_decode_window": _moe_share(window),
+           "decode_window": {k: window.get(k) for k in ("wall_ms", "device_ms", "idle_share",
+                                                        "annotation")},
+           "checks": checks, "nvidia_smi": nvidia_smi(), "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"switch_serve check failed: {failures}")
+    return launches
+
+
+def _expert_fractions(model, x):
+    """Each layer's first-choice expert fractions over ``x``'s tokens (the
+    routers' real inputs, read by forward pre-hooks on the MoE layers)."""
+    from elephas_tpu_torch.ops.moe import topk_route
+
+    inputs = []
+    hooks = [blk.moe.register_forward_pre_hook(lambda _m, args: inputs.append(args[0]))
+             for blk in model.blocks]
+    fractions = []
+    try:
+        with torch.inference_mode():
+            model(x)
+            for blk, h in zip(model.blocks, inputs):
+                moe = blk.moe
+                tokens = h.reshape(-1, h.shape[-1])
+                first = topk_route(tokens, moe.gate_kernel, moe.num_experts, 1, moe.k)[0][0]
+                counts = torch.bincount(first.long(), minlength=moe.num_experts)
+                fractions.append((counts.float() / tokens.shape[0]).tolist())
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return fractions
+
+
+def _labelled_tokens(n, maxlen, vocab, seed=0):
+    """tests/test_moe.py's ``_token_blobs`` at ``vocab`` and ``maxlen``: a
+    row of label 1 draws 80 % of its tokens from the upper half of the
+    vocabulary, a row of label 0 20 %."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 2, size=n).astype(np.int32)
+    half = vocab // 2
+    hi = rng.integers(half, vocab, size=(n, maxlen))
+    lo = rng.integers(1, half, size=(n, maxlen))
+    mask = rng.random((n, maxlen)) < np.where(y[:, None] == 1, 0.8, 0.2)
+    return np.where(mask, hi, lo).astype(np.int32), y
+
+
+def _switch_gradient_check(model, x, y):
+    """:func:`_gradient_check` for a Switch model, three passes: through the
+    kernels, through the plain path routing on its own, and through the
+    plain path with every layer's expert choices pinned to the kernel
+    pass's (its gates from its own router). Routing is an argmax: where the
+    kernels' last-bit differences move a token across a near tie, the two
+    paths compute a different function of the weights, so the gate reads
+    the pinned pass; the free pass's error and the tokens whose choices
+    differ are reported beside it. Returns (pinned errors, scales, free
+    errors, choices that differ per layer)."""
+    from elephas_tpu_torch.ops import moe
+    from elephas_tpu_torch.training import auxiliary_losses
+
+    spec = model.training_spec
+    real = moe._choose
+    grads, choices = {}, {}
+
+    def recording(probs, num_experts, k):
+        out = real(probs, num_experts, k)
+        choices[current].append(torch.stack(out[0]))
+        return out
+
+    def pinned(probs, num_experts, k):
+        picks = list(choices["kernel"][len(choices["pinned"])])
+        choices["pinned"].append(torch.stack(picks))
+        return picks, moe._gates(probs, picks)
+
+    model.train()
+    try:
+        for current, plain, choose in (("kernel", False, recording), ("free", True, recording),
+                                       ("pinned", True, pinned)):
+            choices[current] = []
+            moe._choose = choose
+            model.zero_grad(set_to_none=True)
+            with auxiliary_losses() as aux:
+                out = model(x, plain=plain)
+            (spec.loss(y, out).mean() + torch.stack(aux).sum()).backward()
+            grads[current] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    finally:
+        moe._choose = real
+        model.zero_grad(set_to_none=True)
+        model.eval()
+    differ = [int((a != b).any(dim=0).sum()) for a, b in zip(choices["kernel"], choices["free"])]
+
+    def errs(other):
+        return {n: _rel(grads["kernel"][n], g) for n, g in grads[other].items()}
+
+    scales = {n: g.abs().max().item() for n, g in grads["pinned"].items()}
+    return errs("pinned"), scales, errs("free"), differ
+
+
+def phase_switch_train(dev, t_line):
+    """SW-T, the Switch classifier's training path (see the module
+    docstring, 6l). ``t_line`` is phase train's fp32 line (T's tokens/s).
+    Returns the launches of the fits."""
+    from elephas_tpu_torch import SparkModel, switch_transformer_classifier, worker
+    from elephas_tpu_torch.device import force_devices
+    from elephas_tpu_torch.models import switch as sw
+    from elephas_tpu_torch.training import auxiliary_losses
+
+    x, y = _labelled_tokens(TRAIN_ROWS, TRAIN["maxlen"], TRAIN["vocab_size"])
+    layers = SWITCH_T["num_layers"]
+    norms = 2 * layers + 1
+    failures = []
+
+    def build():
+        return switch_transformer_classifier(**SWITCH_T, seed=0, device=dev)
+
+    model = build()
+    grad_err, grad_scale, free_err, flips = _switch_gradient_check(
+        model, torch.from_numpy(x[:SWITCH_GRAD_ROWS]).long().to(dev),
+        torch.from_numpy(y[:SWITCH_GRAD_ROWS]).long().to(dev))
+    worst = max(grad_err, key=grad_err.get)
+    free_worst = max(free_err, key=free_err.get)
+    if grad_err[worst] > TOL_GRAD:
+        failures.append(f"gradient of {worst}: kernel vs plain {grad_err[worst]}")
+    vanished = [n for n, v in grad_scale.items() if not v > 0]
+    if vanished:
+        failures.append(f"all-zero gradients, the check is vacuous for {vanished}")
+
+    steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // TRAIN_BATCH)
+    real_add_loss, added = sw.add_loss, []
+
+    def recording(value):
+        added.append(value.detach())
+        real_add_loss(value)
+
+    sm = SparkModel(model, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    launches, counted = _counting(dev)
+    sw.add_loss = recording
+    try:
+        history, step_s = counted(lambda: _timed_fit(sm, model, (x, y), TRAIN_EPOCHS,
+                                                     TRAIN_BATCH, dev))
+    finally:
+        sw.add_loss = real_add_loss
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"flash_fwd": layers * steps, "layer_norm_fwd": norms * steps,
+            "layer_norm_bwd": 2 * norms * steps}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        failures.append(f"launches {got}, expected {want}")
+    aux = torch.stack(added).view(steps, layers).sum(1).tolist() if added else []
+    loss = history.get("loss", [])
+    if len(added) != layers * steps or not all(np.isfinite(aux)) or not min(aux, default=0) > 0:
+        failures.append(f"{len(added)} load-balance losses added ({layers * steps} expected), "
+                        f"{aux}")
+    if len(loss) != TRAIN_EPOCHS or not np.all(np.isfinite(loss)) or not loss[-1] < loss[0]:
+        failures.append(f"the loss is not finite and descending: {history}")
+    tokens_s = (steps - 1) * TRAIN_BATCH * TRAIN["maxlen"] / float(np.sum(step_s[1:]))
+    xb = torch.from_numpy(x[:TRAIN_BATCH]).long().to(dev)
+    fractions = _expert_fractions(model, xb)
+
+    spec = model.training_spec
+    yb = torch.from_numpy(y[:TRAIN_BATCH]).long().to(dev)
+
+    def step():
+        with auxiliary_losses() as added_losses:
+            out = model(xb)
+        loss = spec.loss(yb, out).mean() + torch.stack(added_losses).sum()
+        spec.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        spec.optimizer.step()
+
+    model.train()
+    step()
+    with _annotated_moe():
+        prof = _profile(dev, step, "one training step, SW-T config", annotation="moe_ffn")
+    model.eval()
+    del sm, model
+
+    # W = WORKERS: replicas bit-identical under synchronous, the master the
+    # mean of the replicas before the last average under asynchronous
+    previous = force_devices(WORKERS)
+    real_g, real_w = worker.mean_gradients, worker.mean_weights
+    kept, expected, workers = [], {}, {}
+
+    def spy_gradients(replicas):
+        real_g(replicas)
+        kept[:] = replicas
+
+    def spy_weights(replicas):
+        states = [r.state_dict() for r in replicas]
+        expected.clear()
+        expected.update({n: torch.stack([st[n].double() for st in states]).mean(0)
+                         for n, t in states[0].items() if t.is_floating_point()})
+        real_w(replicas)
+        kept[:] = replicas
+
+    w_steps = WORKERS * SWITCH_WORKER_EPOCHS * -(-(TRAIN_ROWS // WORKERS) // WORKER_BATCH)
+    try:
+        worker.mean_gradients, worker.mean_weights = spy_gradients, spy_weights
+        for mode, frequency in (("synchronous", "epoch"), ("asynchronous", "batch")):
+            m = build()
+            before = _launches()
+            t0 = time.perf_counter()
+            hist = counted(lambda m=m, mode=mode, frequency=frequency: SparkModel(
+                m, mode=mode, frequency=frequency, num_workers=WORKERS, device=dev).fit(
+                (x, y), epochs=SWITCH_WORKER_EPOCHS, batch_size=WORKER_BATCH))
+            seconds = time.perf_counter() - t0
+            now = _launches()
+            delta = {k: now[k] - before[k] for k in want}
+            w_want = {"flash_fwd": layers * w_steps, "layer_norm_fwd": norms * w_steps,
+                      "layer_norm_bwd": 2 * norms * w_steps}
+            synchronous = mode == "synchronous"
+            diverged = {i: _state_equal(r, m, optimizer=synchronous)[:3]
+                        for i, r in enumerate(kept[1:], 1)}
+            row = {"history": hist, "seconds": seconds,
+                   "tokens_s": SWITCH_WORKER_EPOCHS * TRAIN_ROWS * TRAIN["maxlen"] / seconds,
+                   "launches": delta, "replicas_identical": not any(diverged.values())}
+            if not synchronous:
+                row["master_vs_replica_mean_tensor"], row["master_vs_replica_mean_err"] = \
+                    _rel_state_err(m.state_dict(), expected)
+            if len(kept) != WORKERS or any(diverged.values()) or delta != w_want or \
+                    row.get("master_vs_replica_mean_err", 0.0) > TOL_MASTER_MEAN or \
+                    not all(np.all(np.isfinite(v)) for v in hist.values()):
+                failures.append(f"W={WORKERS} {mode}: {len(kept)} replicas, differ {diverged}, "
+                                f"launches {delta} (expected {w_want}), {row}")
+            workers[f"{mode}_{frequency}"] = row
+            kept.clear()
+            expected.clear()
+            del m
+    finally:
+        worker.mean_gradients, worker.mean_weights = real_g, real_w
+        force_devices(previous)
+    out = {"phase": "switch_train", "config": SWITCH_T, "dtype_policy": "float32",
+           "rows": TRAIN_ROWS, "batch": TRAIN_BATCH, "epochs": TRAIN_EPOCHS, "steps": steps,
+           "launches": dict(launches), "history": history, "aux_per_step": aux,
+           "step_seconds": step_s.tolist(),
+           "median_step_s_after_first": float(np.median(step_s[1:])),
+           "tokens_s_after_first": tokens_s,
+           "tokens_s_over_T": tokens_s / t_line["tokens_s_after_first"],
+           "T_tokens_s_after_first": t_line["tokens_s_after_first"],
+           "max_memory_allocated": peak, "grad_check_rows": SWITCH_GRAD_ROWS,
+           "grad_tol": TOL_GRAD, "grad_max_err": grad_err[worst], "grad_worst_param": worst,
+           "grad_free_routing_max_err": free_err[free_worst],
+           "grad_free_routing_worst_param": free_worst,
+           "tokens_whose_choices_differ_per_layer": flips,
+           "first_choice_fractions": fractions,
+           "moe_share_of_training_step": _moe_share(prof),
+           "training_step": {k: prof.get(k) for k in ("wall_ms", "device_ms", "idle_share",
+                                                      "annotation")},
+           "workers": WORKERS, "worker_batch": WORKER_BATCH, "worker_epochs":
+               SWITCH_WORKER_EPOCHS, "w4": workers, "nvidia_smi": nvidia_smi(),
+           "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"switch_train check failed: {failures}")
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, err, times):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5896,6 +6582,8 @@ def main(argv=None) -> int:
     fleet = phase_fleet(dev, lm)
     _reset_launches()
     deploy = phase_deploy(dev, lm)
+    switch_serve = phase_switch_serve(dev, lm)
+    switch_train = phase_switch_train(dev, fp32_line)
     for path, launches, kernels in (
         ("serve", serve, ("flash_fwd", "layer_norm_fwd")),
         ("train", train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
@@ -5915,6 +6603,10 @@ def main(argv=None) -> int:
                               "paged_span_decode", "layer_norm_fwd")),
         ("fleet", fleet, ("paged_span_chunk", "paged_span_decode", "layer_norm_fwd")),
         ("deploy", deploy, ("paged_span_chunk", "paged_span_decode", "layer_norm_fwd")),
+        ("switch_serve", switch_serve, ("flash_fwd", "span_decode", "span_chunk",
+                                        "paged_span_chunk", "paged_span_decode",
+                                        "layer_norm_fwd")),
+        ("switch_train", switch_train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
     ):
         idle = [k for k in kernels if launches[k] == 0]
         if idle:
@@ -5939,7 +6631,7 @@ def main(argv=None) -> int:
     print(nvidia_smi(), flush=True)
     total = {k: serve[k] + train[k] + train_bf16[k] + train_workers[k] + train_stream[k]
              + train_ps[k] + engine[k] + chunked[k] + paged[k] + quant[k] + spec[k] + gateway[k]
-             + fleet[k] + deploy[k] for k in serve}
+             + fleet[k] + deploy[k] + switch_serve[k] + switch_train[k] for k in serve}
     emit({"kernels": [
         _kernel_entry(
             "flash_fwd", "elephas_tpu_torch/csrc/flash_fwd.cu",

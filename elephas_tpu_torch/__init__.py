@@ -6,7 +6,9 @@ numpy, never jax, keras or ``elephas_tpu``.
 
 What runs: the reference's model zoo (:func:`mnist_mlp`,
 :func:`cifar10_cnn`, :func:`imdb_lstm`, :func:`resnet`, :func:`resnet50`,
-:func:`transformer_classifier`, :func:`transformer_lm`) builds, trains,
+:func:`transformer_classifier`, :func:`transformer_lm`, and the Switch
+mixture-of-experts :func:`switch_transformer_classifier` and
+:func:`switch_transformer_lm` over :class:`MoeFFN`) builds, trains,
 evaluates and predicts through :class:`SparkModel` in float32 and, where
 the reference takes it (the transformers and ResNet), ``mixed_bfloat16``:
 on W workers in every mode and frequency of the reference, all on one
@@ -16,8 +18,8 @@ slots), with validation, checkpoints and resume, and
 (``csrc/flash_fwd.cu``) and the LayerNorm forward and backward
 (``csrc/layer_norm.cu``, behind :class:`FusedLayerNorm`) as CUDA kernels
 written for sm_90a, on their bf16 routes under ``mixed_bfloat16``; the
-flash backward is plain PyTorch. :func:`transformer_lm` serves through
-:func:`generate` and the continuous-batching :class:`InferenceEngine` on
+flash backward is plain PyTorch. :func:`transformer_lm` and
+:func:`switch_transformer_lm` serve through :func:`generate` and the continuous-batching :class:`InferenceEngine` on
 the fixed or paged KV arena, with decode attention as a CUDA kernel
 (``csrc/span_decode.cu``), speculative decoding through the span-chunk
 kernel (``csrc/span_chunk.cu``) and SLO admission policies; the engine
@@ -52,12 +54,15 @@ __version__ = "0.6.0"
 from elephas_tpu_torch.hyperparam import HyperParamModel  # noqa: F401
 from elephas_tpu_torch.models import (  # noqa: F401
     FusedLayerNorm,
+    MoeFFN,
     cifar10_cnn,
     generate,
     imdb_lstm,
     mnist_mlp,
     resnet,
     resnet50,
+    switch_transformer_classifier,
+    switch_transformer_lm,
     transformer_classifier,
     transformer_lm,
 )
@@ -82,6 +87,7 @@ __all__ = [
     "FusedLayerNorm",
     "HyperParamModel",
     "InferenceEngine",
+    "MoeFFN",
     "RequestCancelled",
     "SparkMLlibModel",
     "SparkModel",
@@ -96,6 +102,8 @@ __all__ = [
     "mnist_mlp",
     "resnet",
     "resnet50",
+    "switch_transformer_classifier",
+    "switch_transformer_lm",
     "to_simple_rdd",
     "transformer_classifier",
     "transformer_lm",

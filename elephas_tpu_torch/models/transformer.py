@@ -7,6 +7,9 @@ Counterpart of ``elephas_tpu/models/transformer.py``:
   kernel (:mod:`elephas_tpu_torch.ops.flash_attention`).
 - :class:`FusedLayerNorm` — LayerNorm over the LayerNorm kernels
   (:mod:`elephas_tpu_torch.ops.layer_norm`), at every norm of the stack.
+- :class:`PreNormBlock` — the pre-norm block around a feed-forward part:
+  :class:`Block`'s dense one here, the Switch family's routed experts in
+  :mod:`elephas_tpu_torch.models.switch`.
 - :func:`transformer_classifier` — encoder stack + pooled head.
 - :func:`transformer_lm` — causal decoder-only language model.
   Both builders compile the module as the reference compiles its model
@@ -372,21 +375,18 @@ class FusedLayerNorm(nn.Module):
         return cast(layer_norm(x, self.gamma, self.beta, self.epsilon), self.compute_dtype)
 
 
-class Block(nn.Module):
-    """Pre-norm transformer block: LayerNorm → attention → residual,
-    LayerNorm → Dense(gelu, exact) → Dense → residual. Each residual sum
-    runs in the branch's (compute) dtype, as Keras's ``Add`` casts both
-    inputs to it."""
+class PreNormBlock(nn.Module):
+    """A pre-norm transformer block without its feed-forward part:
+    LayerNorm → attention → residual, then :meth:`mlp`: LayerNorm → the
+    subclass's :meth:`ffn` → residual. Each residual sum runs in the
+    branch's (compute) dtype, as Keras's ``Add`` casts both inputs to it.
+    The serving passes call :meth:`mlp` after their own attention."""
 
-    def __init__(self, d_model, num_heads, head_dim, mlp_ratio, dropout,
-                 causal, rope, maxlen, seed=0):
+    def __init__(self, d_model, num_heads, head_dim, dropout, causal, rope, maxlen, seed=0):
         super().__init__()
-        hidden = int(d_model * mlp_ratio)
         self.ln1 = FusedLayerNorm(d_model)
         self.attn = FlashMHA(d_model, num_heads, head_dim, causal, rope, maxlen)
         self.ln2 = FusedLayerNorm(d_model)
-        self.mlp1 = Dense(d_model, hidden)
-        self.mlp2 = Dense(hidden, d_model)
         # rate-0 dropout is elided, as in the reference
         if dropout > 0:
             self.drop1, self.drop2 = Dropout(dropout, seed), Dropout(dropout, seed + 1)
@@ -398,17 +398,53 @@ class Block(nn.Module):
         return self.mlp(cast(x, h.dtype) + h, plain=plain)
 
     def mlp(self, x, plain: bool = False):
-        """``x`` plus the MLP branch: LayerNorm → Dense(gelu) → Dense."""
-        h = self.mlp2(F.gelu(self.mlp1(self.ln2(x, plain=plain))))
-        return x + self.drop2(h)
+        """``x`` plus the feed-forward branch: LayerNorm → :meth:`ffn`."""
+        return x + self.drop2(self.ffn(self.ln2(x, plain=plain), plain=plain))
+
+
+class Block(PreNormBlock):
+    """The dense block: its feed-forward part is Dense(gelu, exact) →
+    Dense."""
+
+    def __init__(self, d_model, num_heads, head_dim, dropout, causal, rope, maxlen,
+                 seed=0, mlp_ratio=4.0):
+        super().__init__(d_model, num_heads, head_dim, dropout, causal, rope, maxlen, seed)
+        hidden = int(d_model * mlp_ratio)
+        self.mlp1 = Dense(d_model, hidden)
+        self.mlp2 = Dense(hidden, d_model)
+
+    def ffn(self, x, plain: bool = False):
+        return self.mlp2(F.gelu(self.mlp1(x)))
+
+    def keras_paths(self, name: str) -> dict:
+        """The block's Keras paths, in ``model.weights`` order, under its
+        layer prefix ``name`` (``blk{i}``)."""
+        return {**attention_paths(name, self), **dense_paths(f"{name}_mlp1", self.mlp1),
+                **dense_paths(f"{name}_mlp2", self.mlp2)}
+
+
+def norm_paths(prefix: str, ln: FusedLayerNorm) -> dict:
+    return {f"{prefix}/gamma": (ln.gamma, None), f"{prefix}/beta": (ln.beta, None)}
+
+
+def attention_paths(name: str, block) -> dict:
+    """A block's first half and second norm, as Keras lists them:
+    ``{name}_ln1``, ``{name}_attn`` (``qkv``, ``proj``), ``{name}_ln2``."""
+    return {**norm_paths(f"{name}_ln1", block.ln1),
+            **dense_paths(f"{name}_attn/qkv", block.attn.qkv),
+            **dense_paths(f"{name}_attn/proj", block.attn.proj),
+            **norm_paths(f"{name}_ln2", block.ln2)}
 
 
 class _Transformer(nn.Module):
-    """Embedding (+ sinusoidal positions unless rope) → blocks → final
-    LayerNorm; the subclasses add the head."""
+    """Embedding (+ sinusoidal positions unless rope) → ``num_layers``
+    blocks made by ``block`` (``block(d_model, num_heads, head_dim, dropout,
+    causal, rope, maxlen, seed=)``: a :class:`Block` of some ``mlp_ratio``,
+    or the Switch family's block) → final LayerNorm; the subclasses add the
+    head."""
 
-    def __init__(self, vocab_size, maxlen, d_model, num_heads, num_layers,
-                 mlp_ratio, dropout, causal, rope, seed):
+    def __init__(self, vocab_size, maxlen, d_model, num_heads, num_layers, block,
+                 dropout, causal, rope, seed):
         super().__init__()
         self.vocab_size = vocab_size
         self.maxlen = maxlen
@@ -422,8 +458,8 @@ class _Transformer(nn.Module):
             )
         head_dim = d_model // num_heads
         self.blocks = nn.ModuleList(
-            Block(d_model, num_heads, head_dim, mlp_ratio, dropout, causal,
-                  rope, maxlen, seed=2 * (seed * num_layers + i))
+            block(d_model, num_heads, head_dim, dropout, causal, rope, maxlen,
+                  seed=2 * (seed * num_layers + i))
             for i in range(num_layers)
         )
         self.final_ln = FusedLayerNorm(d_model)
@@ -447,19 +483,9 @@ class _Transformer(nn.Module):
         """Keras variable path → (the port's tensor, the permutation of
         the Keras array's axes into it)."""
         paths = {"tok_embed/embeddings": (self.tok_embed.weight, None)}
-
-        def norm(prefix: str, ln: FusedLayerNorm):
-            paths[f"{prefix}/gamma"] = (ln.gamma, None)
-            paths[f"{prefix}/beta"] = (ln.beta, None)
-
         for i, blk in enumerate(self.blocks):
-            norm(f"blk{i}_ln1", blk.ln1)
-            paths.update(dense_paths(f"blk{i}_attn/qkv", blk.attn.qkv))
-            paths.update(dense_paths(f"blk{i}_attn/proj", blk.attn.proj))
-            norm(f"blk{i}_ln2", blk.ln2)
-            paths.update(dense_paths(f"blk{i}_mlp1", blk.mlp1))
-            paths.update(dense_paths(f"blk{i}_mlp2", blk.mlp2))
-        norm("final_ln", self.final_ln)
+            paths.update(blk.keras_paths(f"blk{i}"))
+        paths.update(norm_paths("final_ln", self.final_ln))
         for head in ("lm_head", "head"):
             if hasattr(self, head):
                 paths.update(dense_paths(head, getattr(self, head)))
@@ -470,10 +496,10 @@ class TransformerLM(_Transformer):
     """Decoder-only causal LM: ``[B, S]`` int tokens → ``[B, S, vocab]``
     fp32 logits (the ``lm_head`` is float32 under every policy)."""
 
-    def __init__(self, vocab_size, maxlen, d_model, num_heads, num_layers,
-                 mlp_ratio, dropout, rope, seed):
-        super().__init__(vocab_size, maxlen, d_model, num_heads, num_layers,
-                         mlp_ratio, dropout, True, rope, seed)
+    def __init__(self, vocab_size, maxlen, d_model, num_heads, num_layers, block,
+                 dropout, rope, seed):
+        super().__init__(vocab_size, maxlen, d_model, num_heads, num_layers, block,
+                         dropout, True, rope, seed)
         self.lm_head = Dense(d_model, vocab_size, keep_float32=True)
 
     def forward(self, tokens, plain: bool = False):
@@ -487,9 +513,9 @@ class TransformerClassifier(_Transformer):
     compute dtype, then the float32 ``head``."""
 
     def __init__(self, vocab_size, maxlen, num_classes, d_model, num_heads,
-                 num_layers, mlp_ratio, dropout, seed):
-        super().__init__(vocab_size, maxlen, d_model, num_heads, num_layers,
-                         mlp_ratio, dropout, False, False, seed)
+                 num_layers, block, dropout, seed):
+        super().__init__(vocab_size, maxlen, d_model, num_heads, num_layers, block,
+                         dropout, False, False, seed)
         self.num_classes = num_classes
         self.head = Dense(d_model, num_classes, keep_float32=True)
 
@@ -531,7 +557,8 @@ def transformer_classifier(
     loss = binary_crossentropy if num_classes == 1 else sparse_categorical_crossentropy
     return _build(
         TransformerClassifier, seed, dtype_policy, device, lr, loss, vocab_size,
-        maxlen, num_classes, d_model, num_heads, num_layers, mlp_ratio, dropout,
+        maxlen, num_classes, d_model, num_heads, num_layers,
+        functools.partial(Block, mlp_ratio=mlp_ratio), dropout,
     )
 
 
@@ -558,7 +585,8 @@ def transformer_lm(
     return _build(
         TransformerLM, seed, dtype_policy, device, lr,
         functools.partial(sparse_categorical_crossentropy, from_logits=True),
-        vocab_size, maxlen, d_model, num_heads, num_layers, mlp_ratio, dropout, rope,
+        vocab_size, maxlen, d_model, num_heads, num_layers,
+        functools.partial(Block, mlp_ratio=mlp_ratio), dropout, rope,
     )
 
 
@@ -620,7 +648,8 @@ def validate_token_decode_model(model, what: str = "kv_cache decode",
                                 hint: str = "use kv_cache=False"):
     """Compatibility gate for token-at-a-time cached decode, shared by
     ``generate(kv_cache=True)`` and the serving engine
-    (:mod:`elephas_tpu_torch.serving`): a :func:`transformer_lm` module
+    (:mod:`elephas_tpu_torch.serving`): a :func:`transformer_lm` or
+    :func:`~elephas_tpu_torch.models.switch.switch_transformer_lm` module
     whose every ``FlashMHA`` is causal and that computes in float32 (the
     reference reads the policy's compute dtype: a ``mixed_bfloat16``
     model, whose variables are float32, is refused).
@@ -629,8 +658,9 @@ def validate_token_decode_model(model, what: str = "kv_cache decode",
     ``what``, suffixed ``hint``, as the reference words them) otherwise."""
     if not isinstance(model, _Transformer):
         raise ValueError(
-            f"{what} needs a transformer_lm module (token embedding, FlashMHA "
-            f"blocks, final LayerNorm), got {type(model).__name__}; {hint} for "
+            f"{what} needs a transformer_lm or switch_transformer_lm module (token "
+            f"embedding, FlashMHA blocks, final LayerNorm), got "
+            f"{type(model).__name__}; {hint} for "
             f"this architecture"
         )
     layers = [(f"blk{i}_attn", blk.attn) for i, blk in enumerate(model.blocks)]
@@ -697,7 +727,8 @@ def generate(
     model_axis: str | None = None,
     rules=None,
 ):
-    """Autoregressive sampling from a :func:`transformer_lm` model.
+    """Autoregressive sampling from a :func:`transformer_lm` or
+    :func:`~elephas_tpu_torch.models.switch.switch_transformer_lm` model.
 
     ``prompt``: ``[B, P]`` int tokens (``P + steps`` must fit the
     model's ``maxlen``). Returns ``[B, P + steps]`` int32 tokens as a

@@ -5,7 +5,8 @@ slot arena or the paged block pool (``paged=True``, with preemption and
 int8 / int4 KV), whole-prompt or chunked prefill, the prefix cache,
 ``attention="flash"`` (or ``"naive"``, the parity oracle), and
 :meth:`InferenceEngine.score`. One engine wraps one causal
-:func:`~elephas_tpu_torch.transformer_lm` and serves any number of
+:func:`~elephas_tpu_torch.transformer_lm` or
+:func:`~elephas_tpu_torch.switch_transformer_lm` and serves any number of
 generation requests through these kinds of device work:
 
 - **prefill**, one forward per prompt-length bucket of an admission wave
@@ -47,6 +48,17 @@ host. A round where nobody drafted is a plain decode window. A
 ``policy`` (:mod:`~elephas_tpu_torch.serving.policy`) orders admission,
 rejects at :meth:`InferenceEngine.submit` under overload and keeps
 per-tenant and SLO counts; it never touches decoding.
+
+The Switch LM's routed experts run inside each pass's block
+(:class:`~elephas_tpu_torch.models.switch.MoeFFN`), with an expert
+capacity from the tokens of that pass: a prefill wave's admitted rows
+(``n · bucket``; the reference's engine routes ``num_slots · bucket``), a
+chunk's ``n · C``, a verify round's window rows, a decode step's
+``num_slots`` rows, idle slots included. Where tokens drop, the tokens
+served depend on those populations; where ``k · capacity_factor ≥
+num_experts`` nothing drops and the engine is token-exact with
+``generate(kv_cache=True)`` and the reference, as the reference documents
+its own contract. The routing makes no host synchronisation.
 
 Each :meth:`InferenceEngine.step`: admit waiting requests into free slots
 (offloads of preempted requests first, then resumes, copies and prefill),

@@ -9,13 +9,18 @@ reads them from there.
 
 The losses return per-sample values, unreduced, as the Keras loss
 functions do; a training step takes their mean over every element (Keras's
-``sum_over_batch_size``). The metrics return per-sample matches, which
+``sum_over_batch_size``) and adds the auxiliary losses that layers add in
+training mode (:func:`add_loss`, Keras's ``add_loss``: the Switch
+load-balance loss), collected by :func:`auxiliary_losses` around the
+forward. The metrics return per-sample matches, which
 :class:`MeanMetric` folds as Keras's ``Mean`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Callable
 
@@ -26,6 +31,31 @@ from elephas_tpu_torch.optimizers import hyperparameters
 
 # keras.backend.epsilon(): the clip of probabilities before the log
 EPSILON = 1e-7
+
+# the auxiliary losses of the forward running on this thread (hyperparameter
+# trials train in threads of their own)
+_AUX = threading.local()
+
+
+@contextlib.contextmanager
+def auxiliary_losses():
+    """Collect the auxiliary losses that the layers of the forwards run
+    inside the block add (:func:`add_loss`), into the list it yields: the
+    ``model.losses`` of Keras's training step."""
+    outer = getattr(_AUX, "losses", None)
+    _AUX.losses = losses = []
+    try:
+        yield losses
+    finally:
+        _AUX.losses = outer
+
+
+def add_loss(value: torch.Tensor) -> None:
+    """A layer's auxiliary loss of this forward, for the innermost
+    :func:`auxiliary_losses` block around it (dropped outside one)."""
+    losses = getattr(_AUX, "losses", None)
+    if losses is not None:
+        losses.append(value)
 
 
 def sparse_categorical_crossentropy(y_true, y_pred, from_logits: bool = False):

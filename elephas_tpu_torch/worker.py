@@ -31,7 +31,9 @@ With one worker every collective is the identity, and the nine pairs
 train identically.
 
 Per worker step: forward in ``train()`` mode, the compiled loss (the mean
-over every element), backward, the optimizer's step. Batches come in the
+over every element) plus the auxiliary losses the forward added (the
+Switch load-balance loss; in the history's ``loss`` too, as in the
+reference's total), backward, the optimizer's step. Batches come in the
 reference's order, wrap-padded (:func:`pad_to_batches`), with no
 shuffling. :meth:`Runner.run_epochs` stages a whole epoch on the device;
 :meth:`Runner.run_epochs_stream` takes the same steps in blocks of a
@@ -67,7 +69,7 @@ from elephas_tpu_torch import telemetry
 from elephas_tpu_torch.data.streaming import prefetch_blocks
 from elephas_tpu_torch.device import resolve_device
 from elephas_tpu_torch.optimizers import hyperparameters
-from elephas_tpu_torch.training import MeanMetric
+from elephas_tpu_torch.training import MeanMetric, auxiliary_losses
 from elephas_tpu_torch.utils import sockets
 from elephas_tpu_torch.utils.weights import get_weights, set_weights
 
@@ -420,8 +422,12 @@ data.streaming.prefetch_blocks` gathers the next blocks on the host in
         several = len(replicas) > 1
         for w, rep in enumerate(replicas):
             spec = rep.training_spec
-            y_pred = rep(xb[w, i])
+            with auxiliary_losses() as aux:
+                y_pred = rep(xb[w, i])
+            # Keras's total: the task loss plus the layers' added losses
             loss = spec.loss(yb[w, i], y_pred).mean()
+            if aux:
+                loss = loss + torch.stack(aux).sum()
             spec.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             losses[w].append(loss.detach())

@@ -115,22 +115,28 @@ MAX_NEW = 12
 
 
 class _Gate:
-    """Park an engine's driver: past ``after`` steps (or while closed) its
-    ``step`` does nothing, as the fault harness's staller does. ``parked``
-    is set on the first parked call, so a test acts on requests that are
-    provably mid-stream whatever the speed of the host."""
+    """Park an engine's driver: past ``after`` steps, once ``park_when()``
+    holds (checked by the driver before each step, so no step runs past
+    it), or while closed, its ``step`` does nothing, as the fault
+    harness's staller does. ``parked`` is set on the first parked call, so
+    a test acts on requests that are provably mid-stream whatever the speed
+    of the host."""
 
-    def __init__(self, engine, after=None):
+    def __init__(self, engine, after=None, park_when=None):
         self.engine, self.after, self.calls = engine, after, 0
+        self.park_when = park_when
         self.open = threading.Event()
         self.parked = threading.Event()
-        if after is not None:
+        if after is not None or park_when is not None:
             self.open.set()
         real = engine.step
 
         def step():
             self.calls += 1
             if self.after is not None and self.calls > self.after:
+                self.open.clear()
+            if self.park_when is not None and self.park_when():
+                self.park_when = None
                 self.open.clear()
             if not self.open.is_set():
                 self.parked.set()
@@ -308,22 +314,28 @@ def test_drain_is_live_and_token_exact(lm, jax_refs):
     placed, none waits for a slot while the others run to their end."""
     engines = {"a": serving.InferenceEngine(lm, **{**ENGINE, "num_slots": 4}),
                "b": serving.InferenceEngine(lm, **{**ENGINE, "num_slots": 4})}
-    gates = {name: _Gate(eng) for name, eng in engines.items()}
+    reqs = []
+
+    def ready(name):
+        # every request submitted, and this replica's all with two tokens
+        return len(reqs) == len(PROMPTS) and all(
+            len(r.tokens) >= 2 for r in reqs if r.replica == name)
+
+    gates = {name: _Gate(eng, park_when=lambda name=name: ready(name))
+             for name, eng in engines.items()}
     for g in gates.values():
-        g.open.set()
+        g.open.clear()  # no step until every request is in
     router = fleet.Router(engines, poll_every=2)
     with router:
-        reqs = [router.submit(p, MAX_NEW) for p in PROMPTS]
-        deadline = time.monotonic() + 60
-        while not all(len(r.tokens) >= 2 for r in reqs):
-            assert time.monotonic() < deadline, [r.tokens for r in reqs]
-            # park a replica whose requests all have two tokens
-            for name, g in gates.items():
-                if all(len(r.tokens) >= 2 for r in reqs if r.replica == name):
-                    g.open.clear()
-            time.sleep(0.001)
+        reqs.extend([router.submit(p, MAX_NEW) for p in PROMPTS])
         for g in gates.values():
-            g.open.clear()
+            g.open.set()
+            g.parked.clear()  # a parked call sets it again: each call while parked does
+        deadline = time.monotonic() + 60
+        while not all(g.parked.is_set() for g in gates.values()):
+            assert time.monotonic() < deadline, [r.tokens for r in reqs]
+            time.sleep(0.001)
+        assert all(len(r.tokens) >= 2 and not r.done for r in reqs), [r.tokens for r in reqs]
         counts = {name: sum(r.replica == name for r in reqs) for name in engines}
         victim = max(sorted(counts), key=lambda n: counts[n])
         moved = router.drain(victim)

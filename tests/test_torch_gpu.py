@@ -1649,3 +1649,96 @@ def test_subscriber_applies_on_cuda(cuda):
     finally:
         client.close()
         store.stop()
+
+
+# -- the Switch mixture-of-experts family on the card ------------------------------------
+
+# SW-A's MoE layer (d_model 512, 8 experts of 2,048, top-2, capacity factor 4):
+# the engine's decode (16 slots) and a 512-token prefill
+MOE_SHAPES = [pytest.param(16, id="decode_T16"), pytest.param(512, id="prefill_T512")]
+MOE = dict(d=512, h=2048, e=8, k=2, cf=4.0)
+
+
+def _moe_inputs(cuda, t, seed=0):
+    from elephas_tpu_torch.ops import moe
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    params = moe.init_moe_params(gen, MOE["d"], MOE["h"], MOE["e"])
+    b1 = 0.1 * torch.randn(params[2].shape, generator=gen, device=cuda)
+    b2 = 0.1 * torch.randn(params[4].shape, generator=gen, device=cuda)
+    x = torch.randn(t, MOE["d"], generator=gen, device=cuda)
+    return x, (params[0], params[1], b1, params[3], b2)
+
+
+@pytest.mark.parametrize("cf", [4.0, 0.5], ids=["roomy", "drops"])
+@pytest.mark.parametrize("t", MOE_SHAPES)
+def test_moe_ffn_matches_its_plain_version(cuda, t, cf):
+    """The index route against the dense plain version on the card: the
+    same kept routing, outputs within 1e-6 of max(1, |out|), every gradient
+    within 1e-5 of its tensor's largest."""
+    from elephas_tpu_torch.ops import moe
+
+    x, params = _moe_inputs(cuda, t)
+    xs = [a.clone().requires_grad_() for a in (x, *params)]
+    capacity = moe.capacity_for(t, MOE["e"], cf, MOE["k"])
+    out, aux = moe.moe_ffn(*xs, capacity, MOE["k"], torch.nn.functional.gelu, return_aux=True)
+    ref, ref_aux = moe.moe_ffn_reference(*xs, cf, torch.nn.functional.gelu, k=MOE["k"],
+                                         return_aux=True)
+    assert (out - ref).abs().max().item() <= 1e-6 * max(1.0, ref.abs().max().item())
+    assert abs(aux.item() - ref_aux.item()) <= 1e-6
+    grads = torch.autograd.grad((out ** 2).sum() + aux, xs)
+    want = torch.autograd.grad((ref ** 2).sum() + ref_aux, xs)
+    for g, w in zip(grads, want):
+        assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item()
+    experts, positions, _, _ = moe.topk_route(x, params[0], MOE["e"], capacity, MOE["k"])
+    dispatch = moe._topk_dispatch(x, params[0], MOE["e"], capacity, MOE["k"])[0]
+    kept = positions < capacity
+    got = torch.stack([torch.arange(t, device=cuda).expand_as(experts)[kept], experts[kept],
+                       positions[kept]], 1).tolist()
+    assert sorted(got) == sorted(torch.nonzero(dispatch).tolist())
+
+
+def test_moe_ffn_makes_no_synchronizing_call(cuda):
+    """Forward and backward of the main path under
+    torch.cuda.set_sync_debug_mode("error"): no call reads the card."""
+    from elephas_tpu_torch.ops import moe
+
+    x, params = _moe_inputs(cuda, 512)
+    xs = [a.clone().requires_grad_() for a in (x, *params)]
+    capacity = moe.capacity_for(512, MOE["e"], 1.5, MOE["k"])
+    moe.moe_ffn(*xs, capacity, MOE["k"])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe.moe_ffn(*xs, capacity, MOE["k"], return_aux=True)
+        torch.autograd.grad((out ** 2).sum() + aux, xs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("options", [dict(), dict(paged=True, block_size=8, num_blocks=64),
+                                     dict(speculative=True, spec_k=3)],
+                         ids=["fixed", "paged", "speculative"])
+def test_switch_engine_on_cuda_matches_cached_generate(cuda, options):
+    """The Switch LM (k · cf = E: nothing drops) serves on the card
+    token-exact with generate(kv_cache=True) on the card, wherever the
+    plain path's top-2 margin is at least 1e-3, and matches the CPU
+    engine's tokens under the same rule."""
+    cfg = dict(vocab_size=64, maxlen=64, d_model=64, num_heads=2, num_layers=2,
+               num_experts=4, k=2, capacity_factor=2.0, seed=5)
+    cpu = et.switch_transformer_lm(**cfg, device="cpu")
+    card = et.switch_transformer_lm(**cfg, device=cuda)
+    et.load_keras_weights(card, et.keras_weights(cpu))
+    rng = np.random.default_rng(1)
+    prompts = [list(rng.integers(1, 64, n)) for n in (3, 9, 17, 5)]
+    want = [et.generate(card, np.array([p]), 12, kv_cache=True)[0].tolist()[len(p):]
+            for p in prompts]
+    def served(model):
+        out = et.InferenceEngine(model, num_slots=4, steps_per_sync=4, **options).run(
+            [(np.array(p), 12) for p in prompts])
+        return [out[rid].tolist()[len(p):] for p, rid in zip(prompts, sorted(out))]
+
+    got = served(card)
+    _assert_tokens_or_ties(cpu, prompts, got, want)
+    _assert_tokens_or_ties(cpu, prompts, got, served(cpu))
