@@ -282,6 +282,31 @@ Phases, each printing one JSON line and raising on failure:
             a profiled training step; then one epoch on 4 workers of the
             card: synchronous replicas bit-identical to the master,
             asynchronous/batch's master the mean of the replicas;
+6m. gang   — T trained by gangs of processes through
+            ``python -m elephas_tpu_torch.launch`` on the card, 2 worker
+            slots a rank (128 rows, 32 a worker step, 3 epochs), each in
+            turn with the same fit in this process over force_devices of
+            the same worker count: a world of one rank over NCCL; two
+            ranks sharing the card over gloo (its collectives staged
+            through host memory), rank 1 exiting 17 after the first
+            epoch's snapshot and the launcher restarting the gang from it
+            (--max-restarts 1 --restart-from). Gates: the ranks' weight
+            digests and histories equal, each gang's final digest
+            bit-equal to the in-process fit's, its history (both
+            generations' epochs) equal, the flash and LayerNorm kernels
+            launched on every rank. Printed: seconds of each epoch after a
+            fit's first, gang and in-process, and each rank's start,
+            import, join, build and fit seconds;
+6n. sp_prefill — config A's paged engine (E's options) with sp_prefill
+            over meshes naming cuda:0 2 and 4 times, ring and Ulysses,
+            prompts of 300-500 tokens padded to 512, in turns with the
+            engine without it: ring_attention_sharded and
+            ulysses_attention_sharded within 1e-5 of max(1, |out|) of the
+            plain flash forward over the whole sequence (causal and not),
+            the ring's gradients within 1e-5; tokens equal the paged
+            engine's (margin rule), the paged engine's checked by (a); each
+            long prompt's flash-forward launches exactly W·(W+1)/2 (ring)
+            or W (Ulysses) a layer; TTFT p50 of each engine printed;
 7. profile — one more training step (fp32, then bf16, then ResNet-50),
             generate() at config A batch 1
             with rope off and on, and one engine decode window, under
@@ -325,7 +350,8 @@ Phases, each printing one JSON line and raising on failure:
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
 summed over the serve, train, train_bf16, train_workers, train_stream,
 engine, engine_chunked, engine_paged, engine_quant, engine_spec, gateway,
-fleet, deploy, switch_serve and switch_train paths,
+fleet, deploy, switch_serve, switch_train, gang and sp_prefill paths, the
+flash forward's on the last two also apart in ``launches_by_path``,
 times at config A's
 attention shape, at the training rows, at the engine's decode shape and
 its chunk launch at span 256, fp32; the paged decode at span 128 and the
@@ -6470,13 +6496,346 @@ def phase_switch_train(dev, t_line):
     return launches
 
 
-def _kernel_entry(name, source, replaces, launches, err, times):
+# -- the process gang and the sequence-parallel prefill -------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+GANG_DIR = os.path.join(HERE, "build", "gang")
+# T through the launcher: GANG_ROWS rows, GANG_BATCH rows a worker step,
+# GANG_EPOCHS epochs (the last one's seconds printed), GANG_SLOTS workers a
+# rank; the restarted gang's rank 1 dies after GANG_DIE_AFTER epochs
+GANG_ROWS, GANG_BATCH, GANG_EPOCHS, GANG_SLOTS, GANG_DIE_AFTER = 128, 32, 3, 2, 1
+GANG_TIMEOUT_S = 300
+# the launcher's switch for the ranks' worker slots, and the gangs: (name,
+# ranks, the launcher's other arguments, the backend the ranks must report,
+# whether a rank dies after its GANG_DIE_AFTER-epoch snapshot and the
+# launcher restarts the gang from it)
+GANG_SLOT_FLAG = "--cuda-slots-per-process"
+GANG_RUNS = (("nccl_1rank", 1, (), "nccl", False),
+             ("gloo_2ranks_restarted", 2, ("--ranks-per-card", "2", "--backend", "gloo"),
+              "gloo", True))
+# the gang's child: the same T, data and fit on every rank (the SPMD
+# contract); prints its digest, history, launch counts and timeline
+GANG_CHILD = """
+import json, os, sys, time
+t0 = time.time()
+from elephas_tpu_torch.parallel import distributed
+import torch
+import chip_smoke as cs
+import elephas_tpu_torch as et
+t_import = time.time()
+assert distributed.initialize(), "not in a gang"
+t_init = time.time()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cfg = json.loads(sys.argv[1])
+rank = distributed.process_index()
+attempt = int(os.environ["ELEPHAS_RESTART_COUNT"])
+t = cfg["model"]
+x, y = cs._synthetic_tokens(cfg["rows"], t["maxlen"], t["vocab_size"], t["num_classes"])
+model = et.transformer_classifier(**t, seed=0)
+sm = et.SparkModel(model)  # the rank's card, every rank's workers
+t_model = time.time()
+cs._reset_launches()
+fit = dict(batch_size=cfg["batch"], checkpoint_dir=cfg.get("ckpt"), history_log=cfg["log"])
+if cfg.get("die_after"):
+    first = sm.fit((x, y), epochs=cfg["die_after"], resume=attempt > 0, **fit)
+    print("GANG_FIRST " + json.dumps({"rank": rank, "attempt": attempt, "history": first}),
+          flush=True)
+    if attempt == 0 and rank == 1:
+        os._exit(17)  # a rank dies after its snapshot: the launcher restarts the gang
+history = sm.fit((x, y), epochs=cfg["epochs"], resume=bool(cfg.get("die_after")), **fit)
+if sm.device.type == "cuda":
+    torch.cuda.synchronize()
+print("GANG " + json.dumps({
+    "rank": rank, "attempt": attempt, "device": str(sm.device),
+    "backend": distributed.backend(), "workers": sm.num_workers,
+    "digest": cs._digest(model), "history": history, "launches": cs._launches(),
+    "timeline_s": {"start": t0 - cfg["launched"], "imports": t_import - t0,
+                   "join": t_init - t_import, "build": t_model - t_init,
+                   "fit": time.time() - t_model}}), flush=True)
+"""
+
+
+def _digest(model):
+    """sha256 of every tensor of the module's state, in order, on the host."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in model.state_dict().values():
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _epoch_seconds(log):
+    """The seconds of each epoch after the first of a history log (the
+    first of each fit is not timed: it pays the warm-up)."""
+    seconds, last = [], None
+    with open(log) as f:
+        for line in map(json.loads, f):
+            if "elapsed_s" not in line:
+                last = None  # a fit's final line: the next fit has its own clock
+                continue
+            if last is not None:
+                seconds.append(line["elapsed_s"] - last)
+            last = line["elapsed_s"]
+    return seconds
+
+
+def _tagged(out, tag):
+    return sorted((json.loads(line.split(tag + " ", 1)[1])
+                   for line in out.splitlines() if tag + " " in line),
+                  key=lambda r: (r["attempt"], r["rank"]))
+
+
+def _gang_run(what, ranks, cfg, failures, *launch_args):
+    """``python -m elephas_tpu_torch.launch`` of GANG_CHILD over ``ranks``
+    ranks with ``launch_args``; returns the launcher's output and seconds."""
+    script = os.path.join(GANG_DIR, "gang_fit.py")
+    with open(script, "w") as f:
+        f.write(GANG_CHILD)
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    cfg = dict(cfg, launched=time.time())
+    proc = subprocess.run(
+        [sys.executable, "-m", "elephas_tpu_torch.launch", "--num-processes", str(ranks),
+         GANG_SLOT_FLAG, str(GANG_SLOTS), "--timeout", str(GANG_TIMEOUT_S),
+         *launch_args, script, json.dumps(cfg)],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=GANG_TIMEOUT_S * 2 + 60)
+    if proc.returncode != 0:
+        failures.append(f"{what}: launcher exit {proc.returncode}; output tail: "
+                        f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def _in_process_gang_twin(dev, workers, log):
+    """The gang's fit in this process: ``workers`` forced worker slots on the
+    card, the same T, data and batch: (digest, history)."""
+    from elephas_tpu_torch import SparkModel, transformer_classifier
+    from elephas_tpu_torch.device import force_devices
+
+    x, y = _synthetic_tokens(GANG_ROWS, TRAIN["maxlen"], TRAIN["vocab_size"],
+                             TRAIN["num_classes"])
+    previous = force_devices(workers)
+    try:
+        model = transformer_classifier(**TRAIN, seed=0, device=dev)
+        sm = SparkModel(model, device=dev)
+        history = sm.fit((x, y), epochs=GANG_EPOCHS, batch_size=GANG_BATCH, history_log=log)
+        torch.cuda.synchronize(dev)
+    finally:
+        force_devices(previous)
+    digest = _digest(model)
+    del model, sm
+    torch.cuda.empty_cache()
+    return digest, history
+
+
+def phase_gang(dev):
+    """T (the train phase's widths) trained by gangs of processes started
+    with ``python -m elephas_tpu_torch.launch`` on the card, 2 worker slots
+    a rank, each in turn with the same fit in this process over
+    force_devices of the same worker count: a world of one rank over NCCL;
+    and two ranks sharing the one card over gloo (NCCL refuses two ranks on
+    one device; the collectives' CUDA tensors are staged through host
+    memory for gloo), whose rank 1 exits 17 after the first epoch's
+    snapshot, so that the launcher (``--max-restarts 1 --restart-from``)
+    kills the gang and starts it again, resuming from the snapshot. Gates:
+    the ranks' weight digests and histories equal; each gang's final
+    digest bit-equal to the in-process fit's and its history equal (the
+    restarted gang's first generation's epochs and the second's); the
+    flash and LayerNorm kernels launched on every rank. Prints the seconds
+    of each epoch after a fit's first, gang and in-process, and where each
+    rank's wall time went (start, imports, joining, building T, fitting)."""
+    if os.path.isdir(GANG_DIR):
+        shutil.rmtree(GANG_DIR)
+    os.makedirs(GANG_DIR)
+    failures, runs = [], {}
+    launches = Counter()
+    for name, ranks, args, backend, restarted in GANG_RUNS:
+        workers = ranks * GANG_SLOTS
+        own_log = os.path.join(GANG_DIR, f"{name}-in-process.jsonl")
+        want_digest, want = _in_process_gang_twin(dev, workers, own_log)
+        log = os.path.join(GANG_DIR, f"{name}.jsonl")
+        cfg = dict(model=TRAIN, rows=GANG_ROWS, batch=GANG_BATCH, epochs=GANG_EPOCHS, log=log)
+        if restarted:
+            ckpt = os.path.join(GANG_DIR, f"{name}-ckpt")
+            cfg.update(die_after=GANG_DIE_AFTER, ckpt=ckpt)
+            args = (*args, "--max-restarts", "1", "--restart-from", ckpt)
+        out, wall = _gang_run(name, ranks, cfg, failures, *args)
+        results = [r for r in _tagged(out, "GANG") if r["attempt"] == int(restarted)]
+        if len(results) != ranks:
+            failures.append(f"{name}: {len(results)} of {ranks} ranks reported")
+            continue
+        history = {k: v[GANG_DIE_AFTER:] if restarted else v for k, v in want.items()}
+        if restarted:
+            if "exited rc=17; killing the gang" not in out or "restarting (1/1)" not in out:
+                failures.append(f"{name}: no kill and restart in the launcher's output")
+            first = [r for r in _tagged(out, "GANG_FIRST") if r["attempt"] == 0]
+            want_first = {k: v[:GANG_DIE_AFTER] for k, v in want.items()}
+            if len(first) != ranks or any(r["history"] != want_first for r in first):
+                failures.append(f"{name}: first generation {first}, in-process {want_first}")
+        if {r["digest"] for r in results} != {want_digest}:
+            failures.append(f"{name}: rank digests {[r['digest'][:12] for r in results]}, "
+                            f"in-process {want_digest[:12]}")
+        if any(r["history"] != history for r in results):
+            failures.append(f"{name}: histories {[r['history'] for r in results]}, "
+                            f"in-process {history}")
+        for r in results:
+            if r["backend"] != backend:
+                failures.append(f"{name} rank {r['rank']}: backend {r['backend']}, "
+                                f"expected {backend}")
+            if r["workers"] != workers or min(r["launches"][k] for k in
+                                              ("flash_fwd", "layer_norm_fwd",
+                                               "layer_norm_bwd")) == 0:
+                failures.append(f"{name} rank {r['rank']}: {r['workers']} workers, "
+                                f"launches {r['launches']}")
+            launches.update(r["launches"])
+        runs[name] = {"ranks": ranks, "workers": workers, "backend": results[0]["backend"],
+                      "device": results[0]["device"], "restarted": restarted,
+                      "gang_epoch_s": _epoch_seconds(log),
+                      "in_process_epoch_s": _epoch_seconds(own_log),
+                      "launcher_wall_s": wall,
+                      "rank_timeline_s": [r["timeline_s"] for r in results],
+                      "digest": want_digest[:16], "loss": want["loss"]}
+    counted = {k: launches[k] for k in ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")}
+    emit({"phase": "gang", "model": "T", "rows": GANG_ROWS, "worker_batch": GANG_BATCH,
+          "epochs": GANG_EPOCHS, "runs": runs, "launches": counted,
+          "epoch_s_order": "in-process then gang, for each run in turn",
+          "nvidia_smi": nvidia_smi(), "failures": failures})
+    if failures:
+        raise AssertionError(f"gang: {failures}")
+    out = dict.fromkeys(_launches(), 0)
+    out.update(counted)
+    return out
+
+
+# the SP prefill: config A's engine on the paged arena (E's options), long
+# prompts padded to 512, over meshes naming cuda:0 SP_WIDTHS times
+SP_PROMPT_LENS = (300, 360, 440, 500)
+SP_NEW_TOKENS = 8
+SP_WIDTHS = (2, 4)
+SP_MECHANISMS = ("ring", "ulysses")
+SP_ROUNDS = 2
+TOL_SP = 1e-5
+
+
+def _sp_kernel_checks(dev, failures):
+    """ring_attention_sharded and ulysses_attention_sharded against the plain
+    flash forward over the whole sequence, at config A's attention shape
+    (one prompt of 512, 4 heads of 128), causal and not, at each SP width;
+    the ring's gradients against autograd through the plain version.
+    Returns the largest errors, relative to max(1, |out|)."""
+    from elephas_tpu_torch.ops.flash_attention import flash_forward_reference
+    from elephas_tpu_torch.ops.ring_attention import ring_attention_sharded
+    from elephas_tpu_torch.ops.ulysses import ulysses_attention_sharded
+    from elephas_tpu_torch.parallel.mesh import Mesh
+
+    a = CONFIGS["A"]
+    h, d, s = a["num_heads"], a["d_model"] // a["num_heads"], a["maxlen"]
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, go = (torch.randn(1, h, s, d, generator=g, device=dev) for _ in range(4))
+    scale = d ** -0.5
+    errs = {}
+
+    def rel(got, want):
+        return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+
+    for w in SP_WIDTHS:
+        mesh = Mesh([dev] * w, ("seq",))
+        for causal in (False, True):
+            want = flash_forward_reference(q, k, v, scale, causal)[0]
+            ring = ring_attention_sharded(q[0], k[0], v[0], mesh, "seq", causal, scale)
+            uly = ulysses_attention_sharded(q, k, v, mesh, "seq", causal, scale)
+            errs[f"ring_W{w}_causal{int(causal)}"] = rel(ring[None], want)
+            errs[f"ulysses_W{w}_causal{int(causal)}"] = rel(uly, want)
+            leaves = [t[0].clone().requires_grad_() for t in (q, k, v)]
+            (ring_attention_sharded(*leaves, mesh, "seq", causal, scale) * go[0]).sum().backward()
+            plain = [t[0].clone().requires_grad_() for t in (q, k, v)]
+            (flash_forward_reference(*plain, scale, causal)[0] * go[0]).sum().backward()
+            errs[f"ring_grad_W{w}_causal{int(causal)}"] = max(
+                rel(a_.grad, b_.grad) for a_, b_ in zip(leaves, plain))
+    bad = {key: e for key, e in errs.items() if not e <= TOL_SP}
+    if bad:
+        failures.append(f"sequence-parallel attention against the plain version: {bad}")
+    return errs
+
+
+def phase_sp_prefill(dev, model):
+    """The engine's sequence-parallel prefill at config A's full width: E's
+    engine on the paged arena (blocks of 16, 512 blocks) with
+    ``sp_prefill`` over meshes naming cuda:0 2 and 4 times, ring and
+    Ulysses, on prompts of 300-500 tokens (padded to 512), in turns with the
+    same engine without it. Gates: the SP attention against its plain
+    version (_sp_kernel_checks); every SP engine's tokens equal the paged
+    engine's where the plain path's top-2 margin is >= 1e-3, the paged
+    engine's checked against the plain argmax (check (a)); each long
+    prompt's flash-forward launches exactly the ring's W·(W+1)/2 or
+    Ulysses' W a layer, and its prefill observed as bucket sp512. Prints
+    TTFT p50 of each engine a round (no claim)."""
+    from elephas_tpu_torch import InferenceEngine
+    from elephas_tpu_torch.ops import flash_attention as fa
+    from elephas_tpu_torch.parallel.mesh import Mesh
+    from elephas_tpu_torch.serving.sp_prefill import sp_pad_len
+
+    failures = []
+    errs = _sp_kernel_checks(dev, failures)
+    padded = sp_pad_len(min(SP_PROMPT_LENS), max(SP_WIDTHS), model.maxlen)
+    rng = np.random.default_rng(3)
+    workload = [(rng.integers(1, model.vocab_size, size=n).astype(np.int32), SP_NEW_TOKENS)
+                for n in SP_PROMPT_LENS]
+    opts = dict(ENGINE, **ENGINE_PAGED)
+    engines = {"paged": InferenceEngine(model, **opts)}
+    for w in SP_WIDTHS:
+        for mech in SP_MECHANISMS:
+            engines[f"{mech}_W{w}"] = InferenceEngine(
+                model, sp_prefill=Mesh([dev] * w, ("seq",)), sp_mechanism=mech, **opts)
+    per_layer = {f"{m}_W{w}": (w * (w + 1) // 2 if m == "ring" else w)
+                 for w in SP_WIDTHS for m in SP_MECHANISMS}
+    for engine in engines.values():  # warm-up pass
+        _serve_pass(engine, workload, dev)
+    ttft = {name: [] for name in engines}
+    handles = {}
+    _reset_launches()
+    sp_flash = 0
+    for _ in range(SP_ROUNDS):
+        for name, engine in engines.items():
+            before = fa.launches
+            reqs, row = _serve_pass(engine, workload, dev)
+            ttft[name].append(row["ttft_s"]["p50"])
+            handles[name] = reqs
+            if name in per_layer:
+                got = fa.launches - before
+                want = len(workload) * len(model.blocks) * per_layer[name]
+                sp_flash += got
+                if got != want:
+                    failures.append(f"{name}: {got} flash-forward launches, expected {want}")
+    launches = _launches()
+    _, _, check_failures, plain = _check_emitted(model, handles["paged"], dev)
+    failures += check_failures
+    exact = {}
+    for name in per_layer:
+        exact[name] = _same_tokens(name, handles[name], handles["paged"], plain, failures)
+        if f'bucket="sp{padded}"' not in engines[name].scrape():
+            failures.append(f"{name}: no sp{padded} prefill observation")
+    for engine in engines.values():
+        engine.release_telemetry()
+    emit({"phase": "sp_prefill", "config": "A", "prompt_lens": list(SP_PROMPT_LENS),
+          "padded": padded, "new_tokens": SP_NEW_TOKENS, "arena": ENGINE_PAGED,
+          "attention_errors": errs, "tokens_exact_within_margin": exact,
+          "ttft_p50_s": ttft, "ttft_order": "paged, then each SP engine, a round",
+          "flash_fwd_launches": sp_flash, "launches": launches,
+          "nvidia_smi": nvidia_smi(), "failures": failures})
+    if failures:
+        raise AssertionError(f"sp_prefill: {failures}")
+    return launches
+
+
+def _kernel_entry(name, source, replaces, launches, err, times, **extra):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": times["ms"],
         "device_ms": times["device_ms"],
         "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
-        "bound_by": times["bound_by"], "library_ms": times["library_ms"],
+        "bound_by": times["bound_by"], "library_ms": times["library_ms"], **extra,
     }
 
 
@@ -6584,6 +6943,10 @@ def main(argv=None) -> int:
     deploy = phase_deploy(dev, lm)
     switch_serve = phase_switch_serve(dev, lm)
     switch_train = phase_switch_train(dev, fp32_line)
+    _reset_launches()
+    gang = phase_gang(dev)
+    _reset_launches()
+    sp = phase_sp_prefill(dev, lm)
     for path, launches, kernels in (
         ("serve", serve, ("flash_fwd", "layer_norm_fwd")),
         ("train", train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
@@ -6607,6 +6970,9 @@ def main(argv=None) -> int:
                                         "paged_span_chunk", "paged_span_decode",
                                         "layer_norm_fwd")),
         ("switch_train", switch_train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
+        ("gang", gang, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
+        ("sp_prefill", sp, ("flash_fwd", "paged_span_chunk", "paged_span_decode",
+                            "layer_norm_fwd")),
     ):
         idle = [k for k in kernels if launches[k] == 0]
         if idle:
@@ -6631,7 +6997,8 @@ def main(argv=None) -> int:
     print(nvidia_smi(), flush=True)
     total = {k: serve[k] + train[k] + train_bf16[k] + train_workers[k] + train_stream[k]
              + train_ps[k] + engine[k] + chunked[k] + paged[k] + quant[k] + spec[k] + gateway[k]
-             + fleet[k] + deploy[k] + switch_serve[k] + switch_train[k] for k in serve}
+             + fleet[k] + deploy[k] + switch_serve[k] + switch_train[k] + gang[k] + sp[k]
+             for k in serve}
     emit({"kernels": [
         _kernel_entry(
             "flash_fwd", "elephas_tpu_torch/csrc/flash_fwd.cu",
@@ -6639,7 +7006,8 @@ def main(argv=None) -> int:
             "_flash_forward :122 and _flash_forward_packed :250); "
             "elephas_tpu/ops/flash_attention.py:164 (_fwd_kernel_grouped via "
             "_flash_forward_packed_grouped :319)",
-            total["flash_fwd"], errs["flash_fwd"], flash),
+            total["flash_fwd"], errs["flash_fwd"], flash,
+            launches_by_path={"gang": gang["flash_fwd"], "sp_prefill": sp["flash_fwd"]}),
         _kernel_entry(
             "layer_norm_fwd", "elephas_tpu_torch/csrc/layer_norm.cu",
             "elephas_tpu/ops/layer_norm.py:52 (_fwd_kernel via _fwd_call :96)",

@@ -11,9 +11,12 @@ mixture-of-experts :func:`switch_transformer_classifier` and
 :func:`switch_transformer_lm` over :class:`MoeFFN`) builds, trains,
 evaluates and predicts through :class:`SparkModel` in float32 and, where
 the reference takes it (the transformers and ResNet), ``mixed_bfloat16``:
-on W workers in every mode and frequency of the reference, all on one
+on W workers in every mode and frequency of the reference, on one
 device (:func:`elephas_tpu_torch.device.force_devices` offers the worker
-slots), with validation, checkpoints and resume, and
+slots) or across a gang of processes, one rank a card
+(``python -m elephas_tpu_torch.launch``,
+:mod:`elephas_tpu_torch.parallel.distributed`), with validation,
+checkpoints and resume, and
 :meth:`SparkModel.save` / :func:`load_spark_model`. The transformers run the flash-attention forward
 (``csrc/flash_fwd.cu``) and the LayerNorm forward and backward
 (``csrc/layer_norm.cu``, behind :class:`FusedLayerNorm`) as CUDA kernels
@@ -22,7 +25,9 @@ flash backward is plain PyTorch. :func:`transformer_lm` and
 :func:`switch_transformer_lm` serve through :func:`generate` and the continuous-batching :class:`InferenceEngine` on
 the fixed or paged KV arena, with decode attention as a CUDA kernel
 (``csrc/span_decode.cu``), speculative decoding through the span-chunk
-kernel (``csrc/span_chunk.cu``) and SLO admission policies; the engine
+kernel (``csrc/span_chunk.cu``), SLO admission policies, and long prompts
+prefilled sequence-parallel over a :class:`~elephas_tpu_torch.parallel.mesh.Mesh` (ring or Ulysses attention, :mod:`elephas_tpu_torch.ops.ring_attention`,
+:mod:`elephas_tpu_torch.ops.ulysses`, over the flash forward); the engine
 records the reference's telemetry (:mod:`elephas_tpu_torch.telemetry`) and
 serves over HTTP/SSE through :class:`~elephas_tpu_torch.serving.Gateway`
 (``SparkModel.serve(gateway_port=...)``), its requests migrating between
@@ -41,8 +46,8 @@ the same ``SparkModel``: :class:`ElephasEstimator` and
 over the DataFrame stand-in (:mod:`elephas_tpu_torch.data.dataframe`),
 the model read from its Keras JSON (:mod:`elephas_tpu_torch.models.\
 keras_config`), and :class:`SparkMLlibModel` over ``LabeledPoint`` RDDs. :class:`HyperParamModel`
-searches hyperparameters over the worker slots, its trials trained by the
-same runner.
+searches hyperparameters over the worker slots (in a gang, its rounds
+gathered from every rank), its trials trained by the same runner.
 
 Entry points run on ``cuda`` by default; only an explicit
 ``device="cpu"`` selects the CPU, where the kernels' plain PyTorch

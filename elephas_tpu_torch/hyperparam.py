@@ -13,12 +13,15 @@ every builder of the zoo returns it). Trials lease groups of
 ``devices_per_trial`` worker slots from a free queue, one thread a group;
 each trial trains data-parallel over its group on the module's device
 (:class:`elephas_tpu_torch.worker.Runner`, ``synchronous``, ``epoch``) and
-is scored by its validation loss. The worker slots are the port's
-(:func:`elephas_tpu_torch.device.num_available_workers`:
+is scored by its validation loss. The worker slots are this process's
+(:func:`elephas_tpu_torch.device.local_worker_slots`:
 :func:`~elephas_tpu_torch.device.force_devices` offers several on the one
-card). One process only: gathering rounds across processes
-(:meth:`HyperParamModel._sync_round`) waits for several cards (ROADMAP.md,
-Queue A item 9).
+card). In a process gang (``python -m elephas_tpu_torch.launch``) the
+trials of a round divide across the ranks, each rank samples from its own
+stream, and every round's ``(params, loss)`` are gathered from every rank
+(:meth:`HyperParamModel._sync_round`), so every rank's adaptive sampler
+sees the whole history and every rank returns the same best params; a
+rank that did not train the winner trains it again on one worker.
 """
 
 from __future__ import annotations
@@ -32,16 +35,13 @@ from typing import Any, Callable
 
 import numpy as np
 
-from elephas_tpu_torch.device import num_available_workers, resolve_device, worker_count
+import torch
+
+from elephas_tpu_torch.device import local_worker_slots, resolve_device, worker_count
+from elephas_tpu_torch.parallel import distributed
 from elephas_tpu_torch.worker import Runner
 
 logger = logging.getLogger(__name__)
-
-_SYNC_TODO = (
-    "HyperParamModel._sync_round is not ported yet (ROADMAP.md, Queue A item 9: "
-    "several processes, one a card, over torch.distributed)"
-)
-
 
 # -- search space DSL --------------------------------------------------
 
@@ -296,9 +296,10 @@ class HyperParamModel:
                  device=None):
         self.sc = sc  # accepted for API parity; search needs no RDDs
         self.device = resolve_device(device)
-        available = num_available_workers(self.device)
-        # several physical cards raise there (item 9)
-        self.num_workers = worker_count(min(num_workers or available, available), self.device)
+        # trials are per-process work: this process's slots
+        available = local_worker_slots(self.device)
+        self.num_workers = worker_count(min(num_workers or available, available), self.device,
+                                        local=True)
         self.seed = seed
         self.trials: list[Trial] = []
         self.best_models: list = []
@@ -341,8 +342,8 @@ class HyperParamModel:
         self._best_index = None  # a failed search must not pair a stale index
         # with freshly assigned trials
         search_space = search_space or {}
-        # one process: the reference's process count and index
-        n_proc, pid = 1, 0
+        n_proc = distributed.process_count()
+        pid = distributed.process_index()
         # distinct stream per process so gang members explore, not repeat
         base_seed = (self.seed if self.seed is not None else 0) * 1009 + pid
         rng = np.random.default_rng(base_seed)
@@ -432,16 +433,40 @@ class HyperParamModel:
             with ThreadPoolExecutor(max_workers=n_groups) as pool:
                 round_trials = list(pool.map(run_trial, indexed))
             self.trials.extend(round_trials)
-            completed.extend((t.params, t.loss) for t in round_trials)
+            if n_proc > 1:
+                # the gather rides float32: round-trip the local params
+                # through it too, so every rank reports the same bits
+                for t in round_trials:
+                    t.params = _decode_params(_encode_params(t.params, search_space),
+                                              search_space)
+                local_results = [(t.params, t.loss) for t in round_trials]
+                completed.extend(self._sync_round(local_results, len(my_slots),
+                                                  global_batch, search_space))
+            else:
+                completed.extend((t.params, t.loss) for t in round_trials)
             evals_done += global_batch
 
         best_model = best_state["model"]
-        if best_model is None:
+        global_best = (
+            min(completed, key=lambda t: (not np.isfinite(t[1]), t[1]))
+            if completed else (None, float("inf"))
+        )
+        if best_model is None and not np.isfinite(global_best[1]):
             raise RuntimeError(
                 f"no trial produced a finite validation loss "
                 f"(losses: {[t.loss for t in self.trials]}); the search "
                 f"space likely diverges — narrow the learning-rate range"
             )
+        if np.isfinite(global_best[1]) and global_best[1] < best_state["loss"]:
+            # another rank won: train its params here too, so every rank
+            # returns an equivalent best module
+            with build_lock:
+                best_model = model(global_best[0])
+            Runner(best_model, "synchronous", "epoch", 1).run_epochs(
+                [(x_train, y_train)], epochs=epochs, batch_size=batch_size)
+            self.trials.append(Trial(params=global_best[0], loss=global_best[1], metrics={}))
+            best_state["loss"] = global_best[1]
+            best_state["index"] = len(self.trials) - 1
         self.best_models = [best_model]
         # the winning trial index is recorded at update time so that
         # best_trial()/best_model_params() name the same trial the
@@ -450,9 +475,31 @@ class HyperParamModel:
         return best_model
 
     def _sync_round(self, local_results, my_k: int, global_batch: int, space: dict):
-        """All-gather one round's ``(params, loss)`` across processes: the
-        reference's multi-host path, which several cards bring (item 9)."""
-        raise NotImplementedError(_SYNC_TODO)
+        """All-gather one round's ``(params, loss)`` across the gang.
+
+        Params encode to a float32 vector (numeric dimensions: the value;
+        choices: the option's index), one row a trial beside its loss, in
+        a ``[ceil(global_batch / P), keys + 1]`` matrix padded with NaN
+        rows; every rank's matrix is gathered
+        (:func:`~elephas_tpu_torch.parallel.distributed.all_gather`) and
+        every rank decodes the whole round, padding rows
+        dropped, in rank order. Outside a gang it returns this process's
+        own results through the same encoding."""
+        keys = sorted(space)
+        max_k = -(-global_batch // max(1, distributed.process_count()))
+        mat = np.full((max_k, len(keys) + 1), np.nan, np.float32)
+        for row, (params, loss) in enumerate(local_results[:max_k]):
+            mat[row, : len(keys)] = _encode_params(params, space)
+            mat[row, -1] = loss
+        gathered = distributed.all_gather(torch.from_numpy(mat[None])).numpy()
+        out = []
+        for p in range(gathered.shape[0]):
+            for row in range(gathered.shape[1]):
+                vec = gathered[p, row]
+                if np.all(np.isnan(vec)):
+                    continue  # padding row
+                out.append((_decode_params(vec[:-1], space), float(vec[-1])))
+        return out
 
     def best_trial(self) -> Trial:
         if not self.trials:

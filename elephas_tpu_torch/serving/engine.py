@@ -93,8 +93,19 @@ Parts of the reference with no counterpart here: the JAX compile set
 the ``jit.compile`` spans; the eager port compiles no programs) and the
 backend probe (``backend_fallback`` in :meth:`debug_snapshot` is always
 ``None``: the port has no fallback). Not ported yet, each raising
-``NotImplementedError`` that names its ROADMAP.md item: sequence-parallel
-prefill and meshes (item 5).
+``NotImplementedError`` that names its ROADMAP.md item: the decode meshes
+(``mesh``, ``batch_axes``, ``model_axis``, ``rules``: item 5).
+
+``sp_prefill=`` (a :class:`~elephas_tpu_torch.parallel.mesh.Mesh`, paged
+engines) arms the sequence-parallel long-prompt prefill: a cold prompt of
+at least ``sp_threshold`` tokens (default ``maxlen // 2``) runs one
+ring- or Ulysses-sharded forward over the mesh's ``sp_axis``
+(:mod:`elephas_tpu_torch.serving.sp_prefill`), its K/V land straight in the
+slot's pool blocks, and it decodes unmeshed (``sp_mechanism="ring"`` has no
+head-count constraint; ``"ulysses"`` needs ``num_heads % axis_size == 0``).
+A prompt with no power-of-two pad length inside ``maxlen`` takes the
+single-device path, with a warning. Its prefill-tokens observation carries
+the bucket ``sp<S>``, and the trace a ``serve.sp_prefill`` span.
 
 Weight generations: :meth:`InferenceEngine.refresh_weights` stamps the
 generation served (``weight_version``: stats, scrape, explain, migration
@@ -115,6 +126,7 @@ import weakref
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from elephas_tpu_torch import telemetry
 from elephas_tpu_torch.device import resolve_device
@@ -133,7 +145,7 @@ from elephas_tpu_torch.serving.kv_cache import (
     token_decode_step,
     verify_forward,
 )
-from elephas_tpu_torch.serving.kv_quant import check_kv_dtype
+from elephas_tpu_torch.serving.kv_quant import check_kv_dtype, quantize_rows
 from elephas_tpu_torch.serving.locks import HandoffLock
 from elephas_tpu_torch.serving.paged_kv import (
     PagedKVPool,
@@ -148,6 +160,7 @@ from elephas_tpu_torch.serving.paged_kv import (
 )
 from elephas_tpu_torch.serving.policy import DEFAULT_TENANT, AdmissionRejected, Policy
 from elephas_tpu_torch.serving.scheduler import Request, Scheduler, default_buckets
+from elephas_tpu_torch.serving.sp_prefill import sp_pad_len, sp_prefill_forward
 from elephas_tpu_torch.serving.speculative import AcceptanceThrottle, resolve_drafter
 
 logger = logging.getLogger(__name__)
@@ -277,8 +290,6 @@ class InferenceEngine:
         unported = (
             ("mesh", mesh, None, 5), ("batch_axes", batch_axes, ("data",), 5),
             ("model_axis", model_axis, None, 5), ("rules", rules, None, 5),
-            ("sp_prefill", sp_prefill, None, 5), ("sp_axis", sp_axis, "seq", 5),
-            ("sp_threshold", sp_threshold, None, 5), ("sp_mechanism", sp_mechanism, "ring", 5),
         )
         for name, value, neutral, item in unported:
             if not _is_neutral(value, neutral):
@@ -403,6 +414,7 @@ class InferenceEngine:
         # span ladder: flash decode attends over cache[:, :span], the
         # smallest bucket covering the live residents and the window
         self._sbuckets = span_buckets(self.maxlen)
+        self._init_sp(sp_prefill, sp_axis, sp_threshold, sp_mechanism, layers)
         self.steps_per_sync = max(1, int(steps_per_sync))
         if policy is not None and not isinstance(policy, Policy):
             raise TypeError(
@@ -1389,17 +1401,168 @@ class InferenceEngine:
             "cursor %d)", req.rid, adm.slot, n, store.cur_len,
         )
 
+    # -- sequence-parallel long-prompt prefill ----------------------------
+
+    def _init_sp(self, sp_prefill, sp_axis, sp_threshold, sp_mechanism, layers) -> None:
+        """Validate and keep the SP prefill's knobs, as the reference does:
+        a paged engine, a mechanism it knows, an axis of the mesh of a
+        power-of-two size, and for Ulysses a head count that axis
+        divides."""
+        if sp_prefill is not None:
+            if not self.paged:
+                raise ValueError(
+                    "sp_prefill requires paged=True — the SP prefill "
+                    "lands K/V into the block pool (the fixed arena "
+                    "has no block-granular landing path)"
+                )
+            if sp_mechanism not in ("ring", "ulysses"):
+                raise ValueError(
+                    f"sp_mechanism must be 'ring' or 'ulysses', got "
+                    f"{sp_mechanism!r}"
+                )
+            if sp_axis not in sp_prefill.shape:
+                raise ValueError(
+                    f"sp_axis {sp_axis!r} not in the SP mesh axes "
+                    f"{tuple(sp_prefill.shape)}"
+                )
+            sp_w = int(sp_prefill.shape[sp_axis])
+            if sp_w & (sp_w - 1):
+                # pad lengths are powers of two (sp_pad_len), which a
+                # non-power-of-two shard count divides none of: fail here,
+                # not on the first long prompt
+                raise ValueError(
+                    f"sp_prefill axis {sp_axis!r} has size {sp_w} — "
+                    f"SP prefill pads prompts to power-of-two "
+                    f"lengths, which only tile over a power-of-two "
+                    f"shard count; reshape the mesh"
+                )
+            if sp_mechanism == "ulysses":
+                bad = [(name, int(attn.num_heads)) for name, attn in layers
+                       if int(attn.num_heads) % sp_w]
+                if bad:
+                    raise ValueError(
+                        f"ulysses SP prefill needs num_heads divisible "
+                        f"by the seq axis size ({sp_w}); offending "
+                        f"layers: {bad} — use sp_mechanism='ring'"
+                    )
+            if sp_threshold is not None and int(sp_threshold) < 1:
+                raise ValueError(
+                    f"sp_threshold={sp_threshold} < 1"
+                )
+        elif sp_threshold is not None or sp_axis != "seq" or sp_mechanism != "ring":
+            raise ValueError(
+                "sp_threshold/sp_axis/sp_mechanism require sp_prefill= "
+                "(an SP mesh) — silently ignoring them would misreport "
+                "how long prompts prefill"
+            )
+        self.sp_mesh = sp_prefill
+        self.sp_axis = sp_axis
+        self.sp_mechanism = sp_mechanism
+        # prompts at or above the threshold prefill over the SP mesh;
+        # default: half the model's context
+        self.sp_threshold = (
+            int(sp_threshold) if sp_threshold is not None else max(1, self.maxlen // 2)
+        ) if sp_prefill is not None else None
+
+    def _sp_eligible(self, a) -> bool:
+        """Does this fresh admission take the sequence-parallel prefill?
+        Long cold prompts only (a prefix hit's shared blocks already paid
+        most of its prefill), and only when the SP pad length fits the
+        model: else the single-device path, with a warning (silence would
+        hide that the knob the caller reached for is not engaging)."""
+        if self.sp_mesh is None or a.shared_len:
+            return False
+        p = len(a.req.prompt)
+        if p < self.sp_threshold:
+            return False
+        if sp_pad_len(p, self.sp_mesh.shape[self.sp_axis], self.maxlen) is None:
+            logger.warning(
+                "sp_prefill: prompt of %d tokens has no power-of-two "
+                "pad length inside maxlen=%d — falling back to the "
+                "single-device prefill path for request %d",
+                p, self.maxlen, a.req.rid,
+            )
+            return False
+        return True
+
+    @torch.inference_mode()
+    def _sp_prefill(self, a) -> list[tuple[Request, int, bool]]:
+        """Prefill one long prompt over the SP mesh: one sharded forward
+        computes every position's K/V and logits, the rows land in the
+        slot's own blocks (the preemption resume's scatter; quantized on
+        the way for an int8 / int4 pool), and the first token samples from
+        the prompt-end logits. Decode then goes on unmeshed, as after a
+        chunk prefill (token-exact at temperature 0)."""
+        req = a.req
+        p = len(req.prompt)
+        sp_w = int(self.sp_mesh.shape[self.sp_axis])
+        s = sp_pad_len(p, sp_w, self.maxlen)
+        bs = self.block_size
+        n_res = blocks_for(p, bs)
+        dev = self.device
+        with self._tracer.span("serve.sp_prefill", rid=req.rid, prompt=p, padded=s,
+                               shards=sp_w, mechanism=self.sp_mechanism) as sp:
+            rec = self._fr(req.rid)
+            if rec is not None:
+                rec["sp_prefill"] = {"padded": int(s), "shards": sp_w,
+                                     "mechanism": self.sp_mechanism,
+                                     "step": self.scheduler._steps, "seq": sp.begin_seq}
+            tokens = torch.zeros((1, s), dtype=torch.long)
+            tokens[0, :p] = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long)
+            logits, kv = sp_prefill_forward(self.model, tokens.to(dev), self.sp_mesh,
+                                            self.sp_axis, self.sp_mechanism)
+            # the rows of the reserved blocks: the prompt's, then rows the
+            # request's own later writes cover before any read
+            span = n_res * bs
+            rows = {}
+            for name, (k, v) in kv.items():
+                if span <= s:
+                    k, v = k[:span], v[:span]
+                else:
+                    pad = (0, 0, 0, 0, 0, span - s)
+                    k, v = F.pad(k, pad), F.pad(v, pad)
+                k, v = k.reshape(n_res, bs, *k.shape[1:]), v.reshape(n_res, bs, *v.shape[1:])
+                if self.kv_dtype == "fp":
+                    rows[name] = (k, v)
+                else:
+                    (kq, ks), (vq, vs) = (quantize_rows(z, self.kv_dtype) for z in (k, v))
+                    rows[name] = (kq, vq, ks, vs)
+            ids = torch.tensor(a.blocks[:n_res], dtype=torch.long, device=dev)
+            scatter_blocks(self.arena, ids, rows)
+            temps = torch.full((1,), req.temperature, dtype=torch.float32, device=dev)
+            first = _sample_dynamic(logits[:, p - 1], self._generator, temps, self.top_k,
+                                    self.top_p)
+            self._lengths[a.slot] = p
+            self._last[a.slot] = first[0]
+            self._temps[a.slot] = temps[0]
+            tok = int(first.cpu()[0])
+        self.scheduler.on_prefill_complete(req)
+        self._set_active(a.slot, True)
+        self._note_prefill(req, f"sp{s}")
+        self._emit(req, tok)
+        return [(req, req.tokens[-1], req.done)]
+
     def _admit_wave_paged(self, plan) -> list[tuple[Request, int, bool]]:
         """Execute one paged admission wave: resumes restore their offloaded
         state, fresh admissions prefill their unshared suffix through the
         paged chunk pass: the whole suffix in one pass per prompt bucket, or
         budgeted chunks under ``prefill_chunk``. A prefix hit needs no copy:
-        its shared blocks already sit in its table."""
+        its shared blocks already sit in its table. Long cold prompts take
+        the sequence-parallel path when ``sp_prefill`` is armed
+        (:meth:`_sp_prefill`); chunk budgets do not apply to them (the SP
+        forward is the bounded unit of work)."""
         emitted: list[tuple[Request, int, bool]] = []
         for a in plan:
             if a.resume is not None:
                 self._resume(a)
-        fresh = [a for a in plan if a.resume is None]
+        fresh = []
+        for a in plan:
+            if a.resume is not None:
+                continue
+            if self._sp_eligible(a):
+                emitted.extend(self._sp_prefill(a))
+            else:
+                fresh.append(a)
         if self.prefill_chunk:
             for a in fresh:
                 self._prefilling[a.slot] = [a, a.shared_len]

@@ -14,7 +14,14 @@ in float32 or, where the reference takes it, ``mixed_bfloat16``.
 W workers share the one device the wrapper runs on: the reference's W is
 the number of devices of its mesh, and the port's the slots of
 :func:`elephas_tpu_torch.device.force_devices` (one a device unforced;
-several physical GPUs are refused). ``fit`` takes the reference's
+several physical GPUs in one process are refused). In a process gang
+(``python -m elephas_tpu_torch.launch``, one rank a card) the workers span
+every rank and the fit is SPMD: every rank runs the same script on the
+same data, trains its own workers, and the replicas stay bit-identical
+across ranks. Only the coordinator (rank 0) writes: the weight store,
+``save``, ``history_log`` and the checkpoints, the others waiting at a
+barrier after each snapshot; ``fit(resume=True)`` restores every rank from
+the coordinator's snapshot. ``fit`` takes the reference's
 ``validation_split``, ``checkpoint_dir``/``checkpoint_every``/``resume``
 (:mod:`elephas_tpu_torch.utils.checkpoint`), ``history_log`` and
 ``profile_dir`` (a ``torch.profiler`` Chrome trace), and streams what the
@@ -42,8 +49,10 @@ through the store, as in the reference.
 Every other keyword of the reference is accepted. At the value that leaves
 the behaviour unchanged (the reference's default) it passes; any other
 value raises ``NotImplementedError`` naming its ROADMAP.md item: model,
-pipeline and sequence parallelism (item 5), and the serving engine's mesh
-and sequence-parallel options (item 5). :meth:`SparkModel.serve` with ``gateway_port`` puts the
+pipeline and sequence parallelism in training (item 5), and the serving
+engine's decode meshes (item 5); the engine's sequence-parallel prefill
+(``sp_prefill=`` a :class:`~elephas_tpu_torch.parallel.mesh.Mesh`) passes
+through :meth:`SparkModel.serve`. :meth:`SparkModel.serve` with ``gateway_port`` puts the
 HTTP/SSE gateway in front of the engine, and :meth:`SparkModel.scrape`
 renders the port's telemetry registry. A ``mixed_bfloat16`` language
 model is refused by :meth:`SparkModel.serve` and
@@ -69,9 +78,10 @@ from elephas_tpu_torch import telemetry
 from elephas_tpu_torch.data import streaming
 from elephas_tpu_torch.data.linalg import DenseVector
 from elephas_tpu_torch.data.rdd import Rdd
-from elephas_tpu_torch.device import resolve_device, worker_count
+from elephas_tpu_torch.device import gang, resolve_device, worker_count
 from elephas_tpu_torch.models.transformer import _is_neutral
 from elephas_tpu_torch.models.transformer import generate as _generate
+from elephas_tpu_torch.parallel import distributed
 from elephas_tpu_torch.serving import InferenceEngine
 from elephas_tpu_torch.serving.policy import resolve_policy
 from elephas_tpu_torch.utils import checkpoint as ckpt
@@ -213,9 +223,14 @@ class SparkModel:
             if not _is_neutral(value, neutral):
                 raise NotImplementedError(_TODO.format(f"{name}={value!r}", item))
         self.device = resolve_device(device)
+        if gang() is not None and self.device != gang().device:
+            raise ValueError(
+                f"this rank of the gang runs on {gang().device}; a SparkModel on "
+                f"{self.device} cannot join its collectives"
+            )
         self.num_workers = worker_count(num_workers, self.device)
         # checks the compile spec, mode and frequency
-        self._runner = Runner(model, mode, frequency, self.num_workers)
+        self._runner = Runner(model, mode, frequency, self.num_workers, gang=True)
         self._master_network = model.to(self.device)
         self.mode = mode
         self.frequency = frequency
@@ -282,6 +297,10 @@ ShardedServerGroup` on consecutive ports. With ``ps_journal_dir`` the
         store journals (each shard under ``shard-<i>/``) and, with
         ``restore_journal``, replays an existing journal first."""
         if self.parameter_server_mode is None:
+            return
+        if not distributed.is_coordinator():
+            # one weight store a gang, on rank 0 (the reference's store
+            # lives on the driver); the other ranks publish nothing
             return
         from elephas_tpu_torch.parameter.server import HttpServer, SocketServer
 
@@ -543,7 +562,7 @@ run_epochs_stream`) instead of staging whole epochs on the device when
                     ckpt.save_checkpoint(self._master_network, checkpoint_dir, done)
 
             callbacks.append(save_ckpt)
-        if history_log:
+        if history_log and distributed.is_coordinator():
             t_start = time.time()
 
             def log_epoch(epoch, loss):
@@ -577,7 +596,7 @@ run_epochs_stream`) instead of staging whole epochs on the device when
             ckpt.save_checkpoint(self._master_network, checkpoint_dir,
                                  start_epoch + epochs, history)
         history.update(val_history)
-        if history_log:
+        if history_log and distributed.is_coordinator():
             with open(history_log, "a") as f:
                 f.write(json.dumps({"final": True, "history": history}) + "\n")
         self._publish_weights(final=True)
@@ -723,10 +742,14 @@ run_epochs_stream`) instead of staging whole epochs on the device when
 serialization.save_model`: its builder and arguments, compile spec,
         weights and optimizer state) to ``file_name``, and the distribution
         config (:meth:`get_config`) to ``<file_name>.elephas.json``, as the
-        reference does."""
-        serialization.save_model(self._master_network, file_name)
-        with open(file_name + ".elephas.json", "w") as f:
-            json.dump(self.get_config(), f)
+        reference does. In a gang only the coordinator writes."""
+
+        def write():
+            serialization.save_model(self._master_network, file_name)
+            with open(file_name + ".elephas.json", "w") as f:
+                json.dump(self.get_config(), f)
+
+        ckpt.coordinator_writes("save", write)
 
     def generate(self, prompt, steps: int, temperature: float = 0.0,
                  top_k: int | None = None, top_p: float | None = None, seed: int = 0,

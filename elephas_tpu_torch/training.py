@@ -204,14 +204,22 @@ class MeanMetric:
         self.total = torch.zeros((), dtype=torch.float32, device=device)
         self.count = torch.zeros((), dtype=torch.float32, device=device)
 
-    def update(self, values, sample_weight=None) -> None:
+    @staticmethod
+    def contribution(values):
+        """What :meth:`update` without sample weights adds: ``(Σ value, the
+        number of samples)``."""
         values = values.float().reshape(values.shape[0], -1).mean(dim=1)
+        return values.sum(), values.shape[0]
+
+    def update(self, values, sample_weight=None) -> None:
         if sample_weight is None:
-            self.total += values.sum()
-            self.count += values.shape[0]
-        else:
-            self.total += (values * sample_weight).sum()
-            self.count += sample_weight.sum()
+            total, count = self.contribution(values)
+            self.total += total
+            self.count += count
+            return
+        values = values.float().reshape(values.shape[0], -1).mean(dim=1)
+        self.total += (values * sample_weight).sum()
+        self.count += sample_weight.sum()
 
     def merge(self, other: "MeanMetric") -> None:
         """Add ``other``'s total and count (a block's contribution)."""

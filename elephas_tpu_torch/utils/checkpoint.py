@@ -8,6 +8,11 @@ module's ``state_dict`` (BatchNorm's moving statistics included) and the
 optimizer's, beside a ``ckpt-<epoch:05d>.json`` sidecar (``epoch``,
 ``history``) as the reference writes it. The reference's ``.keras``
 archives are not read: the port has no Keras.
+
+In a process gang the replicas are identical after every sync, so one
+snapshot is the state: only the coordinator writes it, and every rank
+waits at a barrier after (:func:`coordinator_writes`), so none resumes
+from a snapshot still being written; every rank restores from it.
 """
 
 from __future__ import annotations
@@ -53,10 +58,29 @@ def checkpoint_path(directory: str, epoch: int) -> str:
     return os.path.join(directory, f"ckpt-{epoch:05d}{SUFFIX}")
 
 
+def coordinator_writes(tag: str, write, *args) -> None:
+    """``write(*args)`` on the gang's coordinator only (every process
+    outside a gang), then a gang-wide barrier. The barrier is in a
+    ``finally``: a failed write on the coordinator still releases the
+    others (and then raises)."""
+    from elephas_tpu_torch.parallel import distributed
+
+    try:
+        if distributed.is_coordinator():
+            write(*args)
+    finally:
+        distributed.sync_global_devices(tag)
+
+
 def save_checkpoint(model, directory: str, epoch: int, history: dict | None = None) -> str:
     """Snapshot ``model`` (with its optimizer's state) after ``epoch``
-    epochs."""
+    epochs; in a gang, on the coordinator only (:func:`coordinator_writes`)."""
     path = checkpoint_path(directory, epoch)
+    coordinator_writes(f"ckpt-save-{epoch}", _write_checkpoint, model, path, epoch, history)
+    return path
+
+
+def _write_checkpoint(model, path: str, epoch: int, history: dict | None) -> None:
     buf = io.BytesIO()
     torch.save({"model": model.state_dict(),
                 "optimizer": model.training_spec.optimizer.state_dict()}, buf)
@@ -65,7 +89,6 @@ def save_checkpoint(model, directory: str, epoch: int, history: dict | None = No
         path[: -len(SUFFIX)] + ".json",
         json.dumps({"epoch": epoch, "history": history or {}}).encode(),
     )
-    return path
 
 
 def latest_checkpoint(directory: str) -> tuple[str, dict] | None:

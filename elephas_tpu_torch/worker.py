@@ -30,6 +30,18 @@ as the reference writes worker 0 back (``_write_back``, ``:438-446``).
 With one worker every collective is the identity, and the nine pairs
 train identically.
 
+In a process gang (:mod:`elephas_tpu_torch.parallel.distributed`) a
+runner made with ``gang=True`` spans every rank's workers: rank r keeps
+the replicas of its own workers ``[r·L, (r+1)·L)`` and stages only their
+shards of the same global data (the SPMD contract: every rank holds the
+same host arrays). The collectives gather every worker's tensors in global
+worker order (:func:`elephas_tpu_torch.parallel.distributed.all_gather`)
+and take the same ``torch.stack(...).mean(0)`` as one process does, so the
+replicas stay bit-identical across ranks and the gang's fit is bit-equal
+to the one-process fit over ``force_devices(P·L)`` workers; a sum
+all-reduce would add in another order. The epoch's loss and the metrics'
+sums are gathered the same way and reduced in the one-process order.
+
 Per worker step: forward in ``train()`` mode, the compiled loss (the mean
 over every element) plus the auxiliary losses the forward added (the
 Switch load-balance loss; in the history's ``loss`` too, as in the
@@ -67,7 +79,8 @@ import torch
 
 from elephas_tpu_torch import telemetry
 from elephas_tpu_torch.data.streaming import prefetch_blocks
-from elephas_tpu_torch.device import resolve_device
+from elephas_tpu_torch.device import local_worker_indices, resolve_device
+from elephas_tpu_torch.parallel import distributed
 from elephas_tpu_torch.optimizers import hyperparameters
 from elephas_tpu_torch.training import MeanMetric, auxiliary_losses
 from elephas_tpu_torch.utils import sockets
@@ -93,14 +106,18 @@ def pad_to_batches(x: np.ndarray, num_batches: int, batch_size: int) -> np.ndarr
 def stack_worker_batches(
     partitions: list[tuple[np.ndarray, np.ndarray]],
     batch_size: int,
+    workers: list[int] | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """Partition arrays → ``x[W, nb, B, ...]``, ``y[W, nb, B, ...]``, the
     per-worker true sample counts and the common batch count (the max over
-    workers — shorter partitions wrap)."""
+    workers — shorter partitions wrap). ``workers`` stacks only those
+    workers' partitions (a rank's own), the batch count still the max over
+    every partition."""
     counts = np.array([len(x) for x, _ in partitions])
     nb = max(1, int(np.ceil(counts.max() / batch_size)))
-    xs = np.stack([pad_to_batches(x, nb, batch_size) for x, _ in partitions])
-    ys = np.stack([pad_to_batches(y, nb, batch_size) for _, y in partitions])
+    own = partitions if workers is None else [partitions[w] for w in workers]
+    xs = np.stack([pad_to_batches(x, nb, batch_size) for x, _ in own])
+    ys = np.stack([pad_to_batches(y, nb, batch_size) for _, y in own])
     return xs, ys, counts, nb
 
 
@@ -137,12 +154,49 @@ def _float_state(model) -> list[torch.Tensor]:
             if name in persistent and b.is_floating_point()]
 
 
+class Replicas(list):
+    """The local workers' modules of one runner (worker 0 first); ``gang``
+    says whether the collectives over them span the process gang."""
+
+    def __init__(self, modules, gang: bool = False):
+        super().__init__(modules)
+        self.gang = gang
+
+
+def _gathered(per_worker: list[list[torch.Tensor]], gang: bool) -> list[list[torch.Tensor]]:
+    """Every worker's tensors, in global worker order, from this process's
+    workers' lists (``per_worker``, one list a local worker, the same
+    positions in each): the lists themselves outside a gang; in a gang each
+    rank's are gathered (one exact ``all_gather`` a dtype) and come back as
+    views of the gathered buffer, shaped as the originals."""
+    if not gang or distributed.process_count() == 1:
+        return per_worker
+    n_pos = len(per_worker[0])
+    out = [[None] * n_pos for _ in range(distributed.process_count() * len(per_worker))]
+    by_dtype: dict[torch.dtype, list[int]] = {}
+    for i, t in enumerate(per_worker[0]):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for positions in by_dtype.values():
+        flat = torch.stack([torch.cat([ts[i].reshape(-1) for i in positions])
+                            for ts in per_worker])
+        rows = distributed.all_gather(flat)
+        for w, row in enumerate(rows):
+            lo = 0
+            for i in positions:
+                shape = per_worker[0][i].shape
+                n = per_worker[0][i].numel()
+                out[w][i] = row[lo:lo + n].view(shape)
+                lo += n
+    return out
+
+
 @torch.no_grad()
-def _mean_into(per_worker: list[list[torch.Tensor]]) -> None:
-    """Copy each position's mean over the workers into every worker's
-    tensor (``lax.pmean``)."""
-    for tensors in zip(*per_worker):
-        mean = torch.stack(tensors).mean(0)
+def _mean_into(per_worker: list[list[torch.Tensor]], gang: bool = False) -> None:
+    """Copy each position's mean over every worker into this process's
+    workers' tensors (``lax.pmean``)."""
+    everyone = _gathered(per_worker, gang)
+    for pos, tensors in enumerate(zip(*per_worker)):
+        mean = torch.stack([w[pos] for w in everyone]).mean(0)
         for t in tensors:
             t.copy_(mean)
 
@@ -152,20 +206,43 @@ def mean_gradients(replicas) -> None:
     """The synchronous collective: each trainable parameter's gradient
     becomes the mean over the workers (one tensor, shared by every
     replica), and the float state the mean of the replicas' (worker.py
-    ``:481-482``)."""
-    for params in zip(*map(_trainable, replicas)):
-        mean = torch.stack([p.grad if p.grad is not None else torch.zeros_like(p)
-                            for p in params]).mean(0)
+    ``:481-482``). ``replicas`` is a list of modules, or a
+    :class:`Replicas` whose ``gang`` spans the process gang."""
+    gang = getattr(replicas, "gang", False)
+    local = [[p.grad if p.grad is not None else torch.zeros_like(p) for p in _trainable(r)]
+             for r in replicas]
+    everyone = _gathered(local, gang)
+    for pos, params in enumerate(zip(*map(_trainable, replicas))):
+        mean = torch.stack([w[pos] for w in everyone]).mean(0)
         for p in params:
             p.grad = mean
-    _mean_into([_float_state(r) for r in replicas])
+    _mean_into([_float_state(r) for r in replicas], gang)
 
 
 def mean_weights(replicas) -> None:
     """The local-SGD collective: trainable parameters and float state
     become their means over the workers (worker.py ``:485-486``,
     ``:496-498``, and the ``fit`` frequency's average, ``:566-581``)."""
-    _mean_into([_trainable(r) + _float_state(r) for r in replicas])
+    _mean_into([_trainable(r) + _float_state(r) for r in replicas],
+               getattr(replicas, "gang", False))
+
+
+def _replay_metrics(block: dict, parts: dict) -> None:
+    """Add every worker's metric contributions of a block (``parts``: a
+    list a local worker of ``(sum, count)`` a step, gathered from every
+    rank) into ``block``'s metrics in the one-process order: step by step,
+    worker by worker."""
+    for name, per_worker in parts.items():
+        if not per_worker[0]:
+            continue
+        sums = distributed.all_gather(torch.stack([torch.stack([s for s, _ in steps])
+                                                   for steps in per_worker]))
+        counts = [c for _, c in per_worker[0]]
+        metric = block[name]
+        for i, count in enumerate(counts):
+            for w in range(sums.shape[0]):
+                metric.total += sums[w, i]
+                metric.count += count
 
 
 class BlockStager:
@@ -190,11 +267,14 @@ class BlockStager:
     ``log``, when a list, receives one entry a block on ``cuda``:
     ``bytes`` copied, CUDA events ``start`` and ``end`` around the copy on
     the side stream (timed; read them after a synchronize), and
-    ``gather_ms`` with the ``gather_thread`` that gathered it."""
+    ``gather_ms`` with the ``gather_thread`` that gathered it. ``workers``
+    gathers only those workers' rows (a gang rank's own; None: all)."""
 
-    def __init__(self, device: torch.device, log: list | None = None):
+    def __init__(self, device: torch.device, log: list | None = None,
+                 workers: list[int] | None = None):
         self.device = device
         self.log = log
+        self.workers = workers
         self.pinned_bytes = 0
         self._pinned: list[list[torch.Tensor]] | None = None
         self._copied: list[torch.cuda.Event | None] = [None, None]
@@ -204,7 +284,8 @@ class BlockStager:
         ``epochs`` epochs of ``stream``, one after the other, from one
         reader thread."""
         if self.device.type != "cuda":
-            host = itertools.chain.from_iterable(stream.blocks() for _ in range(epochs))
+            host = itertools.chain.from_iterable(stream.blocks(self.workers)
+                                                 for _ in range(epochs))
             for xs, ys, steps in prefetch_blocks(host):
                 yield _as_input(torch.from_numpy(xs)), _as_input(torch.from_numpy(ys)), steps
             return
@@ -230,10 +311,10 @@ class BlockStager:
             slot = b % 2
             if self._copied[slot] is not None:
                 self._copied[slot].synchronize()
-            views = [_view(buf, (stream.num_workers, hi - lo) + shape)
+            views = [_view(buf, (self._n_workers(stream), hi - lo) + shape)
                      for buf, shape in zip(self._pinned[slot], self._row_shapes)]
             t0 = time.perf_counter()
-            stream.gather(lo, hi, out=[v.numpy() for v in views])
+            stream.gather(lo, hi, out=[v.numpy() for v in views], worker_indices=self.workers)
             gather_ms = (time.perf_counter() - t0) * 1e3
             with torch.cuda.device(self.device), torch.cuda.stream(self._copy_stream):
                 start = torch.cuda.Event(enable_timing=True) if timed else None
@@ -252,11 +333,14 @@ class BlockStager:
                                  "gather_thread": threading.current_thread().name})
             yield dev, hi - lo, copied
 
+    def _n_workers(self, stream) -> int:
+        return stream.num_workers if self.workers is None else len(self.workers)
+
     def _pin(self, stream) -> list[torch.Tensor]:
         """Flat pinned buffers for a full block of x and of y."""
         rows = [np.asarray(src[0:1]) for src in (stream.x, stream.y)]
         self._row_shapes = [(stream.batch_size,) + r.shape[1:] for r in rows]
-        block = stream.num_workers * stream.block_steps
+        block = self._n_workers(stream) * stream.block_steps
         bufs = [torch.empty(block * math.prod(shape), pin_memory=True,
                             dtype=torch.from_numpy(r[:0]).dtype)
                 for r, shape in zip(rows, self._row_shapes)]
@@ -288,7 +372,7 @@ class Runner:
     state, which the reference evaluates too."""
 
     def __init__(self, model: torch.nn.Module, mode: str, frequency: str,
-                 num_workers: int = 1):
+                 num_workers: int = 1, gang: bool = False):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         if frequency not in FREQUENCIES:
@@ -304,6 +388,10 @@ class Runner:
         self.mode = mode
         self.frequency = frequency
         self.num_workers = num_workers
+        # a gang runner's workers span the ranks: this one trains its own
+        self.gang = bool(gang) and distributed.process_count() > 1
+        self.local_workers = (local_worker_indices(num_workers) if self.gang
+                              else list(range(num_workers)))
         # BlockStager's log of the streamed fits (None: nothing logged),
         # and the pinned host bytes the last streamed fit held
         self.h2d_log: list | None = None
@@ -337,7 +425,8 @@ class Runner:
             raise ValueError(
                 f"got {len(partitions)} partitions for {self.num_workers} workers"
             )
-        xs, ys, _counts, nb = stack_worker_batches(partitions, batch_size)
+        xs, ys, _counts, nb = stack_worker_batches(
+            partitions, batch_size, self.local_workers if self.gang else None)
         staged = [(self._stage(xs), self._stage(ys), nb)]
         return self._train(itertools.repeat(staged, epochs), epochs, verbose, callbacks)
 
@@ -367,7 +456,8 @@ data.streaming.prefetch_blocks` gathers the next blocks on the host in
             raise ValueError(
                 f"a stream over {stream.num_workers} workers for {self.num_workers}"
             )
-        stager = BlockStager(self.device, self.h2d_log)
+        stager = BlockStager(self.device, self.h2d_log,
+                             self.local_workers if self.gang else None)
         # one reader for every epoch: the next epoch's first blocks cross
         # while this one ends
         blocks = stager.blocks(stream, epochs)
@@ -381,8 +471,10 @@ data.streaming.prefetch_blocks` gathers the next blocks on the host in
     def _train(self, epoch_blocks, epochs, verbose, callbacks) -> dict:
         """The ``epochs`` epochs of ``epoch_blocks``: for each, an iterable
         of device blocks ``(x [W, steps, B, ...], y, steps)``."""
-        replicas = [self.model] + [replicate(self.model) for _ in range(self.num_workers - 1)]
-        several = len(replicas) > 1
+        replicas = Replicas([self.model] + [replicate(self.model)
+                                            for _ in range(len(self.local_workers) - 1)],
+                            gang=self.gang)
+        several = self.num_workers > 1
         synchronous = self.mode == "synchronous"
         metric_names = self.model.training_spec.metrics
         history: dict[str, list[float]] = {"loss": []}
@@ -395,13 +487,22 @@ data.streaming.prefetch_blocks` gathers the next blocks on the host in
                 losses = [[] for _ in replicas]
                 for xb, yb, steps in blocks:
                     block = {name: MeanMetric(self.device) for name in metric_names}
+                    # a gang rank keeps its workers' metric sums a step, then
+                    # adds every worker's in the one-process order
+                    parts = ({name: [[] for _ in replicas] for name in metric_names}
+                             if self.gang else None)
                     for i in range(steps):
-                        self._global_step(replicas, xb, yb, i, block, losses)
+                        self._global_step(replicas, xb, yb, i, parts or block, losses)
+                    if parts is not None:
+                        _replay_metrics(block, parts)
                     for name, metric in block.items():
                         metrics[name].merge(metric)
                 if several and not synchronous and self.frequency == "epoch":
                     mean_weights(replicas)
-                epoch_loss = torch.stack([torch.stack(l).mean() for l in losses]).mean().item()
+                per_worker = torch.stack([torch.stack(l).mean() for l in losses])
+                if self.gang:
+                    per_worker = distributed.all_gather(per_worker)
+                epoch_loss = per_worker.mean().item()
                 history["loss"].append(epoch_loss)
                 for name, metric in metrics.items():
                     history.setdefault(name, []).append(metric.result())
@@ -419,7 +520,7 @@ data.streaming.prefetch_blocks` gathers the next blocks on the host in
         """Each worker's step ``i`` of the block, then the collective the
         mode and frequency put there."""
         synchronous = self.mode == "synchronous"
-        several = len(replicas) > 1
+        several = self.num_workers > 1
         for w, rep in enumerate(replicas):
             spec = rep.training_spec
             with auxiliary_losses() as aux:
@@ -433,7 +534,10 @@ data.streaming.prefetch_blocks` gathers the next blocks on the host in
             losses[w].append(loss.detach())
             with torch.no_grad():
                 for name, fn in spec.metrics.items():
-                    metrics[name].update(fn(yb[w, i], y_pred))
+                    if isinstance(metrics[name], MeanMetric):
+                        metrics[name].update(fn(yb[w, i], y_pred))
+                    else:
+                        metrics[name][w].append(MeanMetric.contribution(fn(yb[w, i], y_pred)))
         if several and synchronous and self.frequency != "fit":
             mean_gradients(replicas)
         for rep in replicas:

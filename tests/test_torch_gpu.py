@@ -1742,3 +1742,50 @@ def test_switch_engine_on_cuda_matches_cached_generate(cuda, options):
     got = served(card)
     _assert_tokens_or_ties(cpu, prompts, got, want)
     _assert_tokens_or_ties(cpu, prompts, got, served(cpu))
+
+
+# -- sequence-parallel attention and the SP prefill (PR 21) ----------------
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("w", [2, 4])
+def test_ring_and_ulysses_launch_the_flash_forward(cuda, w, causal):
+    """Ring attention and Ulysses over a mesh naming cuda:0 w times: every
+    (query shard, chunk) pair, or head group, launches the flash forward,
+    and the whole-sequence output is within 1e-5 of max(1, |out|) of the
+    plain flash forward."""
+    from elephas_tpu_torch.ops.ring_attention import ring_attention_sharded
+    from elephas_tpu_torch.ops.ulysses import ulysses_attention_sharded
+    from elephas_tpu_torch.parallel.mesh import Mesh
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (_randn(gen, 1, 4, 256, 128) for _ in range(3))
+    mesh = Mesh([cuda] * w, ("seq",))
+    want = fa.flash_forward_reference(q, k, v, 128 ** -0.5, causal)[0]
+    before = fa.launches
+    ring = ring_attention_sharded(q[0], k[0], v[0], mesh, "seq", causal)
+    assert fa.launches - before == (w * (w + 1) // 2 if causal else w * w)
+    before = fa.launches
+    uly = ulysses_attention_sharded(q, k, v, mesh, "seq", causal)
+    assert fa.launches - before == w
+    for got in (ring[None], uly):
+        assert ((got - want).abs() / want.abs().clamp_min(1.0)).max().item() <= 1e-5
+
+
+def test_sp_engine_on_cuda_matches_the_paged_engine(cuda):
+    """The engine's SP prefill on the card: a long prompt over a mesh of
+    cuda:0 twice decodes the paged engine's tokens, ring and Ulysses."""
+    from elephas_tpu_torch.parallel.mesh import Mesh
+
+    lm = et.transformer_lm(vocab_size=64, maxlen=64, d_model=64, num_heads=2, num_layers=2,
+                           seed=0, device=cuda)
+    prompt = np.arange(40) % 60 + 2
+    kw = dict(num_slots=2, paged=True, block_size=16)
+    want = et.InferenceEngine(lm, **kw).run([(prompt, 6)])
+    for mechanism in ("ring", "ulysses"):
+        engine = et.InferenceEngine(lm, sp_prefill=Mesh([cuda] * 2, ("seq",)),
+                                    sp_threshold=32, sp_mechanism=mechanism, **kw)
+        before = fa.launches
+        got = engine.run([(prompt, 6)])
+        assert fa.launches > before
+        assert [list(s) for s in got.values()] == [list(s) for s in want.values()]

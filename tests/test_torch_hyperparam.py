@@ -247,8 +247,16 @@ def test_worker_slots_clamp_like_the_reference():
 
 
 def test_sync_round_waits_for_item_9():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue A item 9\b"):
-        et.HyperParamModel(device="cpu")._sync_round([], 0, 0, {})
+    """Item 9 (the process gang) is ported: out of a gang ``_sync_round``
+    gathers this process's own round through the reference's float32
+    encoding, padding rows dropped (``tests/test_torch_gang.py`` runs it
+    across ranks)."""
+    space = {"units": hp.choice([8, 16]), "lr": hp.loguniform(1e-3, 1e-1)}
+    results = [({"units": 16, "lr": 0.01}, 0.5), ({"units": 8, "lr": 0.002}, 0.25)]
+    got = et.HyperParamModel(device="cpu")._sync_round(results, 2, 3, space)
+    assert [p["units"] for p, _ in got] == [16, 8]
+    np.testing.assert_allclose([p["lr"] for p, _ in got], [0.01, 0.002], rtol=1e-6)
+    assert [loss for _, loss in got] == [0.5, 0.25]
 
 
 def test_runs_on_cuda_unless_asked(monkeypatch):

@@ -16,6 +16,8 @@ Prompts and tokens are numpy arrays made from a seed; weights cross as
 ``{v.path: np.asarray(v)}`` through ``load_keras_weights``.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -398,8 +400,26 @@ def test_submit_errors_match_jax(engine_pair, args, kwargs):
     dict(sp_mechanism="ulysses"), dict(sp_prefill="seq"), dict(mesh="mesh"),
 ])
 def test_unported_engine_options_raise(lm, kwargs):
+    """The decode meshes are still to port (item 5); the sequence-parallel
+    prefill's knobs are ported (tests/test_torch_sp_prefill.py) and raise
+    the reference's ValueError here: without ``sp_prefill`` they are
+    refused, and ``sp_prefill`` needs the paged arena."""
+    if any(name.startswith("sp_") for name in kwargs):
+        with pytest.raises(ValueError) as t_err:
+            InferenceEngine(lm, **kwargs)
+        with pytest.raises(ValueError) as j_err:
+            JaxEngine(_jax_lm(), **kwargs)
+        assert str(t_err.value) == str(j_err.value)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item"):
         InferenceEngine(lm, **kwargs)
+
+
+@functools.cache
+def _jax_lm():
+    """An untrained JAX LM of ``lm``'s widths: the refusals read only its
+    shape."""
+    return jax_lm(vocab_size=8, maxlen=32, d_model=32, num_heads=2, num_layers=2)
 
 
 def test_engine_runs_on_the_models_device(lm):
@@ -432,10 +452,10 @@ REFERENCE_KEYWORDS = [
     ("engine", "spec_drafter", None, "lookup", 3),
     ("engine", "policy", None, "fair", 3),
     ("engine", "flight_recorder", None, 256, 3),
-    ("engine", "sp_prefill", None, "seq", 5),
-    ("engine", "sp_axis", "seq", "ring", 5),
-    ("engine", "sp_threshold", None, 16, 5),
-    ("engine", "sp_mechanism", "ring", "ulysses", 5),
+    ("engine", "sp_prefill", None, "seq", "5b"),
+    ("engine", "sp_axis", "seq", "ring", "5b"),
+    ("engine", "sp_threshold", None, 16, "5b"),
+    ("engine", "sp_mechanism", "ring", "ulysses", "5b"),
     ("generate", "mesh", None, "mesh", 5),
     ("generate", "batch_axes", ("data",), ("workers",), 5),
     ("generate", "model_axis", None, "model", 5),
@@ -473,8 +493,14 @@ PORTED_ITEMS = {1, "3a"}
 # the two the reference itself refuses raises the reference's error
 PORTED_KEYWORDS = {"speculative", "spec_k", "spec_drafter", "policy", "tenants",
                    "flight_recorder", "gateway_port", "gateway_host"}
+# item 5b (the sequence-parallel prefill) is ported: its other values
+# alone raise the reference's own errors (an SP mesh needs the paged arena,
+# the other knobs need an SP mesh; tests/test_torch_sp_prefill.py)
 REFUSED = {"spec_drafter": (ValueError, "is not a drafter"),
-           "policy": (TypeError, "policy must be a serving.policy.Policy")}
+           "policy": (TypeError, "policy must be a serving.policy.Policy"),
+           "sp_prefill": (ValueError, "sp_prefill requires paged=True"),
+           **{name: (ValueError, "require sp_prefill=")
+              for name in ("sp_axis", "sp_threshold", "sp_mechanism")}}
 NEEDS = {"prefill_budget": {"prefill_chunk": 4}, "spec_k": {"speculative": True},
          "spec_drafter": {"speculative": True},
          **{name: {"paged": True} for name in ("block_size", "num_blocks", "preemption",
@@ -542,5 +568,5 @@ def test_serve_passes_engine_keywords_through(small_lm):
     assert (engine.speculative, engine.spec_k) == (True, 3)
     engine = sm.serve(num_slots=2, flight_recorder=16)
     assert engine._flight.capacity == 16
-    with pytest.raises(NotImplementedError, match=r"Queue A item 5\b"):
+    with pytest.raises(ValueError, match="sp_prefill requires paged=True"):
         sm.serve(sp_prefill="seq")

@@ -361,11 +361,12 @@ def test_worker_count_clamps_like_the_reference(monkeypatch, caplog):
         assert worker_count(4, "cpu") == 1
     assert "clamping" in caplog.text
     assert worker_count(None, "cpu") == 1
-    # a host with two cards: several physical GPUs are refused, naming
-    # their item, rather than quietly taking one worker
+    # a host with two cards: several physical GPUs in one process are
+    # refused, naming the launcher (one rank a card), rather than quietly
+    # taking one worker
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    with pytest.raises(NotImplementedError, match="python -m elephas_tpu_torch.launch"):
         worker_count(None, "cuda:0")
     assert worker_count(1, "cuda:0") == 1
     port = et.transformer_classifier(**CLF, device="cpu")

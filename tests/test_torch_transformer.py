@@ -147,8 +147,10 @@ def test_generate_argument_errors_match_jax(lm_pair, prompt_len, kwargs):
 
 def test_unported_options_raise(lm_pair):
     _, port = lm_pair
+    # the SP prefill is ported (tests/test_torch_sp_prefill.py); the
+    # engine's decode mesh is still to port
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        et.InferenceEngine(port, sp_prefill="seq")
+        et.InferenceEngine(port, mesh="mesh")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         et.transformer_lm(vocab_size=8, maxlen=16, d_model=32, num_heads=2,
                           num_layers=1, dtype_policy="mixed_float16", device="cpu")
@@ -201,13 +203,14 @@ def test_import_loads_no_jax_keras_or_reference():
 
 def test_chip_smoke_imports_no_jax_keras_or_reference():
     """chip_smoke.py, the port's driver on the card, loads none of them
-    either (the gateway, parameter-server, fleet and deploy phases' modules
-    included)."""
+    either (the gateway, parameter-server, fleet, deploy, gang and
+    sequence-parallel phases' modules included)."""
     code = (
         "import sys; sys.argv = ['chip_smoke.py']\n"
         "import chip_smoke, elephas_tpu_torch.serving.gateway, elephas_tpu_torch.fleet\n"
         "import elephas_tpu_torch.parameter.native, elephas_tpu_torch.fault\n"
         "import elephas_tpu_torch.deploy, elephas_tpu_torch.telemetry.merge\n"
+        "import elephas_tpu_torch.launch, elephas_tpu_torch.ops.ring_attention\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'keras', 'ml_dtypes', 'elephas_tpu')]\n"
         "print(','.join(bad))\n"
@@ -242,5 +245,6 @@ def test_import_check_walks_every_module():
                  "utils.sockets", "utils.functional_utils", "fleet.placement",
                  "fleet.router", "deploy", "deploy.versions", "deploy.subscriber",
                  "deploy.rollout", "telemetry.aggregate", "telemetry.merge",
-                 "serving.locks"):
+                 "serving.locks", "parallel", "parallel.distributed", "parallel.mesh",
+                 "launch", "ops.ring_attention", "ops.ulysses", "serving.sp_prefill"):
         assert f"elephas_tpu_torch.{name}" in found
