@@ -21,12 +21,14 @@ Phases, each printing one JSON line and raising on failure:
             16-byte loads and stores;
 3. kernel — each kernel against its plain PyTorch version on the card,
             at the main paths' shapes, fp32 and bf16: the flash forward
-            (causal and not) and the LayerNorm forward and backward (at
+            (causal and not; also at the tensor-parallel shards' heads,
+            T's 4 of 8 and config A's 2 of 4) and the LayerNorm forward and backward (at
             the engine's, generate's and the training rows, an odd width
             and rows off 16-byte alignment, each on the route it should
             take, the serving route's y bit for bit the training route's,
             on a second call and from a CUDA-graph replay); and
-            the span decode (fp32) at the engine's slots and heads and at
+            the span decode (fp32) at the engine's slots and heads, at
+            tp_generate's shards (1 and 4 rows of 2 heads) and at
             a shape whose slots and heads fill the card, over every span
             bucket and head dim, with ragged positions and a stale cursor,
             repeating bit for bit eagerly and from a CUDA-graph replay; and the span
@@ -307,6 +309,31 @@ Phases, each printing one JSON line and raising on failure:
             engine's (margin rule), the paged engine's checked by (a); each
             long prompt's flash-forward launches exactly W·(W+1)/2 (ring)
             or W (Ulysses) a layer; TTFT p50 of each engine printed;
+6o. tp_train — T through SparkModel(model_parallel=2) on a 2 x 2
+            ('data', 'model') mesh naming cuda:0 four times
+            (force_devices(4)), synchronous/epoch then hogwild/batch (256
+            rows, batch 128, 2 epochs, fp32), each in turn with the
+            ShardedTrainer on 2 data replicas at model_parallel=1 and with
+            the data-parallel runner at 2 workers (the same rows a step),
+            from the same weights. Gates: history and every final weight
+            within 1e-4 of each of those fits'; the flash forward launched
+            once a shard (4 heads of 8) a layer a copy a step, the
+            LayerNorm kernels once a norm a copy a step; a sharded
+            checkpoint (one file a shard, none holding a sharded variable
+            whole) restored after one more epoch bit-equal to what was
+            saved. Printed: the second epoch's seconds of each fit (the
+            same synchronized epoch callback), peak memory, bytes a shard
+            against the whole model's;
+6p. tp_generate — config A's generate over dp_tp_mesh(2,
+            data_parallel=2) naming cuda:0 four times (2 heads of 4 a
+            shard), kv_cache False and True, serve's 8 prompts one a call
+            and the 8 cut to 8 tokens in one call, 32 steps at temperature
+            0, in turns with unmeshed generate. Gates: tokens equal; a
+            sharded copy's first-step logits within 1e-4 of max(1,
+            |logit|) of the whole model's; the flash forward (kv_cache
+            False) and the span decode (True) launched once a shard a layer
+            a data copy a step. Printed: seconds meshed and unmeshed,
+            and of building the sharded copies (every meshed call does);
 7. profile — one more training step (fp32, then bf16, then ResNet-50),
             generate() at config A batch 1
             with rope off and on, and one engine decode window, under
@@ -341,7 +368,9 @@ Phases, each printing one JSON line and raising on failure:
             (the paged chunk also at the engine's most frequent launch
             shape, with the positions the engine gave it) beside their
             plain versions, masked SDPA over the span gathered
-            beforehand and the gather-and-dequantize time;
+            beforehand and the gather-and-dequantize time; and K1b at T's
+            tensor-parallel shard (B128 S256 H4 D128) and the span decode
+            at config A's (B4 H2 D128, span 128);
 8b. ln_host_breakdown — where a LayerNorm call's host time goes (the
             entry, the autograd Function, checks, allocations, device
             guard, stream query, ctypes marshalling, the launch) beside
@@ -350,8 +379,11 @@ Phases, each printing one JSON line and raising on failure:
 Then the card's nvidia-smi line, the {"kernels": [...]} line (launches
 summed over the serve, train, train_bf16, train_workers, train_stream,
 engine, engine_chunked, engine_paged, engine_quant, engine_spec, gateway,
-fleet, deploy, switch_serve, switch_train, gang and sp_prefill paths, the
-flash forward's on the last two also apart in ``launches_by_path``,
+fleet, deploy, switch_serve, switch_train, gang, sp_prefill, tp_train and
+tp_generate paths, the flash forward's on the last four also apart in
+``launches_by_path``, as the LayerNorm kernels' and the span decode's on
+the last two, with the flash forward's and the span decode's times at
+the tensor-parallel shard shapes in ``tp_shard``,
 times at config A's
 attention shape, at the training rows, at the engine's decode shape and
 its chunk launch at span 256, fp32; the paged decode at span 128 and the
@@ -419,6 +451,13 @@ KERNEL_CASES = [
     ("packed", 8, 256, 16, 16),
     ("packed", 1, 512, 4, 128),  # config A at generate's batch 1
     ("packed", 128, 256, 8, 128),  # the training shape
+    # tensor-parallel shards (tp_train, tp_generate): T's heads over a 2-way
+    # model axis, the one copy's global batch and a replica's half; config
+    # A's over it, at a generate call's rows of one data copy
+    ("packed", 128, 256, 4, 128),
+    ("packed", 64, 256, 4, 128),
+    ("packed", 1, 512, 2, 128),
+    ("packed", 4, 512, 2, 128),
 ]
 TOL_OUT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TOL_LSE = 1e-4
@@ -512,7 +551,8 @@ ZOO_ROWS, ZOO_BATCH, ZOO_EPOCHS = 2048, 128, 1
 # engine's 16 slots and 4 heads at every head dim (config A's 128, B's 64),
 # where the span is split over several blocks, and 64 slots of 8 heads,
 # where B·H alone fills the card (one split)
-SPAN_CASES = [(16, 4, 128), (16, 4, 64), (16, 4, 32), (16, 4, 16), (64, 8, 64)]
+SPAN_CASES = [(16, 4, 128), (16, 4, 64), (16, 4, 32), (16, 4, 16), (64, 8, 64),
+              (1, 2, 128), (4, 2, 128)]  # tp_generate's shards: config A's heads over 2
 SPAN_MAXLEN = 512
 # relative to max(1, |out|): the same online softmax in another order
 TOL_SPAN = 1e-5
@@ -943,7 +983,7 @@ def _span_inputs(b, h, d, span, dev, seed):
     q = torch.randn(b, h, d, generator=g, device=dev)
     arena = torch.randn(2, b, SPAN_MAXLEN, h, d, generator=g, device=dev)
     pos = torch.randint(0, span, (b,), generator=g, device=dev, dtype=torch.int32)
-    pos[:3] = torch.tensor([0, span - 1, span + 7], dtype=torch.int32)
+    pos[:3] = torch.tensor([0, span - 1, span + 7], dtype=torch.int32)[:b]
     return q, arena[0, :, :span], arena[1, :, :span], pos
 
 
@@ -3051,43 +3091,48 @@ def phase_times_span_decode(dev):
     allocation the wrapper makes per call; both are skipped for a package
     whose span decode does not split (an earlier checkout, with
     --times-only)."""
+    b, h = ENGINE["num_slots"], CONFIGS["A"]["num_heads"]
+    d = CONFIGS["A"]["d_model"] // h
+    rows = {f"span{span}": _span_row(dev, b, h, d, span) for span in SPAN_TIMES}
+    emit({"phase": "times", "kernel": "span_decode", "timing": GRAPH_TIMING, **rows})
+    return rows
+
+
+def _span_row(dev, b, h, d, span, sweep=True):
+    """One row of phase_times_span_decode: the kernel, its plain version
+    and masked SDPA on _span_inputs(b, h, d, span), eager and from CUDA
+    graphs, with the bound; ``sweep`` adds the split sweep and the
+    workspace's host time."""
     from torch.nn.functional import scaled_dot_product_attention
 
     from elephas_tpu_torch.ops import flash_serving as fs
 
-    b, h = ENGINE["num_slots"], CONFIGS["A"]["num_heads"]
-    d = CONFIGS["A"]["d_model"] // h
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splitting = hasattr(fs, "span_splits")
-    rows = {}
-    for span in SPAN_TIMES:
-        q, k, v, pos = _span_inputs(b, h, d, span, dev, 17)
-        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-        cols = torch.arange(span, device=dev)
-        mask = (cols[None, :] <= pos[:, None])[:, None, None, :].expand(b, h, 1, span)
-        fns = {
-            "ms": lambda: fs.flash_span_decode(q, k, v, pos),
-            "plain_ms": lambda: fs.span_chunk_reference(q4, k, v, pos[:, None]),
-            "library_ms": lambda: scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
-        }
-        lib_err = (fns["library_ms"]()[:, :, 0] - fns["ms"]()).abs().max().item()
-        samples = _time_in_turns(fns)
-        graphs = _time_in_turns(fns, graphs=True)
-        samples.update({key[:-2] + "device_ms": t for key, t in graphs.items()})
-        visible = int(torch.clamp(pos.long() + 1, max=span).sum())
-        nbytes = 2 * visible * h * d * 4 + 2 * b * h * d * 4 + b * 4
-        row = {**_summary(samples, nbytes, 4 * visible * h * d, torch.float32),
-               "shape": {"B": b, "H": h, "D": d, "span": span}, "visible_keys": visible,
-               "library_max_abs_diff": lib_err}
-        if splitting:
-            splits, chunk = fs.span_splits(span, b * h, sms)
-            row.update({"splits": splits, "chunk": chunk,
-                        "split_sweep_device_ms_eager_ms": _split_sweep(fs, q, k, v, pos),
-                        "workspace_alloc_host_ms": _alloc_host_ms(
-                            b * h * splits * (d + 2), dev) if splits > 1 else 0.0})
-        rows[f"span{span}"] = row
-    emit({"phase": "times", "kernel": "span_decode", "timing": GRAPH_TIMING, **rows})
-    return rows
+    q, k, v, pos = _span_inputs(b, h, d, span, dev, 17)
+    q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    cols = torch.arange(span, device=dev)
+    mask = (cols[None, :] <= pos[:, None])[:, None, None, :].expand(b, h, 1, span)
+    fns = {
+        "ms": lambda: fs.flash_span_decode(q, k, v, pos),
+        "plain_ms": lambda: fs.span_chunk_reference(q4, k, v, pos[:, None]),
+        "library_ms": lambda: scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
+    }
+    lib_err = (fns["library_ms"]()[:, :, 0] - fns["ms"]()).abs().max().item()
+    samples = _time_in_turns(fns)
+    graphs = _time_in_turns(fns, graphs=True)
+    samples.update({key[:-2] + "device_ms": t for key, t in graphs.items()})
+    visible = int(torch.clamp(pos.long() + 1, max=span).sum())
+    nbytes = 2 * visible * h * d * 4 + 2 * b * h * d * 4 + b * 4
+    row = {**_summary(samples, nbytes, 4 * visible * h * d, torch.float32),
+           "shape": {"B": b, "H": h, "D": d, "span": span}, "visible_keys": visible,
+           "library_max_abs_diff": lib_err}
+    if sweep and hasattr(fs, "span_splits"):
+        splits, chunk = fs.span_splits(span, b * h, sms)
+        row.update({"splits": splits, "chunk": chunk,
+                    "split_sweep_device_ms_eager_ms": _split_sweep(fs, q, k, v, pos),
+                    "workspace_alloc_host_ms": _alloc_host_ms(
+                        b * h * splits * (d + 2), dev) if splits > 1 else 0.0})
+    return row
 
 
 # the span-chunk rows of phase_times beside the CHUNK_CASE rows: the
@@ -6829,6 +6874,315 @@ def phase_sp_prefill(dev, model):
     return launches
 
 
+# tensor parallelism: T through SparkModel(model_parallel=2) on a
+# 2 x 2 ('data', 'model') mesh naming cuda:0 four times (force_devices(4)),
+# against the same weights at model_parallel=1 on 2 data replicas (the
+# reference's contract between layouts, tests/test_tensor_parallel.py:92-108);
+# config A's generate over dp_tp_mesh(2, data_parallel=2) against unmeshed
+TP = 2
+TP_ROWS, TP_BATCH, TP_EPOCHS = 256, 128, 2
+TP_MODES = (("synchronous", "epoch"), ("hogwild", "batch"))
+TOL_TP = 1e-4
+TOL_TP_LOGITS = 1e-4
+TP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "tp")
+
+
+def _state_copy(trainer):
+    """The canonical single copy's shards (the trainer's checkpoint
+    content) and the master's optimizer state, copied on the card."""
+    shards = {name: [t.detach().clone() for t in trainer._canonical(name)]
+              for name in trainer._replicas[0].variables}
+    opt = trainer.model.training_spec.optimizer
+    named = dict(trainer.model.named_parameters())
+    state = {n: {k: v.clone() if torch.is_tensor(v) else v for k, v in opt.state[p].items()}
+             for n, p in named.items() if p in opt.state}
+    return shards, state
+
+
+def _same_state(a, b):
+    """Names whose shards or optimizer state differ between two _state_copy."""
+    bad = [n for n, ts in a[0].items()
+           if len(ts) != len(b[0][n]) or not all(torch.equal(x, y) for x, y in zip(ts, b[0][n]))]
+    for n, st in a[1].items():
+        for k, v in st.items():
+            w = b[1].get(n, {}).get(k)
+            if not (torch.equal(v, w) if torch.is_tensor(v) else v == w):
+                bad.append(f"{n}#{k}")
+    return bad
+
+
+def _tp_fit(dev, x, y, mode, frequency, which):
+    """One fit of T from seed 0's weights on 4 worker slots of the card:
+    ``which`` "tp" through SparkModel(model_parallel=TP) on a 2 x TP mesh;
+    "mp1" the ShardedTrainer on a 2 x 1 mesh (two data replicas, whole
+    copies; the reference compares the layouts so,
+    tests/test_tensor_parallel.py:92); "dp" the data-parallel runner
+    (worker.Runner, held against the JAX package in the CPU tests) at 2
+    workers, worker w given the w-th half of every global batch, so that
+    its steps take the rows the trainer's replicas take. Every fit is
+    timed by the same epoch callback, first in its list, after a
+    synchronize. Returns (history, keras weights, launches, peak bytes,
+    the trainer or None, the seconds of each epoch after the first)."""
+    from elephas_tpu_torch import SparkModel, transformer_classifier
+    from elephas_tpu_torch.parallel.tensor import ShardedTrainer, dp_tp_mesh
+    from elephas_tpu_torch.utils.weights import keras_weights
+    from elephas_tpu_torch.worker import Runner
+
+    model = transformer_classifier(**TRAIN, seed=0, device=dev)
+    stamps = []
+
+    def stamp(_epoch, _loss):
+        torch.cuda.synchronize(dev)
+        stamps.append(time.perf_counter())
+
+    trainer = None
+    if which == "tp":
+        sm = SparkModel(model, mode=mode, frequency=frequency, model_parallel=TP,
+                        num_workers=2, device=dev)
+        trainer = sm._runner.trainer
+        run_epochs = sm._runner.run_epochs
+        sm._runner.run_epochs = lambda parts, epochs, batch, verbose=0, callbacks=(): \
+            run_epochs(parts, epochs, batch, verbose, [stamp, *callbacks])
+    elif which == "mp1":
+        trainer = ShardedTrainer(model, mesh=dp_tp_mesh(1, data_parallel=2, device=dev),
+                                 mode=mode, frequency=frequency)
+    else:
+        half = TP_BATCH // 2
+        rows = np.arange(len(x))
+        parts = [(x[rows % TP_BATCH // half == w], y[rows % TP_BATCH // half == w])
+                 for w in range(2)]
+        runner = Runner(model, mode, frequency, num_workers=2)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    if which == "tp":
+        history = sm.fit((x, y), epochs=TP_EPOCHS, batch_size=TP_BATCH)
+    elif which == "mp1":
+        history = trainer.fit(x, y, epochs=TP_EPOCHS, batch_size=TP_BATCH, callbacks=[stamp])
+    else:
+        history = runner.run_epochs(parts, TP_EPOCHS, TP_BATCH // 2, callbacks=[stamp])
+    torch.cuda.synchronize(dev)
+    return (history, keras_weights(model), _launches(), torch.cuda.max_memory_allocated(dev),
+            trainer, np.diff(stamps).tolist())
+
+
+def _close(a, b, tol):
+    """The largest |a - b| - tol·|b| over two arrays (fails where > tol)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) - tol * np.abs(b)))
+
+
+def phase_tp_train(dev):
+    """T (the train phase's widths, fp32, TF32 off) through
+    SparkModel(model_parallel=2) on a 2 x 2 mesh naming cuda:0 four times,
+    synchronous/epoch then hogwild/batch (TP_ROWS rows, batch TP_BATCH,
+    TP_EPOCHS epochs), each in turn with the same weights at
+    model_parallel=1 on 2 data replicas and through the data-parallel
+    runner at 2 workers. Gates: history and every final weight (by Keras
+    path) within TOL_TP absolute plus TOL_TP relative of each of those two
+    fits; the flash forward launched once a shard a
+    layer a copy a step (at H/2 heads), the LayerNorm kernels once a norm
+    a copy a step; a sharded checkpoint (one file a model-axis position,
+    none holding a sharded variable whole) restored after another epoch
+    bit-equal to the state that was saved. Printed: seconds of the second
+    epoch of each fit, peak memory, bytes a shard against the whole
+    model's."""
+    from elephas_tpu_torch.device import force_devices
+
+    if os.path.isdir(TP_DIR):
+        shutil.rmtree(TP_DIR)
+    os.makedirs(TP_DIR)
+    x, y = _synthetic_tokens(TP_ROWS, TRAIN["maxlen"], TRAIN["vocab_size"],
+                             TRAIN["num_classes"])
+    layers, norms = TRAIN["num_layers"], 2 * TRAIN["num_layers"] + 1
+    steps = TP_EPOCHS * -(-TP_ROWS // TP_BATCH)
+    failures, runs = [], {}
+    total = dict.fromkeys(_launches(), 0)
+    previous = force_devices(4)
+    try:
+        for mode, frequency in TP_MODES:
+            name = f"{mode}_{frequency}"
+            h_tp, w_tp, launches, peak_tp, trainer, s_tp = _tp_fit(dev, x, y, mode, frequency,
+                                                                     "tp")
+            h_one, w_one, _, peak_one, one, s_one = _tp_fit(dev, x, y, mode, frequency, "mp1")
+            h_dp, w_dp, _, peak_dp, _, s_dp = _tp_fit(dev, x, y, mode, frequency, "dp")
+            del one
+            for k, v in launches.items():
+                total[k] += v
+            copies = 2 if trainer.per_replica else 1
+            want = {"flash_fwd": TP * layers * steps * copies,
+                    "layer_norm_fwd": norms * steps * copies,
+                    "layer_norm_bwd": 2 * norms * steps * copies}
+            got = {k: launches[k] for k in want}
+            if got != want:
+                failures.append(f"{name}: launches {got}, expected {want}")
+            gates = {}
+            for against, h_ref, w_ref in (("mp1", h_one, w_one), ("dp", h_dp, w_dp)):
+                hist_err = max(_close(h_tp[k], h_ref[k], TOL_TP) for k in h_ref)
+                weight_err = {p: _close(w_tp[p], w, TOL_TP) for p, w in w_ref.items()}
+                worst = max(weight_err, key=weight_err.get)
+                gates[against] = {"history_excess_over_tol": hist_err, "worst_weight": worst,
+                                  "worst_weight_excess_over_tol": weight_err[worst]}
+                if sorted(h_tp) != sorted(h_ref) or hist_err > TOL_TP or \
+                        weight_err[worst] > TOL_TP:
+                    failures.append(f"{name} against {against}: history {h_tp} against "
+                                    f"{h_ref}; worst weight {worst} {weight_err[worst]}")
+            if not all(np.all(np.isfinite(v)) for v in h_tp.values()):
+                failures.append(f"{name}: non-finite history {h_tp}")
+            shard_bytes = trainer.shard_bytes()
+            whole = sum(t.numel() * t.element_size() for t in trainer.model.state_dict()
+                        .values())
+            runs[name] = {
+                "history": h_tp, "history_mp1": h_one, "history_dp": h_dp,
+                "against_mp1": gates["mp1"], "against_dp": gates["dp"],
+                "epoch_s_mp2": s_tp, "epoch_s_mp1": s_one, "epoch_s_dp": s_dp,
+                "max_memory_allocated_mp2": peak_tp, "max_memory_allocated_mp1": peak_one,
+                "max_memory_allocated_dp": peak_dp,
+                "shard_bytes": shard_bytes, "whole_model_bytes": whole,
+                "launches": got}
+            if mode == "synchronous":
+                runs[name]["checkpoint"] = _tp_checkpoint(dev, trainer, x, y, failures)
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        force_devices(previous)
+    emit({"phase": "tp_train", "model": "T", "mesh": {"data": 2, "model": TP},
+          "devices": "cuda:0 x 4 (force_devices(4))", "rows": TP_ROWS, "batch": TP_BATCH,
+          "epochs": TP_EPOCHS, "tol": TOL_TP, "runs": runs, "launches": total,
+          "epoch_s": "the second epoch's seconds, each fit's first epoch callback after a "
+                     "synchronize",
+          "epoch_s_order": "model_parallel=2, model_parallel=1, the data-parallel runner, "
+                           "each mode in turn",
+          "nvidia_smi": nvidia_smi(), "failures": failures})
+    if failures:
+        raise AssertionError(f"tp_train: {failures}")
+    return total
+
+
+def _tp_checkpoint(dev, trainer, x, y, failures):
+    """The sharded checkpoint's round trip on the model_parallel fit: save,
+    train one more epoch, restore: bit-equal to the saved state."""
+    saved = _state_copy(trainer)
+    t0 = time.perf_counter()
+    path = trainer.save_checkpoint(os.path.join(TP_DIR, "ckpt"), TP_EPOCHS)
+    save_s = time.perf_counter() - t0
+    files = sorted(os.listdir(path))
+    sizes = [os.path.getsize(os.path.join(path, f)) for f in files]
+    whole = {n: tuple(p.shape) for n, p in trainer.model.named_parameters()}
+    for f in files:
+        held = torch.load(os.path.join(path, f), map_location="cpu", weights_only=True)
+        for n, var in trainer._replicas[0].variables.items():
+            if var.dim is not None and tuple(held[n].shape) == whole[n]:
+                failures.append(f"checkpoint {f} holds the sharded {n} whole")
+    trainer.fit(x, y, epochs=1, batch_size=TP_BATCH)
+    moved = _same_state(saved, _state_copy(trainer))
+    t0 = time.perf_counter()
+    trainer.restore_checkpoint(os.path.join(TP_DIR, "ckpt"))
+    torch.cuda.synchronize(dev)
+    restore_s = time.perf_counter() - t0
+    bad = _same_state(saved, _state_copy(trainer))
+    if files != [f"shard-{j:03d}.pt" for j in range(TP)] or bad or not moved:
+        failures.append(f"checkpoint: files {files}, differing after restore {bad[:5]}, "
+                        f"{len(moved)} moved by the extra epoch")
+    return {"files": files, "file_bytes": sizes, "save_s": save_s, "restore_s": restore_s,
+            "restored_bit_equal": not bad}
+
+
+def phase_tp_generate(dev, model):
+    """Config A's generate over dp_tp_mesh(2, data_parallel=2) naming cuda:0
+    four times, the weights sharded over 'model' (2 heads of 4 a shard), with
+    kv_cache False and True: serve's 8 prompts of 8-40 tokens one a call
+    (padded to 2 rows over 'data'), then the 8 cut to 8 tokens in one call
+    (4 rows a data copy), STEPS steps at temperature 0, in turns with
+    unmeshed generate. Gates: tokens equal to unmeshed generate's; a
+    sharded copy's first-step logits within TOL_TP_LOGITS of max(1,
+    |logit|) of the whole model's; the flash forward (kv_cache False) and
+    the span decode (True) launched once a shard a layer a data copy a
+    step. Printed: the seconds of each generate, meshed beside unmeshed,
+    and the seconds of building the sharded copies, which every meshed
+    call does."""
+    from elephas_tpu_torch import generate
+    from elephas_tpu_torch.device import force_devices
+    from elephas_tpu_torch.parallel import tensor
+
+    failures, seconds = [], {}
+    layers = len(model.blocks)
+    prompts = _prompts(model.vocab_size)
+    batches = [p[None] for p in prompts] + [np.stack([p[:8] for p in prompts])]
+    total = dict.fromkeys(_launches(), 0)
+    previous = force_devices(4)
+    try:
+        mesh = tensor.dp_tp_mesh(TP, data_parallel=2, device=dev)
+        for kv_cache in (False, True):
+            key = f"kv_cache_{kv_cache}"
+            seconds[key] = {"meshed": 0.0, "unmeshed": 0.0}
+            for batch in batches:
+                p, dp = batch.shape[1], 2
+                t0 = time.perf_counter()
+                want = generate(model, batch, STEPS, kv_cache=kv_cache)
+                seconds[key]["unmeshed"] += time.perf_counter() - t0
+                before = _launches()
+                t0 = time.perf_counter()
+                got = generate(model, batch, STEPS, kv_cache=kv_cache, mesh=mesh,
+                               model_axis="model")
+                seconds[key]["meshed"] += time.perf_counter() - t0
+                now = _launches()
+                for k in total:
+                    total[k] += now[k] - before[k]
+                calls = (p + STEPS - 1) if kv_cache else STEPS
+                kernel = "span_decode" if kv_cache else "flash_fwd"
+                if now[kernel] - before[kernel] != TP * dp * layers * calls:
+                    failures.append(f"{key} batch {batch.shape}: {now[kernel] - before[kernel]} "
+                                    f"{kernel} launches, expected {TP * dp * layers * calls}")
+                if got.shape != want.shape or not np.array_equal(got, want):
+                    failures.append(f"{key} batch {batch.shape}: meshed tokens differ")
+        # the copies every meshed call builds (a deepcopy, then the shards)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        copy = tensor.decode_replicas(model, mesh, ("data",), "model")[0]
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        errs = []
+        with torch.inference_mode():
+            for batch in batches:
+                tokens = torch.from_numpy(batch.astype(np.int64)).to(dev)
+                a, b = copy(tokens)[:, -1], model(tokens)[:, -1]
+                errs.append(((a - b).abs() / b.abs().clamp_min(1.0)).max().item())
+        if max(errs) > TOL_TP_LOGITS:
+            failures.append(f"first-step logits: {max(errs)} of max(1, |logit|)")
+        del copy
+    finally:
+        force_devices(previous)
+    emit({"phase": "tp_generate", "config": "A", "mesh": {"data": 2, "model": TP},
+          "devices": "cuda:0 x 4 (force_devices(4))", "steps": STEPS,
+          "batches": [list(b.shape) for b in batches],
+          "first_step_logit_err_of_max_1_abs": max(errs), "tol_logits": TOL_TP_LOGITS,
+          "seconds": seconds, "launches": total,
+          "seconds_order": "unmeshed, then meshed, each batch in turn",
+          "decode_replicas_s": build_s, "meshed_calls_per_setting": len(batches),
+          "nvidia_smi": nvidia_smi(), "failures": failures})
+    if failures:
+        raise AssertionError(f"tp_generate: {failures}")
+    return total
+
+
+def phase_times_tp(dev):
+    """The kernels at the tensor-parallel shard shapes, as phase_times and
+    phase_times_span_decode time them: K1b at T's H/2 shard (B128 S256 H4
+    D128, not causal, fp32), the span decode at config A's H/2 shard of the
+    batched tp_generate call (B4 H2 D128, span 128)."""
+    d = TRAIN["d_model"] // TRAIN["num_heads"]
+    qkv, views = _case_inputs("packed", TP_BATCH, TRAIN["maxlen"], TRAIN["num_heads"] // TP, d,
+                              torch.float32, dev, 7)
+    rows = {"flash_fwd_T_shard": _flash_row(qkv, views, d ** -0.5, False, torch.float32)}
+    del qkv, views
+    a = CONFIGS["A"]
+    rows["span_decode_A_shard_span128"] = _span_row(
+        dev, 4, a["num_heads"] // TP, a["d_model"] // a["num_heads"], 128, sweep=False)
+    emit({"phase": "times", "kernel": "tensor-parallel shards", "timing": GRAPH_TIMING, **rows})
+    return rows
+
+
 def _kernel_entry(name, source, replaces, launches, err, times, **extra):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -6837,6 +7191,13 @@ def _kernel_entry(name, source, replaces, launches, err, times, **extra):
         "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"], **extra,
     }
+
+
+def _shard_entry(times):
+    """A kernel's times at a tensor-parallel shard shape, for its entry in
+    the kernels line."""
+    return {k: times[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms")}
 
 
 def times_only(dev):
@@ -6947,6 +7308,10 @@ def main(argv=None) -> int:
     gang = phase_gang(dev)
     _reset_launches()
     sp = phase_sp_prefill(dev, lm)
+    _reset_launches()
+    tp_train = phase_tp_train(dev)
+    _reset_launches()
+    tp_generate = phase_tp_generate(dev, lm)
     for path, launches, kernels in (
         ("serve", serve, ("flash_fwd", "layer_norm_fwd")),
         ("train", train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
@@ -6973,6 +7338,8 @@ def main(argv=None) -> int:
         ("gang", gang, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
         ("sp_prefill", sp, ("flash_fwd", "paged_span_chunk", "paged_span_decode",
                             "layer_norm_fwd")),
+        ("tp_train", tp_train, ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd")),
+        ("tp_generate", tp_generate, ("flash_fwd", "span_decode", "layer_norm_fwd")),
     ):
         idle = [k for k in kernels if launches[k] == 0]
         if idle:
@@ -6993,12 +7360,13 @@ def main(argv=None) -> int:
     span_times = phase_times_span_decode(dev)
     chunk_times = phase_times_span_chunk(dev)
     paged_times = phase_times_paged(dev)
+    tp_times = phase_times_tp(dev)
 
     print(nvidia_smi(), flush=True)
     total = {k: serve[k] + train[k] + train_bf16[k] + train_workers[k] + train_stream[k]
              + train_ps[k] + engine[k] + chunked[k] + paged[k] + quant[k] + spec[k] + gateway[k]
              + fleet[k] + deploy[k] + switch_serve[k] + switch_train[k] + gang[k] + sp[k]
-             for k in serve}
+             + tp_train[k] + tp_generate[k] for k in serve}
     emit({"kernels": [
         _kernel_entry(
             "flash_fwd", "elephas_tpu_torch/csrc/flash_fwd.cu",
@@ -7007,22 +7375,30 @@ def main(argv=None) -> int:
             "elephas_tpu/ops/flash_attention.py:164 (_fwd_kernel_grouped via "
             "_flash_forward_packed_grouped :319)",
             total["flash_fwd"], errs["flash_fwd"], flash,
-            launches_by_path={"gang": gang["flash_fwd"], "sp_prefill": sp["flash_fwd"]}),
+            launches_by_path={"gang": gang["flash_fwd"], "sp_prefill": sp["flash_fwd"],
+                              "tp_train": tp_train["flash_fwd"],
+                              "tp_generate": tp_generate["flash_fwd"]},
+            tp_shard=_shard_entry(tp_times["flash_fwd_T_shard"])),
         _kernel_entry(
             "layer_norm_fwd", "elephas_tpu_torch/csrc/layer_norm.cu",
             "elephas_tpu/ops/layer_norm.py:52 (_fwd_kernel via _fwd_call :96)",
             total["layer_norm_fwd"], errs["layer_norm_fwd"],
-            ln_times["layer_norm_fwd_train_float32"]),
+            ln_times["layer_norm_fwd_train_float32"],
+            launches_by_path={"tp_train": tp_train["layer_norm_fwd"],
+                              "tp_generate": tp_generate["layer_norm_fwd"]}),
         _kernel_entry(
             "layer_norm_bwd", "elephas_tpu_torch/csrc/layer_norm.cu",
             "elephas_tpu/ops/layer_norm.py:66 (_bwd_kernel via _ln_bwd_rule :128)",
             total["layer_norm_bwd"], errs["layer_norm_bwd"],
-            ln_times["layer_norm_bwd_train_float32"]),
+            ln_times["layer_norm_bwd_train_float32"],
+            launches_by_path={"tp_train": tp_train["layer_norm_bwd"]}),
         _kernel_entry(
             "span_decode", "elephas_tpu_torch/csrc/span_decode.cu",
             "elephas_tpu/ops/flash_serving.py:153 (flash_span_decode: flash_span_chunk :93 "
             "with one query row; plain XLA in the reference, not a Pallas kernel)",
-            total["span_decode"], errs["span_decode"], span_times["span128"]),
+            total["span_decode"], errs["span_decode"], span_times["span128"],
+            launches_by_path={"tp_generate": tp_generate["span_decode"]},
+            tp_shard=_shard_entry(tp_times["span_decode_A_shard_span128"])),
         _kernel_entry(
             "span_chunk", "elephas_tpu_torch/csrc/span_chunk.cu",
             "elephas_tpu/ops/flash_serving.py:93 (flash_span_chunk, run by "

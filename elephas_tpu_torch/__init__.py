@@ -77,6 +77,7 @@ from elephas_tpu_torch.ml_model import (  # noqa: F401
     load_ml_estimator,
     load_ml_transformer,
 )
+from elephas_tpu_torch.parallel.tensor import ShardedTrainer  # noqa: F401
 from elephas_tpu_torch.serving import InferenceEngine, RequestCancelled  # noqa: F401
 from elephas_tpu_torch.spark_model import (  # noqa: F401
     SparkMLlibModel,
@@ -94,6 +95,7 @@ __all__ = [
     "InferenceEngine",
     "MoeFFN",
     "RequestCancelled",
+    "ShardedTrainer",
     "SparkMLlibModel",
     "SparkModel",
     "cifar10_cnn",

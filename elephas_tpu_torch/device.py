@@ -107,6 +107,19 @@ def local_worker_slots(device) -> int:
     return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
 
 
+def slot_devices(device) -> list[torch.device]:
+    """The device of each of this process's worker slots on ``device``'s
+    kind, in slot order: ``device`` itself for every slot when the slots
+    are forced, in a gang or on the CPU; else each CUDA device. The
+    tensor-parallel meshes are laid over these
+    (:func:`elephas_tpu_torch.parallel.tensor.second_axis_mesh`)."""
+    dev = torch.device(device)
+    n = local_worker_slots(dev)
+    if _forced is not None or _gang is not None or dev.type == "cpu":
+        return [dev] * n
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 def num_available_workers(device) -> int:
     """Workers the port can place on ``device``'s kind: every rank's
     :func:`local_worker_slots` (counterpart of

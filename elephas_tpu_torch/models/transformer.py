@@ -72,12 +72,6 @@ from elephas_tpu_torch.training import (
     sparse_categorical_crossentropy,
 )
 
-_MESH_TODO = (
-    "generate({}) is not ported yet (ROADMAP.md, Queue A item 5: meshes and "
-    "scale-out)"
-)
-
-
 def _is_neutral(value, neutral) -> bool:
     """``value`` leaves the behaviour as ``neutral`` does: equal to it (a
     list of axis names equal to the tuple too), and not a bool standing in
@@ -686,30 +680,57 @@ def validate_token_decode_model(model, what: str = "kv_cache decode",
     return layers
 
 
-def _generate_cached(model, prompt, b, p, steps, temperature, top_k, top_p, seed):
+def _generate_cached(model, prompt, b, p, steps, temperature, top_k, top_p, seed,
+                     groups=None):
     """KV-cache decode (reference ``_generate_cached``): prompt and
     continuation run one token a step through the decode step of the
     serving arena, every row at position ``t``; prompt positions keep
     their token, and only generated positions sample (and advance the
-    generator), as in the recomputing path."""
+    generator), as in the recomputing path. ``groups`` (the copies of a
+    mesh, :func:`_mesh_groups`) decodes each copy's rows over its own
+    arena, a shard's heads on the shard's device."""
     # the serving package imports this module: import it at call time
     from elephas_tpu_torch.serving.kv_cache import SlotKVCache, token_decode_step
 
     layers = validate_token_decode_model(model, "kv_cache decode", "use kv_cache=False")
     dev = model.device
     maxlen = int(model.maxlen)
-    cache = SlotKVCache(layers, b, maxlen, dev)
+    if groups is None:
+        caches = [(model, SlotKVCache(layers, b, maxlen, dev), dev, slice(0, b))]
+    else:
+        from elephas_tpu_torch.parallel.tensor import ShardedSlotKVCache
+
+        caches = [(copy, ShardedSlotKVCache(copy, rows.stop - rows.start, maxlen, gdev), gdev,
+                   rows) for copy, gdev, rows in groups]
     tokens = torch.zeros(b, maxlen, dtype=torch.long, device=dev)
     tokens[:, :p] = torch.from_numpy(prompt.astype(np.int64))
     generator = torch.Generator(device=dev).manual_seed(seed)
     buckets = span_buckets(maxlen)
     for t in range(p + steps - 1):
-        positions = torch.full((b,), t, dtype=torch.int32, device=dev)
-        logits = token_decode_step(model, tokens[:, t], positions, cache,
-                                   span=span_bucket_for(t + 1, buckets))
+        span = span_bucket_for(t + 1, buckets)
+        parts = []
+        for copy, cache, cdev, rows in caches:
+            positions = torch.full((rows.stop - rows.start,), t, dtype=torch.int32, device=cdev)
+            parts.append(token_decode_step(copy, tokens[rows, t].to(cdev), positions, cache,
+                                           span=span).to(dev))
+        logits = torch.cat(parts) if len(parts) > 1 else parts[0]
         if t + 1 >= p:
             tokens[:, t + 1] = _sample_logits(logits, generator, temperature, top_k, top_p)
     return tokens[:, : p + steps].to(torch.int32).cpu().numpy()
+
+
+def _mesh_groups(model, mesh, batch_axes, model_axis, rules, bt):
+    """``[(copy, its device, its rows)]``: a copy of ``model`` for each
+    batch shard of ``mesh`` (sharded over ``model_axis`` under the
+    planner's layouts when that axis is larger than 1, whole otherwise),
+    each taking its contiguous ``1/dp`` of the ``bt`` padded rows."""
+    from elephas_tpu_torch.parallel.tensor import decode_groups, decode_replicas
+
+    copies = decode_replicas(model, mesh, batch_axes, model_axis, rules)
+    devices = decode_groups(mesh, batch_axes, model_axis)
+    per = bt // len(copies)
+    return [(c, devs[0], slice(g * per, (g + 1) * per))
+            for g, (c, devs) in enumerate(zip(copies, devices))]
 
 
 @torch.inference_mode()
@@ -745,25 +766,51 @@ def generate(
     decode kernel on the card); models it cannot run raise
     (:func:`validate_token_decode_model`). Runs on the model's device.
 
-    ``mesh``, ``batch_axes``, ``model_axis`` and ``rules`` are the
-    reference's mesh-aware decode: accepted at their defaults (no mesh),
-    any other value raises ``NotImplementedError``."""
-    for name, value, neutral in (("mesh", mesh, None), ("batch_axes", batch_axes, ("data",)),
-                                 ("model_axis", model_axis, None), ("rules", rules, None)):
-        if not _is_neutral(value, neutral):
-            raise NotImplementedError(_MESH_TODO.format(f"{name}={value!r}"))
+    ``mesh`` (a :class:`~elephas_tpu_torch.parallel.mesh.Mesh`) decodes
+    over a mesh, as the reference does: the batch is padded to the product
+    of the ``batch_axes`` (with copies of the last prompt row, sliced off
+    at the end) and split over them, each shard's rows decoded by a copy
+    of the model on its devices; with ``model_axis`` larger than 1 each
+    copy's weights are sharded over it under the tensor-parallel planner's
+    layouts (``rules`` overrides them,
+    :mod:`elephas_tpu_torch.parallel.tensor`), and ``kv_cache=True`` keeps
+    each shard's K/V cache for its rows and heads on its device (the span
+    decode kernel runs over them). The logits come together on the
+    model's device, where one generator samples every row. The copies are
+    made from the model's weights at each call. Without a mesh,
+    ``batch_axes``, ``model_axis`` and ``rules`` are not read."""
     prompt, b, p, maxlen, _vocab = _validate_decode_args(
         model, prompt, steps, top_k, top_p
     )
+    groups = None
+    if mesh is not None:
+        if isinstance(batch_axes, str):
+            batch_axes = (batch_axes,)
+        batch_axes = tuple(batch_axes)
+        missing = [a for a in batch_axes if a not in mesh.shape]
+        if missing:
+            raise ValueError(
+                f"batch_axes {missing} not in mesh axes {tuple(mesh.shape)}"
+            )
+        dp = int(np.prod([mesh.shape[a] for a in batch_axes]))
+        pad = (-b) % dp
+        if pad:
+            # padded rows decode a copy of the last prompt row; sliced off
+            prompt = np.concatenate([prompt, np.repeat(prompt[-1:], pad, axis=0)])
+        groups = _mesh_groups(model, mesh, batch_axes, model_axis, rules, b + pad)
     if kv_cache:
-        return _generate_cached(model, prompt, b, p, steps, temperature, top_k, top_p, seed)
+        out = _generate_cached(model, prompt, len(prompt), p, steps, temperature, top_k,
+                               top_p, seed, groups)
+        return out[:b]
     dev = model.device
-    tokens = torch.zeros(b, maxlen, dtype=torch.long, device=dev)
+    tokens = torch.zeros(len(prompt), maxlen, dtype=torch.long, device=dev)
     tokens[:, :p] = torch.from_numpy(prompt.astype(np.int64))
     generator = torch.Generator(device=dev).manual_seed(seed)
     for t in range(p, p + steps):
-        logits = model(tokens)
-        tokens[:, t] = _sample_logits(
-            logits[:, t - 1], generator, temperature, top_k, top_p
-        )
-    return tokens[:, : p + steps].to(torch.int32).cpu().numpy()
+        if groups is None:
+            logits = model(tokens)[:, t - 1]
+        else:
+            logits = torch.cat([c(tokens[rows].to(gdev))[:, t - 1].to(dev)
+                                for c, gdev, rows in groups])
+        tokens[:, t] = _sample_logits(logits, generator, temperature, top_k, top_p)
+    return tokens[:b, : p + steps].to(torch.int32).cpu().numpy()

@@ -94,7 +94,8 @@ the ``jit.compile`` spans; the eager port compiles no programs) and the
 backend probe (``backend_fallback`` in :meth:`debug_snapshot` is always
 ``None``: the port has no fallback). Not ported yet, each raising
 ``NotImplementedError`` that names its ROADMAP.md item: the decode meshes
-(``mesh``, ``batch_axes``, ``model_axis``, ``rules``: item 5).
+(``mesh``, ``batch_axes``, ``model_axis``, ``rules``: item 5, its 5c
+remainder: head-sharded KV arenas; one-shot ``generate`` takes a mesh).
 
 ``sp_prefill=`` (a :class:`~elephas_tpu_torch.parallel.mesh.Mesh`, paged
 engines) arms the sequence-parallel long-prompt prefill: a cold prompt of
@@ -288,8 +289,8 @@ class InferenceEngine:
         )
         # (name, value, the value that leaves the behaviour unchanged, item)
         unported = (
-            ("mesh", mesh, None, 5), ("batch_axes", batch_axes, ("data",), 5),
-            ("model_axis", model_axis, None, 5), ("rules", rules, None, 5),
+            ("mesh", mesh, None, "5: 5c"), ("batch_axes", batch_axes, ("data",), "5: 5c"),
+            ("model_axis", model_axis, None, "5: 5c"), ("rules", rules, None, "5: 5c"),
         )
         for name, value, neutral, item in unported:
             if not _is_neutral(value, neutral):

@@ -46,10 +46,19 @@ either package can pull from and push to it at :attr:`SparkModel.ps_endpoints`.
 survivors with ``reassign_orphans``). The training itself does not go
 through the store, as in the reference.
 
+``model_parallel=N`` (N > 1) trains over a ``('data', 'model')`` mesh of
+the worker slots (:func:`~elephas_tpu_torch.parallel.tensor.dp_tp_mesh`:
+``num_workers`` data replicas, capped by the slots, times N), through
+:class:`~elephas_tpu_torch.parallel.tensor.TensorParallelRunner`: fit with
+its sharded checkpoints and resume, streamed fits, evaluate, predict and
+``generate`` on the mesh, ``batch_size`` the global batch. Inside a gang,
+and for ``serve()``, a model axis is not ported yet (ROADMAP.md, Queue A
+item 5c); a Switch model's expert weights under it are item 5e.
+
 Every other keyword of the reference is accepted. At the value that leaves
 the behaviour unchanged (the reference's default) it passes; any other
-value raises ``NotImplementedError`` naming its ROADMAP.md item: model,
-pipeline and sequence parallelism in training (item 5), and the serving
+value raises ``NotImplementedError`` naming its ROADMAP.md item: pipeline
+and sequence parallelism in training (item 5), and the serving
 engine's decode meshes (item 5); the engine's sequence-parallel prefill
 (``sp_prefill=`` a :class:`~elephas_tpu_torch.parallel.mesh.Mesh`) passes
 through :meth:`SparkModel.serve`. :meth:`SparkModel.serve` with ``gateway_port`` puts the
@@ -78,10 +87,11 @@ from elephas_tpu_torch import telemetry
 from elephas_tpu_torch.data import streaming
 from elephas_tpu_torch.data.linalg import DenseVector
 from elephas_tpu_torch.data.rdd import Rdd
-from elephas_tpu_torch.device import gang, resolve_device, worker_count
+from elephas_tpu_torch.device import gang, resolve_device, slot_devices, worker_count
 from elephas_tpu_torch.models.transformer import _is_neutral
 from elephas_tpu_torch.models.transformer import generate as _generate
 from elephas_tpu_torch.parallel import distributed
+from elephas_tpu_torch.parallel import tensor
 from elephas_tpu_torch.serving import InferenceEngine
 from elephas_tpu_torch.serving.policy import resolve_policy
 from elephas_tpu_torch.utils import checkpoint as ckpt
@@ -213,7 +223,6 @@ class SparkModel:
             )
         # (name, value, the value that leaves the behaviour unchanged, item)
         unported = (
-            ("model_parallel", model_parallel, 1, 5),
             ("pipeline_parallel", pipeline_parallel, 1, 5),
             ("pipeline_microbatches", pipeline_microbatches, 4, 5),
             ("sequence_parallel", sequence_parallel, 1, 5),
@@ -228,10 +237,26 @@ class SparkModel:
                 f"this rank of the gang runs on {gang().device}; a SparkModel on "
                 f"{self.device} cannot join its collectives"
             )
-        self.num_workers = worker_count(num_workers, self.device)
-        # checks the compile spec, mode and frequency
-        self._runner = Runner(model, mode, frequency, self.num_workers, gang=True)
-        self._master_network = model.to(self.device)
+        self.mesh = None
+        if int(model_parallel) > 1:
+            if getattr(model, "training_spec", None) is None:
+                raise ValueError(
+                    "model must be compiled (optimizer/loss/metrics) before "
+                    "training: see elephas_tpu_torch.training.compile_model")
+            if gang() is not None:
+                raise NotImplementedError(_TODO.format(
+                    f"model_parallel={model_parallel} inside a process gang", "5c"))
+            tensor.refuse_expert_parallel(model)
+            self._master_network = model.to(self.device)
+            self.mesh = _dp_submesh(int(model_parallel), num_workers, self.device)
+            self.num_workers = self.mesh.shape["data"]
+            # checks the compile spec, mode and frequency
+            self._runner = tensor.TensorParallelRunner(model, mode, frequency, self.mesh)
+        else:
+            self.num_workers = worker_count(num_workers, self.device)
+            # checks the compile spec, mode and frequency
+            self._runner = Runner(model, mode, frequency, self.num_workers, gang=True)
+            self._master_network = model.to(self.device)
         self.mode = mode
         self.frequency = frequency
         self.parameter_server_mode = parameter_server_mode
@@ -464,6 +489,10 @@ run_epochs_stream`) instead of staging whole epochs on the device when
                                         validation_split, **options)
         n = len(x)
         block_steps = stream_block_steps or 16
+        if self.mesh is not None:
+            # the model-parallel trainer takes batch_size as the global
+            # batch: its stream's batch is a data replica's share
+            batch_size = max(1, batch_size // self.num_workers)
         val_spec, num_rows = None, None
         if validation_split and validation_split > 0.0:
             # the training rows stay a lazy view (num_rows), the tail is
@@ -488,7 +517,8 @@ run_epochs_stream`) instead of staging whole epochs on the device when
         runner = self._runner
         start_epoch = 0
         if checkpoint_dir and resume:
-            meta = ckpt.restore_checkpoint(self._master_network, checkpoint_dir)
+            meta = (runner.restore_checkpoint(checkpoint_dir) if self.mesh is not None
+                    else ckpt.restore_checkpoint(self._master_network, checkpoint_dir))
             if meta is not None:
                 start_epoch = int(meta["epoch"])
                 logger.info("resuming from %s at epoch %d", checkpoint_dir, start_epoch)
@@ -559,7 +589,7 @@ run_epochs_stream`) instead of staging whole epochs on the device when
             def save_ckpt(epoch, _loss):
                 done = start_epoch + epoch + 1
                 if done % checkpoint_every == 0:
-                    ckpt.save_checkpoint(self._master_network, checkpoint_dir, done)
+                    self._snapshot(runner, checkpoint_dir, done)
 
             callbacks.append(save_ckpt)
         if history_log and distributed.is_coordinator():
@@ -593,8 +623,7 @@ run_epochs_stream`) instead of staging whole epochs on the device when
                 val_history[f"val_{k}"] = [v]
         if checkpoint_dir:
             # terminal snapshot, whatever the checkpoint_every cadence
-            ckpt.save_checkpoint(self._master_network, checkpoint_dir,
-                                 start_epoch + epochs, history)
+            self._snapshot(runner, checkpoint_dir, start_epoch + epochs, history)
         history.update(val_history)
         if history_log and distributed.is_coordinator():
             with open(history_log, "a") as f:
@@ -602,6 +631,15 @@ run_epochs_stream`) instead of staging whole epochs on the device when
         self._publish_weights(final=True)
         self.training_histories.append(history)
         return history
+
+    def _snapshot(self, runner, directory: str, epoch: int, history=None) -> None:
+        """The epoch's checkpoint: the master's (:func:`~elephas_tpu_torch.\
+utils.checkpoint.save_checkpoint`), or on a model axis the runner's
+        sharded one."""
+        if self.mesh is not None:
+            runner.save_checkpoint(directory, epoch, history)
+        else:
+            ckpt.save_checkpoint(self._master_network, directory, epoch, history)
 
     def _load_ps_journal_weights(self):
         """The journaled PS weights for ``fit(resume=True)``, or None. With
@@ -754,13 +792,15 @@ serialization.save_model`: its builder and arguments, compile spec,
     def generate(self, prompt, steps: int, temperature: float = 0.0,
                  top_k: int | None = None, top_p: float | None = None, seed: int = 0,
                  kv_cache: bool = False):
-        """Autoregressive generation from the master network on this
-        wrapper's one device: :func:`~elephas_tpu_torch.generate` with the
-        same arguments (the reference decodes over the wrapper's mesh; one
-        device is the port's only mesh). Returns ``[B, P + steps]`` int32
-        tokens."""
+        """Autoregressive generation from the master network:
+        :func:`~elephas_tpu_torch.generate` with the same arguments, on
+        this wrapper's device, or with ``model_parallel`` over its mesh
+        (the batch over ``data``, the weights sharded over ``model``, as the
+        reference decodes). Returns ``[B, P + steps]`` int32 tokens."""
+        mesh = {} if self.mesh is None else dict(mesh=self.mesh, batch_axes=("data",),
+                                                 model_axis="model")
         return _generate(self._master_network, prompt, steps, temperature=temperature,
-                         top_k=top_k, top_p=top_p, seed=seed, kv_cache=kv_cache)
+                         top_k=top_k, top_p=top_p, seed=seed, kv_cache=kv_cache, **mesh)
 
     def serve(self, num_slots: int = 8, policy=None, tenants=None,
               gateway_port: int | None = None, gateway_host: str = _GATEWAY_HOST,
@@ -789,7 +829,13 @@ InferenceEngine` over the wrapped model, on this wrapper's device.
         ``/stats``, ``/healthz``, ``/debug/engine``, the per-request trace,
         cancel and export routes, ``/v1/migrate`` and ``/v1/score``. The
         engine is a context manager: leaving the ``with`` block (or
-        ``engine.close()``) stops the gateway and releases the port."""
+        ``engine.close()``) stops the gateway and releases the port. On a
+        ``model_parallel`` mesh it raises ``NotImplementedError``: the
+        engine's mesh is not ported yet (ROADMAP.md, Queue A item 5c)."""
+        if self.mesh is not None:
+            raise NotImplementedError(_TODO.format(
+                f"serve() with model_parallel={self.model_parallel} (the engine's mesh)",
+                "5c"))
         engine = InferenceEngine(self._master_network, num_slots=num_slots,
                                  policy=resolve_policy(policy, tenants), device=self.device,
                                  **engine_options)
@@ -811,6 +857,19 @@ InferenceEngine` over the wrapped model, on this wrapper's device.
         """The port's telemetry registry (the serving engines' series and
         their gateways') as Prometheus exposition text."""
         return telemetry.scrape_text()
+
+
+def _dp_submesh(model_parallel: int, num_workers, device):
+    """The ``('data', 'model')`` mesh of ``model_parallel``: the model axis
+    gets ``model_parallel`` worker slots, data replicas fill the rest,
+    capped by ``num_workers`` if given (the reference's ``_dp_submesh``)."""
+    slots = len(slot_devices(device))
+    max_dp = slots // model_parallel
+    if max_dp < 1:
+        raise ValueError(
+            f"model_parallel={model_parallel} exceeds the {slots} available devices")
+    dp = min(num_workers, max_dp) if num_workers else max_dp
+    return tensor.dp_tp_mesh(model_parallel, data_parallel=dp, device=device)
 
 
 def _block_evaluate(runner, val_spec, batch_size):

@@ -58,6 +58,25 @@ def add_loss(value: torch.Tensor) -> None:
         losses.append(value)
 
 
+def training_loss(module: nn.Module, spec, x, y, weights=None):
+    """A training step's forward and the loss it steps on, Keras's total:
+    the task loss, as its mean over every value or, with row ``weights``,
+    as the weighted mean of each row's mean (rows of zero weight count
+    nowhere), plus the auxiliary losses the layers add. Returns ``(loss,
+    y_pred)``."""
+    with auxiliary_losses() as aux:
+        y_pred = module(x)
+    values = spec.loss(y, y_pred)
+    if weights is None:
+        loss = values.mean()
+    else:
+        rows = values.float().reshape(values.shape[0], -1).mean(dim=1)
+        loss = (rows * weights).sum() / weights.sum().clamp_min(1.0)
+    if aux:
+        loss = loss + torch.stack(aux).sum()
+    return loss, y_pred
+
+
 def sparse_categorical_crossentropy(y_true, y_pred, from_logits: bool = False):
     """``y_true`` int ``[...]`` (or ``[..., 1]``), ``y_pred`` ``[..., C]``
     → values ``[...]``. From probabilities as Keras computes it:

@@ -13,6 +13,20 @@ In a process gang the replicas are identical after every sync, so one
 snapshot is the state: only the coordinator writes it, and every rank
 waits at a barrier after (:func:`coordinator_writes`), so none resumes
 from a snapshot still being written; every rank restores from it.
+
+The tensor-parallel trainer (:mod:`elephas_tpu_torch.parallel.tensor`)
+snapshots in a sharded format of the port's own (counterpart of the
+reference's per-shard orbax snapshots, ``elephas_tpu/utils/checkpoint.py:
+60-136``): ``ckpt-<epoch:05d>.tp/`` holds one ``shard-<j:03d>.pt`` a
+position of the model axis, each the ``j``-th shard of every sharded
+variable of the canonical single copy (parameters, persistent buffers,
+optimizer slots; a replicated variable in shard 0's file), so that no file
+holds a sharded variable whole, beside a ``ckpt-<epoch:05d>.meta.json``
+sidecar (``epoch``, ``history``, the shard layouts, the optimizer's scalar
+state) written last: a snapshot without its sidecar is not a snapshot.
+Restore loads each file straight onto its shard's device. The reference's
+orbax snapshots are not read (the port has no orbax, nor has the machine
+with the card).
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ import torch
 
 SUFFIX = ".pt"
 _CKPT_RE = re.compile(r"ckpt-(\d+)\.pt$")
+_SHARDED_RE = re.compile(r"ckpt-(\d+)\.meta\.json$")
 
 
 def atomic_write(path: str, data: bytes) -> str:
@@ -125,3 +140,49 @@ def restore_checkpoint(model, directory: str) -> dict | None:
     model.load_state_dict(state["model"])
     model.training_spec.optimizer.load_state_dict(state["optimizer"])
     return meta
+
+
+# -- sharded (one file a shard) format ------------------------------------
+
+
+def sharded_checkpoint_path(directory: str, epoch: int) -> str:
+    return os.path.join(directory, f"ckpt-{epoch:05d}.tp")
+
+
+def save_sharded_checkpoint(directory: str, epoch: int, shards: list[dict],
+                            meta: dict) -> str:
+    """Write ``shards`` (one ``{key: tensor}`` a model-axis position) as
+    ``shard-<j>.pt`` files under :func:`sharded_checkpoint_path`, then the
+    ``meta`` sidecar; in a gang, on the coordinator only
+    (:func:`coordinator_writes`). Returns the snapshot's directory."""
+    path = sharded_checkpoint_path(directory, epoch)
+    coordinator_writes(f"ckpt-sharded-save-{epoch}", _write_sharded, path, shards, meta)
+    return path
+
+
+def _write_sharded(path: str, shards: list[dict], meta: dict) -> None:
+    for j, state in enumerate(shards):
+        buf = io.BytesIO()
+        torch.save(state, buf)
+        atomic_write(os.path.join(path, f"shard-{j:03d}.pt"), buf.getvalue())
+    atomic_write(path[: -len(".tp")] + ".meta.json", json.dumps(meta).encode())
+
+
+def latest_sharded_checkpoint(directory: str) -> tuple[str, dict] | None:
+    """Newest ``(snapshot directory, meta)`` under ``directory`` whose
+    sidecar exists, or None."""
+    if not os.path.isdir(directory):
+        return None
+    epochs = [int(m.group(1)) for m in map(_SHARDED_RE.search, os.listdir(directory)) if m]
+    if not epochs:
+        return None
+    path = sharded_checkpoint_path(directory, max(epochs))
+    with open(path[: -len(".tp")] + ".meta.json") as f:
+        return path, json.load(f)
+
+
+def load_shard(path: str, j: int, device) -> dict:
+    """Shard ``j``'s tensors of the snapshot at ``path``, loaded onto
+    ``device``."""
+    return torch.load(os.path.join(path, f"shard-{j:03d}.pt"), map_location=device,
+                      weights_only=True)

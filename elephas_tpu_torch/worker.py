@@ -82,7 +82,7 @@ from elephas_tpu_torch.data.streaming import prefetch_blocks
 from elephas_tpu_torch.device import local_worker_indices, resolve_device
 from elephas_tpu_torch.parallel import distributed
 from elephas_tpu_torch.optimizers import hyperparameters
-from elephas_tpu_torch.training import MeanMetric, auxiliary_losses
+from elephas_tpu_torch.training import MeanMetric, training_loss
 from elephas_tpu_torch.utils import sockets
 from elephas_tpu_torch.utils.weights import get_weights, set_weights
 
@@ -193,10 +193,11 @@ def _gathered(per_worker: list[list[torch.Tensor]], gang: bool) -> list[list[tor
 @torch.no_grad()
 def _mean_into(per_worker: list[list[torch.Tensor]], gang: bool = False) -> None:
     """Copy each position's mean over every worker into this process's
-    workers' tensors (``lax.pmean``)."""
+    workers' tensors (``lax.pmean``), taken on the first worker's device
+    (a tensor-parallel replica's shard may lie on another)."""
     everyone = _gathered(per_worker, gang)
     for pos, tensors in enumerate(zip(*per_worker)):
-        mean = torch.stack([w[pos] for w in everyone]).mean(0)
+        mean = torch.stack([w[pos].to(tensors[0].device) for w in everyone]).mean(0)
         for t in tensors:
             t.copy_(mean)
 
@@ -359,6 +360,19 @@ def _as_input(t: torch.Tensor) -> torch.Tensor:
     return t if t.is_floating_point() else t.long()
 
 
+def check_stream(frequency: str, stream, workers: int, mismatch: str) -> None:
+    """The refusals of a streamed fit: ``frequency='fit'``, and a stream
+    over another count of row shards than ``workers`` (``mismatch``, a
+    message formatted with ``got`` and ``want``)."""
+    if frequency == "fit":
+        raise ValueError(
+            "frequency='fit' (train whole fit locally, average once) "
+            "contradicts streaming; use 'epoch' or 'batch'"
+        )
+    if stream.num_workers != workers:
+        raise ValueError(mismatch.format(got=stream.num_workers, want=workers))
+
+
 class Runner:
     """Runs a compiled module's training, evaluation and prediction on the
     module's device, over ``num_workers`` workers (counterpart of
@@ -447,15 +461,8 @@ data.streaming.prefetch_blocks` gathers the next blocks on the host in
         ``cuda`` gathered into pinned buffers, copied on a side stream).
         Losses and metric state stay on the device until the end of the
         epoch."""
-        if self.frequency == "fit":
-            raise ValueError(
-                "frequency='fit' (train whole fit locally, average once) "
-                "contradicts streaming; use 'epoch' or 'batch'"
-            )
-        if stream.num_workers != self.num_workers:
-            raise ValueError(
-                f"a stream over {stream.num_workers} workers for {self.num_workers}"
-            )
+        check_stream(self.frequency, stream, self.num_workers,
+                     "a stream over {got} workers for {want}")
         stager = BlockStager(self.device, self.h2d_log,
                              self.local_workers if self.gang else None)
         # one reader for every epoch: the next epoch's first blocks cross
@@ -523,12 +530,7 @@ data.streaming.prefetch_blocks` gathers the next blocks on the host in
         several = self.num_workers > 1
         for w, rep in enumerate(replicas):
             spec = rep.training_spec
-            with auxiliary_losses() as aux:
-                y_pred = rep(xb[w, i])
-            # Keras's total: the task loss plus the layers' added losses
-            loss = spec.loss(yb[w, i], y_pred).mean()
-            if aux:
-                loss = loss + torch.stack(aux).sum()
+            loss, y_pred = training_loss(rep, spec, xb[w, i], yb[w, i])
             spec.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             losses[w].append(loss.detach())

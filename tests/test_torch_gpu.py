@@ -1789,3 +1789,75 @@ def test_sp_engine_on_cuda_matches_the_paged_engine(cuda):
         got = engine.run([(prompt, 6)])
         assert fa.launches > before
         assert [list(s) for s in got.values()] == [list(s) for s in want.values()]
+
+
+# -- tensor parallelism ------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,d", [(128, 256, 4, 128), (64, 256, 4, 128), (1, 512, 2, 128),
+                                     (4, 512, 2, 128)])
+def test_flash_at_the_tensor_parallel_shard_shapes(cuda, b, s, h, d, causal):
+    """The packed flash forward (K1b) at the heads a shard of a 2-way model
+    axis holds: T's 4 of 8 (the one copy's batch and a replica's half) and
+    config A's 2 of 4 at generate's rows; fp32 out within 1e-4, lse 1e-4."""
+    _check_case(cuda, "packed", b, h, s, s, d, torch.float32, causal)
+
+
+def _tp_classifier(cuda):
+    return et.transformer_classifier(vocab_size=256, maxlen=64, num_classes=2, d_model=128,
+                                     num_heads=4, num_layers=2, dropout=0.0, seed=3,
+                                     device=cuda)
+
+
+def test_tensor_parallel_fit_on_cuda_matches_model_parallel_1(cuda, tmp_path):
+    """A classifier on a 1 x 2 mesh naming cuda:0 twice against the same
+    weights on a 1 x 1 mesh: history and weights within 1e-4, the flash
+    forward launched at half the heads by each shard; then the sharded
+    checkpoint: two files, restored after another epoch bit-equal."""
+    from elephas_tpu_torch.parallel.mesh import Mesh
+    from elephas_tpu_torch.parallel.tensor import ShardedTrainer
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(1, 256, size=(96, 64))
+    y = rng.integers(0, 2, size=96)
+    a, b = _tp_classifier(cuda), _tp_classifier(cuda)
+    two = ShardedTrainer(a, mesh=Mesh([[cuda, cuda]], ("data", "model")))
+    one = ShardedTrainer(b, mesh=Mesh([[cuda]], ("data", "model")))
+    before = fa.launches
+    h2 = two.fit(x, y, epochs=2, batch_size=32)
+    assert fa.launches - before == 2 * 2 * 2 * 3  # shards x layers x epochs x steps
+    h1 = one.fit(x, y, epochs=2, batch_size=32)
+    for key in h1:
+        np.testing.assert_allclose(h2[key], h1[key], rtol=1e-4, atol=1e-4)
+    wa, wb = et.keras_weights(a), et.keras_weights(b)
+    for path in wb:
+        np.testing.assert_allclose(wa[path], wb[path], rtol=1e-4, atol=1e-4, err_msg=path)
+    path = two.save_checkpoint(str(tmp_path / "ck"), 2)
+    assert sorted(p.name for p in (tmp_path / "ck" / "ckpt-00002.tp").iterdir()) == [
+        "shard-000.pt", "shard-001.pt"]
+    saved = {k: v.clone() for k, v in a.state_dict().items()}
+    two.fit(x, y, epochs=1, batch_size=32)
+    assert two.restore_checkpoint(str(tmp_path / "ck"))["epoch"] == 2
+    for k, v in a.state_dict().items():
+        assert torch.equal(v, saved[k]), k
+    assert path.endswith("ckpt-00002.tp")
+
+
+@pytest.mark.parametrize("kv_cache", [False, True])
+def test_generate_on_a_cuda_mesh_matches_unmeshed(cuda, kv_cache):
+    """generate over a 2 x 2 mesh naming cuda:0 four times, the heads sharded
+    over 'model': the unmeshed tokens, the span decode (kv_cache) or the
+    flash forward launched by every shard."""
+    from elephas_tpu_torch.parallel.mesh import Mesh
+
+    lm = et.transformer_lm(vocab_size=64, maxlen=64, d_model=64, num_heads=2, num_layers=2,
+                           seed=0, device=cuda)
+    prompt = (np.arange(30).reshape(3, 10) % 60 + 2).astype(np.int32)
+    want = et.generate(lm, prompt, 8, kv_cache=kv_cache)
+    mesh = Mesh([[cuda, cuda], [cuda, cuda]], ("data", "model"))
+    before = fs.launches if kv_cache else fa.launches
+    got = et.generate(lm, prompt, 8, kv_cache=kv_cache, mesh=mesh, model_axis="model")
+    launched = (fs.launches if kv_cache else fa.launches) - before
+    assert launched == 2 * 2 * 2 * ((10 + 8 - 1) if kv_cache else 8)
+    np.testing.assert_array_equal(got, want)

@@ -175,7 +175,7 @@ def test_save_refuses_a_module_outside_the_zoo(tmp_path):
 UNPORTED_INIT = {
     "parameter_server_mode": ("http", None), "port": (4001, None), "ps_overlap": (True, None),
     "ps_journal_dir": ("journal", None), "ps_shards": (2, None), "failure_budget": (1, None),
-    "reassign_orphans": (False, None), "model_parallel": (2, 5), "pipeline_parallel": (2, 5),
+    "reassign_orphans": (False, None), "model_parallel": (2, None), "pipeline_parallel": (2, 5),
     "pipeline_microbatches": (8, 5), "sequence_parallel": (2, 5),
     "sequence_attention": ("ulysses", 5),
 }
@@ -215,8 +215,14 @@ def test_every_reference_keyword_is_accepted():
 def test_unported_init_values_name_their_item(name):
     value, item = UNPORTED_INIT[name]
     if item is None:
-        # ported: the value is taken and kept in the config
-        assert et.SparkModel(_mlp(4, 2), **{name: value}, device="cpu").get_config()[name] == value
+        # ported: the value is taken and kept in the config (model_parallel
+        # over 2 worker slots)
+        previous = force_devices(2)
+        try:
+            sm = et.SparkModel(_mlp(4, 2), **{name: value}, device="cpu")
+        finally:
+            force_devices(previous)
+        assert sm.get_config()[name] == value
         return
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
         et.SparkModel(_mlp(4, 2), **{name: value}, device="cpu")

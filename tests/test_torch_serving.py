@@ -34,6 +34,7 @@ from elephas_tpu.serving.kv_cache import prefill_forward as jax_prefill_forward
 from elephas_tpu.serving.kv_cache import token_decode_step as jax_token_decode_step
 from elephas_tpu_torch import InferenceEngine, RequestCancelled
 from elephas_tpu_torch.models.transformer import validate_token_decode_model
+from elephas_tpu_torch.parallel.mesh import Mesh
 from elephas_tpu_torch.serving.kv_cache import SlotKVCache, prefill_forward, token_decode_step
 
 TOL = 1e-5
@@ -479,6 +480,9 @@ def _call(where, model, **kwargs):
     if where == "engine":
         return InferenceEngine(model, **kwargs)
     if where == "generate":
+        if kwargs.get("mesh") == "mesh":
+            # the table's "mesh": a one-position data mesh for generate
+            kwargs["mesh"] = Mesh(["cpu"], ("data",))
         return et.generate(model, np.array([[2, 3, 4]], np.int32), 2, **kwargs)
     return et.SparkModel(model, device="cpu").serve(**kwargs)
 
@@ -493,6 +497,10 @@ PORTED_ITEMS = {1, "3a"}
 # the two the reference itself refuses raises the reference's error
 PORTED_KEYWORDS = {"speculative", "spec_k", "spec_drafter", "policy", "tenants",
                    "flight_recorder", "gateway_port", "gateway_host"}
+# item 5c's first part ported generate's mesh keywords (tests/test_torch_tp_generate.py;
+# without a mesh the other three are not read, as in the reference); the
+# engine's stay refused
+PORTED_CALLS = {("generate", name) for name in ("mesh", "batch_axes", "model_axis", "rules")}
 # item 5b (the sequence-parallel prefill) is ported: its other values
 # alone raise the reference's own errors (an SP mesh needs the paged arena,
 # the other knobs need an SP mesh; tests/test_torch_sp_prefill.py)
@@ -515,7 +523,7 @@ def test_reference_keywords_pass_or_name_their_item(small_lm, where, name, neutr
         with pytest.raises(REFUSED[name][0], match=REFUSED[name][1]):
             _call(where, small_lm, **{name: other}, **NEEDS.get(name, {}))
         return
-    if item in PORTED_ITEMS or name in PORTED_KEYWORDS:
+    if item in PORTED_ITEMS or name in PORTED_KEYWORDS or (where, name) in PORTED_CALLS:
         built = _call(where, small_lm, **{name: other}, **NEEDS.get(name, {}))
         if isinstance(built, InferenceEngine):
             built.close()  # a gateway_port engine serves until closed

@@ -331,10 +331,12 @@ def test_refusals(tmp_path):
         et.SparkModel(port, frequency="hourly", device="cpu")
     with pytest.raises(ValueError, match="parameter_server_mode must be"):
         et.SparkModel(port, parameter_server_mode="grpc", device="cpu")
-    for kwargs in (dict(model_parallel=2), dict(pipeline_parallel=2),
-                   dict(sequence_parallel=2)):
+    for kwargs in (dict(pipeline_parallel=2), dict(sequence_parallel=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             et.SparkModel(port, device="cpu", **kwargs)
+    # ported since: model_parallel (on one worker slot, the reference's error)
+    with pytest.raises(ValueError, match="exceeds the 1 available devices"):
+        et.SparkModel(port, device="cpu", model_parallel=2)
     # ported since: the parameter server
     assert et.SparkModel(port, parameter_server_mode="socket", device="cpu").ps_endpoints is None
     with pytest.raises(ValueError, match="ps_shards > 1 needs"):

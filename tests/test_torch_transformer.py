@@ -21,7 +21,7 @@ from elephas_tpu.models import transformer_classifier as jax_classifier
 from elephas_tpu.models import transformer_lm as jax_lm
 from elephas_tpu.models.transformer import _filter_logits as jax_filter_logits
 from elephas_tpu.models.transformer import generate as jax_generate
-from elephas_tpu_torch.device import resolve_device
+from elephas_tpu_torch.device import force_devices, resolve_device
 from elephas_tpu_torch.models.transformer import _filter_logits
 
 ATOL = 1e-4
@@ -107,8 +107,22 @@ def test_spark_model_generate_matches_generate_and_jax(serving_lm, kv_cache):
 
 @pytest.mark.parametrize("option", ["model_parallel", "pipeline_parallel", "sequence_parallel"])
 def test_scale_out_refusals_cite_item_5(lm_pair, option):
+    """Pipeline and sequence parallelism still refuse, naming item 5.
+    model_parallel is ported (item 5c, tests/test_torch_tensor_parallel.py):
+    on 2 worker slots it builds its 1 × 2 mesh; on the CPU's one slot it
+    raises the reference's ValueError."""
     _, port = lm_pair
     et.SparkModel(port, device="cpu", **{option: 1})
+    if option == "model_parallel":
+        with pytest.raises(ValueError, match=r"model_parallel=2 exceeds the 1 available"):
+            et.SparkModel(port, device="cpu", model_parallel=2)
+        previous = force_devices(2)
+        try:
+            sm = et.SparkModel(port, device="cpu", model_parallel=2)
+        finally:
+            force_devices(previous)
+        assert dict(sm.mesh.shape) == {"data": 1, "model": 2}
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue A item 5\b"):
         et.SparkModel(port, device="cpu", **{option: 2})
 
